@@ -1,0 +1,542 @@
+"""Continuous-batching LLM engine over the paged KV pool (port of the
+paged, synchronous loop of ray_tpu/llm/engine.py).
+
+- prompt prefill bucketed to the prefill buckets and BATCHED: same-bucket
+  admissions run as one forward (K1) with the batch padded to a power of
+  two;
+- a host scheduler admits (waiting queue -> free slot + pages), grows
+  pages before each decode step, preempts the youngest sequence when the
+  pool runs dry (recompute-style, as vLLM does), and recycles slots;
+- every step() is three stages: admission, prefill, decode. Decode is the
+  synchronous host-driven loop (ray_tpu's ``device_resident=False``
+  oracle): upload the tables, run the read-only attention half (K4) and
+  the in-place append, sample, read the tokens back.
+
+Features of ray_tpu's engine that this port does not have yet raise
+NotImplementedError naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import numbers
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.llm import model_runner as mr
+from ray_tpu_torch.llm import paged_kv as pkv
+from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache_dtype
+from ray_tpu_torch.llm.sampling import SamplingParams, sample
+from ray_tpu_torch.models.llama import init_params
+
+
+@dataclass
+class RequestState:
+    request_id: str
+    prompt_token_ids: list
+    params: SamplingParams
+    token_ids: list = field(default_factory=list)
+    logprobs: list = field(default_factory=list)
+    slot: int = -1
+    finished: bool = False
+    finish_reason: str | None = None
+    out_queue: "queue.SimpleQueue | None" = None
+    # admission order (preemption picks the youngest) and preemption count
+    admit_seq: int = -1
+    preemptions: int = 0
+
+
+@dataclass
+class RequestOutput:
+    request_id: str
+    prompt_token_ids: list
+    token_ids: list
+    new_token_ids: list
+    finished: bool
+    finish_reason: str | None = None
+    logprobs: list | None = None
+    streamed: bool = False
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds the largest prefill bucket {buckets[-1]}")
+
+
+def _not_ported(feature: str, item: str):
+    raise NotImplementedError(f"{feature} is not ported to ray_tpu_torch yet (ROADMAP.md, {item})")
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the host")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class LLMEngine:
+    """Continuous-batching engine over a paged KV pool.
+
+    config: ``models.llama.LlamaConfig``; params: the matching tree (None:
+    random weights from ``seed``). ``device=None`` runs on the card and
+    raises without one; ``device="cpu"`` runs the kernels' plain versions.
+    """
+
+    def __init__(
+        self,
+        config,
+        params=None,
+        *,
+        max_num_seqs: int = 8,
+        max_seq_len: int | None = None,
+        prefill_buckets: tuple | None = None,
+        seed: int = 0,
+        cache_dtype: str | None = None,
+        mesh=None,
+        tp_collective: str = "fp",
+        enable_prefix_caching: bool = False,
+        kv_plane=None,
+        kv_layout: str = "paged",
+        num_pages: int | None = None,
+        page_size: int = 64,
+        attn_kernel: str | None = None,
+        device_resident: bool = False,
+        batch_prefill: bool = True,
+        speculative=None,
+        telemetry: bool = False,
+        device=None,
+    ):
+        if kv_layout == "slots":
+            _not_ported("kv_layout='slots'", "serving item 3")
+        if kv_layout != "paged":
+            raise ValueError(f"kv_layout must be 'slots' or 'paged', got {kv_layout!r}")
+        if enable_prefix_caching:
+            _not_ported("enable_prefix_caching=True", "serving item 1")
+        if device_resident:
+            _not_ported("device_resident=True", "serving item 2")
+        if telemetry:
+            _not_ported("telemetry", "serving item 4")
+        if speculative is not None:
+            _not_ported("speculative decoding", "queue 1, speculative decoding")
+        if mesh is not None or tp_collective != "fp":
+            _not_ported("tensor-parallel meshes", "queue 1, multi-device axes")
+        if kv_plane is not None:
+            _not_ported("the cluster KV plane", "queue 1, disagg/kvplane")
+        self.kv_dtype = normalize_cache_dtype(cache_dtype) if cache_dtype is not None else config.dtype
+        if is_int8(self.kv_dtype):
+            _not_ported("cache_dtype='int8' at engine level", "serving item 3")
+
+        self.device = resolve_device(device)
+        self.attn_kernel = "cuda" if self.device.type == "cuda" else "torch"
+        if attn_kernel is not None and attn_kernel != self.attn_kernel:
+            raise ValueError(
+                f"attn_kernel={attn_kernel!r}: on {self.device.type} the paged attention runs "
+                f"{self.attn_kernel!r}; pass None"
+            )
+        self.config = config
+        self.kv_layout = kv_layout
+        self.kv_quant = False
+        self.max_num_seqs = int(max_num_seqs)
+        self.max_seq_len = int(max_seq_len or config.max_seq_len)
+        if prefill_buckets is None:
+            b, buckets = 64, []
+            while b < self.max_seq_len:
+                buckets.append(b)
+                b *= 2
+            buckets.append(self.max_seq_len)
+            prefill_buckets = tuple(buckets)
+        self.prefill_buckets = tuple(sorted(prefill_buckets))
+        if any(b % page_size for b in self.prefill_buckets):
+            raise ValueError(f"page_size {page_size} must divide every prefill bucket {self.prefill_buckets}")
+        max_pg = -(-self.max_seq_len // page_size)
+        if num_pages is None:
+            num_pages = self.max_num_seqs * max_pg + 1  # slot-equivalent memory (+1 trash)
+        self._pcfg = pkv.PagedCacheConfig(
+            num_layers=config.num_layers,
+            num_pages=int(num_pages),
+            page_size=int(page_size),
+            max_pages_per_seq=max_pg,
+            num_slots=self.max_num_seqs,
+            num_kv_heads=config.num_kv_heads,
+            head_dim=config.hd,
+            dtype=self.kv_dtype,
+        )
+        self._batch_prefill = bool(batch_prefill)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(config, gen)
+        self.params = params
+        self.pool = pkv.alloc(self._pcfg, self.device)
+        self._page_alloc = pkv.PageAllocator(self._pcfg.num_pages)
+        B = self.max_num_seqs
+        self._tables = np.zeros((B, max_pg), np.int32)
+        self._lengths = np.zeros((B,), np.int32)
+        self._slot_pages: list[list[int]] = [[] for _ in range(B)]
+        self._admit_counter = 0
+
+        # per-lane sampling state; seedless lanes draw from engine seed + slot
+        self._temps = np.zeros((B,), np.float32)
+        self._top_k = np.zeros((B,), np.int32)
+        self._top_p = np.ones((B,), np.float32)
+        self._gens = [torch.Generator().manual_seed(seed + s) for s in range(B)]
+        self._next_tokens = np.zeros((B,), np.int32)
+
+        self._slots: list[RequestState | None] = [None] * B
+        self._waiting: deque[RequestState] = deque()
+        self._requests: dict[str, RequestState] = {}  # guarded-by: _lock
+        self._lock = threading.Lock()
+        self._auto_id = 0
+        self.preemption_count = 0
+        # forwards run (callers match kernel launch counts against them)
+        # and host seconds spent in each stage; both stages end in a host
+        # read of sampled tokens, so on the card these include device time
+        self.prefill_forwards = 0
+        self.decode_steps = 0
+        self.prefill_s = 0.0
+        self.decode_s = 0.0
+
+    # ------------------------------------------------------------- admission
+    def add_request(self, prompt_token_ids, params: SamplingParams | None = None,
+                    request_id: str | None = None, stream: bool = False, out_queue=None) -> str:
+        params = params or SamplingParams()
+        with self._lock:
+            if request_id is None:
+                request_id = f"req-{self._auto_id}"
+                self._auto_id += 1
+            if not prompt_token_ids:
+                raise ValueError("prompt_token_ids is empty: a request needs at least one prompt token")
+            if len(prompt_token_ids) + params.max_tokens > self.max_seq_len:
+                raise ValueError(
+                    f"prompt ({len(prompt_token_ids)}) + max_tokens ({params.max_tokens}) "
+                    f"exceeds max_seq_len ({self.max_seq_len})"
+                )
+            T = _bucket(len(prompt_token_ids), self.prefill_buckets)
+            need = min(T // self._pcfg.page_size + 1, self._pcfg.max_pages_per_seq)
+            if need > self._pcfg.num_pages - 1:
+                raise ValueError(f"prompt needs {need} pages but the pool has {self._pcfg.num_pages - 1}; raise num_pages")
+            st = RequestState(request_id, list(prompt_token_ids), params)
+            if stream or out_queue is not None:
+                st.out_queue = out_queue if out_queue is not None else queue.SimpleQueue()
+            self._requests[request_id] = st
+            self._waiting.append(st)
+            return request_id
+
+    def abort_request(self, request_id: str) -> bool:
+        with self._lock:
+            st = self._requests.get(request_id)
+            if st is None or st.finished:
+                return False
+            self._finish(st, "aborted")
+            return True
+
+    def has_unfinished(self) -> bool:
+        with self._lock:
+            return bool(self._waiting) or any(s is not None for s in self._slots)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self._waiting)
+
+    @property
+    def num_running(self) -> int:
+        return sum(1 for s in self._slots if s is not None)
+
+    def kv_cache_stats(self) -> dict:
+        """KV-cache accounting: dtype and layout, bytes/token, allocated vs
+        occupied bytes, slot and page occupancy, and which paged-attention
+        implementation runs ("cuda" = K4 on the card, "torch" = its plain
+        version on the host)."""
+        cfg = self.config
+        per_tok = bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd, self.kv_dtype)
+        with self._lock:
+            allocated = int(sum(t.numel() * t.element_size() for t in self.pool.values()))
+            occupied = int(self._lengths.sum())
+            return {
+                "layout": self.kv_layout,
+                "dtype": self.kv_dtype,
+                "quantized": self.kv_quant,
+                "attn_kernel": self.attn_kernel,
+                "bytes_per_token": int(per_tok),
+                "allocated_bytes": allocated,
+                "slots_total": self.max_num_seqs,
+                "slots_in_use": sum(1 for s in self._slots if s is not None),
+                "page_size": self._pcfg.page_size,
+                "pages_total": self._pcfg.num_pages - 1,  # page 0 = trash
+                "pages_free": self._page_alloc.free_pages,
+                "occupied_tokens": occupied,
+                "occupied_bytes": occupied * int(per_tok),
+            }
+
+    # ---------------------------------------------------------------- engine
+    def _finish(self, st: RequestState, reason: str):
+        st.finished = True
+        st.finish_reason = reason
+        if st.slot >= 0:
+            self._release_slot_pages(st.slot)
+            self._slots[st.slot] = None
+            st.slot = -1
+        if st.out_queue is not None:
+            st.out_queue.put(None)  # sentinel
+
+    def _release_slot_pages(self, slot: int):
+        self._page_alloc.free(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._tables[slot, :] = 0
+        self._lengths[slot] = 0
+
+    def _requeue(self, st: RequestState):
+        """Recompute-preemption of one running sequence: free its pages and
+        put it first in line, its generated tokens folded into the prompt
+        at re-admission."""
+        st.preemptions += 1
+        self.preemption_count += 1
+        slot = st.slot
+        self._release_slot_pages(slot)
+        self._slots[slot] = None
+        st.slot = -1
+        self._waiting.appendleft(st)
+
+    def _preempt_for(self, need: int, exclude: RequestState | None = None) -> bool:
+        """Preempt the YOUNGEST running sequences until >= need pages are
+        free. Returns False when nothing is left to preempt."""
+        while self._page_alloc.free_pages < need:
+            victims = [s for s in self._slots if s is not None and s is not exclude]
+            if not victims:
+                return False
+            self._requeue(max(victims, key=lambda s: s.admit_seq))
+        return True
+
+    def _paged_grow(self):
+        """Before a decode step: a sequence whose next append crosses into
+        an unallocated page gets one (preempting the youngest OTHER
+        sequence when the pool is dry; a sequence that cannot grow at all
+        re-queues itself)."""
+        page = self._pcfg.page_size
+        for st in [s for s in self._slots if s is not None]:
+            if st.slot < 0 or self._slots[st.slot] is not st:
+                continue  # preempted by an earlier iteration
+            slot = st.slot
+            target_pg = int(self._lengths[slot]) // page + 1
+            if target_pg > self._pcfg.max_pages_per_seq:
+                self._finish(st, "length")  # table row exhausted
+                continue
+            while len(self._slot_pages[slot]) < target_pg:
+                got = self._page_alloc.alloc(1)
+                if got is None and self._preempt_for(1, exclude=st):
+                    got = self._page_alloc.alloc(1)
+                if got is None:
+                    self._requeue(st)
+                    break
+                self._tables[slot, len(self._slot_pages[slot])] = got[0]
+                self._slot_pages[slot].extend(got)
+
+    def _pages_needed(self, st: RequestState, prompt) -> int | None:
+        """Pages to admit: the prompt bucket + one decode headroom page
+        (capped at the table row). None = can never fit; the request is
+        finished with an error instead of waiting forever."""
+        need = _bucket(len(prompt), self.prefill_buckets) // self._pcfg.page_size + 1
+        need = min(need, self._pcfg.max_pages_per_seq)
+        if need > self._pcfg.num_pages - 1:
+            self._finish(st, f"error: needs {need} pages, pool holds {self._pcfg.num_pages - 1}")
+            return None
+        return need
+
+    def _stage_admission(self) -> list:  # holds-lock: _lock
+        """ADMISSION: admit waiting requests FIFO while a slot and pages
+        are free (a head-of-line request that cannot get pages blocks the
+        wave; admission never preempts). Returns (st, slot, pages, prompt)."""
+        wave = []
+        while self._waiting and None in self._slots:
+            st = self._waiting[0]
+            if st.finished:  # aborted while waiting
+                self._waiting.popleft()
+                continue
+            slot = self._slots.index(None)
+            prompt = st.prompt_token_ids + st.token_ids  # preempted: generated tail joins the prompt
+            need = self._pages_needed(st, prompt)
+            if need is None:
+                self._waiting.popleft()
+                continue
+            pages = self._page_alloc.alloc(need)
+            if pages is None:
+                break  # pool full: head-of-line waits
+            self._waiting.popleft()
+            self._slots[slot] = st  # reserve; _bind_slot fills the rest
+            wave.append((st, slot, pages, prompt))
+        return wave
+
+    def _stage_prefill(self, wave: list) -> None:
+        """PREFILL: one batched forward per prefill bucket."""
+        plains = []
+        for st, slot, pages, prompt in wave:
+            self._slot_pages[slot] = pages
+            self._tables[slot, :] = 0
+            self._tables[slot, : len(pages)] = pages
+            plains.append((st, slot, prompt))
+        for group in self._bucket_groups(plains):
+            self._admit_prefill_batch(group)
+
+    def _bucket_groups(self, plains):
+        if not self._batch_prefill:
+            return [[p] for p in plains]
+        groups: dict[int, list] = {}
+        for item in plains:
+            groups.setdefault(_bucket(len(item[2]), self.prefill_buckets), []).append(item)
+        return list(groups.values())
+
+    def _admit_prefill_batch(self, group):
+        """One forward prefills the group (one bucket), batch padded to a
+        power of two; padding rows carry length 1 and are never inserted."""
+        T = _bucket(max(len(p) for _, _, p in group), self.prefill_buckets)
+        Bp = 1 << (len(group) - 1).bit_length()
+        toks = np.zeros((Bp, T), np.int64)
+        lens = np.ones((Bp,), np.int64)
+        for i, (_, _, prompt) in enumerate(group):
+            toks[i, : len(prompt)] = prompt
+            lens[i] = len(prompt)
+        logits, ks, vs = mr.prefill(
+            self.params, torch.from_numpy(toks).to(self.device), torch.from_numpy(lens).to(self.device), self.config
+        )
+        self.prefill_forwards += 1
+        page = self._pcfg.page_size
+        for i, (st, slot, prompt) in enumerate(group):
+            row = torch.from_numpy(self._tables[slot, : T // page].copy()).to(self.device)
+            pkv.insert_pages(self.pool, row, ks[:, i], vs[:, i])
+            self._lengths[slot] = len(prompt)
+            self._bind_slot(st, slot, logits[i : i + 1])
+
+    def _bind_slot(self, st: RequestState, slot: int, logits):
+        """Bind the lane and sample the first token from the prefill logits."""
+        st.slot = slot
+        self._admit_counter += 1
+        st.admit_seq = self._admit_counter
+        self._slots[slot] = st
+        p = st.params
+        self._temps[slot] = p.temperature
+        self._top_k[slot] = p.top_k
+        self._top_p[slot] = p.top_p
+        if p.seed is not None:
+            self._gens[slot].manual_seed(p.seed)
+        tok, logp = sample(
+            logits,
+            [self._gens[slot]],
+            torch.tensor([p.temperature], dtype=torch.float32, device=logits.device),
+            torch.tensor([p.top_k], dtype=torch.int64, device=logits.device),
+            torch.tensor([p.top_p], dtype=torch.float32, device=logits.device),
+        )
+        self._emit(st, int(tok[0]), float(logp[0]))
+
+    def _emit(self, st: RequestState, token: int, logp: float):
+        st.token_ids.append(token)
+        st.logprobs.append(logp)
+        if st.out_queue is not None:
+            st.out_queue.put(token)
+        if st.slot >= 0:
+            self._next_tokens[st.slot] = token
+        if token in st.params.stop_token_ids:
+            self._finish(st, "stop")
+        elif len(st.token_ids) >= st.params.max_tokens:
+            self._finish(st, "length")
+
+    def step(self) -> list[RequestOutput]:
+        """Admit what fits, advance decode one step, return per-request deltas."""
+        with self._lock:
+            wave = self._stage_admission()
+            t0 = time.perf_counter()
+            self._stage_prefill(wave)
+            t1 = time.perf_counter()
+            self._paged_grow()
+            reported = self._stage_decode()
+            self.prefill_s += t1 - t0
+            self.decode_s += time.perf_counter() - t1
+            return self._build_outputs(reported)
+
+    def _stage_decode(self) -> list:
+        """DECODE, the synchronous loop (ray_tpu's ``_sync_decode``): upload
+        tables/lengths/tokens, run attention then append, sample, read the
+        tokens back. Every active lane (just-admitted ones included) emits
+        one token; the returned list is the emit set."""
+        active = [s for s in self._slots if s is not None]
+        if not active:
+            return []
+        dev = self.device
+        logits, self.pool, _ = mr.decode_step_paged(
+            self.params,
+            self.pool,
+            torch.from_numpy(self._tables).to(dev),
+            torch.from_numpy(self._lengths).to(dev),
+            torch.from_numpy(self._next_tokens.astype(np.int64)).to(dev),
+            self.config,
+        )
+        self.decode_steps += 1
+        for st in active:
+            self._lengths[st.slot] += 1
+        toks, logps = sample(
+            logits,
+            self._gens,
+            torch.from_numpy(self._temps).to(dev),
+            torch.from_numpy(self._top_k.astype(np.int64)).to(dev),
+            torch.from_numpy(self._top_p).to(dev),
+        )
+        toks = toks.cpu().numpy()
+        logps = logps.cpu().numpy()
+        for st in active:
+            self._emit(st, int(toks[st.slot]), float(logps[st.slot]))
+        return active
+
+    def _build_outputs(self, reported: list) -> list[RequestOutput]:  # holds-lock: _lock
+        outputs: list[RequestOutput] = []
+        seen: set = set()
+
+        def out(st, new):
+            return RequestOutput(
+                request_id=st.request_id,
+                prompt_token_ids=st.prompt_token_ids,
+                token_ids=list(st.token_ids),
+                new_token_ids=new,
+                finished=st.finished,
+                finish_reason=st.finish_reason,
+                logprobs=list(st.logprobs) if st.params.logprobs else None,
+                streamed=st.out_queue is not None,
+            )
+
+        for st in reported:
+            if st.request_id not in seen:
+                seen.add(st.request_id)
+                outputs.append(out(st, st.token_ids[-1:]))
+        # requests finished outside decode (aborts, admission errors,
+        # a first token that already ended the request)
+        for st in list(self._requests.values()):
+            if st.finished and st.request_id not in seen:
+                outputs.append(out(st, []))
+        for o in outputs:
+            if o.finished:
+                self._requests.pop(o.request_id, None)
+        return outputs
+
+    def generate(self, prompts, params: SamplingParams | list | None = None) -> list[RequestOutput]:
+        """Blocking batch generation with continuous batching underneath."""
+        if len(prompts) == 0:
+            return []
+        single = isinstance(prompts[0], numbers.Integral)
+        if single:
+            prompts = [prompts]
+        if params is None or isinstance(params, SamplingParams):
+            params = [params or SamplingParams()] * len(prompts)
+        ids = [self.add_request(p, sp) for p, sp in zip(prompts, params)]
+        finals: dict[str, RequestOutput] = {}
+        while self.has_unfinished():
+            for o in self.step():
+                if o.finished:
+                    finals[o.request_id] = o
+        results = [finals[i] for i in ids]
+        return results[0] if single else results

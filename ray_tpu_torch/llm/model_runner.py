@@ -1,0 +1,136 @@
+"""Cache-aware Llama forward passes: batched prefill and paged decode
+(port of the paged half of ray_tpu/llm/model_runner.py).
+
+Same parameter tree as ``models/llama.py``. Prefill runs the causal
+flash path (K1) over right-padded prompts and returns every layer's K/V
+for insertion into pages. Paged decode advances every slot one token in
+two halves, as in JAX: ``decode_attn_paged`` only reads the pool (K4 over
+cached positions, the current token folded from registers), then
+``append_paged`` writes the new token in place.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch.models.llama import LlamaConfig, layer_params, unembed_f32
+from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rotary_embedding
+from ray_tpu_torch.llm.kv_quant import quantize_heads
+from ray_tpu_torch.llm.paged_kv import _paged_attn_batch
+
+
+def _qkv(xn, layer, cfg: LlamaConfig):
+    B, T, _ = xn.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = (xn @ layer["wq"]).reshape(B, T, nh, hd)
+    k = (xn @ layer["wk"]).reshape(B, T, nkv, hd)
+    v = (xn @ layer["wv"]).reshape(B, T, nkv, hd)
+    return q, k, v
+
+
+def _mlp(x, layer, cfg: LlamaConfig):
+    xn = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    return x + (F.silu(xn @ layer["w_gate"]) * (xn @ layer["w_up"])) @ layer["w_down"]
+
+
+@torch.no_grad()
+def prefill(params, tokens, length, cfg: LlamaConfig):
+    """Run right-padded prompts through the model.
+
+    tokens: [B, T_pad] int; length: [B] int real lengths. Returns
+    (logits [B, vocab] f32 at each row's last real token,
+    k [L, B, T_pad, kv, hd], v same). Padded positions produce K/V that
+    later attention masks out by length."""
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
+    cos, sin = rotary_embedding(positions, cfg.hd, cfg.rope_theta)
+    x = params["embed"][tokens]
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        layer = layer_params(params, i)
+        xn = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(xn, layer, cfg)
+        qh = apply_rope(q.transpose(1, 2), cos, sin)
+        kh = apply_rope(k.transpose(1, 2), cos, sin)
+        o = flash_attention(qh, kh, v.transpose(1, 2).contiguous(), True, None)
+        o = o.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.hd)
+        x = x + o @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+        ks.append(kh.transpose(1, 2))  # the cache stores rope'd keys
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    # only the last real token's logits matter: gather before the unembed
+    idx = (length.long() - 1).to(x.device)
+    x_last = x[torch.arange(B, device=x.device), idx]
+    return unembed_f32(x_last, params, cfg), torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def decode_attn_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
+    """READ-ONLY half of the paged decode step: attention over the cached
+    pages (K4) plus the current token's K/V in registers. Returns
+    (logits [slots, vocab] f32, k_new [L, slots, kv, hd], v_new same)."""
+    B = tokens.shape[0]
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = nh // nkv
+    quant = "k_scale" in pool
+    cos, sin = rotary_embedding(lengths[:, None], hd, cfg.rope_theta)
+    x = params["embed"][tokens[:, None]]  # [B, 1, H]
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=x.device))
+    k_new, v_new = [], []
+    for i in range(cfg.num_layers):
+        layer = layer_params(params, i)
+        xn = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q, k_t, v_t = _qkv(xn, layer, cfg)  # [B, 1, nh/nkv, hd]
+        qh = apply_rope(q.transpose(1, 2), cos, sin).transpose(1, 2)
+        kh = apply_rope(k_t.transpose(1, 2), cos, sin).transpose(1, 2)
+        qg = qh[:, 0].reshape(B, nkv, rep, hd)
+        k_sc = pool["k_scale"][i] if quant else None
+        v_sc = pool["v_scale"][i] if quant else None
+        o = _paged_attn_batch(qg, pool["k"][i], pool["v"][i], tables, lengths, scale,
+                              kh[:, 0], v_t[:, 0], k_sc, v_sc)
+        o = o.reshape(B, 1, nh * hd).to(x.dtype)
+        x = x + o @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+        k_new.append(kh[:, 0])
+        v_new.append(v_t[:, 0])
+    x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
+    return unembed_f32(x, params, cfg), torch.stack(k_new), torch.stack(v_new)
+
+
+@torch.no_grad()
+def append_paged(pool, write_page, write_off, k_new, v_new):
+    """Write half of the paged decode step, in place: each slot's new
+    token K/V at (write_page[b], write_off[b]) for every layer. An int8
+    pool quantizes here."""
+    wp, wo = write_page.long(), write_off.long()
+    if "k_scale" in pool:
+        k_new, sk = quantize_heads(k_new)  # [L, B, kv, hd] i8, [L, B, kv] f32
+        v_new, sv = quantize_heads(v_new)
+        # scale layout [L, P, kv, page]: the advanced indices are split by
+        # the kv slice, so the indexed view is [B, L, kv]
+        pool["k_scale"][:, wp, :, wo] = sk.transpose(0, 1)
+        pool["v_scale"][:, wp, :, wo] = sv.transpose(0, 1)
+    pool["k"][:, wp, wo] = k_new.to(pool["k"].dtype)
+    pool["v"][:, wp, wo] = v_new.to(pool["v"].dtype)
+    return pool
+
+
+def decode_write_targets(tables, lengths, page: int):
+    """(write_page [B], write_off [B]) for each slot's next token (the
+    last table column for rows past the table edge)."""
+    B = lengths.shape[0]
+    page_ix = torch.clamp(lengths.long() // page, max=tables.shape[1] - 1)
+    write_page = tables[torch.arange(B, device=tables.device), page_ix]
+    return write_page, lengths % page
+
+
+def decode_step_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
+    """Attention half, then append half. Returns (logits, pool, lengths + 1);
+    the pool is updated in place."""
+    write_page, write_off = decode_write_targets(tables, lengths, pool["k"].shape[2])
+    logits, k_new, v_new = decode_attn_paged(params, pool, tables, lengths, tokens, cfg)
+    pool = append_paged(pool, write_page, write_off, k_new, v_new)
+    return logits, pool, lengths + 1

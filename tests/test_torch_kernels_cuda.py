@@ -1,0 +1,122 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA card (``cuda`` marker) and skips
+elsewhere; the file imports no jax, so it runs on the chip machine:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+
+Tolerances: bf16 K1 outputs 2e-2 (the kernel keeps P in f32, the plain
+version rounds it to bf16 before P·V; one bf16 ulp at |o| ~ 1 is 2^-7);
+f32 outputs and lse 1e-4 / 1e-3 (f32 sums in another order); K4
+partials 1e-4 relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.llm import paged_kv as pkv
+from ray_tpu_torch.llm.cuda import paged_attn as tpa
+from ray_tpu_torch.llm.kv_quant import quantize_heads
+from ray_tpu_torch.ops import flash_attention as tfa
+
+pytestmark = pytest.mark.cuda
+
+PAGE = 16
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(g, *shape, device):
+    return torch.randn(shape, generator=g, device=device)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("T,D,rep", [(64, 128, 4), (200, 128, 2), (130, 64, 1), (1, 64, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k1_kernel_matches_plain(dev, dtype, atol, T, D, rep, causal):
+    g = torch.Generator(device=dev).manual_seed(T + D)
+    q = _randn(g, 2, 2 * rep, T, D, device=dev).to(dtype)
+    k = _randn(g, 2, 2, T, D, device=dev).to(dtype)
+    v = _randn(g, 2, 2, T, D, device=dev).to(dtype)
+    before = tfa.flash_attention_fwd.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1 and o.dtype == dtype
+    o_ref, lse_ref = tfa.attention_with_lse_ref(q, k, v, causal=causal)
+    assert (o.float() - o_ref.float()).abs().max().item() <= atol
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_k1_wrapper_raises_on_inputs_the_kernel_does_not_take(dev):
+    q = torch.zeros((1, 4, 8, 128), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(q, q[:, :2], q[:, :2])
+    q = torch.zeros((1, 4, 8, 96), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 8, 4, 64), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_fwd(q, q, q)
+
+
+def _pool(g, P, nkv, hd, kind, dev):
+    k, v = _randn(g, P, PAGE, nkv, hd, device=dev), _randn(g, P, PAGE, nkv, hd, device=dev)
+    if kind == "int8":
+        kq, ks = quantize_heads(k)
+        vq, vs = quantize_heads(v)
+        return kq, vq, ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    return k.to(dt), v.to(dt), None, None
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("T,hd,rep", [(1, 128, 4), (5, 128, 4), (1, 64, 8), (16, 64, 4)])
+def test_k4_kernel_matches_plain(dev, kind, T, hd, rep):
+    g = torch.Generator(device=dev).manual_seed(T * hd)
+    B, nkv, P, max_pg = 6, 2, 40, 6
+    pk, pv, ks, vs = _pool(g, P, nkv, hd, kind, dev)
+    qf = _randn(g, B, nkv, rep, T, hd, device=dev) * hd**-0.5
+    rng = np.random.default_rng(0)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, P))[: B * max_pg].reshape(B, max_pg).astype(np.int32)).to(dev)
+    bound = torch.tensor([0, 1, PAGE, PAGE + 1, 70, max_pg * PAGE], dtype=torch.int32, device=dev)
+    before = tpa.paged_attn_partials.launches
+    m, l, acc = tpa.paged_attn_partials(qf, pk, pv, tables, bound, ks, vs)
+    torch.cuda.synchronize()
+    assert tpa.paged_attn_partials.launches == before + 1
+    m_r, l_r, acc_r = tpa.paged_attn_partials_ref(qf, pk, pv, tables, bound, ks, vs)
+    live = bound > 0  # l/acc differ at bound 0 by design (csrc/paged_attn.cu)
+    assert torch.allclose(m, m_r, atol=1e-4)
+    assert torch.allclose(l[live], l_r[live], rtol=1e-4, atol=1e-4)
+    assert torch.allclose(acc[live], acc_r[live], rtol=1e-4, atol=1e-3)
+    assert torch.all(l[~live] == 0) and torch.all(acc[~live] == 0)
+
+
+def test_page_attention_on_card_matches_host_and_ignores_write_target(dev):
+    """The combined output at every bound (0 included) against the host
+    path, and the aliasing contract on the card: poisoning each lane's
+    write position changes nothing."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, nkv, rep, hd, P = 4, 2, 4, 128, 17
+    pk, pv, _, _ = _pool(g, P, nkv, hd, "f32", dev)
+    qg = _randn(g, B, nkv, rep, hd, device=dev)
+    k_self, v_self = _randn(g, B, nkv, hd, device=dev), _randn(g, B, nkv, hd, device=dev)
+    table = torch.arange(1, 17, dtype=torch.int32, device=dev).reshape(B, 4)
+    lengths = torch.tensor([0, 5, PAGE, 2 * PAGE + 1], dtype=torch.int32, device=dev)
+    scale = hd**-0.5
+    out = pkv._paged_attn_batch(qg, pk, pv, table, lengths, scale, k_self, v_self)
+    host = pkv._paged_attn_batch(*(t.cpu() for t in (qg, pk, pv, table, lengths)), scale, k_self.cpu(), v_self.cpu())
+    assert (out.cpu() - host).abs().max().item() <= 1e-4
+    pk2, pv2 = pk.clone(), pv.clone()
+    for b in range(B):
+        pos = int(lengths[b])
+        page_id = int(table[b, pos // PAGE])
+        pk2[page_id, pos % PAGE] = 1e9
+        pv2[page_id, pos % PAGE] = -1e9
+    assert torch.equal(out, pkv._paged_attn_batch(qg, pk2, pv2, table, lengths, scale, k_self, v_self))

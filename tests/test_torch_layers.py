@@ -1,0 +1,57 @@
+"""ray_tpu_torch.ops.layers against ray_tpu.ops.layers on the same
+numpy-seeded inputs, f32 on the CPU (atol 1e-6: the same f32 arithmetic,
+summed in possibly another order)."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from ray_tpu.ops import layers as jl  # noqa: E402
+from ray_tpu_torch.ops import layers as tl  # noqa: E402
+
+ATOL = 1e-6
+
+
+def _both(a):
+    return jnp.asarray(a), torch.from_numpy(np.array(a))
+
+
+def test_rms_norm_matches_jax():
+    rng = np.random.default_rng(0)
+    xj, xt = _both(rng.standard_normal((3, 5, 64)).astype(np.float32))
+    wj, wt = _both(rng.standard_normal(64).astype(np.float32))
+    np.testing.assert_allclose(tl.rms_norm(xt, wt, 1e-5).numpy(), np.asarray(jl.rms_norm(xj, wj, 1e-5)), atol=ATOL)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+@pytest.mark.parametrize("batched", [False, True], ids=["shared_positions", "per_lane_positions"])
+def test_rope_matches_jax(theta, batched):
+    rng = np.random.default_rng(1)
+    B, H, T, D = 2, 3, 7, 32
+    xj, xt = _both(rng.standard_normal((B, H, T, D)).astype(np.float32))
+    pos = rng.integers(0, 300, size=(B, T) if batched else (T,)).astype(np.int32)
+    cj, sj = jl.rotary_embedding(jnp.asarray(pos), D, theta)
+    ct, st = tl.rotary_embedding(torch.from_numpy(pos), D, theta)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=ATOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=ATOL)
+    np.testing.assert_allclose(
+        tl.apply_rope(xt, ct, st).numpy(), np.asarray(jl.apply_rope(xj, cj, sj)), atol=ATOL
+    )
+
+
+def test_swiglu_and_embedding_match_jax():
+    rng = np.random.default_rng(2)
+    xj, xt = _both(rng.standard_normal((4, 32)).astype(np.float32) * 0.5)
+    ws = [_both(rng.standard_normal(s).astype(np.float32) * 0.2) for s in ((32, 48), (32, 48), (48, 32))]
+    out_j = jl.swiglu(xj, *(w[0] for w in ws))
+    out_t = tl.swiglu(xt, *(w[1] for w in ws))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL)
+    table_j, table_t = _both(rng.standard_normal((50, 8)).astype(np.float32))
+    ids = rng.integers(0, 50, size=(2, 6))
+    np.testing.assert_array_equal(
+        tl.embedding_lookup(table_t, torch.from_numpy(ids)).numpy(),
+        np.asarray(jl.embedding_lookup(table_j, jnp.asarray(ids))),
+    )

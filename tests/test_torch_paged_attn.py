@@ -1,0 +1,119 @@
+"""K4 (paged-attention partials): the port's plain version against the
+JAX Pallas kernel in interpret mode, m/l/acc compared directly, at the
+ragged bounds that break off-by-one page masking (0, 1, page, page+1),
+for decode (T=1) and wide blocks (T=5), fp and int8 pools. Plus the
+write-target poison test (twin of tests/test_llm_pallas.py) and the
+combined page attention against ray_tpu's ``_paged_attn_batch``.
+f32 throughout: atol 1e-5 (same arithmetic, other summation order).
+The CUDA kernel against the plain version is in
+tests/test_torch_kernels_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from ray_tpu.llm import paged_kv as jpkv  # noqa: E402
+from ray_tpu.llm.kv_quant import quantize_heads as jquant  # noqa: E402
+from ray_tpu.llm.pallas.paged_attn import paged_attn_partials as pallas_partials  # noqa: E402
+from ray_tpu_torch.llm import paged_kv as tpkv  # noqa: E402
+from ray_tpu_torch.llm.cuda import paged_attn as tpa  # noqa: E402
+
+PAGE = 16
+ATOL = 1e-5
+
+
+def _pool(rng, P, nkv, hd, quant):
+    """(k, v, k_scale, v_scale) as numpy; int8 pools quantized by JAX."""
+    k = rng.standard_normal((P, PAGE, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((P, PAGE, nkv, hd)).astype(np.float32)
+    if not quant:
+        return k, v, None, None
+    kq, ks = jquant(jnp.asarray(k))
+    vq, vs = jquant(jnp.asarray(v))
+    return (np.asarray(kq), np.asarray(vq),
+            np.ascontiguousarray(np.asarray(ks).transpose(0, 2, 1)), np.ascontiguousarray(np.asarray(vs).transpose(0, 2, 1)))
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_plain_k4_matches_pallas_interpret_at_ragged_bounds(quant, T):
+    rng = np.random.default_rng(0)
+    B, nkv, rep, hd, P = 4, 2, 2, 32, 9
+    k, v, ks, vs = _pool(rng, P, nkv, hd, quant)
+    qf = (rng.standard_normal((B, nkv, rep, T, hd)) / np.sqrt(hd)).astype(np.float32)
+    tables = rng.integers(1, P, size=(B, 4)).astype(np.int32)
+    bound = np.array([0, 1, PAGE, PAGE + 1], np.int32)
+    ref = pallas_partials(_j(qf), _j(k), _j(v), _j(tables), _j(bound), _j(ks), _j(vs), interpret=True)
+    out = tpa.paged_attn_partials(_t(qf), _t(k), _t(v), _t(tables), _t(bound), _t(ks), _t(vs))
+    for name, o, r in zip(("m", "l", "acc"), out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=ATOL, rtol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_page_attention_matches_jax_paged_attn_batch(quant):
+    """The combined output (partials + self fold + normalise) against
+    ray_tpu's XLA page scan at bounds 0, 1, page, page+1."""
+    rng = np.random.default_rng(1)
+    B, nkv, rep, hd, P = 4, 2, 3, 32, 9
+    k, v, ks, vs = _pool(rng, P, nkv, hd, quant)
+    qg = rng.standard_normal((B, nkv, rep, hd)).astype(np.float32)
+    table = rng.integers(1, P, size=(B, 4)).astype(np.int32)
+    lengths = np.array([0, 1, PAGE, PAGE + 1], np.int32)
+    k_self = rng.standard_normal((B, nkv, hd)).astype(np.float32)
+    v_self = rng.standard_normal((B, nkv, hd)).astype(np.float32)
+    scale = 1.0 / np.sqrt(hd)
+    ref = jpkv._paged_attn_batch(_j(qg), _j(k), _j(v), _j(table), _j(lengths), scale, _j(k_self), _j(v_self),
+                                 k_scale_l=_j(ks), v_scale_l=_j(vs))
+    out = tpkv._paged_attn_batch(_t(qg), _t(k), _t(v), _t(table), _t(lengths), scale, _t(k_self), _t(v_self),
+                                 _t(ks), _t(vs))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_write_target_poison_cannot_reach_attention():
+    """The aliasing contract: each lane's write position (index
+    ``lengths[b]``) is poisoned in the pool and the attention output must
+    not change — the current token reaches attention only through the
+    k_self/v_self registers, never a pool read."""
+    rng = np.random.default_rng(7)
+    B, nkv, rep, hd, P = 3, 4, 2, 32, 13
+    k, v, _, _ = _pool(rng, P, nkv, hd, False)
+    qg = torch.from_numpy(rng.standard_normal((B, nkv, rep, hd)).astype(np.float32))
+    # distinct pages per (lane, column), as the allocator guarantees
+    table = torch.from_numpy(rng.permutation(np.arange(1, 13)).reshape(B, 4).astype(np.int32))
+    k_self = torch.from_numpy(rng.standard_normal((B, nkv, hd)).astype(np.float32))
+    v_self = torch.from_numpy(rng.standard_normal((B, nkv, hd)).astype(np.float32))
+    lengths = torch.tensor([5, PAGE, 2 * PAGE + 1], dtype=torch.int32)
+    scale = 1.0 / np.sqrt(hd)
+    clean = tpkv._paged_attn_batch(qg, _t(k), _t(v), table, lengths, scale, k_self, v_self)
+    pk, pv = k.copy(), v.copy()
+    for b in range(B):
+        pos = int(lengths[b])
+        page_id = int(table[b, pos // PAGE])
+        pk[page_id, pos % PAGE] = 1e9  # the write target the append owns
+        pv[page_id, pos % PAGE] = -1e9
+    dirty = tpkv._paged_attn_batch(qg, _t(pk), _t(pv), table, lengths, scale, k_self, v_self)
+    assert torch.equal(clean, dirty)
+
+
+def test_wrapper_runs_plain_version_for_cpu_tensors():
+    rng = np.random.default_rng(2)
+    k, v, _, _ = _pool(rng, 5, 2, 32, False)
+    qf = torch.from_numpy(rng.standard_normal((2, 2, 2, 1, 32)).astype(np.float32))
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    bound = torch.tensor([3, 20], dtype=torch.int32)
+    before = tpa.paged_attn_partials.launches
+    out = tpa.paged_attn_partials(qf, _t(k), _t(v), tables, bound)
+    ref = tpa.paged_attn_partials_ref(qf, _t(k), _t(v), tables, bound)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert tpa.paged_attn_partials.launches == before
