@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of ray_tpu_torch's serving path on one NVIDIA card.
+"""Smoke run of ray_tpu_torch's serving and training paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases, in order; any failed check exits non-zero before the last line:
 
-1. Build the CUDA kernels (K1 flash-attention forward, K4 paged-attention
-   partials) from ray_tpu_torch/csrc with nvcc for sm_90a, in parallel.
+1. Build the CUDA kernels (K1 flash-attention forward, K2/K3 its backward,
+   K4 paged-attention partials, K5 fused RMSNorm) from ray_tpu_torch/csrc
+   with nvcc for sm_90a, in parallel.
 2. K1 against its plain PyTorch version on the card, at the prefill shapes
    of Llama-3-8B (32 query heads, 8 kv heads, head_dim 128, bf16), timed
    beside the plain version, PyTorch's scaled_dot_product_attention and
@@ -22,6 +23,25 @@ Phases, in order; any failed check exits non-zero before the last line:
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps; prefill and
    decode logits must agree.
+6. K2/K3 against their plain version on the card at bench.py's two
+   training shapes (B, H, Hkv, T, D) = (8, 16, 8, 2048, 128) and
+   (2, 16, 8, 8192, 128) in bf16, a ragged T = 1000, and f32 at D 64 and
+   128; timed beside the plain version, the backward of PyTorch's
+   scaled_dot_product_attention and the card's bound. K5 against its
+   plain version at [16384, 2048] (the training rows) and [8, 4096] (a
+   decode step), bf16 and f32, timed beside F.rms_norm.
+7. Training at full width: bench.py's sft model (hidden 2048, 18 layers,
+   16/8 heads, vocab 32000, bf16, remat) on 8 x 2048 seeded tokens with
+   AdamW(3e-4, weight decay 0.01): one warm-up step whose loss must equal
+   loss_fn on the initial parameters within 0.05, then 5 timed steps whose
+   last loss must be finite and below the first. K1 must run 36 times per
+   step (forward and remat recompute), K2 and K3 18 times each. One more
+   step runs under torch.profiler: device time by kernel group and the
+   device's idle share, with the full table in
+   build/train_step_profile.txt.
+8. The training path, card against host: the same widths at 2 layers in
+   f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
+   gradients must agree.
 
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 the kernels' launches, errors and times, and last
@@ -48,6 +68,15 @@ K4_BOUNDS = [0, 1, 64, 65, 2000, 2047, 700, 1500]
 K4_TOL = 1e-4  # relative, f32 partials summed in another order
 COMBINED_TOL = 1e-4  # absolute, normalised f32 attention output vs the host path
 WHOLE_PATH_TOL = 2e-3  # absolute, f32 logits after 2 full-width layers, card vs host
+# (B, H, Hkv, T, D, dtype): bench.py's training shapes (sft, longctx), a ragged T, f32 at both head dims
+K23_SHAPES = [(8, 16, 8, 2048, 128, "bf16"), (2, 16, 8, 8192, 128, "bf16"), (1, 16, 8, 1000, 128, "bf16"),
+              (2, 8, 2, 300, 64, "f32"), (2, 8, 2, 300, 128, "f32")]
+K23_TOL = {"bf16": 2e-2, "f32": 1e-4}  # relative to max |grad|: bf16 output rounding; f32 sums in another order
+K5_SHAPES = [(16384, 2048), (8, 4096)]  # training rows (8 x 2048 tokens at hidden 2048); a decode step
+K5_TOL = {"bf16": 2**-7, "f32": 1e-5}  # relative to max |out|: one bf16 ulp; f32 sums in another order
+TRAIN_STEPS = 5  # timed, after one warm-up step
+TRAIN_LOSS_TOL = 0.05  # first step's loss vs loss_fn on the initial params (bench.py's check)
+TRAIN_WHOLE_TOL = 1e-3  # card vs host, f32: loss and grad norm relative; gradients relative to each leaf's max
 
 
 class SmokeFailure(RuntimeError):
@@ -79,6 +108,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import dataclasses
+    from functools import partial
+
     import numpy as np
     import torch.nn.functional as F
 
@@ -88,8 +120,12 @@ def main() -> int:
     from ray_tpu_torch.llm import paged_kv as pkv
     from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
     from ray_tpu_torch.llm.kv_quant import quantize_heads
-    from ray_tpu_torch.models.llama import LlamaConfig, init_params
-    from ray_tpu_torch.ops.flash_attention import attention_with_lse_ref, flash_attention_fwd
+    from ray_tpu_torch.models.llama import LlamaConfig, flops_per_token, init_params, loss_fn
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.flash_attention import (attention_bwd_ref, attention_with_lse_ref, flash_attention_bwd_dkv,
+                                                   flash_attention_bwd_dq, flash_attention_fwd)
+    from ray_tpu_torch.ops.layers import rms_norm, rms_norm_fused
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step, to_device, tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -272,23 +308,236 @@ def main() -> int:
     print(f"phase 5 whole path (2 layers, f32, card vs host): prefill |dlogits| {errs[0]:.3g}, decode max "
           f"{max(errs[1:]):.3g} over {len(forced)} steps (max |logit| {scale:.3g}, tol {WHOLE_PATH_TOL})")
 
+    # ---------------------------------------------------------------- 6
+    k23_rows = []
+    for B, H_, HKV_, T, D_, dname in K23_SHAPES:
+        dt = torch.bfloat16 if dname == "bf16" else torch.float32
+        q, dout = (torch.randn((B, H_, T, D_), generator=g, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((B, HKV_, T, D_), generator=g, device=dev).to(dt) for _ in range(2))
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        delta = (dout.float() * o.float()).sum(-1)
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=True)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
+        torch.cuda.synchronize()
+
+        def plain():
+            dq_r, dk_r, dv_r = attention_bwd_ref(q, k, v, o, lse, dout, causal=True)
+            return dq_r.to(dt), fa._sum_rep(dk_r, HKV_).to(dt), fa._sum_rep(dv_r, HKV_).to(dt)
+
+        errs = {}
+        for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain()):
+            diff = (out.float() - ref.float()).abs().max().item()
+            errs[name] = (diff, diff / ref.float().abs().max().item())
+        del ref
+        bad = {n: e for n, e in errs.items() if not e[1] <= K23_TOL[dname]}
+        check(not bad, f"K2/K3 {(B, H_, HKV_, T, D_, dname)}: relative errors {bad} (tol {K23_TOL[dname]})")
+        row = dict(shape=(B, H_, HKV_, T, D_, dname), errs=errs)
+        if dname == "bf16":
+            row["dq_ms"] = cuda_ms(torch, lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=True))
+            row["dkv_ms"] = cuda_ms(torch, lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True))
+            row["plain_ms"] = cuda_ms(torch, plain, iters=2, warmup=1)
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+            fwd_ms = cuda_ms(torch, sdpa_fwd, iters=10)
+            fb_ms = cuda_ms(torch, lambda: sdpa_fwd().backward(dout), iters=10)
+            row["sdpa_bwd_ms"] = fb_ms - fwd_ms
+            pairs = T * (T + 1) / 2 * B * H_
+            es = q.element_size()
+            rows_bytes = 2 * 4.0 * B * H_ * T  # lse and delta, f32
+            for kern, flops, nbytes in (
+                ("dq", 6.0 * D_ * pairs, es * (3.0 * B * H_ * T * D_ + 2.0 * B * HKV_ * T * D_) + rows_bytes),
+                ("dkv", 8.0 * D_ * pairs, es * (2.0 * B * H_ * T * D_ + 4.0 * B * HKV_ * T * D_) + rows_bytes),
+            ):
+                t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+                row[f"{kern}_bound_ms"] = max(t_ops, t_bytes)
+                row[f"{kern}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+                row[f"{kern}_tflops"] = flops / (row[f"{kern}_ms"] * 1e-3) / 1e12
+            print(f"phase 6 K2/K3 {row['shape']}: rel err dq {errs['dq'][1]:.3g} dk {errs['dk'][1]:.3g} dv "
+                  f"{errs['dv'][1]:.3g}; K2 {row['dq_ms']:.4f} ms ({row['dq_tflops']:.2f} TFLOP/s, bound "
+                  f"{row['dq_bound_ms']:.4f} ms {row['dq_bound_by']}), K3 {row['dkv_ms']:.4f} ms "
+                  f"({row['dkv_tflops']:.2f} TFLOP/s, bound {row['dkv_bound_ms']:.4f} ms {row['dkv_bound_by']}), "
+                  f"plain {row['plain_ms']:.4f} ms, sdpa backward {row['sdpa_bwd_ms']:.4f} ms {card}")
+            del qs, ks, vs
+        else:
+            print(f"phase 6 K2/K3 {row['shape']}: rel err dq {errs['dq'][1]:.3g} dk {errs['dk'][1]:.3g} "
+                  f"dv {errs['dv'][1]:.3g}")
+        k23_rows.append(row)
+        del q, k, v, dout, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    rms_norm_fused.launches = 0
+    k5_inputs = []
+    for rows, d in K5_SHAPES:
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            x = (torch.randn((rows, d), generator=g, device=dev) * 3).to(dt)
+            w = torch.randn((d,), generator=g, device=dev).to(dt)
+            k5_inputs.append((rows, d, dname, x, w, rms_norm_fused(x, w, 1e-5)))
+    torch.cuda.synchronize()
+    k5_launches = rms_norm_fused.launches
+    check(k5_launches == len(k5_inputs), f"K5 launches {k5_launches} != {len(k5_inputs)}")
+    k5_rows = []
+    for rows, d, dname, x, w, out in k5_inputs:
+        ref = rms_norm(x, w, 1e-5)
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        check(rel <= K5_TOL[dname], f"K5 [{rows}, {d}] {dname}: relative error {rel:.3g} (tol {K5_TOL[dname]})")
+        ms = cuda_ms(torch, lambda: rms_norm_fused(x, w, 1e-5))
+        plain_ms = cuda_ms(torch, lambda: rms_norm(x, w, 1e-5))
+        lib_ms = cuda_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5))
+        nbytes = 2.0 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        row = dict(rows=rows, d=d, dtype=dname, err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        k5_rows.append(row)
+        print(f"phase 6 K5 [{rows}, {d}] {dname}: |d| {err:.3g} (rel {rel:.3g}) kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes) {card}")
+    del k5_inputs
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7
+    cfg7 = LlamaConfig(vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_layers=18, num_heads=16,
+                       num_kv_heads=8, max_seq_len=2048)
+    Bt, Tt = 8, 2048
+    init_fn, step_fn = make_train_step(partial(loss_fn, config=cfg7), adamw(3e-4, weight_decay=0.01))
+    t0 = time.perf_counter()
+    state = init_fn(0, partial(init_params, cfg7))
+    trng = np.random.default_rng(0)
+    data = {"tokens": trng.integers(0, cfg7.vocab_size, (Bt, Tt)).astype(np.int32),
+            "targets": trng.integers(0, cfg7.vocab_size, (Bt, Tt)).astype(np.int32)}
+    batch = to_device(data)
+    with torch.no_grad():
+        ref_loss = loss_fn(state.params, batch, cfg7).item()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+    state, metrics = step_fn(state, batch)
+    first_loss = metrics["loss"].item()
+    check(abs(first_loss - ref_loss) < TRAIN_LOSS_TOL,
+          f"training: first step loss {first_loss} != loss_fn on the initial params {ref_loss}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step_fn(state, batch)
+    last_loss = metrics["loss"].item()  # depends on every timed step: waits for all of them
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    n_steps = TRAIN_STEPS + 1
+    train_launches = (flash_attention_fwd.launches, flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    L = cfg7.num_layers
+    check(train_launches == (2 * L * n_steps, L * n_steps, L * n_steps),
+          f"training: launches K1/K2/K3 {train_launches} != {(2 * L * n_steps, L * n_steps, L * n_steps)}")
+    check(np.isfinite(last_loss) and last_loss < first_loss,
+          f"training: loss {first_loss} -> {last_loss} is not finite and falling")
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = Bt * Tt / step_s
+    mfu = flops_per_token(cfg7, Tt) * tok_s / BF16_FLOPS
+    print(f"phase 7 training sft (18 layers, hidden 2048, 16/8 heads, bf16, remat, AdamW) batch {Bt} x {Tt}: "
+          f"init {init_s:.2f} s, loss {ref_loss:.4f} (loss_fn) / {first_loss:.4f} (step 1) -> {last_loss:.4f} "
+          f"(step {n_steps}), {step_s * 1e3:.2f} ms/step over {TRAIN_STEPS} steps, {tok_s:.1f} tok/s, MFU "
+          f"{mfu:.4f} (flops_per_token x tok/s / 989 TFLOP/s), peak memory {peak} bytes, launches per step K1 "
+          f"{train_launches[0] // n_steps} K2 {train_launches[1] // n_steps} K3 {train_launches[2] // n_steps} {card}")
+    profile_step(torch, step_fn, state, batch, card, _kernels.BUILD_DIR / "train_step_profile.txt")
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 8
+    cfg8 = dataclasses.replace(cfg7, num_layers=2, dtype="float32")
+    p0 = init_params(cfg8, torch.Generator(device=dev).manual_seed(2))
+    data8 = {"tokens": trng.integers(0, cfg8.vocab_size, (1, 128)).astype(np.int32),
+             "targets": trng.integers(0, cfg8.vocab_size, (1, 128)).astype(np.int32)}
+
+    def train(device):
+        init8, step8 = make_train_step(partial(loss_fn, config=cfg8), adamw(3e-4, weight_decay=0.01), device=device)
+        st = init8(0, lambda _: {k: ({n: w.clone() for n, w in v.items()} if isinstance(v, dict) else v.clone())
+                                 for k, v in p0.items()})
+        b8 = to_device(data8, device)
+        out = []
+        for i in range(2):
+            st, m = step8(st, b8)
+            grads = [p.grad.cpu() for p in tree_leaves(st.params)] if i == 0 else None
+            out.append((m["loss"].item(), m["grad_norm"].item(), grads))
+        return out
+
+    flash_attention_fwd.launches = flash_attention_bwd_dq.launches = flash_attention_bwd_dkv.launches = 0
+    on_card = train(dev)
+    check((flash_attention_fwd.launches, flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (8, 4, 4),
+          "training whole path: the card run did not go through K1, K2 and K3")
+    on_host = train(torch.device("cpu"))
+    step_errs = [max(abs(c[0] - h[0]) / abs(h[0]), abs(c[1] - h[1]) / abs(h[1])) for c, h in zip(on_card, on_host)]
+    grad_err = max((c - h).abs().max().item() / max(h.abs().max().item(), 1e-30)
+                   for c, h in zip(on_card[0][2], on_host[0][2]))
+    check(max(step_errs) <= TRAIN_WHOLE_TOL and grad_err <= TRAIN_WHOLE_TOL,
+          f"training whole path: loss/grad-norm relative errors {step_errs}, gradients {grad_err:.3g} "
+          f"(tol {TRAIN_WHOLE_TOL})")
+    print(f"phase 8 training whole path (2 layers, f32, 1 x 128, card vs host): losses {[c[0] for c in on_card]} vs "
+          f"{[h[0] for h in on_host]}, loss/grad-norm relative error {max(step_errs):.3g}, first-step gradients "
+          f"{grad_err:.3g} of each leaf's max (tol {TRAIN_WHOLE_TOL})")
+
     rep1 = next(r for r in k1_rows if (r["B"], r["T"]) == (2, 2048))
     rep4 = next(r for r in k4_rows if (r["pool"], r["T"]) == ("bf16", 1))
+    rep23 = k23_rows[0]  # the sft training shape
+    rep5 = k5_rows[0]  # the training rows, bf16
     kernels = [
         dict(name="K1 flash_attention_fwd", route="cuda", source="ray_tpu_torch/csrc/flash_attention.cu",
              replaces="ray_tpu/ops/flash_attention.py:104", launches=k1_launches,
              max_abs_err=max(r["err_o"] for r in k1_rows), ms=rep1["ms"], plain_ms=rep1["plain_ms"],
              bound_ms=rep1["bound_ms"], bound_by=rep1["bound_by"], library_ms=rep1["sdpa_ms"]),
+        dict(name="K2 flash_attention_bwd_dq", route="cuda", source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="ray_tpu/ops/flash_attention.py:154", launches=train_launches[1],
+             max_abs_err=max(r["errs"]["dq"][0] for r in k23_rows), ms=rep23["dq_ms"], plain_ms=rep23["plain_ms"],
+             bound_ms=rep23["dq_bound_ms"], bound_by=rep23["dq_bound_by"], library_ms=rep23["sdpa_bwd_ms"]),
+        dict(name="K3 flash_attention_bwd_dkv", route="cuda", source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="ray_tpu/ops/flash_attention.py:192", launches=train_launches[2],
+             max_abs_err=max(max(r["errs"]["dk"][0], r["errs"]["dv"][0]) for r in k23_rows), ms=rep23["dkv_ms"],
+             plain_ms=rep23["plain_ms"], bound_ms=rep23["dkv_bound_ms"], bound_by=rep23["dkv_bound_by"],
+             library_ms=rep23["sdpa_bwd_ms"]),
         dict(name="K4 paged_attn_partials", route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu",
              replaces="ray_tpu/llm/pallas/paged_attn.py:134", launches=k4_launches,
              max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
              bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None),
+        dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
+             replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
+             max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
+             bound_ms=rep5["bound_ms"], bound_by=rep5["bound_by"], library_ms=rep5["lib_ms"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile_step(torch, step_fn, state, batch, card, table_path) -> None:
+    """One training step under torch.profiler: the device time by kernel
+    into ``table_path``, and one summary line (K1, K2, K3, matrix products,
+    the rest, and the device's idle share of the step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)[1]["loss"].item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "gemm": 0.0, "other": 0.0}
+    averages = prof.key_averages()
+    for e in averages:
+        if "CUDA" not in str(e.device_type):  # kernels only: a CPU op's device time repeats its kernels'
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        name = e.key
+        key = ("K1" if "flash_fwd_kernel" in name else "K2" if "flash_bwd_dq" in name else
+               "K3" if "flash_bwd_dkv" in name else
+               "gemm" if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90", "nvjet")) else "other")
+        groups[key] += us / 1e3
+    busy = sum(groups.values())
+    sort_by = "self_device_time_total" if hasattr(averages[0], "self_device_time_total") else "self_cuda_time_total"
+    with open(table_path, "w") as f:
+        f.write(averages.table(sort_by=sort_by, row_limit=40))
+    print(f"profile: one training step {wall_ms:.2f} ms wall, kernels {busy:.2f} ms (idle share "
+          f"{1 - busy / wall_ms:.4f}): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()) + f" {card}")
 
 
 if __name__ == "__main__":

@@ -14,4 +14,4 @@ tensors and runs its plain PyTorch version only for CPU tensors.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
-__all__ = ["llm", "models", "ops"]
+__all__ = ["llm", "models", "ops", "parallel"]

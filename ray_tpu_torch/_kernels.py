@@ -25,7 +25,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-SOURCES = ("flash_attention", "paged_attn")
+SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attn", "rms_norm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,8 +4,12 @@ Weights keep the JAX package's layout so a converted tree drops in
 unchanged (``ray_tpu_torch.weights.params_from_jax``): a plain dict of
 tensors, ``x @ W`` with ``W: [in, out]``, and every per-layer weight
 stacked on a leading ``[L, ...]`` axis under the ``PARAM_AXES`` leaf
-names. Layers are iterated with a Python loop; attention goes through
-the K1 wrapper (``ops/flash_attention.py``).
+names. Layers are iterated with a Python loop (``scan_layers`` has no
+counterpart); attention goes through ``ops/flash_attention.py``'s
+autograd Function (K1 forward, K2/K3 backward). ``forward`` and
+``loss_fn`` are differentiable; with ``config.remat`` each layer is
+recomputed in the backward pass (``torch.utils.checkpoint``), as
+``jax.checkpoint`` with the ``nothing_saveable`` policy does.
 """
 
 from __future__ import annotations
@@ -14,9 +18,10 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.flash_attention import flash_attention
-from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rotary_embedding
+from ray_tpu_torch.ops.layers import apply_rope, cross_entropy_loss, rms_norm, rotary_embedding
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -42,10 +47,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
-    # training-side fields kept for config parity with ray_tpu; the
-    # forward-only port does not read them yet
+    # recompute each layer in backward (training); the port takes only the
+    # "nothing_saveable" policy (ROADMAP.md, queue 1, training, the rest)
     remat: bool = True
     remat_policy: str = "nothing_saveable"
+    # kept for config parity with ray_tpu and not read: layers are a Python
+    # loop, and attention is always ops/flash_attention.py's kernels
     scan_layers: bool = True
     attention_impl: str = "auto"
     tie_embeddings: bool = False
@@ -92,6 +99,19 @@ PARAM_AXES = {
         "mlp_norm": (None, None),
     },
 }
+
+
+def param_logical_axes(config: LlamaConfig) -> dict:
+    """Logical axes of ``config``'s parameter tree (the unembed only when
+    it is not tied)."""
+    axes = {
+        "embed": PARAM_AXES["embed"],
+        "final_norm": PARAM_AXES["final_norm"],
+        "layers": dict(PARAM_AXES["layers"]),
+    }
+    if not config.tie_embeddings:
+        axes["unembed"] = PARAM_AXES["unembed"]
+    return axes
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
@@ -160,17 +180,47 @@ def _mlp_block(x, layer, config: LlamaConfig):
     return x + (F.silu(xn @ layer["w_gate"]) * (xn @ layer["w_up"])) @ layer["w_down"]
 
 
-@torch.no_grad()
+def _layer(x, cos, sin, config: LlamaConfig, *weights):
+    layer = dict(zip(PARAM_AXES["layers"], weights))
+    return _mlp_block(_attention_block(x, layer, config, cos, sin), layer, config)
+
+
 def forward(params: dict, tokens: torch.Tensor, config: LlamaConfig, positions=None) -> torch.Tensor:
-    """tokens: [B, T] int -> logits [B, T, vocab] f32."""
+    """tokens: [B, T] int -> logits [B, T, vocab] f32. Differentiable in
+    ``params``; callers that only infer wrap it in ``torch.no_grad()``."""
     B, T = tokens.shape
+    if config.remat and config.remat_policy != "nothing_saveable":
+        raise NotImplementedError(
+            f"remat_policy={config.remat_policy!r} is not ported to ray_tpu_torch yet; only "
+            "'nothing_saveable' is (ROADMAP.md, queue 1, training, the rest)")
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     cos, sin = rotary_embedding(positions, config.hd, config.rope_theta)
     x = params["embed"][tokens]
+    # one unbind per stacked leaf: its backward stacks the L layer
+    # gradients once, where indexing w[i] would add L full-size zero-padded
+    # gradients
+    per_layer = [w.unbind(0) for w in (params["layers"][n] for n in PARAM_AXES["layers"])]
     for i in range(config.num_layers):
-        layer = layer_params(params, i)
-        x = _attention_block(x, layer, config, cos, sin)
-        x = _mlp_block(x, layer, config)
+        weights = [w[i] for w in per_layer]
+        if config.remat and torch.is_grad_enabled():
+            x = checkpoint(_layer, x, cos, sin, config, *weights, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer(x, cos, sin, config, *weights)
     x = rms_norm(x, params["final_norm"], config.rms_eps)
     return unembed_f32(x, params, config)
+
+
+def loss_fn(params: dict, batch: dict, config: LlamaConfig) -> torch.Tensor:
+    """batch: {tokens [B, T], targets [B, T] (-100 = ignore)} -> scalar f32 loss."""
+    logits = forward(params, batch["tokens"], config)
+    return cross_entropy_loss(logits, batch["targets"])
+
+
+def flops_per_token(config: LlamaConfig, seq_len: int | None = None) -> float:
+    """Training FLOPs/token ~ 6N + the attention quadratic term."""
+    f = 6.0 * config.num_params()
+    if seq_len:
+        # 12 * L * H * T * hd per token (fwd+bwd attention scores+values)
+        f += 12.0 * config.num_layers * config.num_heads * seq_len * config.hd
+    return f

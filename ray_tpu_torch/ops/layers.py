@@ -1,14 +1,21 @@
-"""Elementwise, norm and embedding ops (port of ray_tpu/ops/layers.py).
+"""Elementwise, norm, embedding and loss ops (port of ray_tpu/ops/layers.py).
 
 Plain PyTorch: on the card these run as PyTorch's own kernels, as the
-JAX package left them to XLA. The Pallas RMSNorm (``rms_norm_pallas``,
-K5) is not on any ported path yet and stays queued in ROADMAP.md.
+JAX package left them to XLA. The exception is ``rms_norm_fused``, the
+port of the Pallas RMSNorm (``rms_norm_pallas``, K5): a hand-written CUDA
+kernel (``csrc/rms_norm.cu``) whose plain version is ``rms_norm``. As in
+``ray_tpu``, nothing on the model's path calls it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
+
+from ray_tpu_torch import _kernels
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -17,6 +24,55 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
+
+
+@functools.cache
+def _rms_norm_fn():
+    fn = _kernels.library("rms_norm").rt_rms_norm
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_RMS_DTYPES = (torch.bfloat16, torch.float32)
+_RMS_MAX_ROW_BYTES = 200 * 1024  # the row is staged in shared memory (227 KB a block)
+
+
+def rms_norm_fused(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Fused RMSNorm over the last axis, one device-memory round trip
+    (port of ``rms_norm_pallas``). x: [..., d] bf16 or f32; weight: [d]
+    bf16 or f32. Returns x's shape and dtype.
+
+    CUDA tensors launch K5 (``csrc/rms_norm.cu``) and count it in
+    ``rms_norm_fused.launches``; CPU tensors run ``rms_norm``."""
+    if not x.is_cuda:
+        return rms_norm(x, weight, eps)
+    d = x.shape[-1]
+    if x.dtype not in _RMS_DTYPES or weight.dtype not in _RMS_DTYPES:
+        raise TypeError(f"rms_norm_fused: dtypes x {x.dtype}, weight {weight.dtype} are not bf16 or f32")
+    if not (weight.is_cuda and weight.device == x.device):
+        raise ValueError("rms_norm_fused: x and weight must be on the same CUDA device")
+    if tuple(weight.shape) != (d,):
+        raise ValueError(f"rms_norm_fused: weight shape {tuple(weight.shape)} != ({d},)")
+    if d == 0 or d * x.element_size() > _RMS_MAX_ROW_BYTES:
+        raise ValueError(f"rms_norm_fused: row width {d} is empty or does not fit the kernel's shared-memory row")
+    if not (x.is_contiguous() and weight.is_contiguous()):
+        raise ValueError("rms_norm_fused: x and weight must be contiguous")
+    out = torch.empty_like(x)
+    rows = x.numel() // d
+    if rows == 0:
+        return out
+    err = _rms_norm_fn()(
+        x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d, float(eps),
+        int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16),
+        _kernels.stream_ptr(x.device),
+    )
+    _kernels.check_launch(err, "rms_norm_fused (K5)")
+    rms_norm_fused.launches += 1
+    return out
+
+
+rms_norm_fused.launches = 0
 
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float = 10000.0, dtype=torch.float32):
@@ -44,6 +100,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: down(silu(x @ gate) * (x @ up))."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def cross_entropy_loss(logits, labels, mask=None, z_loss: float = 0.0):
+    """Token cross entropy in f32; labels -100 (any negative) or mask == 0
+    are ignored. Mean over the valid tokens."""
+    logits = logits.float()
+    valid = labels >= 0 if mask is None else mask > 0
+    safe_labels = torch.where(valid, labels, torch.zeros_like(labels))
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe_labels[..., None].long())[..., 0]
+    validf = valid.to(lse.dtype)
+    loss = (lse - ll) * validf
+    if z_loss > 0.0:
+        loss = loss + z_loss * (lse * validf) ** 2
+    denom = torch.clamp(valid.sum(), min=1)
+    return loss.sum() / denom
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

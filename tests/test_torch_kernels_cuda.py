@@ -8,7 +8,10 @@ elsewhere; the file imports no jax, so it runs on the chip machine:
 Tolerances: bf16 K1 outputs 2e-2 (the kernel keeps P in f32, the plain
 version rounds it to bf16 before P·V; one bf16 ulp at |o| ~ 1 is 2^-7);
 f32 outputs and lse 1e-4 / 1e-3 (f32 sums in another order); K4
-partials 1e-4 relative.
+partials 1e-4 relative. K2/K3 gradients relative to the largest |grad| (at least 1):
+f32 1e-4 (f32 sums in another order), bf16 2e-2 (the outputs round to
+bf16, 2^-8 relative, after f32 sums over up to T terms). K5: f32 1e-5
+relative, bf16 one bf16 ulp (2^-7 relative).
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm.cuda import paged_attn as tpa
 from ray_tpu_torch.llm.kv_quant import quantize_heads
 from ray_tpu_torch.ops import flash_attention as tfa
+from ray_tpu_torch.ops import layers as tl
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +124,71 @@ def test_page_attention_on_card_matches_host_and_ignores_write_target(dev):
         pk2[page_id, pos % PAGE] = 1e9
         pv2[page_id, pos % PAGE] = -1e9
     assert torch.equal(out, pkv._paged_attn_batch(qg, pk2, pv2, table, lengths, scale, k_self, v_self))
+
+
+def _rel_err(out, ref, floor=1e-30):
+    return (out.float() - ref.float()).abs().max().item() / max(ref.float().abs().max().item(), floor)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("T,D,rep", [(64, 128, 2), (200, 128, 2), (130, 64, 1), (1, 64, 4), (1000, 128, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k2_k3_kernels_match_plain(dev, dtype, tol, T, D, rep, causal):
+    g = torch.Generator(device=dev).manual_seed(T * D + rep)
+    q = _randn(g, 2, 2 * rep, T, D, device=dev).to(dtype)
+    k = _randn(g, 2, 2, T, D, device=dev).to(dtype)
+    v = _randn(g, 2, 2, T, D, device=dev).to(dtype)
+    do = _randn(g, 2, 2 * rep, T, D, device=dev).to(dtype)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    dq_r, dk_r, dv_r = tfa.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    refs = (dq_r.to(dtype), tfa._sum_rep(dk_r, 2).to(dtype), tfa._sum_rep(dv_r, 2).to(dtype))
+    for out, ref in zip((dq, dk, dv), refs):
+        assert out.dtype == dtype and out.shape == ref.shape
+        # relative to the largest |grad|, or to 1 where the gradient is ~0 by
+        # construction (T = 1: P = 1 and dP = delta, so dq and dk are rounding)
+        assert _rel_err(out, ref, floor=1.0) <= tol
+
+
+def test_flash_attention_function_on_card_matches_host(dev):
+    """Forward and gradients of the autograd Function, card (K1, K2, K3)
+    against host (plain versions), f32, GQA rep 2."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = ((2, 4, 100, 64), (2, 2, 100, 64), (2, 2, 100, 64))
+    host = [_randn(gen, *s, device=dev).cpu().requires_grad_(True) for s in shapes]
+    card = [t.detach().to(dev).requires_grad_(True) for t in host]
+    go = _randn(gen, 2, 4, 100, 64, device=dev)
+    for leaves, gout in ((host, go.cpu()), (card, go)):
+        tfa.flash_attention(*leaves).backward(gout)
+    for h, c in zip(host, card):
+        assert _rel_err(c.grad.cpu(), h.grad) <= 1e-4
+
+
+def test_k2_k3_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
+    q = torch.zeros((1, 4, 8, 64), device=dev)
+    kv = torch.zeros((1, 2, 8, 64), device=dev)
+    lse = torch.zeros((1, 4, 8), device=dev)
+    with pytest.raises(TypeError, match="f32"):
+        tfa.flash_attention_bwd(q, kv, kv, q, lse.double(), lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_bwd(q, kv, kv, q.transpose(1, 2).contiguous().transpose(1, 2), lse, lse)
+    with pytest.raises(ValueError, match="shapes"):
+        tfa.flash_attention_bwd(q, kv, kv, q, lse[:, :2], lse)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", [(5, 64), (300, 2048), (7, 1000), (3, 4096), (4, 13)])
+def test_k5_kernel_matches_plain(dev, xdt, wdt, rows, d):
+    g = torch.Generator(device=dev).manual_seed(rows * d)
+    x = (_randn(g, rows, d, device=dev) * 3).to(xdt)
+    w = _randn(g, d, device=dev).to(wdt)
+    before = tl.rms_norm_fused.launches
+    out = tl.rms_norm_fused(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert tl.rms_norm_fused.launches == before + 1 and out.dtype == xdt and out.shape == x.shape
+    assert _rel_err(out, tl.rms_norm(x, w, 1e-5)) <= (2**-7 if xdt == torch.bfloat16 else 1e-5)

@@ -55,3 +55,38 @@ def test_swiglu_and_embedding_match_jax():
         tl.embedding_lookup(table_t, torch.from_numpy(ids)).numpy(),
         np.asarray(jl.embedding_lookup(table_j, jnp.asarray(ids))),
     )
+
+
+@pytest.mark.parametrize("case", ["ignore_index", "mask", "z_loss"])
+def test_cross_entropy_loss_matches_jax(case):
+    """Labels of -100 ignored, a mask in their place, and the z-loss term
+    (atol 1e-6 on a loss of ~5: f32 logsumexp in another order)."""
+    rng = np.random.default_rng(3)
+    logits_j, logits_t = _both(rng.standard_normal((2, 9, 40)).astype(np.float32) * 3)
+    labels = rng.integers(0, 40, (2, 9)).astype(np.int32)
+    mask = (rng.random((2, 9)) > 0.3).astype(np.int32) if case == "mask" else None
+    if mask is None:  # with a mask, the mask alone says which labels count
+        labels[0, :3] = -100
+    z = 1e-3 if case == "z_loss" else 0.0
+    ref = jl.cross_entropy_loss(logits_j, jnp.asarray(labels), None if mask is None else jnp.asarray(mask), z_loss=z)
+    out = tl.cross_entropy_loss(logits_t, torch.from_numpy(labels.astype(np.int64)),
+                                None if mask is None else torch.from_numpy(mask), z_loss=z)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.item(), float(ref), atol=ATOL)
+
+
+def test_rms_norm_fused_cpu_branch_matches_pallas_interpret():
+    """K5's wrapper on CPU tensors (its plain version, ``rms_norm``) against
+    ``rms_norm_pallas`` in interpret mode, 300 rows: a 256-row block and a
+    ragged one (atol 1e-6, f32)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    rng = np.random.default_rng(4)
+    xj, xt = _both(rng.standard_normal((300, 256)).astype(np.float32))
+    wj, wt = _both(rng.standard_normal(256).astype(np.float32))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jl.rms_norm_pallas(xj, wj, 1e-5)
+    before = tl.rms_norm_fused.launches
+    out = tl.rms_norm_fused(xt, wt, 1e-5)
+    assert tl.rms_norm_fused.launches == before  # the counter counts kernel launches only
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
