@@ -7,11 +7,17 @@ Phases, in order; any failed check exits non-zero before the last line:
 
 1. Build the CUDA kernels (K1 flash-attention forward, K2/K3 its backward,
    K4 paged-attention partials, K5 fused RMSNorm) from ray_tpu_torch/csrc
-   with nvcc for sm_90a, in parallel.
+   with nvcc for sm_90a, in parallel. Prints ptxas's registers and spills
+   for each K1 instance and the count of HGMMA (wgmma) instructions in each
+   from the built library's SASS (cuobjdump -sass); the bf16 instances must
+   have HGMMAs and no spills.
 2. K1 against its plain PyTorch version on the card, at the prefill shapes
-   of Llama-3-8B (32 query heads, 8 kv heads, head_dim 128, bf16), timed
+   of Llama-3-8B (32 query heads, 8 kv heads, head_dim 128, bf16) and the
+   training shape of bench.py's sft model (8 x 2048, 16/8 heads), timed
    beside the plain version, PyTorch's scaled_dot_product_attention and
-   the card's bound.
+   the card's bound, with the kernel's TFLOP/s; then bf16 at head_dim 64
+   and 128 without the causal mask at ragged T (129, 1000) and GQA rep 1,
+   2, 4, and the f32 instances.
 3. K4 against its plain version on the card (8 lanes, 8 kv heads, rep 4,
    page 64, T in {1, 5}, bf16 and int8 pools, bounds 0 .. ~2000), plus the
    combined page attention against the host path; timed the same way.
@@ -38,7 +44,8 @@ Phases, in order; any failed check exits non-zero before the last line:
    step (forward and remat recompute), K2 and K3 18 times each. One more
    step runs under torch.profiler: device time by kernel group and the
    device's idle share, with the full table in
-   build/train_step_profile.txt.
+   build/train_step_profile.txt; the wgmma K1 kernel must appear in it
+   36 times.
 8. The training path, card against host: the same widths at 2 layers in
    f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
    gradients must agree.
@@ -62,7 +69,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12  # dense tensor-core rate: the bound for K1's products
 F32_FLOPS = 67e12  # CUDA-core f32 rate: K4 computes in f32 on pre-scaled f32 queries
 
-K1_SHAPES = [(1, 64), (4, 512), (2, 2048), (1, 1000)]  # (B, T): prefill buckets, one ragged
+# (B, H, Hkv, T): Llama-3-8B prefill buckets (one ragged), then bench.py's sft training shape
+K1_SHAPES = [(1, 32, 8, 64), (4, 32, 8, 512), (2, 32, 8, 2048), (1, 32, 8, 1000), (8, 16, 8, 2048)]
+K1_WGMMA = "flash_fwd_kernel_wgmma"  # the bf16 instances' kernel name (SASS, profiler)
 K1_TOL_O, K1_TOL_LSE = 2e-2, 1e-3  # o: bf16 output rounding; lse: f32 sums in another order
 K4_BOUNDS = [0, 1, 64, 65, 2000, 2047, 700, 1500]
 K4_TOL = 1e-4  # relative, f32 partials summed in another order
@@ -145,14 +154,27 @@ def main() -> int:
     print(f"phase 1 build: {build_s:.2f} s for {list(_kernels.SOURCES)} (nvcc sm_90a, parallel) {card}")
     for name, log in _kernels.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "warning" in line.lower():
+                print(f"  nvcc {name}: {line.strip()}")
+        for fn, rep in _kernels.ptxas_report(log).items():
+            print(f"  ptxas {name} {fn}: {rep['registers']} registers, spill stores {rep['spill_stores']} bytes, "
+                  f"spill loads {rep['spill_loads']} bytes")
+    hgmma = _kernels.count_sass(_kernels.sass("flash_attention"), "HGMMA")
+    k1_ptxas = _kernels.ptxas_report(_kernels.build_log.get("flash_attention", ""))
+    for fn, n in hgmma.items():
+        print(f"phase 1 K1 SASS {fn}: {n} HGMMA")
+    wgmma_fns = [fn for fn in hgmma if K1_WGMMA in fn]
+    check(len(wgmma_fns) == 2 and all(hgmma[fn] > 0 for fn in wgmma_fns),
+          f"K1: the bf16 instances have no HGMMA instructions: {hgmma}")
+    # (no report when an earlier run in this checkout built the library: that run checked it)
+    check(all(rep["spill_stores"] == rep["spill_loads"] == 0 for fn, rep in k1_ptxas.items() if K1_WGMMA in fn),
+          f"K1: ptxas spills in a bf16 instance: {k1_ptxas}")
 
     # ---------------------------------------------------------------- 2
-    H, HKV, D = 32, 8, 128
+    D = 128
     g = torch.Generator(device=dev).manual_seed(0)
     k1_rows = []
-    for B, T in K1_SHAPES:
+    for B, H, HKV, T in K1_SHAPES:
         q = torch.randn((B, H, T, D), generator=g, device=dev).bfloat16()
         k = torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16()
         v = torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16()
@@ -161,28 +183,43 @@ def main() -> int:
         o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=True)
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
         check(err_o <= K1_TOL_O and err_lse <= K1_TOL_LSE,
-              f"K1 (B={B}, T={T}): |do| {err_o:.3g} (tol {K1_TOL_O}), |dlse| {err_lse:.3g} (tol {K1_TOL_LSE})")
+              f"K1 (B={B}, H={H}/{HKV}, T={T}): |do| {err_o:.3g} (tol {K1_TOL_O}), |dlse| {err_lse:.3g} "
+              f"(tol {K1_TOL_LSE})")
         ms = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True))
         plain_ms = cuda_ms(torch, lambda: attention_with_lse_ref(q, k, v, causal=True), iters=3, warmup=1)
         sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))
         flops = 4.0 * B * H * D * T * (T + 1) / 2  # QK^T and PV over the causal pairs
         nbytes = 2.0 * (2 * B * H * T * D + 2 * B * HKV * T * D) + 4.0 * B * H * T  # q, o, k, v bf16; lse f32
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        row = dict(B=B, T=T, err_o=err_o, err_lse=err_lse, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-                   bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row = dict(B=B, H=H, HKV=HKV, T=T, err_o=err_o, err_lse=err_lse, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                   tflops=flops / ms * 1e-9, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
         k1_rows.append(row)
-        print(f"phase 2 K1 B={B} T={T}: |do| {err_o:.3g} |dlse| {err_lse:.3g} kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}) {card}")
-    # the other instances the kernel carries: f32 (phase 5 runs it) and head_dim 64
-    for dt, d, tol in ((torch.float32, 128, 1e-4), (torch.float32, 64, 1e-4), (torch.bfloat16, 64, K1_TOL_O)):
-        q, k, v = (torch.randn(s, generator=g, device=dev).to(dt) for s in ((2, 8, 200, d), (2, 2, 200, d), (2, 2, 200, d)))
-        o, lse = flash_attention_fwd(q, k, v, causal=True)
-        o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=True)
+        print(f"phase 2 K1 B={B} H={H}/{HKV} T={T}: |do| {err_o:.3g} |dlse| {err_lse:.3g} kernel {ms:.4f} ms "
+              f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms "
+              f"({flops / sdpa_ms * 1e-9:.1f} TFLOP/s), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"kernel / sdpa {ms / sdpa_ms:.2f} {card}")
+        del q, k, v, o, lse
+    # the bf16 instances without the causal mask at ragged T and every GQA rep, then the f32
+    # instances (phase 5 runs them), each at head_dim 64 and 128
+    k1_checks = [(torch.bfloat16, d, T, rep, False, K1_TOL_O) for d in (64, 128) for T in (129, 1000)
+                 for rep in (1, 2, 4)]
+    k1_checks += [(torch.float32, d, 200, 4, True, 1e-4) for d in (128, 64)]
+    k1_err = max(r["err_o"] for r in k1_rows)  # bf16 |do| over every check
+    for dt, d, T, rep, causal, tol in k1_checks:
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dt) for s in ((2, 2 * rep, T, d), (2, 2, T, d),
+                                                                            (2, 2, T, d)))
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=causal)
         err = (o.float() - o_ref.float()).abs().max().item()
-        check(err <= tol and (lse - lse_ref).abs().max().item() <= K1_TOL_LSE, f"K1 {dt} D={d}: |do| {err:.3g}")
-        print(f"phase 2 K1 {dt} D={d} T=200: |do| {err:.3g}")
+        err_lse = (lse - lse_ref).abs().max().item()
+        check(err <= tol and err_lse <= K1_TOL_LSE,
+              f"K1 {dt} D={d} T={T} rep={rep} causal={causal}: |do| {err:.3g} (tol {tol}), |dlse| {err_lse:.3g}")
+        if dt == torch.bfloat16:
+            k1_err = max(k1_err, err)
+        print(f"phase 2 K1 {dt} D={d} T={T} rep={rep} causal={causal}: |do| {err:.3g} |dlse| {err_lse:.3g}")
 
     # ---------------------------------------------------------------- 3
     Bl, NKV, REP, HD, PAGE, MAX_PG = 8, 8, 4, 128, 64, 32
@@ -437,7 +474,8 @@ def main() -> int:
           f"(step {n_steps}), {step_s * 1e3:.2f} ms/step over {TRAIN_STEPS} steps, {tok_s:.1f} tok/s, MFU "
           f"{mfu:.4f} (flops_per_token x tok/s / 989 TFLOP/s), peak memory {peak} bytes, launches per step K1 "
           f"{train_launches[0] // n_steps} K2 {train_launches[1] // n_steps} K3 {train_launches[2] // n_steps} {card}")
-    profile_step(torch, step_fn, state, batch, card, _kernels.BUILD_DIR / "train_step_profile.txt")
+    k1_profiled = profile_step(torch, step_fn, state, batch, card, _kernels.BUILD_DIR / "train_step_profile.txt")
+    check(k1_profiled == 2 * L, f"profile: the wgmma K1 kernel ran {k1_profiled} times in the step, not {2 * L}")
     del state, batch, metrics
     torch.cuda.empty_cache()
 
@@ -481,7 +519,7 @@ def main() -> int:
     kernels = [
         dict(name="K1 flash_attention_fwd", route="cuda", source="ray_tpu_torch/csrc/flash_attention.cu",
              replaces="ray_tpu/ops/flash_attention.py:104", launches=k1_launches,
-             max_abs_err=max(r["err_o"] for r in k1_rows), ms=rep1["ms"], plain_ms=rep1["plain_ms"],
+             max_abs_err=k1_err, ms=rep1["ms"], plain_ms=rep1["plain_ms"],
              bound_ms=rep1["bound_ms"], bound_by=rep1["bound_by"], library_ms=rep1["sdpa_ms"]),
         dict(name="K2 flash_attention_bwd_dq", route="cuda", source="ray_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="ray_tpu/ops/flash_attention.py:154", launches=train_launches[1],
@@ -508,10 +546,11 @@ def main() -> int:
     return 0
 
 
-def profile_step(torch, step_fn, state, batch, card, table_path) -> None:
+def profile_step(torch, step_fn, state, batch, card, table_path) -> int:
     """One training step under torch.profiler: the device time by kernel
     into ``table_path``, and one summary line (K1, K2, K3, matrix products,
-    the rest, and the device's idle share of the step)."""
+    the rest, and the device's idle share of the step). Returns how many
+    times the wgmma K1 kernel ran in the step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -520,6 +559,7 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> None:
         step_fn(state, batch)[1]["loss"].item()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "gemm": 0.0, "other": 0.0}
+    k1_calls = 0
     averages = prof.key_averages()
     for e in averages:
         if "CUDA" not in str(e.device_type):  # kernels only: a CPU op's device time repeats its kernels'
@@ -531,13 +571,15 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> None:
                "K3" if "flash_bwd_dkv" in name else
                "gemm" if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90", "nvjet")) else "other")
         groups[key] += us / 1e3
+        k1_calls += e.count if K1_WGMMA in name else 0
     busy = sum(groups.values())
     sort_by = "self_device_time_total" if hasattr(averages[0], "self_device_time_total") else "self_cuda_time_total"
     with open(table_path, "w") as f:
         f.write(averages.table(sort_by=sort_by, row_limit=40))
     print(f"profile: one training step {wall_ms:.2f} ms wall, kernels {busy:.2f} ms (idle share "
           f"{1 - busy / wall_ms:.4f}): "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()) + f" {card}")
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()) + f"; K1 wgmma kernel {k1_calls} calls {card}")
+    return k1_calls
 
 
 if __name__ == "__main__":

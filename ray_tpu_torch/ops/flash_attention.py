@@ -94,7 +94,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float | None = None
     Returns (o [B, H, T, D] in q's dtype, lse [B, H, T] f32).
 
     CUDA tensors launch K1 (``csrc/flash_attention.cu``; D in {64, 128},
-    bf16 or f32, contiguous, any T) and count the launch in
+    bf16 or f32, contiguous, any T; bf16 runs on wgmma with TMA-fed tiles and
+    needs 16-byte aligned q, k and v) and count the launch in
     ``flash_attention_fwd.launches``; CPU tensors run the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -114,6 +115,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float | None = None
         raise ValueError(f"flash_attention_fwd: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_fwd: q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: bf16 q, k and v must start 16-byte aligned (TMA)")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.numel() == 0:

@@ -5,8 +5,9 @@ elsewhere; the file imports no jax, so it runs on the chip machine:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-Tolerances: bf16 K1 outputs 2e-2 (the kernel keeps P in f32, the plain
-version rounds it to bf16 before P·V; one bf16 ulp at |o| ~ 1 is 2^-7);
+Tolerances: bf16 K1 outputs 2e-2 (both round P to bf16 before P·V, the
+kernel relative to the running max and the plain version relative to the
+final logsumexp; one bf16 ulp at |o| ~ 1 is 2^-7);
 f32 outputs and lse 1e-4 / 1e-3 (f32 sums in another order); K4
 partials 1e-4 relative. K2/K3 gradients relative to the largest |grad| (at least 1):
 f32 1e-4 (f32 sums in another order), bf16 2e-2 (the outputs round to
@@ -42,10 +43,15 @@ def _randn(g, *shape, device):
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("T,D,rep", [(64, 128, 4), (200, 128, 2), (130, 64, 1), (1, 64, 4)])
+@pytest.mark.parametrize("T", [1, 64, 127, 128, 129, 1000, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4])
 @pytest.mark.parametrize("causal", [True, False])
 def test_k1_kernel_matches_plain(dev, dtype, atol, T, D, rep, causal):
-    g = torch.Generator(device=dev).manual_seed(T + D)
+    """Both instances at every tile edge (the bf16 one tiles 128 rows and
+    keys: T = 1 and 64 fill under half a tile, 127-129 straddle one), GQA
+    rep 1-4, random (so not symmetric) V at both head dims."""
+    g = torch.Generator(device=dev).manual_seed(T * D + rep)
     q = _randn(g, 2, 2 * rep, T, D, device=dev).to(dtype)
     k = _randn(g, 2, 2, T, D, device=dev).to(dtype)
     v = _randn(g, 2, 2, T, D, device=dev).to(dtype)
@@ -68,6 +74,30 @@ def test_k1_wrapper_raises_on_inputs_the_kernel_does_not_take(dev):
     q = torch.zeros((1, 8, 4, 64), device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_fwd(q, q, q)
+
+
+def test_k1_bf16_raises_on_a_misaligned_base(dev):
+    """The bf16 instances read through TMA, which needs 16-byte aligned
+    bases: a contiguous tensor sliced one element into its buffer raises,
+    in the wrapper and in the C launcher, and nothing runs instead."""
+    shape = (1, 2, 64, 128)
+    buf = torch.randn(2 * 64 * 128 + 1, device=dev).bfloat16()
+    q = buf[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.randn(shape, device=dev).bfloat16()
+    before = tfa.flash_attention_fwd.launches
+    for args in ((q, k, k), (k, k, q)):
+        with pytest.raises(ValueError, match="aligned"):
+            tfa.flash_attention_fwd(*args)
+    assert tfa.flash_attention_fwd.launches == before
+    o, lse = torch.empty_like(k), torch.empty((1, 2, 64), device=dev)
+    err = tfa._fn()(q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                    1, 2, 2, 64, 128, 1, 128**-0.5, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == -2
+    # f32 reads element by element: the same offset is taken
+    qf = torch.randn(2 * 64 * 128 + 1, device=dev)[1:].view(shape)
+    o, _ = tfa.flash_attention_fwd(qf, qf, qf)
+    assert torch.isfinite(o).all()
 
 
 def _pool(g, P, nkv, hd, kind, dev):
