@@ -8,9 +8,10 @@ Phases, in order; any failed check exits non-zero before the last line:
 1. Build the CUDA kernels (K1 flash-attention forward, K2/K3 its backward,
    K4 paged-attention partials, K5 fused RMSNorm) from ray_tpu_torch/csrc
    with nvcc for sm_90a, in parallel. Prints ptxas's registers and spills
-   for each K1 instance and the count of HGMMA (wgmma) instructions in each
-   from the built library's SASS (cuobjdump -sass); the bf16 instances must
-   have HGMMAs and no spills.
+   for each K1, K2 and K3 instance and the count of HGMMA (wgmma)
+   instructions in each from the built libraries' SASS (cuobjdump -sass);
+   the bf16 instances must have HGMMAs and no spills, and ptxas must not
+   report that it serialises a kernel's wgmma instructions.
 2. K1 against its plain PyTorch version on the card, at the prefill shapes
    of Llama-3-8B (32 query heads, 8 kv heads, head_dim 128, bf16) and the
    training shape of bench.py's sft model (8 x 2048, 16/8 heads), timed
@@ -31,9 +32,11 @@ Phases, in order; any failed check exits non-zero before the last line:
    decode logits must agree.
 6. K2/K3 against their plain version on the card at bench.py's two
    training shapes (B, H, Hkv, T, D) = (8, 16, 8, 2048, 128) and
-   (2, 16, 8, 8192, 128) in bf16, a ragged T = 1000, and f32 at D 64 and
-   128; timed beside the plain version, the backward of PyTorch's
-   scaled_dot_product_attention and the card's bound. K5 against its
+   (2, 16, 8, 8192, 128) in bf16, a ragged T = 1000, f32 at D 64 and 128,
+   and bf16 at D 64 (rep 4, T = 1000) and without the causal mask (T =
+   1111); the bf16 shapes timed beside the plain version, the backward of
+   PyTorch's scaled_dot_product_attention and the card's bound, with the
+   kernels' TFLOP/s and share of the bf16 peak. K5 against its
    plain version at [16384, 2048] (the training rows) and [8, 4096] (a
    decode step), bf16 and f32, timed beside F.rms_norm.
 7. Training at full width: bench.py's sft model (hidden 2048, 18 layers,
@@ -45,7 +48,7 @@ Phases, in order; any failed check exits non-zero before the last line:
    step runs under torch.profiler: device time by kernel group and the
    device's idle share, with the full table in
    build/train_step_profile.txt; the wgmma K1 kernel must appear in it
-   36 times.
+   36 times, the wgmma K2 and K3 kernels 18 times each.
 8. The training path, card against host: the same widths at 2 layers in
    f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
    gradients must agree.
@@ -77,9 +80,12 @@ K4_BOUNDS = [0, 1, 64, 65, 2000, 2047, 700, 1500]
 K4_TOL = 1e-4  # relative, f32 partials summed in another order
 COMBINED_TOL = 1e-4  # absolute, normalised f32 attention output vs the host path
 WHOLE_PATH_TOL = 2e-3  # absolute, f32 logits after 2 full-width layers, card vs host
-# (B, H, Hkv, T, D, dtype): bench.py's training shapes (sft, longctx), a ragged T, f32 at both head dims
-K23_SHAPES = [(8, 16, 8, 2048, 128, "bf16"), (2, 16, 8, 8192, 128, "bf16"), (1, 16, 8, 1000, 128, "bf16"),
-              (2, 8, 2, 300, 64, "f32"), (2, 8, 2, 300, 128, "f32")]
+# (B, H, Hkv, T, D, dtype, causal): bench.py's training shapes (sft, longctx), a ragged T, f32 at both head
+# dims, then bf16 at head_dim 64 (rep 4) and without the mask, at T that straddle the 64- and 128-row tiles
+K23_SHAPES = [(8, 16, 8, 2048, 128, "bf16", True), (2, 16, 8, 8192, 128, "bf16", True),
+              (1, 16, 8, 1000, 128, "bf16", True), (2, 8, 2, 300, 64, "f32", True), (2, 8, 2, 300, 128, "f32", True),
+              (2, 8, 2, 1000, 64, "bf16", True), (2, 16, 8, 1111, 128, "bf16", False)]
+K2_WGMMA, K3_WGMMA = "flash_bwd_dq_kernel_wgmma", "flash_bwd_dkv_kernel_wgmma"  # the bf16 instances' kernel names
 K23_TOL = {"bf16": 2e-2, "f32": 1e-4}  # relative to max |grad|: bf16 output rounding; f32 sums in another order
 K5_SHAPES = [(16384, 2048), (8, 4096)]  # training rows (8 x 2048 tokens at hidden 2048); a decode step
 K5_TOL = {"bf16": 2**-7, "f32": 1e-5}  # relative to max |out|: one bf16 ulp; f32 sums in another order
@@ -154,7 +160,7 @@ def main() -> int:
     print(f"phase 1 build: {build_s:.2f} s for {list(_kernels.SOURCES)} (nvcc sm_90a, parallel) {card}")
     for name, log in _kernels.build_log.items():
         for line in log.splitlines():
-            if "warning" in line.lower():
+            if "warning" in line.lower() or "Potential Performance Loss" in line:
                 print(f"  nvcc {name}: {line.strip()}")
         for fn, rep in _kernels.ptxas_report(log).items():
             print(f"  ptxas {name} {fn}: {rep['registers']} registers, spill stores {rep['spill_stores']} bytes, "
@@ -169,6 +175,23 @@ def main() -> int:
     # (no report when an earlier run in this checkout built the library: that run checked it)
     check(all(rep["spill_stores"] == rep["spill_loads"] == 0 for fn, rep in k1_ptxas.items() if K1_WGMMA in fn),
           f"K1: ptxas spills in a bf16 instance: {k1_ptxas}")
+    hgmma = _kernels.count_sass(_kernels.sass("flash_attention_bwd"), "HGMMA")
+    bwd_ptxas = _kernels.ptxas_report(_kernels.build_log.get("flash_attention_bwd", ""))
+    for kern, tag in (("K2", K2_WGMMA), ("K3", K3_WGMMA)):
+        for fn, n in hgmma.items():
+            if tag in fn:
+                regs = bwd_ptxas.get(fn)
+                print(f"phase 1 {kern} SASS {fn}: {n} HGMMA"
+                      + (f", {regs['registers']} registers, spill stores {regs['spill_stores']} bytes, spill loads "
+                         f"{regs['spill_loads']} bytes" if regs else ""))
+        wgmma_fns = [fn for fn in hgmma if tag in fn]
+        check(len(wgmma_fns) == 2 and all(hgmma[fn] > 0 for fn in wgmma_fns),
+              f"{kern}: the bf16 instances have no HGMMA instructions: {hgmma}")
+        check(all(rep["spill_stores"] == rep["spill_loads"] == 0 for fn, rep in bwd_ptxas.items() if tag in fn),
+              f"{kern}: ptxas spills in a bf16 instance: {bwd_ptxas}")
+    serialized = [line.strip() for log in _kernels.build_log.values() for line in log.splitlines()
+                  if "serialized" in line and "wgmma" in line]
+    check(not serialized, f"ptxas runs a kernel's wgmma instructions one at a time: {serialized}")
 
     # ---------------------------------------------------------------- 2
     D = 128
@@ -347,18 +370,18 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 6
     k23_rows = []
-    for B, H_, HKV_, T, D_, dname in K23_SHAPES:
+    for B, H_, HKV_, T, D_, dname, causal in K23_SHAPES:
         dt = torch.bfloat16 if dname == "bf16" else torch.float32
         q, dout = (torch.randn((B, H_, T, D_), generator=g, device=dev).to(dt) for _ in range(2))
         k, v = (torch.randn((B, HKV_, T, D_), generator=g, device=dev).to(dt) for _ in range(2))
-        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
         delta = (dout.float() * o.float()).sum(-1)
-        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=True)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=causal)
         torch.cuda.synchronize()
 
         def plain():
-            dq_r, dk_r, dv_r = attention_bwd_ref(q, k, v, o, lse, dout, causal=True)
+            dq_r, dk_r, dv_r = attention_bwd_ref(q, k, v, o, lse, dout, causal=causal)
             return dq_r.to(dt), fa._sum_rep(dk_r, HKV_).to(dt), fa._sum_rep(dv_r, HKV_).to(dt)
 
         errs = {}
@@ -367,21 +390,22 @@ def main() -> int:
             errs[name] = (diff, diff / ref.float().abs().max().item())
         del ref
         bad = {n: e for n, e in errs.items() if not e[1] <= K23_TOL[dname]}
-        check(not bad, f"K2/K3 {(B, H_, HKV_, T, D_, dname)}: relative errors {bad} (tol {K23_TOL[dname]})")
-        row = dict(shape=(B, H_, HKV_, T, D_, dname), errs=errs)
+        shape = (B, H_, HKV_, T, D_, dname, "causal" if causal else "full")
+        check(not bad, f"K2/K3 {shape}: relative errors {bad} (tol {K23_TOL[dname]})")
+        row = dict(shape=shape, errs=errs)
         if dname == "bf16":
-            row["dq_ms"] = cuda_ms(torch, lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=True))
-            row["dkv_ms"] = cuda_ms(torch, lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True))
+            row["dq_ms"] = cuda_ms(torch, lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal))
+            row["dkv_ms"] = cuda_ms(torch, lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=causal))
             row["plain_ms"] = cuda_ms(torch, plain, iters=2, warmup=1)
             qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
 
             def sdpa_fwd():
-                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
 
             fwd_ms = cuda_ms(torch, sdpa_fwd, iters=10)
             fb_ms = cuda_ms(torch, lambda: sdpa_fwd().backward(dout), iters=10)
             row["sdpa_bwd_ms"] = fb_ms - fwd_ms
-            pairs = T * (T + 1) / 2 * B * H_
+            pairs = (T * (T + 1) / 2 if causal else T * T) * B * H_
             es = q.element_size()
             rows_bytes = 2 * 4.0 * B * H_ * T  # lse and delta, f32
             for kern, flops, nbytes in (
@@ -393,10 +417,12 @@ def main() -> int:
                 row[f"{kern}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
                 row[f"{kern}_tflops"] = flops / (row[f"{kern}_ms"] * 1e-3) / 1e12
             print(f"phase 6 K2/K3 {row['shape']}: rel err dq {errs['dq'][1]:.3g} dk {errs['dk'][1]:.3g} dv "
-                  f"{errs['dv'][1]:.3g}; K2 {row['dq_ms']:.4f} ms ({row['dq_tflops']:.2f} TFLOP/s, bound "
-                  f"{row['dq_bound_ms']:.4f} ms {row['dq_bound_by']}), K3 {row['dkv_ms']:.4f} ms "
-                  f"({row['dkv_tflops']:.2f} TFLOP/s, bound {row['dkv_bound_ms']:.4f} ms {row['dkv_bound_by']}), "
-                  f"plain {row['plain_ms']:.4f} ms, sdpa backward {row['sdpa_bwd_ms']:.4f} ms {card}")
+                  f"{errs['dv'][1]:.3g}; K2 {row['dq_ms']:.4f} ms ({row['dq_tflops']:.2f} TFLOP/s, "
+                  f"{row['dq_tflops'] * 1e12 / BF16_FLOPS:.4f} of the bf16 peak, bound {row['dq_bound_ms']:.4f} ms "
+                  f"{row['dq_bound_by']}), K3 {row['dkv_ms']:.4f} ms ({row['dkv_tflops']:.2f} TFLOP/s, "
+                  f"{row['dkv_tflops'] * 1e12 / BF16_FLOPS:.4f} of the bf16 peak, bound {row['dkv_bound_ms']:.4f} ms "
+                  f"{row['dkv_bound_by']}), plain {row['plain_ms']:.4f} ms, sdpa backward {row['sdpa_bwd_ms']:.4f} ms, "
+                  f"(K2 + K3) / sdpa backward {(row['dq_ms'] + row['dkv_ms']) / row['sdpa_bwd_ms']:.2f} {card}")
             del qs, ks, vs
         else:
             print(f"phase 6 K2/K3 {row['shape']}: rel err dq {errs['dq'][1]:.3g} dk {errs['dk'][1]:.3g} "
@@ -474,8 +500,9 @@ def main() -> int:
           f"(step {n_steps}), {step_s * 1e3:.2f} ms/step over {TRAIN_STEPS} steps, {tok_s:.1f} tok/s, MFU "
           f"{mfu:.4f} (flops_per_token x tok/s / 989 TFLOP/s), peak memory {peak} bytes, launches per step K1 "
           f"{train_launches[0] // n_steps} K2 {train_launches[1] // n_steps} K3 {train_launches[2] // n_steps} {card}")
-    k1_profiled = profile_step(torch, step_fn, state, batch, card, _kernels.BUILD_DIR / "train_step_profile.txt")
-    check(k1_profiled == 2 * L, f"profile: the wgmma K1 kernel ran {k1_profiled} times in the step, not {2 * L}")
+    profiled = profile_step(torch, step_fn, state, batch, card, _kernels.BUILD_DIR / "train_step_profile.txt")
+    check(profiled == {K1_WGMMA: 2 * L, K2_WGMMA: L, K3_WGMMA: L},
+          f"profile: the wgmma kernels ran {profiled} times in the step, not {2 * L}, {L} and {L}")
     del state, batch, metrics
     torch.cuda.empty_cache()
 
@@ -546,11 +573,11 @@ def main() -> int:
     return 0
 
 
-def profile_step(torch, step_fn, state, batch, card, table_path) -> int:
+def profile_step(torch, step_fn, state, batch, card, table_path) -> dict[str, int]:
     """One training step under torch.profiler: the device time by kernel
     into ``table_path``, and one summary line (K1, K2, K3, matrix products,
     the rest, and the device's idle share of the step). Returns how many
-    times the wgmma K1 kernel ran in the step."""
+    times each wgmma kernel (K1, K2, K3) ran in the step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -559,7 +586,7 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> int:
         step_fn(state, batch)[1]["loss"].item()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "gemm": 0.0, "other": 0.0}
-    k1_calls = 0
+    calls = {K1_WGMMA: 0, K2_WGMMA: 0, K3_WGMMA: 0}
     averages = prof.key_averages()
     for e in averages:
         if "CUDA" not in str(e.device_type):  # kernels only: a CPU op's device time repeats its kernels'
@@ -571,15 +598,17 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> int:
                "K3" if "flash_bwd_dkv" in name else
                "gemm" if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90", "nvjet")) else "other")
         groups[key] += us / 1e3
-        k1_calls += e.count if K1_WGMMA in name else 0
+        for tag in calls:
+            calls[tag] += e.count if tag in name else 0
     busy = sum(groups.values())
     sort_by = "self_device_time_total" if hasattr(averages[0], "self_device_time_total") else "self_cuda_time_total"
     with open(table_path, "w") as f:
         f.write(averages.table(sort_by=sort_by, row_limit=40))
     print(f"profile: one training step {wall_ms:.2f} ms wall, kernels {busy:.2f} ms (idle share "
           f"{1 - busy / wall_ms:.4f}): "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()) + f"; K1 wgmma kernel {k1_calls} calls {card}")
-    return k1_calls
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()) + "; wgmma kernel calls "
+          + ", ".join(f"{k} {v}" for k, v in calls.items()) + f" {card}")
+    return calls
 
 
 if __name__ == "__main__":

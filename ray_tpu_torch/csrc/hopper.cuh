@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// shared-memory mbarriers, TMA tile loads through a tensor map, and the
-// warpgroup matrix products (wgmma) with their shared-memory descriptors.
+// shared-memory mbarriers, TMA tile loads through a tensor map, small
+// asynchronous copies that arrive on an mbarrier, and the warpgroup matrix
+// products (wgmma) with their shared-memory descriptors.
 //
-// Conventions (the ones K1 uses, and the ones the K2/K3 kernels take):
+// Conventions (K1, K2 and K3 all use these and no other):
 //
 // - A bf16 tile is staged by TMA as boxes of [rows][64] with the 128-byte
 //   swizzle: row r of a box sits at r * 128 bytes, and its 16-byte chunk c
@@ -16,7 +17,8 @@
 //   is: V is [keys][d]) reads k-step kk (16 rows) at a start address
 //   advanced by kk * 16 * 128 bytes; SBO = 1024 bytes (the next 8 rows of
 //   the reduction dimension), LBO = the bytes of one box (the next 64
-//   output columns). Pass the transpose bit 1 for it.
+//   output columns: 16 KB for K1's 128-row boxes, 8 KB for the 64-row boxes
+//   K2 and K3 stream). Pass the transpose bit 1 for it.
 // - The f32 accumulator of m64nNk16 in a warpgroup: warp w, lane l holds
 //   rows 16 w + l / 4 and that + 8; for each 8-column group g, d[4 g + 0, 1]
 //   are row 16 w + l / 4, columns 8 g + 2 (l % 4) + {0, 1}, and d[4 g + 2, 3]
@@ -113,6 +115,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A 4-byte asynchronous copy from global to shared memory; zeros are written when
+// !valid (src is then not read, but must still be an address inside its allocation).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// This thread's arrival on `bar`, made when all its cp_async copies so far have landed.
+// It is one of the arrivals the barrier was initialised to expect.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Orders this thread's generic-proxy shared-memory accesses with the async
 // proxy's (TMA, wgmma) before a barrier that hands the memory over.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -133,6 +148,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo_by
   d |= 1ull << 62;  // layout type 1: 128-byte swizzle
   return d;
 }
+
+// The descriptor of the same operand `bytes` further on (a multiple of 16, inside the
+// block's shared memory, so the address field does not carry into the next one).
+__device__ __forceinline__ uint64_t desc_advance(uint64_t d, int bytes) { return d + static_cast<uint64_t>(bytes >> 4); }
+
+// Makes the compiler take d as changed here: inside a loop, what derives from a
+// loop-invariant descriptor is then recomputed (one add) and not kept in registers
+// across the loop, two for every k-step.
+__device__ __forceinline__ void desc_pin(uint64_t& d) { asm volatile("" : "+l"(d)); }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }

@@ -197,6 +197,8 @@ def _check_bwd(what, q, k, v, g, lse, delta):
                          f"g {tuple(g.shape)} lse {tuple(lse.shape)} delta {tuple(delta.shape)}")
     if not all(t.is_contiguous() for t in (q, k, v, g, lse, delta)):
         raise ValueError(f"{what}: q, k, v, g, lse and delta must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, g)):
+        raise ValueError(f"{what}: bf16 q, k, v and g must start 16-byte aligned (TMA)")
     return B, H, Hkv, T, D
 
 
@@ -204,7 +206,10 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, causal: bool = True, scale: f
     """dQ of flash attention (port of ``_bwd_dq_kernel``). q, g: [B, H, T, D];
     k, v: [B, Hkv, T, D]; lse, delta: [B, H, T] f32. Returns dq in q's dtype.
 
-    CUDA tensors launch K2 (``csrc/flash_attention_bwd.cu``) and count it in
+    CUDA tensors launch K2 (``csrc/flash_attention_bwd.cu``; D in {64, 128},
+    bf16 or f32, contiguous, any T; bf16 runs on wgmma with TMA-fed tiles,
+    rounds dS to bf16 for the dS K product and needs 16-byte aligned q, k, v
+    and g; f32 runs on the CUDA cores) and count it in
     ``flash_attention_bwd_dq.launches``; CPU tensors run the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -233,9 +238,11 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool = True, scale: 
     Returns (dk, dv) [B, Hkv, T, D] in k's and v's dtype.
 
     CUDA tensors launch K3 (``csrc/flash_attention_bwd.cu``, which sums the
-    rep heads in f32 inside the kernel) and count it in
-    ``flash_attention_bwd_dkv.launches``; CPU tensors run the plain version,
-    summed over rep and cast as ``_flash_bwd`` does."""
+    rep heads in f32 inside the kernel; the same inputs as K2: bf16 runs on
+    wgmma with TMA-fed tiles, rounds P and dS to bf16 for the accumulate
+    products and needs 16-byte aligned q, k, v and g; f32 runs on the CUDA
+    cores) and count it in ``flash_attention_bwd_dkv.launches``; CPU tensors
+    run the plain version, summed over rep and cast as ``_flash_bwd`` does."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:

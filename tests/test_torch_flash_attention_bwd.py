@@ -11,7 +11,13 @@ the JAX reference on numpy-seeded inputs, on the CPU:
   ``_bwd_pallas_with_delta`` with 32 x 32 blocks in interpret mode, so
   several blocks and the causal block skip run (atol 2e-3, the tolerance
   the forward's interpret test uses);
-- ``torch.autograd.gradcheck`` of the Function in f64.
+- ``torch.autograd.gradcheck`` of the Function in f64;
+- the arithmetic of the bf16 CUDA kernels, written out here as a plain
+  PyTorch loop over 64-wide tiles with transposed scores and with P and dS
+  rounded to bf16 before the accumulate products, against
+  ``attention_bwd_ref`` within 2e-2 of the largest |grad|: the tolerance
+  the card checks use has room for that rounding;
+- the bf16 alignment rule of the CUDA path is not applied to CPU tensors.
 
 The CUDA kernels against the plain version are in
 tests/test_torch_kernels_cuda.py."""
@@ -100,3 +106,80 @@ def test_function_gradcheck_f64(causal):
     q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_(True)
                for s in ((1, 4, 6, 8), (1, 2, 6, 8), (1, 2, 6, 8)))
     assert torch.autograd.gradcheck(lambda *a: tfa.flash_attention(*a, causal=causal), (q, k, v))
+
+
+def _tiled_bwd_bf16_operands(q, k, v, g, lse, delta, causal, scale, tile=64):
+    """What the bf16 K2/K3 kernels compute, tile by tile: per (kv head, key
+    tile) the scores transposed, S^T = K Q^T and dP^T = V dO^T in f32 from
+    zero-padded tiles, the mask as a select, P^T and dS^T rounded to bf16
+    for dV += P^T dO, dK += dS^T Q and dQ += dS K (f32 sums, the rep heads
+    summed in f32), scale applied once at the end, outputs cast to bf16.
+    (K2 computes S and not S^T; the values are the same.)"""
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    n = -(-T // tile)
+    pad = n * tile - T
+    log2e = 1.4426950408889634
+
+    def padded(x):  # zeros past T, as the tile loads give them
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, pad) if x.dim() == 4 else (0, pad))
+
+    qp, kp, vp, gp, lp, dp_ = map(padded, (q, k, v, g, lse, delta))
+    dq = torch.zeros_like(qp)
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    pos = torch.arange(n * tile)
+    for kt in range(n):
+        ks = slice(kt * tile, (kt + 1) * tile)
+        for r in range(rep):
+            heads = slice(r, H, rep)  # q head h reads kv head h // rep
+            for qt in range(kt if causal else 0, n):
+                qs = slice(qt * tile, (qt + 1) * tile)
+                st = kp[:, :, ks] @ qp[:, heads, qs].transpose(-1, -2)  # [B, Hkv, keys, q rows]
+                dpt = vp[:, :, ks] @ gp[:, heads, qs].transpose(-1, -2)
+                ok = (pos[ks, None] < T) & (pos[None, qs] < T)
+                if causal:
+                    ok = ok & (pos[ks, None] <= pos[None, qs])
+                pt = torch.where(ok, torch.exp2(st * (scale * log2e) - lp[:, heads, None, qs] * log2e),
+                                 torch.zeros(()))
+                ptr = pt.bfloat16().float()
+                d = dpt - dp_[:, heads, None, qs]
+                dv[:, :, ks] += ptr @ gp[:, heads, qs]
+                # K3 forms dS^T from the rounded P^T (the f32 one does not fit its registers), K2 from f32
+                dk[:, :, ks] += (ptr * d).bfloat16().float() @ qp[:, heads, qs]
+                dq[:, heads, qs] += (pt * d).bfloat16().float().transpose(-1, -2) @ kp[:, :, ks]
+    return (dq[:, :, :T] * scale).bfloat16(), (dk[:, :, :T] * scale).bfloat16(), dv[:, :, :T].bfloat16()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_rounded_tile_loop_stays_within_the_card_tolerance(D, causal):
+    """Ragged T = 150 (two whole 64-wide tiles and 22 rows), rep 2."""
+    q, k, v, g = (torch.from_numpy(a).bfloat16() for a in _inputs(11 + D, 2, 4, 2, 150, D))
+    scale = D**-0.5
+    o, lse = tfa.attention_with_lse_ref(q, k, v, causal, scale)
+    delta = (g.float() * o.float()).sum(-1)
+    out = _tiled_bwd_bf16_operands(q, k, v, g, lse, delta, causal, scale)
+    dq_r, dk_r, dv_r = tfa.attention_bwd_ref(q, k, v, o, lse, g, causal, scale)
+    refs = (dq_r, tfa._sum_rep(dk_r, 2), tfa._sum_rep(dv_r, 2))
+    for t, ref in zip(out, refs):
+        assert t.shape == ref.shape
+        err = (t.float() - ref).abs().max().item() / ref.abs().max().item()
+        assert 0 < err <= 2e-2  # rounded, so not identical; within the card checks' tolerance
+
+
+def test_alignment_rule_is_not_applied_to_cpu_tensors():
+    """A bf16 CPU tensor that starts 2 bytes into its buffer runs the plain
+    version: the 16-byte rule belongs to the CUDA path's TMA loads."""
+    shape = (1, 2, 16, 64)
+    n = 2 * 16 * 64
+    rng = np.random.default_rng(3)
+    off = [torch.from_numpy(rng.standard_normal(n + 8).astype(np.float32)).bfloat16()[1:n + 1].view(shape)
+           for _ in range(4)]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in off)
+    o, lse = tfa.flash_attention_fwd(*off[:3])
+    delta = (off[3].float() * o.float()).sum(-1)
+    out = tfa.flash_attention_bwd(*off, lse, delta)
+    ref = tfa.flash_attention_bwd(*(t.clone() for t in off), lse, delta)
+    for t, r in zip(out, ref):
+        assert t.dtype == torch.bfloat16 and torch.equal(t, r)

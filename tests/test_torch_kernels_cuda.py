@@ -10,8 +10,9 @@ kernel relative to the running max and the plain version relative to the
 final logsumexp; one bf16 ulp at |o| ~ 1 is 2^-7);
 f32 outputs and lse 1e-4 / 1e-3 (f32 sums in another order); K4
 partials 1e-4 relative. K2/K3 gradients relative to the largest |grad| (at least 1):
-f32 1e-4 (f32 sums in another order), bf16 2e-2 (the outputs round to
-bf16, 2^-8 relative, after f32 sums over up to T terms). K5: f32 1e-5
+f32 1e-4 (f32 sums in another order), bf16 2e-2 (the kernels round P and
+dS to bf16, 2^-9 relative each, before the f32 sums over up to T terms, and
+the outputs to bf16 after them; the plain version keeps P and dS in f32). K5: f32 1e-5
 relative, bf16 one bf16 ulp (2^-7 relative).
 """
 
@@ -161,9 +162,16 @@ def _rel_err(out, ref, floor=1e-30):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("T,D,rep", [(64, 128, 2), (200, 128, 2), (130, 64, 1), (1, 64, 4), (1000, 128, 2)])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 191, 1000, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4])
 @pytest.mark.parametrize("causal", [True, False])
 def test_k2_k3_kernels_match_plain(dev, dtype, tol, T, D, rep, causal):
+    """Both instances at every tile edge (the bf16 ones stream 64-row tiles
+    past a block's own 128 rows: T = 1 and 63 fill under one streamed tile,
+    63-65 and 127-129 straddle one, 191 leaves the second warpgroup one
+    row short of a tile), GQA rep 1-4, random (so not symmetric) inputs at
+    both head dims, so that a wrong descriptor cannot pass."""
     g = torch.Generator(device=dev).manual_seed(T * D + rep)
     q = _randn(g, 2, 2 * rep, T, D, device=dev).to(dtype)
     k = _randn(g, 2, 2, T, D, device=dev).to(dtype)
@@ -208,6 +216,35 @@ def test_k2_k3_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         tfa.flash_attention_bwd(q, kv, kv, q.transpose(1, 2).contiguous().transpose(1, 2), lse, lse)
     with pytest.raises(ValueError, match="shapes"):
         tfa.flash_attention_bwd(q, kv, kv, q, lse[:, :2], lse)
+
+
+def test_k2_k3_bf16_raise_on_a_misaligned_base(dev):
+    """The bf16 instances read q, k, v and dO through TMA, which needs
+    16-byte aligned bases: a contiguous tensor sliced one element into its
+    buffer raises, in the wrappers and in the C launchers, and nothing runs
+    instead; the f32 instances read element by element and take it."""
+    shape = (1, 2, 64, 128)
+    n = 2 * 64 * 128
+    off = torch.randn(n + 1, device=dev).bfloat16()[1:].view(shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    x = torch.randn(shape, device=dev).bfloat16()
+    rows = torch.zeros((1, 2, 64), device=dev)
+    before = (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
+    for args in ((off, x, x, x), (x, off, x, x), (x, x, off, x), (x, x, x, off)):
+        for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match="aligned"):
+                fn(*args, rows, rows)
+    assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == before
+    dq_fn, dkv_fn = tfa._bwd_fns()
+    out, out2 = torch.empty_like(x), torch.empty_like(x)
+    tail = (1, 2, 2, 64, 128, 1, 128**-0.5, 1, torch.cuda.current_stream().cuda_stream)
+    ins = (x.data_ptr(), x.data_ptr(), x.data_ptr(), off.data_ptr(), rows.data_ptr(), rows.data_ptr())
+    assert dq_fn(*ins, out.data_ptr(), *tail) == -2
+    assert dkv_fn(*ins, out.data_ptr(), out2.data_ptr(), *tail) == -2
+    xf = torch.randn(n + 1, device=dev)[1:].view(shape)
+    dq, dk, dv = tfa.flash_attention_bwd(xf, xf, xf, xf, rows, rows)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
 
 
 @pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
