@@ -20,13 +20,20 @@ Phases, in order; any failed check exits non-zero before the last line:
    and 128 without the causal mask at ragged T (129, 1000) and GQA rep 1,
    2, 4, and the f32 instances.
 3. K4 against its plain version on the card (8 lanes, 8 kv heads, rep 4,
-   page 64, T in {1, 5}, bf16 and int8 pools, bounds 0 .. ~2000), plus the
-   combined page attention against the host path; timed the same way.
+   page 64, T in {1, 5}, bf16 and int8 pools, bounds 0 .. ~2000; then one
+   lane at bound 2047, T = 1), plus the combined page attention against
+   the host path; timed the same way, with the device time per call from
+   torch.profiler (its partials and merge kernels) and the wrapper's host
+   cost per call (perf_counter over 300 calls, no synchronise).
 4. The engine: full-width Llama-3-8B (random weights from a seed, bf16)
    serves 8 seeded prompts of 50-1500 tokens, 32 greedy tokens each. The
    kernels' launch counters are zeroed just before and read just after:
    K1 must have run 32 times per prefill forward, K4 32 times per decode
-   step.
+   step. Then a fresh engine admits the same prompts, steps until none
+   waits, and runs 4 decode-only steps under torch.profiler: per step the
+   wall time, device-busy time, idle share, K4's device time, cuBLAS's and
+   the rest's (the table in build/decode_step_profile.txt); K4's partials
+   kernel must appear 32 x 4 times.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps; prefill and
    decode logits must agree.
@@ -38,7 +45,8 @@ Phases, in order; any failed check exits non-zero before the last line:
    PyTorch's scaled_dot_product_attention and the card's bound, with the
    kernels' TFLOP/s and share of the bf16 peak. K5 against its
    plain version at [16384, 2048] (the training rows) and [8, 4096] (a
-   decode step), bf16 and f32, timed beside F.rms_norm.
+   decode step), bf16 and f32, timed beside F.rms_norm, with the device
+   time per call (torch.profiler) and the wrapper's host cost per call.
 7. Training at full width: bench.py's sft model (hidden 2048, 18 layers,
    16/8 heads, vocab 32000, bf16, remat) on 8 x 2048 seeded tokens with
    AdamW(3e-4, weight decay 0.01): one warm-up step whose loss must equal
@@ -56,7 +64,10 @@ Phases, in order; any failed check exits non-zero before the last line:
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 the kernels' launches, errors and times, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Times are CUDA-event means after warm-up (L2 warm; the K4 pages exceed it).
+Times are CUDA-event means after warm-up (L2 warm; the K4 pages exceed it),
+K4's and K5's the least of 5 rounds of 20 calls, K5 in turns with F.rms_norm;
+for a launch-bound call the CUDA-event time is the host's enqueue, which
+the device time and the host cost per call tell apart.
 """
 
 from __future__ import annotations
@@ -77,6 +88,8 @@ K1_SHAPES = [(1, 32, 8, 64), (4, 32, 8, 512), (2, 32, 8, 2048), (1, 32, 8, 1000)
 K1_WGMMA = "flash_fwd_kernel_wgmma"  # the bf16 instances' kernel name (SASS, profiler)
 K1_TOL_O, K1_TOL_LSE = 2e-2, 1e-3  # o: bf16 output rounding; lse: f32 sums in another order
 K4_BOUNDS = [0, 1, 64, 65, 2000, 2047, 700, 1500]
+K4_KERNELS = ("paged_partials_kernel", "paged_merge_kernel")  # the kernels one K4 call launches
+K5_KERNELS = ("rms_norm_warp_kernel", "rms_norm_block_kernel")
 K4_TOL = 1e-4  # relative, f32 partials summed in another order
 COMBINED_TOL = 1e-4  # absolute, normalised f32 attention output vs the host path
 WHOLE_PATH_TOL = 2e-3  # absolute, f32 logits after 2 full-width layers, card vs host
@@ -90,6 +103,7 @@ K23_TOL = {"bf16": 2e-2, "f32": 1e-4}  # relative to max |grad|: bf16 output rou
 K5_SHAPES = [(16384, 2048), (8, 4096)]  # training rows (8 x 2048 tokens at hidden 2048); a decode step
 K5_TOL = {"bf16": 2**-7, "f32": 1e-5}  # relative to max |out|: one bf16 ulp; f32 sums in another order
 TRAIN_STEPS = 5  # timed, after one warm-up step
+DECODE_PROFILE_STEPS = 4  # decode-only engine steps under torch.profiler (phase 4)
 TRAIN_LOSS_TOL = 0.05  # first step's loss vs loss_fn on the initial params (bench.py's check)
 TRAIN_WHOLE_TOL = 1e-3  # card vs host, f32: loss and grad norm relative; gradients relative to each leaf's max
 
@@ -114,6 +128,54 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_turns(torch, fns, rounds: int = 5, iters: int = 20) -> list[float]:
+    """CUDA-event ms per call of each of ``fns``, measured in turns (f0, f1,
+    f0, f1, ...) over ``rounds`` rounds of ``iters`` calls; the least round
+    of each. Where a call is launch-bound its CUDA-event time is the host's
+    enqueue, which the shared host's load moves between moments: turns put
+    every function under the same moments."""
+    best = [float("inf")] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            best[i] = min(best[i], cuda_ms(torch, fn, iters=iters))
+    return best
+
+
+def device_ms(torch, fn, names, iters: int = 20) -> float:
+    """Device time per call of ``fn`` from torch.profiler: the self device
+    time of the kernels whose names hold one of ``names``, over ``iters``
+    calls after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(self_device_us(e) for e in prof.key_averages()
+                if "CUDA" in str(e.device_type) and any(n in e.key for n in names))
+    return total / 1e3 / iters
+
+
+def host_us(torch, fn, calls: int = 300) -> float:
+    """The host's cost per call of ``fn``: perf_counter over ``calls`` calls
+    with no synchronise between them (the launches queue on the stream)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def self_device_us(event) -> float:
+    us = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if us is None else us
 
 
 def main() -> int:
@@ -260,8 +322,27 @@ def main() -> int:
         "int8": (kq, vq, ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()),
     }
     k4_rows = []
+
+    def k4_times(qf, pk, pv, tables, bound, sk, sv, m, acc, bounds):
+        call = partial(paged_attn_partials, qf, pk, pv, tables, bound, sk, sv)
+        nkv, hd, R = qf.shape[1], qf.shape[4], qf.shape[2] * qf.shape[3]
+        tok = sum(bounds)  # positions read: each lane's bound
+        nbytes = tok * nkv * hd * 2 * pk.element_size() + (tok * nkv * 2 * 4 if sk is not None else 0)
+        nbytes += qf.numel() * 4 + (m.numel() * 2 + acc.numel()) * 4 + (tables.numel() + bound.numel()) * 4
+        t_ops = 4.0 * tok * nkv * R * hd / F32_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(ms=cuda_ms_turns(torch, [call])[0], device_ms=device_ms(torch, call, K4_KERNELS),
+                    host_us=host_us(torch, call),
+                    plain_ms=cuda_ms(torch, partial(paged_attn_partials_ref, qf, pk, pv, tables, bound, sk, sv),
+                                     iters=5, warmup=1),
+                    bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    def k4_line(row):
+        return (f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, host {row['host_us']:.2f} us a call), "
+                f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), device / bound "
+                f"{row['device_ms'] / row['bound_ms']:.2f} {card}")
+
     for pname, (pk, pv, sk, sv) in pools.items():
-        esize = pk.element_size()
         for T in (1, 5):
             qf = torch.randn((Bl, NKV, REP, T, HD), generator=g, device=dev) * HD**-0.5
             m, l, acc = paged_attn_partials(qf, pk, pv, tables, bound, sk, sv)
@@ -273,18 +354,23 @@ def main() -> int:
                       ((acc - acc_r)[live].abs() / acc_r[live].abs().clamp(min=1)).max().item())
             check((m - m_r).abs().max().item() <= 1e-4 and rel <= K4_TOL,
                   f"K4 {pname} T={T}: max |d| {err:.3g}, relative {rel:.3g} (tol {K4_TOL})")
-            ms = cuda_ms(torch, lambda: paged_attn_partials(qf, pk, pv, tables, bound, sk, sv))
-            plain_ms = cuda_ms(torch, lambda: paged_attn_partials_ref(qf, pk, pv, tables, bound, sk, sv), iters=5, warmup=1)
-            tok = sum(K4_BOUNDS)
-            nbytes = tok * NKV * HD * 2 * esize + (tok * NKV * 2 * 4 if sk is not None else 0)
-            nbytes += qf.numel() * 4 + (m.numel() * 2 + acc.numel()) * 4 + (tables.numel() + bound.numel()) * 4
-            flops = 4.0 * tok * NKV * REP * T * HD
-            t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            row = dict(pool=pname, T=T, err=err, rel=rel, ms=ms, plain_ms=plain_ms,
-                       bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+            row = dict(pool=pname, T=T, B=Bl, err=err, rel=rel,
+                       **k4_times(qf, pk, pv, tables, bound, sk, sv, m, acc, K4_BOUNDS))
             k4_rows.append(row)
-            print(f"phase 3 K4 {pname} T={T}: max |d| {err:.3g} (rel {rel:.3g}) kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) {card}")
+            print(f"phase 3 K4 {pname} T={T} B={Bl}: max |d| {err:.3g} (rel {rel:.3g}) " + k4_line(row))
+        # one lane at bound 2047: the case splitting exists for (8 blocks without it)
+        qf = torch.randn((1, NKV, REP, 1, HD), generator=g, device=dev) * HD**-0.5
+        t1, b1 = tables[5:6].contiguous(), bound[5:6].contiguous()
+        m, l, acc = paged_attn_partials(qf, pk, pv, t1, b1, sk, sv)
+        m_r, l_r, acc_r = paged_attn_partials_ref(qf, pk, pv, t1, b1, sk, sv)
+        err = max((m - m_r).abs().max().item(), (l - l_r).abs().max().item(), (acc - acc_r).abs().max().item())
+        rel = max(((l - l_r).abs() / l_r.abs().clamp(min=1)).max().item(),
+                  ((acc - acc_r).abs() / acc_r.abs().clamp(min=1)).max().item())
+        check((m - m_r).abs().max().item() <= 1e-4 and rel <= K4_TOL,
+              f"K4 {pname} one lane: max |d| {err:.3g}, relative {rel:.3g} (tol {K4_TOL})")
+        row = dict(pool=pname, T=1, B=1, err=err, rel=rel, **k4_times(qf, pk, pv, t1, b1, sk, sv, m, acc, [2047]))
+        k4_rows.append(row)
+        print(f"phase 3 K4 {pname} T=1 B=1 bound 2047: max |d| {err:.3g} (rel {rel:.3g}) " + k4_line(row))
         # the combined attention (partials + self fold + normalise) at every
         # bound, 0 included: card (K4) against the host path (plain version)
         qg = torch.randn((Bl, NKV, REP, HD), generator=g, device=dev)
@@ -329,7 +415,22 @@ def main() -> int:
           f"{eng.prefill_forwards} forwards, decode {eng.decode_s * 1e3 / eng.decode_steps:.3f} ms/step over "
           f"{eng.decode_steps} steps, {gen_tok / wall_s:.2f} generated tok/s ({wall_s:.3f} s wall), "
           f"K1 launches {k1_launches}, K4 launches {k4_launches}, peak memory {peak} bytes {card}")
-    del eng, params, outs
+    del eng, outs
+    torch.cuda.empty_cache()
+    # a fresh engine admits the same prompts; once none waits, every step is decode only
+    eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64)
+    for prompt in prompts:
+        eng.add_request(prompt, SamplingParams(max_tokens=32))
+    while eng.num_waiting:
+        eng.step()
+    check(eng.num_running == 8, f"engine: {eng.num_running} of 8 requests running after admission")
+    decode_prof = profile_decode(torch, eng, DECODE_PROFILE_STEPS, card,
+                                 _kernels.BUILD_DIR / "decode_step_profile.txt")
+    n_prof = cfg.num_layers * DECODE_PROFILE_STEPS
+    check(decode_prof["calls"]["paged_partials_kernel"] == n_prof
+          and decode_prof["calls"]["paged_merge_kernel"] in (0, n_prof),
+          f"decode profile: K4's kernels ran {decode_prof['calls']} times in {DECODE_PROFILE_STEPS} steps, not {n_prof}")
+    del eng, params
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 5
@@ -447,15 +548,19 @@ def main() -> int:
         err = (out.float() - ref.float()).abs().max().item()
         rel = err / ref.float().abs().max().item()
         check(rel <= K5_TOL[dname], f"K5 [{rows}, {d}] {dname}: relative error {rel:.3g} (tol {K5_TOL[dname]})")
-        ms = cuda_ms(torch, lambda: rms_norm_fused(x, w, 1e-5))
+        call = partial(rms_norm_fused, x, w, 1e-5)
+        lib = partial(F.rms_norm, x, (d,), w, 1e-5)
+        ms, lib_ms = cuda_ms_turns(torch, [call, lib])
         plain_ms = cuda_ms(torch, lambda: rms_norm(x, w, 1e-5))
-        lib_ms = cuda_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5))
         nbytes = 2.0 * x.numel() * x.element_size() + w.numel() * w.element_size()
         row = dict(rows=rows, d=d, dtype=dname, err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+                   device_ms=device_ms(torch, call, K5_KERNELS), host_us=host_us(torch, call),
+                   lib_host_us=host_us(torch, lib), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
         k5_rows.append(row)
-        print(f"phase 6 K5 [{rows}, {d}] {dname}: |d| {err:.3g} (rel {rel:.3g}) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes) {card}")
+        print(f"phase 6 K5 [{rows}, {d}] {dname}: |d| {err:.3g} (rel {rel:.3g}) kernel {ms:.4f} ms (device "
+              f"{row['device_ms']:.4f} ms, host {row['host_us']:.2f} us a call), plain {plain_ms:.4f} ms, F.rms_norm "
+              f"{lib_ms:.4f} ms (host {row['lib_host_us']:.2f} us a call), bound {row['bound_ms']:.4f} ms (bytes), "
+              f"bound / kernel {row['bound_ms'] / ms:.3f}, kernel / F.rms_norm {ms / lib_ms:.3f} {card}")
     del k5_inputs
     torch.cuda.empty_cache()
 
@@ -540,7 +645,7 @@ def main() -> int:
           f"{grad_err:.3g} of each leaf's max (tol {TRAIN_WHOLE_TOL})")
 
     rep1 = next(r for r in k1_rows if (r["B"], r["T"]) == (2, 2048))
-    rep4 = next(r for r in k4_rows if (r["pool"], r["T"]) == ("bf16", 1))
+    rep4 = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("bf16", 1, Bl))
     rep23 = k23_rows[0]  # the sft training shape
     rep5 = k5_rows[0]  # the training rows, bf16
     kernels = [
@@ -560,11 +665,13 @@ def main() -> int:
         dict(name="K4 paged_attn_partials", route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu",
              replaces="ray_tpu/llm/pallas/paged_attn.py:134", launches=k4_launches,
              max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
-             bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None),
+             bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None,
+             device_ms=rep4["device_ms"], host_us=rep4["host_us"]),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
-             bound_ms=rep5["bound_ms"], bound_by=rep5["bound_by"], library_ms=rep5["lib_ms"]),
+             bound_ms=rep5["bound_ms"], bound_by=rep5["bound_by"], library_ms=rep5["lib_ms"],
+             device_ms=rep5["device_ms"], host_us=rep5["host_us"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -591,8 +698,7 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> dict[str, in
     for e in averages:
         if "CUDA" not in str(e.device_type):  # kernels only: a CPU op's device time repeats its kernels'
             continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
+        us = self_device_us(e)
         name = e.key
         key = ("K1" if "flash_fwd_kernel" in name else "K2" if "flash_bwd_dq" in name else
                "K3" if "flash_bwd_dkv" in name else
@@ -609,6 +715,48 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> dict[str, in
           + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()) + "; wgmma kernel calls "
           + ", ".join(f"{k} {v}" for k, v in calls.items()) + f" {card}")
     return calls
+
+
+def profile_decode(torch, eng, steps, card, table_path) -> dict:
+    """``steps`` decode-only engine steps under torch.profiler, after one
+    unprofiled step: per step the wall time (host clock; a step ends in a
+    token readback), the device-busy time, the idle share, and the device
+    time of K4 (partials and merge kernels), of cuBLAS and of the rest; the
+    full table into ``table_path``. Returns the K4 kernels' call counts and
+    the per-step numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.step()
+    torch.cuda.synchronize()
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            eng.step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    groups = {"K4 partials": 0.0, "K4 merge": 0.0, "gemm": 0.0, "other": 0.0}
+    calls = {name: 0 for name in K4_KERNELS}
+    averages = prof.key_averages()
+    for e in averages:
+        if "CUDA" not in str(e.device_type):
+            continue
+        name = e.key
+        key = ("K4 partials" if K4_KERNELS[0] in name else "K4 merge" if K4_KERNELS[1] in name else
+               "gemm" if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90", "nvjet")) else "other")
+        groups[key] += self_device_us(e) / 1e3 / steps
+        for tag in calls:
+            calls[tag] += e.count if tag in name else 0
+    busy = sum(groups.values())
+    wall = sum(walls) / steps
+    sort_by = "self_device_time_total" if hasattr(averages[0], "self_device_time_total") else "self_cuda_time_total"
+    with open(table_path, "w") as f:
+        f.write(averages.table(sort_by=sort_by, row_limit=40))
+    k4 = groups["K4 partials"] + groups["K4 merge"]
+    print(f"phase 4 decode profile ({steps} decode-only steps, 8 lanes): wall {wall:.3f} ms/step "
+          f"({', '.join(f'{w:.3f}' for w in walls)}), device busy {busy:.3f} ms/step, idle share {1 - busy / wall:.4f}, "
+          f"K4 {k4:.4f} ms/step (partials {groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS "
+          f"{groups['gemm']:.3f} ms/step, rest {groups['other']:.3f} ms/step; K4 kernel calls {calls} {card}")
+    return dict(calls=calls, wall_ms=wall, busy_ms=busy, k4_ms=k4, groups=groups)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
@@ -132,6 +134,7 @@ def check_launch(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of ``device``'s current stream, read without
+    building a ``torch.cuda.Stream``: this runs on every launch."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if index is None else index)

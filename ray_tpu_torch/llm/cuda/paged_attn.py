@@ -29,6 +29,9 @@ _NEG = -1e30  # paged_kv._NEG; repeated here so the kernel module stands alone
 
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_ROWS = 64  # rep * T the kernel holds per kv head
+CHUNK = 64  # positions per stage of the kernel's shared-memory ring
+MAX_SPLIT_PAGES = 256  # table entries a split stages in shared memory
+BLOCKS_PER_SM = 4  # split_plan's target: a few resident blocks per SM, two waves
 
 
 def paged_attn_partials_ref(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l=None, v_scale_l=None):
@@ -71,14 +74,33 @@ def paged_attn_partials_ref(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l=Non
 def _fn():
     lib = _kernels.library("paged_attn")
     fn = lib.rt_paged_partials
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(cond: bool, what: str):
-    if not cond:
-        raise ValueError(f"paged_attn_partials: {what}")
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(max_pg: int, page: int, lanes: int, sms: int) -> tuple[int, int]:
+    """How K4 cuts each lane's ``max_pg`` table columns: ``(pps, nsplit)``,
+    pages per split and splits per lane, one block per (lane, kv head,
+    split) over ``lanes`` = B * nkv. The bound lives on the device, so the
+    plan sees only shapes: enough splits for ``BLOCKS_PER_SM`` blocks on
+    each of the ``sms`` SMs had every lane its full table, at least one
+    kernel chunk of positions per split, at most ``MAX_SPLIT_PAGES`` pages."""
+    want = max(1, -(-BLOCKS_PER_SM * sms // max(lanes, 1)))
+    pps = min(max(-(-max_pg // want), -(-CHUNK // page), 1), MAX_SPLIT_PAGES)
+    return pps, max(1, -(-max_pg // pps))
+
+
+_plan = functools.cache(split_plan)  # one plan per shape: the wrapper runs per layer and decode step
+
+
+def _bad(what: str):
+    return ValueError(f"paged_attn_partials: {what}")
 
 
 def paged_attn_partials(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l=None, v_scale_l=None):
@@ -86,42 +108,69 @@ def paged_attn_partials(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l=None, v
     (positions ``0 .. bound[b]-1`` only). Same signature and outputs as
     ``ray_tpu.llm.pallas.paged_attn.paged_attn_partials``.
 
-    CUDA tensors launch K4 and count it in ``paged_attn_partials.launches``;
-    CPU tensors run the plain version."""
+    CUDA tensors launch K4 (its partials kernel over ``split_plan``'s
+    splits, then its merge kernel when there is more than one split) and
+    count the call in ``paged_attn_partials.launches``; CPU tensors run the
+    plain version. The three outputs are views of one allocation, which
+    also holds the splits' scratch: this runs once per layer and decode
+    step, so the host's cost per call is kept to a few tensor operations."""
     if not qf.is_cuda:
         return paged_attn_partials_ref(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l, v_scale_l)
-    _check(qf.dtype == torch.float32 and qf.dim() == 5 and qf.is_contiguous(), "qf must be contiguous f32 [B, nkv, rep, T, hd]")
+    if qf.dtype != torch.float32 or qf.dim() != 5 or not qf.is_contiguous():
+        raise _bad("qf must be contiguous f32 [B, nkv, rep, T, hd]")
     B, nkv, rep, T, hd = qf.shape
     R = rep * T
-    _check(hd in (64, 128), f"head_dim {hd} not in (64, 128)")
-    _check(1 <= R <= MAX_ROWS, f"rep * T = {R} outside 1..{MAX_ROWS}")
-    _check(pool_k_l.dtype in _POOL_CODES and pool_v_l.dtype == pool_k_l.dtype, f"pool dtype {pool_k_l.dtype} not f32/bf16/int8")
-    _check(pool_k_l.dim() == 4 and pool_k_l.shape == pool_v_l.shape, "pools must be [P, page, kv, hd] and equal")
-    P, page = pool_k_l.shape[:2]
-    _check(tuple(pool_k_l.shape[2:]) == (nkv, hd), f"pool heads {tuple(pool_k_l.shape[2:])} != ({nkv}, {hd})")
-    _check(tables.dtype == torch.int32 and tables.dim() == 2 and tables.shape[0] == B, "tables must be int32 [B, max_pg]")
-    _check(bound.dtype == torch.int32 and tuple(bound.shape) == (B,), "bound must be int32 [B]")
-    quant = pool_k_l.dtype == torch.int8
-    _check((k_scale_l is not None) == quant and (v_scale_l is not None) == quant, "scales are given iff the pool is int8")
-    tensors = [qf, pool_k_l, pool_v_l, tables, bound]
+    if hd != 64 and hd != 128:
+        raise _bad(f"head_dim {hd} not in (64, 128)")
+    if not 1 <= R <= MAX_ROWS:
+        raise _bad(f"rep * T = {R} outside 1..{MAX_ROWS}")
+    pool_dtype = pool_k_l.dtype
+    code = _POOL_CODES.get(pool_dtype)
+    if code is None or pool_v_l.dtype != pool_dtype:
+        raise _bad(f"pool dtype {pool_dtype} not f32/bf16/int8")
+    pshape = pool_k_l.shape
+    if len(pshape) != 4 or pool_v_l.shape != pshape or pshape[2] != nkv or pshape[3] != hd:
+        raise _bad(f"pools must be [P, page, kv, hd] = [P, page, {nkv}, {hd}] and equal")
+    if tables.dtype != torch.int32 or tables.dim() != 2 or tables.shape[0] != B:
+        raise _bad("tables must be int32 [B, max_pg]")
+    if bound.dtype != torch.int32 or bound.shape != (B,):
+        raise _bad("bound must be int32 [B]")
+    quant = code == 2
+    if (k_scale_l is not None) != quant or (v_scale_l is not None) != quant:
+        raise _bad("scales are given iff the pool is int8")
+    device = qf.device
+    tensors = (pool_k_l, pool_v_l, tables, bound, k_scale_l, v_scale_l) if quant else (pool_k_l, pool_v_l, tables, bound)
+    for t in tensors:
+        if t.device != device or not t.is_contiguous():
+            raise _bad("every input must be contiguous on qf's CUDA device")
+    P, page = pshape[0], pshape[1]
     if quant:
         for sc in (k_scale_l, v_scale_l):
-            _check(sc.dtype == torch.float32 and tuple(sc.shape) == (P, nkv, page), "scales must be f32 [P, kv, page]")
-        tensors += [k_scale_l, v_scale_l]
-    for t in tensors:
-        _check(t.is_cuda and t.device == qf.device and t.is_contiguous(), "every input must be contiguous on qf's CUDA device")
-    _check(pool_k_l.data_ptr() % 16 == 0 and pool_v_l.data_ptr() % 16 == 0, "pool slices must be 16-byte aligned")
-    m = torch.empty((B, nkv, rep, T), dtype=torch.float32, device=qf.device)
-    l = torch.empty_like(m)
-    acc = torch.empty((B, nkv, rep, T, hd), dtype=torch.float32, device=qf.device)
-    if B * nkv == 0:
+            if sc.dtype != torch.float32 or sc.shape != (P, nkv, page):
+                raise _bad("scales must be f32 [P, kv, page]")
+    q_ptr, k_ptr, v_ptr = qf.data_ptr(), pool_k_l.data_ptr(), pool_v_l.data_ptr()
+    if (q_ptr | k_ptr | v_ptr) % 16:
+        raise _bad("qf and the pool slices must be 16-byte aligned")
+    max_pg = tables.shape[1]
+    lanes = B * nkv
+    pps, nsplit = _plan(max_pg, page, lanes, _sm_count(device.index))
+    n = lanes * R  # rows of m and l
+    parts = n * nsplit if nsplit > 1 else 0  # rows of each split's partials, the merge kernel's input
+    buf = torch.empty(n * (hd + 2) + parts * (hd + 2), dtype=torch.float32, device=device)
+    rows, strides = (B, nkv, rep, T), (nkv * R, R, T, 1)
+    m = buf.as_strided(rows, strides)
+    l = buf.as_strided(rows, strides, n)
+    acc = buf.as_strided((*rows, hd), (nkv * R * hd, R * hd, T * hd, hd, 1), 2 * n)
+    if lanes == 0:
         return m, l, acc
+    base = buf.data_ptr()
+    scratch = base + 4 * n * (hd + 2)
     err = _fn()(
-        qf.data_ptr(), pool_k_l.data_ptr(), pool_v_l.data_ptr(), tables.data_ptr(), bound.data_ptr(),
+        q_ptr, k_ptr, v_ptr, tables.data_ptr(), bound.data_ptr(),
         k_scale_l.data_ptr() if quant else None, v_scale_l.data_ptr() if quant else None,
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-        B, nkv, R, hd, page, tables.shape[1], _POOL_CODES[pool_k_l.dtype],
-        _kernels.stream_ptr(qf.device),
+        base, base + 4 * n, base + 8 * n,
+        scratch if parts else None, scratch + 4 * parts if parts else None, scratch + 8 * parts if parts else None,
+        B, nkv, R, hd, page, max_pg, pps, nsplit, code, _kernels.stream_ptr(device),
     )
     _kernels.check_launch(err, "paged_attn_partials (K4)")
     paged_attn_partials.launches += 1

@@ -29,13 +29,30 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 @functools.cache
 def _rms_norm_fn():
     fn = _kernels.library("rms_norm").rt_rms_norm
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 _RMS_DTYPES = (torch.bfloat16, torch.float32)
-_RMS_MAX_ROW_BYTES = 200 * 1024  # the row is staged in shared memory (227 KB a block)
+_RMS_MAX_ROW_BYTES = 200 * 1024  # the block path stages the row in shared memory (227 KB a block)
+_RMS_WARP_MAX_ROW_BYTES = 16 * 1024  # the warp path holds the row in registers: 512 bytes a lane
+
+
+def rms_norm_plan(d: int, itemsize: int, aligned: bool) -> tuple[int, int]:
+    """K5's launch path for rows of ``d`` elements of ``itemsize`` bytes:
+    ``(2, nv)`` a warp per row, each lane holding ``nv`` 16-byte vectors (a
+    power of two), for rows of at most 16 KB in whole vectors on 16-byte
+    aligned pointers; else ``(1, 0)`` a block per row in 16-byte vectors,
+    or ``(0, 0)`` element by element when the width is not a whole number
+    of vectors or a pointer is not aligned (``csrc/rms_norm.cu``)."""
+    per_vec = 16 // itemsize
+    if not aligned or d % per_vec:
+        return 0, 0
+    if d * itemsize > _RMS_WARP_MAX_ROW_BYTES:
+        return 1, 0
+    per_lane = -(-(d // per_vec) // 32)
+    return 2, 1 << (per_lane - 1).bit_length()
 
 
 def rms_norm_fused(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -43,18 +60,21 @@ def rms_norm_fused(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> 
     (port of ``rms_norm_pallas``). x: [..., d] bf16 or f32; weight: [d]
     bf16 or f32. Returns x's shape and dtype.
 
-    CUDA tensors launch K5 (``csrc/rms_norm.cu``) and count it in
-    ``rms_norm_fused.launches``; CPU tensors run ``rms_norm``."""
+    CUDA tensors launch K5 (``csrc/rms_norm.cu``, on the path
+    ``rms_norm_plan`` picks) and count it in ``rms_norm_fused.launches``;
+    CPU tensors run ``rms_norm``."""
     if not x.is_cuda:
         return rms_norm(x, weight, eps)
     d = x.shape[-1]
-    if x.dtype not in _RMS_DTYPES or weight.dtype not in _RMS_DTYPES:
-        raise TypeError(f"rms_norm_fused: dtypes x {x.dtype}, weight {weight.dtype} are not bf16 or f32")
-    if not (weight.is_cuda and weight.device == x.device):
+    x_dtype, w_dtype = x.dtype, weight.dtype
+    if x_dtype not in _RMS_DTYPES or w_dtype not in _RMS_DTYPES:
+        raise TypeError(f"rms_norm_fused: dtypes x {x_dtype}, weight {w_dtype} are not bf16 or f32")
+    if weight.device != x.device:
         raise ValueError("rms_norm_fused: x and weight must be on the same CUDA device")
-    if tuple(weight.shape) != (d,):
+    if weight.shape != (d,):
         raise ValueError(f"rms_norm_fused: weight shape {tuple(weight.shape)} != ({d},)")
-    if d == 0 or d * x.element_size() > _RMS_MAX_ROW_BYTES:
+    itemsize = x.element_size()
+    if d == 0 or d * itemsize > _RMS_MAX_ROW_BYTES:
         raise ValueError(f"rms_norm_fused: row width {d} is empty or does not fit the kernel's shared-memory row")
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("rms_norm_fused: x and weight must be contiguous")
@@ -62,9 +82,10 @@ def rms_norm_fused(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> 
     rows = x.numel() // d
     if rows == 0:
         return out
+    x_ptr, w_ptr = x.data_ptr(), weight.data_ptr()
+    path, nv = rms_norm_plan(d, itemsize, (x_ptr | w_ptr) % 16 == 0)
     err = _rms_norm_fn()(
-        x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16),
+        x_ptr, w_ptr, out.data_ptr(), rows, d, eps, x_dtype == torch.bfloat16, w_dtype == torch.bfloat16, path, nv,
         _kernels.stream_ptr(x.device),
     )
     _kernels.check_launch(err, "rms_norm_fused (K5)")

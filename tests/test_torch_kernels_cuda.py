@@ -9,7 +9,8 @@ Tolerances: bf16 K1 outputs 2e-2 (both round P to bf16 before P·V, the
 kernel relative to the running max and the plain version relative to the
 final logsumexp; one bf16 ulp at |o| ~ 1 is 2^-7);
 f32 outputs and lse 1e-4 / 1e-3 (f32 sums in another order); K4
-partials 1e-4 relative. K2/K3 gradients relative to the largest |grad| (at least 1):
+partials 1e-4 relative (l and acc where the bound is above 0; at bound 0
+the kernel returns l = acc = 0, csrc/paged_attn.cu). K2/K3 gradients relative to the largest |grad| (at least 1):
 f32 1e-4 (f32 sums in another order), bf16 2e-2 (the kernels round P and
 dS to bf16, 2^-9 relative each, before the f32 sums over up to T terms, and
 the outputs to bf16 after them; the plain version keeps P and dS in f32). K5: f32 1e-5
@@ -101,8 +102,8 @@ def test_k1_bf16_raises_on_a_misaligned_base(dev):
     assert torch.isfinite(o).all()
 
 
-def _pool(g, P, nkv, hd, kind, dev):
-    k, v = _randn(g, P, PAGE, nkv, hd, device=dev), _randn(g, P, PAGE, nkv, hd, device=dev)
+def _pool(g, P, nkv, hd, kind, dev, page=PAGE):
+    k, v = _randn(g, P, page, nkv, hd, device=dev), _randn(g, P, page, nkv, hd, device=dev)
     if kind == "int8":
         kq, ks = quantize_heads(k)
         vq, vs = quantize_heads(v)
@@ -131,6 +132,100 @@ def test_k4_kernel_matches_plain(dev, kind, T, hd, rep):
     assert torch.allclose(l[live], l_r[live], rtol=1e-4, atol=1e-4)
     assert torch.allclose(acc[live], acc_r[live], rtol=1e-4, atol=1e-3)
     assert torch.all(l[~live] == 0) and torch.all(acc[~live] == 0)
+
+
+def _k4_case(layout, dev):
+    """(B, nkv, page, max_pg, bounds) of a split-plan case; the bounds
+    straddle the split length ``split_plan`` gives this card."""
+    B, nkv, page, max_pg = {"edges": (8, 2, PAGE, 14), "all_zero": (3, 2, PAGE, 14), "one_lane": (1, 2, PAGE, 14),
+                            "one_page": (4, 2, PAGE, 1), "page64": (2, 8, 64, 32)}[layout]
+    pps, nsplit = tpa.split_plan(max_pg, page, B * nkv, tpa._sm_count(dev.index))
+    span, full = pps * page, max_pg * page
+    bounds = {"edges": [0, 1, span - 1, span, span + 1, 2 * span, 2 * span + 1, full],
+              "all_zero": [0] * B, "one_lane": [full - 1], "one_page": [0, 1, page - 1, page],
+              "page64": [full - 1, span + 3]}[layout]
+    assert (nsplit > 1) == (layout not in ("one_page",)) and all(0 <= b <= full for b in bounds)
+    return B, nkv, page, max_pg, bounds
+
+
+def _k4_inputs(g, kind, T, hd, rep, layout, dev):
+    B, nkv, page, max_pg, bounds = _k4_case(layout, dev)
+    P = B * max_pg + 1  # every lane its own pages; page 0 unused, as the engine's padding page
+    pk, pv, ks, vs = _pool(g, P, nkv, hd, kind, dev, page)
+    qf = _randn(g, B, nkv, rep, T, hd, device=dev) * hd**-0.5
+    rng = np.random.default_rng(len(bounds))
+    tables = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(B, max_pg).astype(np.int32)).to(dev)
+    return qf, pk, pv, tables, torch.tensor(bounds, dtype=torch.int32, device=dev), ks, vs
+
+
+@pytest.mark.parametrize("layout", ["edges", "all_zero", "one_lane", "one_page", "page64"])
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("T,hd,rep", [(1, 128, 4), (5, 128, 4), (1, 64, 8), (16, 64, 4), (16, 128, 4)])
+def test_k4_split_plan_matches_plain(dev, layout, kind, T, hd, rep):
+    """The split kernel and its merge against the plain version: bounds at
+    0, 1 and a split's edge -1, 0, +1 (the first and the second), a full
+    table; every lane at bound 0; a single lane; one table column; page 64
+    with 8 kv heads as the served model has; T 1, 5 and 16 (R = 64) at
+    both head dims; f32, bf16 and int8 pools."""
+    g = torch.Generator(device=dev).manual_seed(T * hd + rep)
+    qf, pk, pv, tables, bound, ks, vs = _k4_inputs(g, kind, T, hd, rep, layout, dev)
+    before = tpa.paged_attn_partials.launches
+    m, l, acc = tpa.paged_attn_partials(qf, pk, pv, tables, bound, ks, vs)
+    torch.cuda.synchronize()
+    assert tpa.paged_attn_partials.launches == before + 1
+    m_r, l_r, acc_r = tpa.paged_attn_partials_ref(qf, pk, pv, tables, bound, ks, vs)
+    live = bound > 0
+    assert torch.allclose(m, m_r, atol=1e-4)
+    assert torch.allclose(l[live], l_r[live], rtol=1e-4, atol=1e-4)
+    assert torch.allclose(acc[live], acc_r[live], rtol=1e-4, atol=1e-3)
+    assert torch.all(l[~live] == 0) and torch.all(acc[~live] == 0) and torch.all(m[~live] == tpa._NEG)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_k4_never_reads_at_or_past_the_bound(dev, kind, T):
+    """NaN in every pool position at or past each lane's bound (for int8
+    the scales there are NaN and the values 127), including the tail of
+    the last page below the bound and the pages of a split past it: the
+    outputs stay finite and equal to those of the clean pool."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    qf, pk, pv, tables, bound, ks, vs = _k4_inputs(g, kind, T, 128, 4, "edges", dev)
+    bound[2] -= 5  # the last page below this lane's bound ends in 5 poisoned positions
+    clean = tpa.paged_attn_partials(qf, pk, pv, tables, bound, ks, vs)
+    pk2, pv2 = pk.clone(), pv.clone()
+    ks2, vs2 = (None, None) if ks is None else (ks.clone(), vs.clone())
+    page = pk.shape[1]
+    for b in range(tables.shape[0]):
+        for j in range(tables.shape[1]):
+            first = max(int(bound[b]) - j * page, 0)
+            if first >= page:
+                continue
+            pid = int(tables[b, j])
+            if kind == "int8":
+                pk2[pid, first:], pv2[pid, first:] = 127, -127
+                ks2[pid, :, first:], vs2[pid, :, first:] = float("nan"), float("nan")
+            else:
+                pk2[pid, first:], pv2[pid, first:] = float("nan"), float("nan")
+    dirty = tpa.paged_attn_partials(qf, pk2, pv2, tables, bound, ks2, vs2)
+    torch.cuda.synchronize()
+    for a, b in zip(clean, dirty):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_k4_wrapper_raises_on_inputs_the_kernel_does_not_take(dev):
+    pk = torch.zeros((3, PAGE, 2, 128), device=dev, dtype=torch.bfloat16)
+    tables = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    bound = torch.ones((1,), dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 2, 4, 1, 128), device=dev)
+    with pytest.raises(ValueError, match="rep"):
+        tpa.paged_attn_partials(torch.zeros((1, 2, 8, 9, 128), device=dev), pk, pk, tables, bound)
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.paged_attn_partials(torch.zeros((1, 2, 4, 1, 96), device=dev), pk, pk, tables, bound)
+    with pytest.raises(ValueError, match="aligned"):
+        off = torch.zeros(3 * PAGE * 2 * 128 + 1, device=dev, dtype=torch.bfloat16)[1:].view(pk.shape)
+        tpa.paged_attn_partials(q, off, pk, tables, bound)
+    with pytest.raises(ValueError, match="scales"):
+        tpa.paged_attn_partials(q, pk.to(torch.int8), pk.to(torch.int8), tables, bound)
 
 
 def test_page_attention_on_card_matches_host_and_ignores_write_target(dev):
@@ -259,3 +354,42 @@ def test_k5_kernel_matches_plain(dev, xdt, wdt, rows, d):
     torch.cuda.synchronize()
     assert tl.rms_norm_fused.launches == before + 1 and out.dtype == xdt and out.shape == x.shape
     assert _rel_err(out, tl.rms_norm(x, w, 1e-5)) <= (2**-7 if xdt == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [13, 1000, 4096, 16384])
+@pytest.mark.parametrize("rows", [1, 9])
+def test_k5_paths_match_plain(dev, aligned, xdt, wdt, d, rows):
+    """K5 across its dispatch edges (``rms_norm_plan``): 1 and 9 rows (one
+    and two blocks of eight warps), d 13 (element by element), 1000 and
+    4096 (a warp per row; 4096 f32 is the warp path's widest row), 16384
+    (a block per row), and an x whose base is not 16-byte aligned (element
+    by element at every width)."""
+    g = torch.Generator(device=dev).manual_seed(rows * d)
+    flat = (_randn(g, rows * d + 1, device=dev) * 3).to(xdt)
+    x = flat[:-1].view(rows, d) if aligned else flat[1:].view(rows, d)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == aligned
+    w = _randn(g, d, device=dev).to(wdt)
+    before = tl.rms_norm_fused.launches
+    out = tl.rms_norm_fused(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert tl.rms_norm_fused.launches == before + 1 and out.dtype == xdt and out.shape == x.shape
+    assert _rel_err(out, tl.rms_norm(x, w, 1e-5)) <= (2**-7 if xdt == torch.bfloat16 else 1e-5)
+
+
+def test_stream_ptr_is_the_current_stream(dev):
+    """The wrappers' raw stream handle is the current stream's, on the
+    default stream and inside a side stream's context."""
+    from ray_tpu_torch import _kernels
+
+    assert _kernels.stream_ptr(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        x = torch.randn((9, 4096), device=dev).bfloat16()
+        w = torch.randn((4096,), device=dev).bfloat16()
+        assert _kernels.stream_ptr(x.device) == side.cuda_stream
+        out = tl.rms_norm_fused(x, w)
+    side.synchronize()
+    assert _rel_err(out, tl.rms_norm(x, w)) <= 2**-7

@@ -90,3 +90,31 @@ def test_rms_norm_fused_cpu_branch_matches_pallas_interpret():
     out = tl.rms_norm_fused(xt, wt, 1e-5)
     assert tl.rms_norm_fused.launches == before  # the counter counts kernel launches only
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("d,itemsize,aligned,plan", [
+    (8, 2, True, (2, 1)),  # one bf16 vector: a warp, one vector a lane
+    (256, 2, True, (2, 1)),  # 32 vectors: one a lane
+    (264, 2, True, (2, 2)),  # 33 vectors: two a lane, the second on lane 0 only
+    (2048, 2, True, (2, 8)),  # the training rows (hidden 2048)
+    (4096, 2, True, (2, 16)),  # a decode step of Llama-3-8B
+    (8192, 2, True, (2, 32)),  # 16 KB: the widest row a warp holds
+    (8200, 2, True, (1, 0)),  # past 16 KB: a block per row
+    (4096, 4, True, (2, 32)),  # f32, 16 KB
+    (4100, 4, True, (1, 0)),
+    (1000, 4, True, (2, 8)),  # 250 f32 vectors
+    (13, 2, True, (0, 0)),  # not a whole number of vectors: element by element
+    (1001, 4, True, (0, 0)),
+    (4096, 2, False, (0, 0)),  # an unaligned pointer: element by element
+    (100 * 1024, 2, True, (1, 0)),  # 200 KB, the widest row the block path stages
+])
+def test_rms_norm_fused_dispatch_rule(d, itemsize, aligned, plan):
+    """K5's launch path at its edges: a warp per row up to 16 KB rows of
+    whole 16-byte vectors on aligned pointers (nv, the vectors a lane
+    holds, a power of two covering d), a block per row past that, and the
+    element-by-element block path for ragged widths or unaligned pointers."""
+    assert tl.rms_norm_plan(d, itemsize, aligned) == plan
+    path, nv = plan
+    if path == 2:
+        vectors = d * itemsize // 16
+        assert (nv & (nv - 1)) == 0 and (32 * nv >= vectors > 16 * nv or (nv == 1 and vectors <= 32))

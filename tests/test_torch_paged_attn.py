@@ -117,3 +117,72 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     ref = tpa.paged_attn_partials_ref(qf, _t(k), _t(v), tables, bound)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert tpa.paged_attn_partials.launches == before
+
+
+@pytest.mark.parametrize("max_pg,page,lanes,sms,plan", [
+    (32, 64, 64, 132, (4, 8)),  # the served Llama-3-8B at batch 8: 512 blocks, 4 a SM with every table full
+    (32, 64, 8, 132, (1, 32)),  # one lane: 256 blocks, where one block per kv head gave 8
+    (32, 64, 1024, 132, (32, 1)),  # enough lanes to fill the card without splitting: no merge pass
+    (12, 16, 12, 132, (4, 3)),  # at least one 64-position chunk per split at page 16
+    (10, 16, 12, 132, (4, 3)),  # max_pg not a multiple of the split: the last split is short
+    (1, 16, 2, 132, (4, 1)),
+    (0, 64, 8, 132, (1, 1)),  # no table columns: one empty split per lane
+    (4096, 16, 10000, 132, (256, 16)),  # at most 256 table entries staged per split
+])
+def test_split_plan(max_pg, page, lanes, sms, plan):
+    pps, nsplit = tpa.split_plan(max_pg, page, lanes, sms)
+    assert (pps, nsplit) == plan
+    assert pps * nsplit >= max_pg and pps * (nsplit - 1) < max(max_pg, 1)
+
+
+def _split_emulation(qf, k, v, tables, bound, ks, vs, sms):
+    """The kernel's split plan in plain PyTorch: ``split_plan``'s splits,
+    each one's partials over its table columns and positions below the
+    bound (the empty partial where the split starts at or past it), then
+    the merge: ``_combine`` over the splits that hold data, in order."""
+    B, nkv = qf.shape[:2]
+    page, max_pg = k.shape[1], tables.shape[1]
+    pps, nsplit = tpa.split_plan(max_pg, page, B * nkv, sms)
+    span = pps * page
+    nb = bound.clamp(max=max_pg * page)
+    m = torch.full(qf.shape[:4], tpa._NEG)
+    l, acc = torch.zeros(qf.shape[:4]), torch.zeros(qf.shape)
+    for s in range(nsplit):
+        local = (nb - s * span).clamp(0, span).to(torch.int32)
+        ms, ls, accs = tpa.paged_attn_partials_ref(qf, k, v, tables[:, s * pps:(s + 1) * pps].contiguous(), local, ks, vs)
+        held = (local > 0)[:, None, None, None]
+        mm, ll, aa = tpkv._combine(m, l, acc, ms, ls, accs)
+        m, l, acc = torch.where(held, mm, m), torch.where(held, ll, l), torch.where(held[..., None], aa, acc)
+    return nsplit, (m, l, acc)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_split_plan_emulation_matches_plain_and_pallas_interpret(quant, T):
+    """Splitting each lane's pages and merging the splits gives the one-pass
+    partials: against ``paged_attn_partials_ref`` and ray_tpu's K4 in
+    interpret mode, at bounds 0, 1, a split's edge (64) and past it, and a
+    full table, with 3 splits (one SM count) and 1 (another); splits past
+    a lane's bound hold nothing. At bound 0 the split plan gives the
+    kernel's l = acc = 0 (the documented difference); m agrees everywhere."""
+    rng = np.random.default_rng(5)
+    B, nkv, rep, hd, max_pg = 6, 2, 2, 32, 12
+    P = B * max_pg + 1
+    k, v, ks, vs = _pool(rng, P, nkv, hd, quant)
+    qf = (rng.standard_normal((B, nkv, rep, T, hd)) / np.sqrt(hd)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, P)).reshape(B, max_pg).astype(np.int32)
+    bound = np.array([0, 1, 64, 65, 129, max_pg * PAGE], np.int32)
+    pallas = pallas_partials(_j(qf), _j(k), _j(v), _j(tables), _j(bound), _j(ks), _j(vs), interpret=True)
+    args = (_t(qf), _t(k), _t(v), _t(tables), _t(bound), _t(ks), _t(vs))
+    plain = tpa.paged_attn_partials_ref(*args)
+    live = bound > 0
+    for sms, want_splits in ((132, 3), (1, 1)):
+        nsplit, out = _split_emulation(*args, sms)
+        assert nsplit == want_splits
+        for name, o, p, r in zip(("m", "l", "acc"), out, plain, pallas):
+            o = o.numpy()
+            if name != "m":
+                assert np.all(o[~live] == 0), name
+                o, p, r = o[live], p.numpy()[live], np.asarray(r)[live]
+            np.testing.assert_allclose(o, np.asarray(p), atol=ATOL, rtol=1e-6, err_msg=name)
+            np.testing.assert_allclose(o, np.asarray(r), atol=ATOL, rtol=1e-6, err_msg=name)
