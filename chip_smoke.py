@@ -21,10 +21,12 @@ Phases, in order; any failed check exits non-zero before the last line:
    2, 4, and the f32 instances.
 3. K4 against its plain version on the card (8 lanes, 8 kv heads, rep 4,
    page 64, T in {1, 5}, bf16 and int8 pools, bounds 0 .. ~2000; then one
-   lane at bound 2047, T = 1), plus the combined page attention against
-   the host path; timed the same way, with the device time per call from
-   torch.profiler (its partials and merge kernels) and the wrapper's host
-   cost per call (perf_counter over 300 calls, no synchronise).
+   lane at bound 2047, T = 1; then the prefix-cache extend's shapes: one
+   lane at bound 1024, T in {17, 64, 512, 2048}, R = 4 T rows per kv
+   head), plus the combined page attention against the host path; timed
+   the same way, with the device time per call from torch.profiler (its
+   partials and merge kernels) and the wrapper's host cost per call
+   (perf_counter over 300 calls, no synchronise).
 4. The engine: full-width Llama-3-8B (random weights from a seed, bf16)
    serves 8 seeded prompts of 50-1500 tokens, 32 greedy tokens each. The
    kernels' launch counters are zeroed just before and read just after:
@@ -34,9 +36,23 @@ Phases, in order; any failed check exits non-zero before the last line:
    wall time, device-busy time, idle share, K4's device time, cuBLAS's and
    the rest's (the table in build/decode_step_profile.txt); K4's partials
    kernel must appear 32 x 4 times.
+4b. Prefix caching on the same weights: a fresh engine (caching on, 64-token
+   blocks) generates a leader (a seeded 1024-token prefix + 256 tokens),
+   then 8 requests of the prefix + seeded suffixes of 32-900 tokens with
+   pairwise distinct first suffix tokens, 32 greedy tokens each. It must
+   count 8 hits, 1 miss, 8192 tokens saved, K1 32 times per prefill
+   forward and K4 32 times per decode step and extend forward, and finish
+   every request with 32 tokens. Then the same 8 prompts hit again and the
+   step that admits them runs under torch.profiler (wall, device busy,
+   idle share, K4, cuBLAS, the rest; table in build/hit_wave_profile.txt).
+   Prints the hit wave's prefill ms beside a caching-off engine's on the
+   same 8 prompts, the count of first tokens the two agree on, and both
+   waves' peak memory.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps; prefill and
-   decode logits must agree.
+   decode logits must agree. Then the extend: a 64-token prefix in the
+   pool and a 40-token suffix in a 64 bucket over it; its logits must
+   agree.
 6. K2/K3 against their plain version on the card at bench.py's two
    training shapes (B, H, Hkv, T, D) = (8, 16, 8, 2048, 128) and
    (2, 16, 8, 8192, 128) in bf16, a ragged T = 1000, f32 at D 64 and 128,
@@ -88,6 +104,8 @@ K1_SHAPES = [(1, 32, 8, 64), (4, 32, 8, 512), (2, 32, 8, 2048), (1, 32, 8, 1000)
 K1_WGMMA = "flash_fwd_kernel_wgmma"  # the bf16 instances' kernel name (SASS, profiler)
 K1_TOL_O, K1_TOL_LSE = 2e-2, 1e-3  # o: bf16 output rounding; lse: f32 sums in another order
 K4_BOUNDS = [0, 1, 64, 65, 2000, 2047, 700, 1500]
+K4_EXTEND_START, K4_EXTEND_T = 1024, (17, 64, 512, 2048)  # one lane's cached prefix; suffix buckets (rep 4: R = 4 T)
+PREFIX_LEN, LEADER_SUFFIX, SUFFIX_LENS = 1024, 256, (32, 900)  # phase 4b: shared prefix, leader's tail, follower tails
 K4_KERNELS = ("paged_partials_kernel", "paged_merge_kernel")  # the kernels one K4 call launches
 K5_KERNELS = ("rms_norm_warp_kernel", "rms_norm_block_kernel")
 K4_TOL = 1e-4  # relative, f32 partials summed in another order
@@ -371,6 +389,25 @@ def main() -> int:
         row = dict(pool=pname, T=1, B=1, err=err, rel=rel, **k4_times(qf, pk, pv, t1, b1, sk, sv, m, acc, [2047]))
         k4_rows.append(row)
         print(f"phase 3 K4 {pname} T=1 B=1 bound 2047: max |d| {err:.3g} (rel {rel:.3g}) " + k4_line(row))
+        # the prefix-cache extend: one lane, a 1024-token prefix, the suffix's bucket of query rows
+        b1 = torch.tensor([K4_EXTEND_START], dtype=torch.int32, device=dev)
+        for T in K4_EXTEND_T:
+            qf = torch.randn((1, NKV, REP, T, HD), generator=g, device=dev) * HD**-0.5
+            m, l, acc = paged_attn_partials(qf, pk, pv, t1, b1, sk, sv)
+            m_r, l_r, acc_r = paged_attn_partials_ref(qf, pk, pv, t1, b1, sk, sv)
+            dm = (m - m_r).abs().max().item()
+            err = max(dm, (l - l_r).abs().max().item(), (acc - acc_r).abs().max().item())
+            rel = max(((l - l_r).abs() / l_r.abs().clamp(min=1)).max().item(),
+                      ((acc - acc_r).abs() / acc_r.abs().clamp(min=1)).max().item())
+            del m_r, l_r, acc_r
+            check(dm <= 1e-4 and rel <= K4_TOL,
+                  f"K4 {pname} extend T={T}: max |d| {err:.3g}, relative {rel:.3g} (tol {K4_TOL})")
+            row = dict(pool=pname, T=T, B=1, extend=True, err=err, rel=rel,
+                       **k4_times(qf, pk, pv, t1, b1, sk, sv, m, acc, [K4_EXTEND_START]))
+            k4_rows.append(row)
+            print(f"phase 3 K4 {pname} extend T={T} (R={REP * T}) B=1 bound {K4_EXTEND_START}: max |d| {err:.3g} "
+                  f"(rel {rel:.3g}) " + k4_line(row))
+            del qf, m, l, acc
         # the combined attention (partials + self fold + normalise) at every
         # bound, 0 included: card (K4) against the host path (plain version)
         qg = torch.randn((Bl, NKV, REP, HD), generator=g, device=dev)
@@ -430,7 +467,68 @@ def main() -> int:
     check(decode_prof["calls"]["paged_partials_kernel"] == n_prof
           and decode_prof["calls"]["paged_merge_kernel"] in (0, n_prof),
           f"decode profile: K4's kernels ran {decode_prof['calls']} times in {DECODE_PROFILE_STEPS} steps, not {n_prof}")
-    del eng, params
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 4b
+    prefix = rng.integers(1, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    leader = prefix + rng.integers(1, cfg.vocab_size, size=LEADER_SUFFIX).tolist()
+    firsts = rng.choice(np.setdiff1d(np.arange(1, cfg.vocab_size), [leader[PREFIX_LEN]]), size=8, replace=False)
+    suffix_lens = rng.integers(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1, size=8)
+    followers = [prefix + [int(f)] + rng.integers(1, cfg.vocab_size, size=int(n) - 1).tolist()
+                 for f, n in zip(firsts, suffix_lens)]
+    eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64, prefix_block=64)  # prefix caching is on by default
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+    lead_out = eng.generate(leader, SamplingParams(max_tokens=32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_before = eng.prefill_s
+    t0 = time.perf_counter()
+    hit_outs = eng.generate(followers, SamplingParams(max_tokens=32))
+    hit_wall_s = time.perf_counter() - t0
+    hit_prefill_s = eng.prefill_s - prefill_before
+    hit_peak = torch.cuda.max_memory_allocated()
+    k1_4b, k4_4b = flash_attention_fwd.launches, paged_attn_partials.launches
+    stats = eng.prefix_cache_stats()
+    check(len(lead_out.token_ids) == 32 and all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in hit_outs),
+          f"prefix caching: not every request finished with 32 tokens: {[len(o.token_ids) for o in hit_outs]}")
+    check((stats["hits"], stats["misses"], stats["tokens_saved"]) == (8, 1, 8 * PREFIX_LEN),
+          f"prefix caching: stats {stats}, expected 8 hits, 1 miss, {8 * PREFIX_LEN} tokens saved")
+    check(k1_4b == cfg.num_layers * eng.prefill_forwards > 0,
+          f"prefix caching: K1 launches {k1_4b} != {cfg.num_layers} x {eng.prefill_forwards} prefill forwards")
+    check(k4_4b == cfg.num_layers * (eng.decode_steps + eng.extend_forwards) and eng.extend_forwards == 8,
+          f"prefix caching: K4 launches {k4_4b} != {cfg.num_layers} x ({eng.decode_steps} decode steps + "
+          f"{eng.extend_forwards} extend forwards)")
+    # the same 8 prompts again on this engine (they hit the leader's prefix again): timed warm, then the
+    # admitting step profiled
+    prefill_before = eng.prefill_s
+    eng.generate(followers, SamplingParams(max_tokens=32))
+    hit_prefill_warm_s = eng.prefill_s - prefill_before
+    wave_prof = profile_hit_wave(torch, eng, followers, SamplingParams(max_tokens=32), card,
+                                 _kernels.BUILD_DIR / "hit_wave_profile.txt")
+    check(wave_prof["calls"]["paged_partials_kernel"] == cfg.num_layers * 9,
+          f"hit wave profile: K4 ran {wave_prof['calls']} times, not {cfg.num_layers} x (8 extends + 1 decode step)")
+    del eng
+    torch.cuda.empty_cache()
+    eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64, enable_prefix_caching=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    off_outs = eng.generate(followers, SamplingParams(max_tokens=32))
+    off_wall_s = time.perf_counter() - t0
+    off_peak = torch.cuda.max_memory_allocated()
+    off_prefill_s, off_forwards = eng.prefill_s, eng.prefill_forwards
+    eng.generate(followers, SamplingParams(max_tokens=32))
+    off_prefill_warm_s = eng.prefill_s - off_prefill_s
+    same_first = sum(a.token_ids[0] == b.token_ids[0] for a, b in zip(hit_outs, off_outs))
+    print(f"phase 4b prefix caching llama3_8b: leader {len(leader)} tokens, then 8 prompts of {PREFIX_LEN} + "
+          f"{sorted(int(n) for n in suffix_lens)} tokens, 32 greedy tokens each: stats {stats}, hit wave prefill "
+          f"{hit_prefill_s * 1e3:.2f} ms over {8} extend forwards ({hit_wall_s:.3f} s wall, peak memory {hit_peak} "
+          f"bytes; {hit_prefill_warm_s * 1e3:.2f} ms the second time) against caching off {off_prefill_s * 1e3:.2f} "
+          f"ms over {off_forwards} prefill forwards ({off_wall_s:.3f} s wall, peak memory {off_peak} bytes; "
+          f"{off_prefill_warm_s * 1e3:.2f} ms the second time); K1 launches {k1_4b}, K4 launches {k4_4b}; "
+          f"first tokens equal in {same_first} of 8 (bf16 K1 vs f32 K4, not gated) {card}")
+    del eng, params, hit_outs, off_outs
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 5
@@ -468,6 +566,31 @@ def main() -> int:
           f"whole path: logits differ by {max(errs):.3g} (tol {WHOLE_PATH_TOL})")
     print(f"phase 5 whole path (2 layers, f32, card vs host): prefill |dlogits| {errs[0]:.3g}, decode max "
           f"{max(errs[1:]):.3g} over {len(forced)} steps (max |logit| {scale:.3g}, tol {WHOLE_PATH_TOL})")
+    suffix = np.zeros(64, np.int64)
+    suffix[:40] = rng.integers(1, cfg2.vocab_size, size=40)
+
+    def run_extend(params, device):
+        """The 64-token prompt's K/V in page 1, then a 40-token suffix in a 64 bucket extended over it."""
+        pcfg = pkv.PagedCacheConfig(num_layers=2, num_pages=3, page_size=64, max_pages_per_seq=2, num_slots=1,
+                                    num_kv_heads=cfg2.num_kv_heads, head_dim=cfg2.hd, dtype="float32")
+        pool = pkv.alloc(pcfg, device)
+        row = torch.tensor([1, 2], dtype=torch.int32, device=device)
+        _, ks, vs = mr.prefill(params, torch.from_numpy(prompt[None]).to(device), torch.tensor([64], device=device),
+                               cfg2)
+        pkv.insert_pages(pool, row[:1], ks[:, 0], vs[:, 0])
+        logits, pool = mr.extend_paged(params, pool, row, 64, torch.from_numpy(suffix).to(device), 40, cfg2)
+        return logits.cpu(), pool["k"].cpu(), pool["v"].cpu()
+
+    paged_attn_partials.launches = 0
+    ext_card = run_extend(p_gpu, dev)
+    check(paged_attn_partials.launches == 2, "whole path: the card's extend did not go through K4")
+    ext_host = run_extend(p_cpu, torch.device("cpu"))
+    ext_errs = [(a - b).abs().max().item() for a, b in zip(ext_card, ext_host)]
+    check(all(np.isfinite(ext_errs)) and max(ext_errs) <= WHOLE_PATH_TOL,
+          f"whole path: the extend's logits / pool differ by {ext_errs} (tol {WHOLE_PATH_TOL})")
+    print(f"phase 5 extend (2 layers, f32, 64-token prefix + 40-token suffix in a 64 bucket, card vs host): "
+          f"|dlogits| {ext_errs[0]:.3g}, pool |dk| {ext_errs[1]:.3g} |dv| {ext_errs[2]:.3g} (tol {WHOLE_PATH_TOL})")
+    del p_gpu, p_cpu
 
     # ---------------------------------------------------------------- 6
     k23_rows = []
@@ -667,6 +790,11 @@ def main() -> int:
              max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
              bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None,
              device_ms=rep4["device_ms"], host_us=rep4["host_us"]),
+        *(dict(name=f"K4 paged_attn_partials extend T={r['T']} R={REP * r['T']} {r['pool']}", route="cuda",
+               source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
+               launches=k4_4b, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+               bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"], host_us=r["host_us"])
+          for r in k4_rows if r.get("extend")),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -734,6 +862,21 @@ def profile_decode(torch, eng, steps, card, table_path) -> dict:
             t0 = time.perf_counter()
             eng.step()
             walls.append((time.perf_counter() - t0) * 1e3)
+    groups, calls = serving_groups(prof, table_path, steps)
+    busy = sum(groups.values())
+    wall = sum(walls) / steps
+    k4 = groups["K4 partials"] + groups["K4 merge"]
+    print(f"phase 4 decode profile ({steps} decode-only steps, 8 lanes): wall {wall:.3f} ms/step "
+          f"({', '.join(f'{w:.3f}' for w in walls)}), device busy {busy:.3f} ms/step, idle share {1 - busy / wall:.4f}, "
+          f"K4 {k4:.4f} ms/step (partials {groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS "
+          f"{groups['gemm']:.3f} ms/step, rest {groups['other']:.3f} ms/step; K4 kernel calls {calls} {card}")
+    return dict(calls=calls, wall_ms=wall, busy_ms=busy, k4_ms=k4, groups=groups)
+
+
+def serving_groups(prof, table_path, steps=1):
+    """Device ms per step of a serving profile by group (K4's partials and
+    merge kernels, cuBLAS, the rest) and the K4 kernels' call counts; the
+    full table into ``table_path``."""
     groups = {"K4 partials": 0.0, "K4 merge": 0.0, "gemm": 0.0, "other": 0.0}
     calls = {name: 0 for name in K4_KERNELS}
     averages = prof.key_averages()
@@ -746,16 +889,33 @@ def profile_decode(torch, eng, steps, card, table_path) -> dict:
         groups[key] += self_device_us(e) / 1e3 / steps
         for tag in calls:
             calls[tag] += e.count if tag in name else 0
-    busy = sum(groups.values())
-    wall = sum(walls) / steps
     sort_by = "self_device_time_total" if hasattr(averages[0], "self_device_time_total") else "self_cuda_time_total"
     with open(table_path, "w") as f:
         f.write(averages.table(sort_by=sort_by, row_limit=40))
+    return groups, calls
+
+
+def profile_hit_wave(torch, eng, prompts, sampling, card, table_path) -> dict:
+    """The engine step that admits ``prompts`` (prefix hits: one extend
+    forward each, then the wave's first decode step) under torch.profiler:
+    its wall time, device-busy time, idle share and the device time of K4,
+    of cuBLAS and of the rest; the full table into ``table_path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for prompt in prompts:
+        eng.add_request(prompt, sampling)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups, calls = serving_groups(prof, table_path)
+    busy = sum(groups.values())
     k4 = groups["K4 partials"] + groups["K4 merge"]
-    print(f"phase 4 decode profile ({steps} decode-only steps, 8 lanes): wall {wall:.3f} ms/step "
-          f"({', '.join(f'{w:.3f}' for w in walls)}), device busy {busy:.3f} ms/step, idle share {1 - busy / wall:.4f}, "
-          f"K4 {k4:.4f} ms/step (partials {groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS "
-          f"{groups['gemm']:.3f} ms/step, rest {groups['other']:.3f} ms/step; K4 kernel calls {calls} {card}")
+    print(f"phase 4b hit wave profile (one step: {len(prompts)} extend forwards, then a decode step): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}, K4 {k4:.4f} ms (partials "
+          f"{groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS {groups['gemm']:.3f} ms, rest "
+          f"{groups['other']:.3f} ms; K4 kernel calls {calls} {card}")
     return dict(calls=calls, wall_ms=wall, busy_ms=busy, k4_ms=k4, groups=groups)
 
 

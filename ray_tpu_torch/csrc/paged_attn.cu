@@ -10,10 +10,12 @@
 // Reference: the XLA page scan paged_kv.py:218-240, ported as
 // ray_tpu_torch/llm/cuda/paged_attn.py::paged_attn_partials_ref.
 //
-// Layout: qf [B, nkv, rep, T, hd] f32 (R = rep * T rows per kv head, at most
-// 64); pool_k / pool_v [P, page, nkv, hd] f32, bf16 or int8; tables
-// [B, max_pg] i32; bound [B] i32; k_scale / v_scale [P, nkv, page] f32
-// (int8 only); m, l [B, nkv, rep, T] and acc [B, nkv, rep, T, hd] f32.
+// Layout: qf [B, nkv, rep, T, hd] f32 (R = rep * T rows per kv head, any
+// number: decode has R = rep, ray_tpu's prefix-cache extend R = rep * the
+// suffix's prefill bucket); pool_k / pool_v [P, page, nkv, hd] f32, bf16 or
+// int8; tables [B, max_pg] i32; bound [B] i32; k_scale / v_scale
+// [P, nkv, page] f32 (int8 only); m, l [B, nkv, rep, T] and acc
+// [B, nkv, rep, T, hd] f32.
 //
 // Aliasing contract: no position >= bound[b] is ever read, and no table
 // entry at or past ceil(bound[b] / page) is dereferenced. The position the
@@ -28,18 +30,28 @@
 // caller's combined output agrees at every bound, because _combine scales
 // the bound-0 partial by exp(-1e30 - s_self) = 0.
 //
-// What bounds it on an H100: bytes. Decode reads every cached K/V byte once
-// for ~2 R flops per element (R = rep * T query rows per kv head), far below
-// the card's ~295 operations per byte, so the bound is the K/V bytes up to
-// each lane's bound over 3.35 TB/s.
+// What bounds it on an H100: bytes at decode, operations at the extend.
+// Every cached K or V element meets R query rows for 2 R f32 flops, so a
+// bf16 pool gives R operations per byte read. The card's f32 rate over its
+// memory rate is 67 / 3.35 = 20 operations per byte: at decode (R = 4) the
+// bound is the K/V bytes up to each lane's bound over 3.35 TB/s, and at an
+// extend (R = 4 x the suffix's bucket, 68 to 8192) the f32 operations over
+// 67 TFLOP/s.
 //
-// Design (flash-decoding): each lane's pages are cut into splits of `pps`
-// pages, chosen by the wrapper (llm/cuda/paged_attn.py::split_plan) from
-// max_pg, B * nkv and the SM count so that the grid fills the card at
-// batch 8 and at batch 1. The bound lives on the device, so the grid covers
-// every split up to max_pg; a split that starts at or past the bound writes
-// the empty partial (m = -1e30, l = 0, acc = 0) and exits.
-// - paged_partials_kernel, one 256-thread block per (lane, kv head, split):
+// Design (flash-decoding): the R rows of a kv head are cut into row tiles
+// of at most RT = 64 rows (rows of one kv head are contiguous in (rep, T)
+// order in qf, m, l and acc, so a tile is a row offset; the last tile is
+// ragged), and each lane's pages into splits of `pps` pages, chosen by the
+// wrapper (llm/cuda/paged_attn.py::split_plan) from max_pg, the row-tile
+// lanes B * nkv * tiles and the SM count so that the grid fills the card at
+// batch 8 and at batch 1 and does not split when the tiles alone fill it.
+// Each tile re-reads its split's K/V (the tiles of one split are adjacent
+// in the grid, so the re-reads mostly hit L2). The bound lives on the
+// device, so the grid covers every split up to max_pg; a split that starts
+// at or past the bound writes the empty partial (m = -1e30, l = 0, acc = 0)
+// and exits.
+// - paged_partials_kernel, one 256-thread block per (lane, kv head, split,
+//   row tile):
 //   reads its split's table entries once into shared memory, then streams
 //   the split in chunks of 64 positions through a ring of 2 stages (3 for
 //   int8 pools) filled by 16-byte cp.async copies (4-byte ones for the int8
@@ -69,7 +81,7 @@ namespace {
 
 constexpr int NT = 256;            // threads per block
 constexpr int CH = 64;             // positions per chunk (one ring stage)
-constexpr int RMAX = 64;           // most query rows (rep * T) per kv head
+constexpr int RT = 64;             // query rows per block: a row tile of one kv head's rep * T rows
 constexpr int MAX_SPLIT_PAGES = 256;  // table entries a split stages (split_plan keeps pps at or below)
 constexpr float NEG = -1e30f;      // paged_kv._NEG
 
@@ -86,7 +98,7 @@ struct Cfg {
   static constexpr int FQ = QD / 4;             // float4s of Q per quarter
   static constexpr int NCG = HD / 8;            // 8-dim column groups of P V
   static constexpr int GROUPS = NT / NCG;       // row groups x position splits of P V
-  static constexpr int RPT = (RMAX + GROUPS - 1) / GROUPS;  // rows a P V thread holds, at most
+  static constexpr int RPT = (RT + GROUPS - 1) / GROUPS;  // rows a P V thread holds, at most
   static_assert(CH * VPR % NT == 0, "whole vectors per thread");
   static_assert(QD % EV == 0, "whole vectors per score thread");
 };
@@ -96,7 +108,7 @@ struct Cfg {
 template <int FQ>
 __device__ __forceinline__ int q_slot(int f) { return (f % FQ) * 4 + f / FQ; }
 
-// Dynamic shared memory for R rows: the ring, then Q [R][HD] f32 (float4s in q_slot order), P
+// Dynamic shared memory for a tile of R rows: the ring, then Q [R][HD] f32 (float4s in q_slot order), P
 // [R][CH + 1] f32, m / l / alpha [R] f32, the split's page ids.
 template <typename T, int HD>
 __host__ __device__ constexpr int smem_bytes(int R) {
@@ -153,24 +165,26 @@ __global__ void __launch_bounds__(NT, 2) paged_partials_kernel(
     const int* __restrict__ tables, const int* __restrict__ bound,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ acc_out,
-    int nkv, int R, int page, int max_pg, int pps, int nsplit) {
+    int nkv, int R_all, int page, int max_pg, int pps, int nsplit, int ntiles) {
   using C = Cfg<T, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockIdx.x % ntiles;  // the tiles of one (lane, kv head, split) are adjacent: L2 serves the re-reads
+  const int split = (blockIdx.x / ntiles) % nsplit;
+  const int blk = blockIdx.x / ntiles / nsplit;  // = b * nkv + g
+  const int b = blk / nkv;
+  const int g = blk - b * nkv;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = tile * RT;           // the tile's first row of the kv head's R_all rows
+  const int R = min(RT, R_all - row0);  // the tile's rows (the last tile is ragged)
+  const size_t out_row = ((size_t)blk * nsplit + split) * R_all + row0;  // this block's first row of m/l (acc: x HD)
   float* Qs = reinterpret_cast<float*>(smem + C::NS * C::STAGE);  // [R][HD]
   float* Ps = Qs + R * HD;           // [R][CH + 1]
   float* Ms = Ps + R * (CH + 1);     // [R] running max
   float* Ls = Ms + R;                // [R] running sum
   float* As = Ls + R;                // [R] this chunk's rescale factor
   int* pid_s = reinterpret_cast<int*>(As + R);  // [pps] the split's page ids
-
-  const int split = blockIdx.x % nsplit;
-  const int blk = blockIdx.x / nsplit;  // = b * nkv + g
-  const int b = blk / nkv;
-  const int g = blk - b * nkv;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t out_row = ((size_t)blk * nsplit + split) * R;  // this block's first row of m/l (acc: x HD)
 
   const int nb = min(bound[b], max_pg * page);
   const int start = split * pps * page;
@@ -187,7 +201,7 @@ __global__ void __launch_bounds__(NT, 2) paged_partials_kernel(
   const int npages = (end - 1) / page - first_page + 1;  // pages of the split below the bound
   const int* trow = tables + (size_t)b * max_pg + first_page;
   for (int j = tid; j < npages; j += NT) pid_s[j] = trow[j];
-  const float4* q4 = reinterpret_cast<const float4*>(qf + (size_t)blk * R * HD);
+  const float4* q4 = reinterpret_cast<const float4*>(qf + ((size_t)blk * R_all + row0) * HD);
   for (int e = tid; e < R * HD / 4; e += NT) {
     const int r = e / (HD / 4), f = e - r * (HD / 4);
     reinterpret_cast<float4*>(Qs)[r * (HD / 4) + q_slot<C::FQ>(f)] = q4[e];
@@ -375,7 +389,7 @@ __global__ void __launch_bounds__(NT, 2) paged_partials_kernel(
 
 // Folds the splits of each (lane, kv head) that hold data, in split order,
 // with paged_kv._combine's formula, starting from the empty partial.
-// Grid: (B * nkv, ceil(R * HD / NT)).
+// Grid: (B * nkv, ceil(R * HD / NT)), R the kv head's rows (every tile's).
 __global__ void __launch_bounds__(NT) paged_merge_kernel(
     const float* __restrict__ m_part, const float* __restrict__ l_part, const float* __restrict__ acc_part,
     const int* __restrict__ bound, float* __restrict__ m_out, float* __restrict__ l_out,
@@ -421,15 +435,16 @@ int launch(const void* qf, const void* pool_k, const void* pool_v, const void* t
            const void* k_scale, const void* v_scale, void* m, void* l, void* acc, void* m_part, void* l_part,
            void* acc_part, int B, int nkv, int R, int page, int max_pg, int pps, int nsplit, cudaStream_t stream) {
   static unsigned long long smem_set = 0;
-  cudaError_t err = hopper::set_smem_once(paged_partials_kernel<T, HD, QUANT>, smem_bytes<T, HD>(RMAX), smem_set);
+  cudaError_t err = hopper::set_smem_once(paged_partials_kernel<T, HD, QUANT>, smem_bytes<T, HD>(RT), smem_set);
   if (err != cudaSuccess) return (int)err;
   const bool merge = nsplit > 1;
-  paged_partials_kernel<T, HD, QUANT><<<B * nkv * nsplit, NT, smem_bytes<T, HD>(R), stream>>>(
+  const int ntiles = (R + RT - 1) / RT;
+  paged_partials_kernel<T, HD, QUANT><<<B * nkv * nsplit * ntiles, NT, smem_bytes<T, HD>(R < RT ? R : RT), stream>>>(
       static_cast<const float*>(qf), static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
       static_cast<const int*>(tables), static_cast<const int*>(bound),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<float*>(merge ? m_part : m), static_cast<float*>(merge ? l_part : l),
-      static_cast<float*>(merge ? acc_part : acc), nkv, R, page, max_pg, pps, nsplit);
+      static_cast<float*>(merge ? acc_part : acc), nkv, R, page, max_pg, pps, nsplit, ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return (int)err;
   const dim3 grid(B * nkv, (R * HD + NT - 1) / NT);
@@ -455,6 +470,7 @@ int dispatch(int pool_dtype, const void* qf, const void* pk, const void* pv, con
 }  // namespace
 
 // pool_dtype: 0 = f32, 1 = bf16, 2 = int8 (k_scale / v_scale required).
+// R = rep * T >= 1 rows per kv head, cut into ceil(R / 64) row tiles.
 // pps: pages per split (1 .. 256), nsplit: splits per lane, with
 // pps * nsplit >= max_pg; with nsplit > 1 the partials of each split go to
 // m_part / l_part [B, nkv, nsplit, R] and acc_part [B, nkv, nsplit, R, hd]
@@ -467,8 +483,10 @@ extern "C" int rt_paged_partials(const void* qf, const void* pool_k, const void*
                                  void* m, void* l, void* acc, void* m_part, void* l_part, void* acc_part,
                                  int B, int nkv, int R, int hd, int page, int max_pg, int pps, int nsplit,
                                  int pool_dtype, void* stream) {
-  if (R < 1 || R > RMAX || page < 1 || pps < 1 || pps > MAX_SPLIT_PAGES || nsplit < 1 ||
-      (long long)pps * nsplit < max_pg || (nsplit > 1 && (m_part == nullptr || l_part == nullptr || acc_part == nullptr)))
+  const long long blocks = (long long)B * nkv * nsplit * ((R + RT - 1) / RT);
+  if (R < 1 || page < 1 || pps < 1 || pps > MAX_SPLIT_PAGES || nsplit < 1 || blocks > 0x7fffffffLL ||
+      (long long)pps * nsplit < max_pg || (nsplit > 1 && (m_part == nullptr || l_part == nullptr || acc_part == nullptr ||
+                                                          (long long)R * hd / NT >= 65535)))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128) return dispatch<128>(pool_dtype, qf, pool_k, pool_v, tables, bound, k_scale, v_scale, m, l, acc, m_part, l_part, acc_part, B, nkv, R, page, max_pg, pps, nsplit, st);

@@ -28,7 +28,7 @@ from ray_tpu_torch import _kernels
 _NEG = -1e30  # paged_kv._NEG; repeated here so the kernel module stands alone
 
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_ROWS = 64  # rep * T the kernel holds per kv head
+ROWS = 64  # query rows per block: a kv head's rep * T rows are cut into ceil(R / ROWS) row tiles
 CHUNK = 64  # positions per stage of the kernel's shared-memory ring
 MAX_SPLIT_PAGES = 256  # table entries a split stages in shared memory
 BLOCKS_PER_SM = 4  # split_plan's target: a few resident blocks per SM, two waves
@@ -84,13 +84,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def row_tiles(R: int) -> int:
+    """Row tiles of a kv head's ``R = rep * T`` query rows: one block each."""
+    return -(-R // ROWS)
+
+
 def split_plan(max_pg: int, page: int, lanes: int, sms: int) -> tuple[int, int]:
     """How K4 cuts each lane's ``max_pg`` table columns: ``(pps, nsplit)``,
     pages per split and splits per lane, one block per (lane, kv head,
-    split) over ``lanes`` = B * nkv. The bound lives on the device, so the
-    plan sees only shapes: enough splits for ``BLOCKS_PER_SM`` blocks on
-    each of the ``sms`` SMs had every lane its full table, at least one
-    kernel chunk of positions per split, at most ``MAX_SPLIT_PAGES`` pages."""
+    row tile, split) over ``lanes`` = B * nkv * ``row_tiles(R)``. The bound
+    lives on the device, so the plan sees only shapes: enough splits for
+    ``BLOCKS_PER_SM`` blocks on each of the ``sms`` SMs had every lane its
+    full table, at least one kernel chunk of positions per split, at most
+    ``MAX_SPLIT_PAGES`` pages. Row tiles count as lanes: an extend's
+    hundreds of tiles fill the card unsplit, so its scratch stays at zero."""
     want = max(1, -(-BLOCKS_PER_SM * sms // max(lanes, 1)))
     pps = min(max(-(-max_pg // want), -(-CHUNK // page), 1), MAX_SPLIT_PAGES)
     return pps, max(1, -(-max_pg // pps))
@@ -109,7 +116,8 @@ def paged_attn_partials(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l=None, v
     ``ray_tpu.llm.pallas.paged_attn.paged_attn_partials``.
 
     CUDA tensors launch K4 (its partials kernel over ``split_plan``'s
-    splits, then its merge kernel when there is more than one split) and
+    splits and ``row_tiles``' row tiles, then its merge kernel when there
+    is more than one split) and
     count the call in ``paged_attn_partials.launches``; CPU tensors run the
     plain version. The three outputs are views of one allocation, which
     also holds the splits' scratch: this runs once per layer and decode
@@ -122,8 +130,8 @@ def paged_attn_partials(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l=None, v
     R = rep * T
     if hd != 64 and hd != 128:
         raise _bad(f"head_dim {hd} not in (64, 128)")
-    if not 1 <= R <= MAX_ROWS:
-        raise _bad(f"rep * T = {R} outside 1..{MAX_ROWS}")
+    if R < 1:
+        raise _bad(f"rep * T = {R}: no query rows")
     pool_dtype = pool_k_l.dtype
     code = _POOL_CODES.get(pool_dtype)
     if code is None or pool_v_l.dtype != pool_dtype:
@@ -153,7 +161,7 @@ def paged_attn_partials(qf, pool_k_l, pool_v_l, tables, bound, k_scale_l=None, v
         raise _bad("qf and the pool slices must be 16-byte aligned")
     max_pg = tables.shape[1]
     lanes = B * nkv
-    pps, nsplit = _plan(max_pg, page, lanes, _sm_count(device.index))
+    pps, nsplit = _plan(max_pg, page, lanes * row_tiles(R), _sm_count(device.index))
     n = lanes * R  # rows of m and l
     parts = n * nsplit if nsplit > 1 else 0  # rows of each split's partials, the merge kernel's input
     buf = torch.empty(n * (hd + 2) + parts * (hd + 2), dtype=torch.float32, device=device)

@@ -10,7 +10,12 @@ paged, synchronous loop of ray_tpu/llm/engine.py).
 - every step() is three stages: admission, prefill, decode. Decode is the
   synchronous host-driven loop (ray_tpu's ``device_resident=False``
   oracle): upload the tables, run the read-only attention half (K4) and
-  the in-place append, sample, read the tokens back.
+  the in-place append, sample, read the tokens back;
+- prefix caching (on by default, as in ray_tpu): a fresh prompt's K/V is
+  kept at every block boundary of it (``PrefixCache``, the local tier);
+  admission looks up the longest cached block-aligned prefix of a new
+  prompt, inserts it into the request's pages and re-attends only the
+  suffix (``model_runner.extend_paged``: K4 over the prefix pages).
 
 Features of ray_tpu's engine that this port does not have yet raise
 NotImplementedError naming their ROADMAP.md item.
@@ -31,6 +36,7 @@ import torch
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache_dtype
+from ray_tpu_torch.llm.kvplane.index import prefix_key, token_bytes
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
 from ray_tpu_torch.models.llama import init_params
 
@@ -49,6 +55,9 @@ class RequestState:
     # admission order (preemption picks the youngest) and preemption count
     admit_seq: int = -1
     preemptions: int = 0
+    # prefix resolution cached while the request waits: None = not resolved,
+    # (k, v, n) = a hit, (_PREF_MISS, gen) = a miss at the cache's generation gen
+    cached_pref: tuple | None = None
 
 
 @dataclass
@@ -68,6 +77,122 @@ def _bucket(n: int, buckets) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds the largest prefill bucket {buckets[-1]}")
+
+
+# RequestState.cached_pref miss marker. A blocked request keeps its miss
+# (no lookup every step) until the cache's store generation moves: a leader
+# admitted in the same wave stores the prefix after the follower's lookup
+# missed, and the follower then re-resolves and hits. A local-only cache
+# never expires a miss otherwise (nothing else mints its keys).
+_PREF_MISS = object()
+
+
+class PrefixCache:
+    """Hash-prefix KV reuse across requests, the local tier (port of
+    ray_tpu/llm/engine.py::PrefixCache without the cluster plane's
+    ``evict_hook``).
+
+    One GROUP per stored prompt: its K/V ``[L, pad, kv, hd]`` on the
+    device, padded to the prefill bucket of its block-aligned length, and
+    keyed at every block boundary (``prefix_key``: content-stable blake2b,
+    ray_tpu's key space) with that boundary's valid length. LRU over groups
+    under a byte budget. A hit is verified token for token against the
+    group's one stored token tuple."""
+
+    def __init__(self, block: int = 64, max_bytes: int = 256 << 20):
+        self.block = block
+        self.max_bytes = max_bytes
+        # store generation: bumped whenever new boundary keys mint, so a
+        # cached miss knows when the cache gained entries
+        self.gen = 0
+        self._groups: dict = {}  # gid -> (k, v, nbytes, [keys], token tuple)
+        self._keys: dict = {}  # prefix key -> (gid, n)
+        self._order: deque = deque()  # LRU over gids: left = coldest
+        self._next_gid = 0
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.tokens_saved = 0
+        self.evictions = 0
+
+    def lookup(self, prompt_token_ids, admissible=None):
+        """Longest block-aligned cached prefix STRICTLY shorter than the
+        prompt (one token must remain to produce logits): ``(k, v, n)`` or
+        None. ``admissible(n) -> bool`` rejects a boundary before it can
+        match, and the lookup falls through to the next shorter one."""
+        ids = tuple(int(t) for t in prompt_token_ids)
+        buf = token_bytes(ids)
+        n = ((len(ids) - 1) // self.block) * self.block
+        while n >= self.block:
+            if admissible is not None and not admissible(n):
+                n -= self.block
+                continue
+            hit = self._keys.get(prefix_key(buf, n))
+            if hit is not None:
+                gid, n_valid = hit
+                k, v, _, _, group_ids = self._groups[gid]
+                if group_ids[:n_valid] == ids[:n_valid]:  # a hash collision never serves foreign KV
+                    self._order.remove(gid)
+                    self._order.append(gid)
+                    self.hits += 1
+                    self.tokens_saved += n_valid
+                    return k, v, n_valid
+            n -= self.block
+        self.misses += 1
+        return None
+
+    def store(self, prompt_token_ids, ks, vs, buckets):
+        """Cache a freshly prefilled prompt's K/V once, keyed at every
+        block boundary not cached yet. ks/vs: [L, T_pad, kv, hd] views of
+        the batched prefill output; the group keeps a contiguous copy of
+        the first ``pad`` positions (the bucket of the block-aligned
+        length), so the budget counts exactly what it holds and the whole
+        batch's K/V is not kept alive by a view. Returns the stored pad
+        width, or None when nothing new was cached."""
+        n_max = (len(prompt_token_ids) // self.block) * self.block
+        if n_max < self.block:
+            return None
+        ids = tuple(int(t) for t in prompt_token_ids[:n_max])
+        buf = token_bytes(ids)
+        new_keys = [(key, n) for n in range(self.block, n_max + 1, self.block)
+                    if (key := prefix_key(buf, n)) not in self._keys]
+        if not new_keys:
+            return None
+        pad = _bucket(n_max, buckets)
+        nbytes = 2 * ks[:, :pad].numel() * ks.element_size()
+        if nbytes > self.max_bytes:
+            return None
+        while self._bytes + nbytes > self.max_bytes and self._order:
+            self._evict_one()
+        k = ks[:, :pad].clone(memory_format=torch.contiguous_format)
+        v = vs[:, :pad].clone(memory_format=torch.contiguous_format)
+        gid = self._next_gid
+        self._next_gid += 1
+        self._groups[gid] = (k, v, nbytes, [key for key, _ in new_keys], ids)
+        for key, n in new_keys:
+            self._keys[key] = (gid, n)
+        self._order.append(gid)
+        self._bytes += nbytes
+        self.gen += 1
+        return pad
+
+    def _evict_one(self):
+        gid = self._order.popleft()
+        _, _, nbytes, keys, _ = self._groups.pop(gid)
+        for key in keys:
+            self._keys.pop(key, None)
+        self._bytes -= nbytes
+        self.evictions += 1
+
+    def stats(self) -> dict:
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "tokens_saved": self.tokens_saved,
+            "evictions": self.evictions,
+            "entries": len(self._groups),
+            "bytes": self._bytes,
+        }
 
 
 def _not_ported(feature: str, item: str):
@@ -103,7 +228,9 @@ class LLMEngine:
         cache_dtype: str | None = None,
         mesh=None,
         tp_collective: str = "fp",
-        enable_prefix_caching: bool = False,
+        enable_prefix_caching: bool = True,
+        prefix_cache_bytes: int = 256 << 20,
+        prefix_block: int = 64,
         kv_plane=None,
         kv_layout: str = "paged",
         num_pages: int | None = None,
@@ -119,8 +246,6 @@ class LLMEngine:
             _not_ported("kv_layout='slots'", "serving item 3")
         if kv_layout != "paged":
             raise ValueError(f"kv_layout must be 'slots' or 'paged', got {kv_layout!r}")
-        if enable_prefix_caching:
-            _not_ported("enable_prefix_caching=True", "serving item 1")
         if device_resident:
             _not_ported("device_resident=True", "serving item 2")
         if telemetry:
@@ -157,6 +282,8 @@ class LLMEngine:
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         if any(b % page_size for b in self.prefill_buckets):
             raise ValueError(f"page_size {page_size} must divide every prefill bucket {self.prefill_buckets}")
+        if prefix_block % page_size:
+            raise ValueError(f"page_size {page_size} must divide prefix_block {prefix_block}")
         max_pg = -(-self.max_seq_len // page_size)
         if num_pages is None:
             num_pages = self.max_num_seqs * max_pg + 1  # slot-equivalent memory (+1 trash)
@@ -176,6 +303,9 @@ class LLMEngine:
             params = init_params(config, gen)
         self.params = params
         self.pool = pkv.alloc(self._pcfg, self.device)
+        self._prefix_cache = (
+            PrefixCache(block=prefix_block, max_bytes=prefix_cache_bytes) if enable_prefix_caching else None
+        )
         self._page_alloc = pkv.PageAllocator(self._pcfg.num_pages)
         B = self.max_num_seqs
         self._tables = np.zeros((B, max_pg), np.int32)
@@ -200,6 +330,7 @@ class LLMEngine:
         # and host seconds spent in each stage; both stages end in a host
         # read of sampled tokens, so on the card these include device time
         self.prefill_forwards = 0
+        self.extend_forwards = 0  # prefix-cache hits' suffix forwards (K4 over the prefix)
         self.decode_steps = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
@@ -249,6 +380,17 @@ class LLMEngine:
     @property
     def num_running(self) -> int:
         return sum(1 for s in self._slots if s is not None)
+
+    def prefix_cache_stats(self) -> dict:
+        """Prefix-reuse accounting: the local cache's counters (hits,
+        misses, tokens_saved, evictions, entries, bytes) and the same hits
+        as the ``local`` tier; ``{}`` when prefix caching is off."""
+        with self._lock:
+            if self._prefix_cache is None:
+                return {}
+            out = self._prefix_cache.stats()
+            out["local"] = {"hits": out["hits"], "tokens_saved": out["tokens_saved"]}
+            return out
 
     def kv_cache_stats(self) -> dict:
         """KV-cache accounting: dtype and layout, bytes/token, allocated vs
@@ -339,21 +481,47 @@ class LLMEngine:
                 self._tables[slot, len(self._slot_pages[slot])] = got[0]
                 self._slot_pages[slot].extend(got)
 
-    def _pages_needed(self, st: RequestState, prompt) -> int | None:
-        """Pages to admit: the prompt bucket + one decode headroom page
-        (capped at the table row). None = can never fit; the request is
-        finished with an error instead of waiting forever."""
-        need = _bucket(len(prompt), self.prefill_buckets) // self._pcfg.page_size + 1
+    def _pages_needed(self, st: RequestState, pref, prompt) -> int | None:
+        """Pages to admit: the prompt bucket (a prefix hit: the prefix and
+        the suffix's bucket) + one decode headroom page, capped at the
+        table row. None = can never fit; the request is finished with an
+        error instead of waiting forever."""
+        page = self._pcfg.page_size
+        if pref is not None:
+            n_p = pref[2]
+            need = (n_p + _bucket(len(prompt) - n_p, self.prefill_buckets)) // page + 1
+        else:
+            need = _bucket(len(prompt), self.prefill_buckets) // page + 1
         need = min(need, self._pcfg.max_pages_per_seq)
         if need > self._pcfg.num_pages - 1:
             self._finish(st, f"error: needs {need} pages, pool holds {self._pcfg.num_pages - 1}")
             return None
         return need
 
+    def _resolve_prefix(self, st: RequestState, prompt):  # holds-lock: _lock
+        """The request's prefix hit ``(k, v, n)`` or None, resolved once
+        and cached on the request while it waits; a cached miss is looked
+        up again only after the cache's generation moved."""
+        cached = st.cached_pref
+        if cached is not None and cached[0] is _PREF_MISS and cached[1] != self._prefix_cache.gen:
+            cached = None  # keys minted since the miss: re-resolve
+        if cached is not None:
+            return None if cached[0] is _PREF_MISS else cached
+        pref = self._prefix_cache.lookup(prompt, admissible=lambda n_p: self._prefix_fits(n_p, len(prompt)))
+        st.cached_pref = (_PREF_MISS, self._prefix_cache.gen) if pref is None else pref
+        return pref
+
+    def _prefix_fits(self, n_p: int, prompt_len: int) -> bool:
+        """A prefix boundary is admissible when the bucket-padded suffix
+        still fits the sequence's table row after it."""
+        return n_p + _bucket(prompt_len - n_p, self.prefill_buckets) <= self.max_seq_len
+
     def _stage_admission(self) -> list:  # holds-lock: _lock
         """ADMISSION: admit waiting requests FIFO while a slot and pages
         are free (a head-of-line request that cannot get pages blocks the
-        wave; admission never preempts). Returns (st, slot, pages, prompt)."""
+        wave; admission never preempts), resolving prefix hits of fresh
+        prompts before the wave's prefills run. Returns (st, slot, pref,
+        pages, prompt)."""
         wave = []
         while self._waiting and None in self._slots:
             st = self._waiting[0]
@@ -362,7 +530,10 @@ class LLMEngine:
                 continue
             slot = self._slots.index(None)
             prompt = st.prompt_token_ids + st.token_ids  # preempted: generated tail joins the prompt
-            need = self._pages_needed(st, prompt)
+            pref = None
+            if self._prefix_cache is not None and not st.token_ids:
+                pref = self._resolve_prefix(st, prompt)
+            need = self._pages_needed(st, pref, prompt)
             if need is None:
                 self._waiting.popleft()
                 continue
@@ -370,18 +541,23 @@ class LLMEngine:
             if pages is None:
                 break  # pool full: head-of-line waits
             self._waiting.popleft()
+            st.cached_pref = None  # admission consumes the cached resolution
             self._slots[slot] = st  # reserve; _bind_slot fills the rest
-            wave.append((st, slot, pages, prompt))
+            wave.append((st, slot, pref, pages, prompt))
         return wave
 
     def _stage_prefill(self, wave: list) -> None:
-        """PREFILL: one batched forward per prefill bucket."""
+        """PREFILL: prefix hits extend their suffix one by one, in wave
+        order; then one batched forward per prefill bucket for the rest."""
         plains = []
-        for st, slot, pages, prompt in wave:
+        for st, slot, pref, pages, prompt in wave:
             self._slot_pages[slot] = pages
             self._tables[slot, :] = 0
             self._tables[slot, : len(pages)] = pages
-            plains.append((st, slot, prompt))
+            if pref is not None:
+                self._admit_prefix_hit(st, slot, pref, prompt)
+            else:
+                plains.append((st, slot, prompt))
         for group in self._bucket_groups(plains):
             self._admit_prefill_batch(group)
 
@@ -409,10 +585,33 @@ class LLMEngine:
         self.prefill_forwards += 1
         page = self._pcfg.page_size
         for i, (st, slot, prompt) in enumerate(group):
+            if self._prefix_cache is not None and not st.token_ids:  # fresh prompts only
+                self._prefix_cache.store(prompt, ks[:, i], vs[:, i], self.prefill_buckets)
             row = torch.from_numpy(self._tables[slot, : T // page].copy()).to(self.device)
             pkv.insert_pages(self.pool, row, ks[:, i], vs[:, i])
             self._lengths[slot] = len(prompt)
             self._bind_slot(st, slot, logits[i : i + 1])
+
+    def _admit_prefix_hit(self, st: RequestState, slot: int, pref, prompt):
+        """Admit a prefix hit into its pages (already in the host table):
+        insert the cached prefix's first n_p positions into the first
+        n_p / page pages, then extend the suffix over them (K4 over the
+        prefix, the suffix causally from registers) and sample from the
+        extend's logits."""
+        k_p, v_p, n_p = pref
+        page = self._pcfg.page_size
+        n = len(prompt)
+        m = n - n_p
+        Tm = _bucket(m, self.prefill_buckets)
+        row = torch.from_numpy(self._tables[slot].copy()).to(self.device)
+        pkv.insert_pages(self.pool, row[: n_p // page], k_p[:, :n_p], v_p[:, :n_p])
+        toks = np.zeros((Tm,), np.int64)
+        toks[:m] = prompt[n_p:]
+        logits, self.pool = mr.extend_paged(self.params, self.pool, row, n_p, torch.from_numpy(toks).to(self.device),
+                                            m, self.config)
+        self.extend_forwards += 1
+        self._lengths[slot] = n
+        self._bind_slot(st, slot, logits[None])
 
     def _bind_slot(self, st: RequestState, slot: int, logits):
         """Bind the lane and sample the first token from the prefill logits."""

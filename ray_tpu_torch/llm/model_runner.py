@@ -1,12 +1,16 @@
-"""Cache-aware Llama forward passes: batched prefill and paged decode
-(port of the paged half of ray_tpu/llm/model_runner.py).
+"""Cache-aware Llama forward passes: batched prefill, paged decode and
+the prefix-cache extend (port of the paged half of
+ray_tpu/llm/model_runner.py).
 
 Same parameter tree as ``models/llama.py``. Prefill runs the causal
 flash path (K1) over right-padded prompts and returns every layer's K/V
 for insertion into pages. Paged decode advances every slot one token in
 two halves, as in JAX: ``decode_attn_paged`` only reads the pool (K4 over
 cached positions, the current token folded from registers), then
-``append_paged`` writes the new token in place.
+``append_paged`` writes the new token in place. The extend (a prompt's
+suffix over a cached prefix) has the same two halves:
+``extend_attn_paged`` (K4 over the prefix pages, the suffix causally
+from registers), then ``append_chunk_paged``.
 """
 
 from __future__ import annotations
@@ -14,11 +18,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models.llama import LlamaConfig, layer_params, unembed_f32
-from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.models.llama import LlamaConfig, attention, layer_params, unembed_f32
 from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rotary_embedding
 from ray_tpu_torch.llm.kv_quant import quantize_heads
-from ray_tpu_torch.llm.paged_kv import _paged_attn_batch
+from ray_tpu_torch.llm.paged_kv import _paged_attn_batch, _paged_attn_seq_batch
 
 
 def _qkv(xn, layer, cfg: LlamaConfig):
@@ -54,7 +57,7 @@ def prefill(params, tokens, length, cfg: LlamaConfig):
         q, k, v = _qkv(xn, layer, cfg)
         qh = apply_rope(q.transpose(1, 2), cos, sin)
         kh = apply_rope(k.transpose(1, 2), cos, sin)
-        o = flash_attention(qh, kh, v.transpose(1, 2).contiguous(), True, None)
+        o = attention(qh, kh, v.transpose(1, 2).contiguous(), cfg)
         o = o.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.hd)
         x = x + o @ layer["wo"]
         x = _mlp(x, layer, cfg)
@@ -134,3 +137,66 @@ def decode_step_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
     logits, k_new, v_new = decode_attn_paged(params, pool, tables, lengths, tokens, cfg)
     pool = append_paged(pool, write_page, write_off, k_new, v_new)
     return logits, pool, lengths + 1
+
+
+def extend_write_targets(table_row, start, T: int, page: int):
+    """(write_page [T], write_off [T]) for a suffix chunk at absolute
+    positions start..start+T-1 (the last table column past the row's edge)."""
+    positions = int(start) + torch.arange(T, dtype=torch.int64, device=table_row.device)
+    page_ix = torch.clamp(positions // page, max=table_row.shape[0] - 1)
+    return table_row[page_ix], (positions % page).to(torch.int32)
+
+
+@torch.no_grad()
+def extend_attn_paged(params, pool, table_row, start, tokens, length, cfg: LlamaConfig):
+    """READ-ONLY half of the paged extend: the suffix ``tokens`` [T]
+    (right-padded to a prefill bucket, ``length`` real) at positions
+    start..start+T-1 attends to the cached prefix pages (K4, one lane,
+    bound ``start``) plus itself causally from registers. Returns
+    (logits [vocab] f32 at the last real token, k_chunk [L, T, kv, hd],
+    v_chunk same); the pool write is ``append_chunk_paged``."""
+    T = tokens.shape[0]
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = nh // nkv
+    quant = "k_scale" in pool
+    dev = tokens.device
+    positions = int(start) + torch.arange(T, dtype=torch.int32, device=dev)
+    cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
+    x = params["embed"][tokens[None, :]]  # [1, T, H]
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=dev))
+    tables = table_row[None].contiguous()
+    starts = torch.full((1,), int(start), dtype=torch.int32, device=dev)
+    k_chunk, v_chunk = [], []
+    for i in range(cfg.num_layers):
+        layer = layer_params(params, i)
+        xn = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q, k_t, v_t = _qkv(xn, layer, cfg)  # [1, T, nh/nkv, hd]
+        qh = apply_rope(q.transpose(1, 2), cos, sin)  # [1, nh, T, hd]
+        kh = apply_rope(k_t.transpose(1, 2), cos, sin).transpose(1, 2)  # [1, T, nkv, hd]
+        qg = qh.reshape(1, nkv, rep, T, hd)
+        k_sc = pool["k_scale"][i] if quant else None
+        v_sc = pool["v_scale"][i] if quant else None
+        o = _paged_attn_seq_batch(qg, pool["k"][i], pool["v"][i], tables, starts, kh, v_t, scale, k_sc, v_sc)
+        o = o[0].permute(2, 0, 1, 3).reshape(1, T, nh * hd).to(x.dtype)
+        x = x + o @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+        k_chunk.append(kh[0])
+        v_chunk.append(v_t[0])
+    x = rms_norm(x[0], params["final_norm"], cfg.rms_eps)  # [T, H]
+    x_last = x[max(int(length) - 1, 0)]
+    return unembed_f32(x_last, params, cfg), torch.stack(k_chunk), torch.stack(v_chunk)
+
+
+# Write half of the paged extend, in place: the suffix K/V rows (write_page /
+# write_off [T], k_chunk [L, T, kv, hd]) for every layer, an int8 pool
+# quantized here. It is append_paged's scatter with T rows in place of B lanes.
+append_chunk_paged = append_paged
+
+
+def extend_paged(params, pool, table_row, start, tokens, length, cfg: LlamaConfig):
+    """Attention half, then append half. Returns (logits [vocab] f32 at
+    the last real token, pool); the pool is updated in place."""
+    write_page, write_off = extend_write_targets(table_row, start, tokens.shape[0], pool["k"].shape[2])
+    logits, k_chunk, v_chunk = extend_attn_paged(params, pool, table_row, start, tokens, length, cfg)
+    pool = append_chunk_paged(pool, write_page, write_off, k_chunk, v_chunk)
+    return logits, pool

@@ -8,9 +8,10 @@ land somewhere harmless and reads from it are masked by length. A host
 uploaded each step.
 
 PyTorch runs eagerly and the pool is updated in place
-(``index_put_``). The decode step still keeps the JAX order: the
-attention half only reads the pool, then the append writes the new
-token, so the K4 kernel never reads the position being written.
+(``index_put_``). The decode step and the prefix-cache extend still keep
+the JAX order: the attention half only reads the pool, then the append
+writes the new token(s), so the K4 kernel never reads a position being
+written.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
 from ray_tpu_torch.llm.kv_quant import is_int8, quantize_heads
 from ray_tpu_torch.models.llama import torch_dtype
 
@@ -124,3 +125,58 @@ def _paged_attn_batch(qg, pool_k_l, pool_v_l, table, lengths, scale, k_self, v_s
     vs = v_self.float()[:, :, None, :].expand(acc.shape)
     m, l, acc = _combine(m, l, acc, s_self, torch.ones_like(s_self), vs)
     return acc / torch.clamp(l, min=1e-20)[..., None]
+
+
+def _fold_chunk(qf, m, l, acc, k_chunk, v_chunk):
+    """Fold a chunk's own K/V, attended causally from registers, into the
+    prefix partials and normalise (the tail of ray_tpu's
+    ``_paged_attn_seq_batch``, paged_kv.py:336-344, same einsums, mask
+    and order). qf: [B, nkv, rep, T, hd] f32 pre-scaled; m, l: [B, nkv,
+    rep, T]; acc: [..., hd]; k_chunk/v_chunk: [B, T, kv, hd]. Query t
+    sees chunk positions 0..t. The scores are [B, nkv, rep, T, T] f32,
+    as in ray_tpu: 512 MiB at T = 2048 for Llama-3-8B's 8 x 4 heads. The
+    mask, shift and exp run in place on them (the same values as ray_tpu's
+    where / subtract / exp), so the fold holds one such tensor, not three."""
+    T = qf.shape[3]
+    s_c = torch.einsum("bgrth,bugh->bgrtu", qf, k_chunk.float())
+    ar = torch.arange(T, dtype=torch.int32, device=qf.device)
+    s_c.masked_fill_(ar[None, :] > ar[:, None], _NEG)  # causal: key u <= query t
+    m2 = s_c.amax(dim=-1)
+    pe2 = s_c.sub_(m2[..., None]).exp_()
+    l2 = pe2.sum(dim=-1)
+    a2 = torch.einsum("bgrtu,bugh->bgrth", pe2, v_chunk.float())
+    m, l, acc = _combine(m, l, acc, m2, l2, a2)
+    return acc / torch.clamp(l, min=1e-20)[..., None]
+
+
+def _paged_attn_seq(qg, pool_k_l, pool_v_l, table_row, start, k_chunk, v_chunk, scale,
+                    k_scale_l=None, v_scale_l=None):
+    """Attention of T query tokens of ONE sequence: a cached prefix
+    (positions 0..start-1, read from pages) plus the chunk's own K/V
+    attended causally from registers (port of ray_tpu's per-lane
+    ``_paged_attn_seq``, its XLA oracle). The prefix half is always the
+    plain page scan (``paged_attn_partials_ref``), on either device: the
+    tests hold the batched kernel path against it.
+
+    qg: [nkv, rep, T, hd]; table_row: [max_pg] int32; start: int or []
+    int; k_chunk/v_chunk: [T, kv, hd]. Returns [nkv, rep, T, hd] f32."""
+    qf = qg.float()[None] * scale
+    bound = torch.as_tensor(start, dtype=torch.int32, device=qf.device).reshape(1)
+    m, l, acc = paged_attn_partials_ref(qf, pool_k_l, pool_v_l, table_row[None], bound, k_scale_l, v_scale_l)
+    return _fold_chunk(qf, m, l, acc, k_chunk[None], v_chunk[None])[0]
+
+
+def _paged_attn_seq_batch(qg, pool_k_l, pool_v_l, tables, starts, k_chunk, v_chunk, scale,
+                          k_scale_l=None, v_scale_l=None):
+    """Lane-batched ``_paged_attn_seq``, the path: every lane's prefix
+    pages below ``starts`` through K4 (``paged_attn_partials``: the kernel
+    on the card, its plain version on the host), then the causal chunk
+    folded from registers. The chunk was produced this call and is never
+    read back from the pool (the aliasing contract of the decode step).
+
+    qg: [B, nkv, rep, T, hd]; tables: [B, max_pg] int32; starts: [B]
+    int32; k_chunk/v_chunk: [B, T, kv, hd]. Returns [B, nkv, rep, T, hd]
+    f32."""
+    qf = qg.float() * scale
+    m, l, acc = paged_attn_partials(qf.contiguous(), pool_k_l, pool_v_l, tables, starts, k_scale_l, v_scale_l)
+    return _fold_chunk(qf, m, l, acc, k_chunk, v_chunk)

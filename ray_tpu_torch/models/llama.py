@@ -6,7 +6,8 @@ tensors, ``x @ W`` with ``W: [in, out]``, and every per-layer weight
 stacked on a leading ``[L, ...]`` axis under the ``PARAM_AXES`` leaf
 names. Layers are iterated with a Python loop (``scan_layers`` has no
 counterpart); attention goes through ``ops/flash_attention.py``'s
-autograd Function (K1 forward, K2/K3 backward). ``forward`` and
+autograd Function (K1 forward, K2/K3 backward), as ``attention_impl``
+"auto"/"pallas" asks; the card refuses any other value. ``forward`` and
 ``loss_fn`` are differentiable; with ``config.remat`` each layer is
 recomputed in the backward pass (``torch.utils.checkpoint``), as
 ``jax.checkpoint`` with the ``nothing_saveable`` policy does.
@@ -51,9 +52,10 @@ class LlamaConfig:
     # "nothing_saveable" policy (ROADMAP.md, queue 1, training, the rest)
     remat: bool = True
     remat_policy: str = "nothing_saveable"
-    # kept for config parity with ray_tpu and not read: layers are a Python
-    # loop, and attention is always ops/flash_attention.py's kernels
+    # kept for config parity with ray_tpu and not read: layers are a Python loop
     scan_layers: bool = True
+    # "auto" | "pallas": K1-K3 on the card (``attention``); any other value
+    # (ray_tpu's "xla") raises there, and the host runs the plain version
     attention_impl: str = "auto"
     tie_embeddings: bool = False
 
@@ -161,6 +163,30 @@ def unembed_f32(x: torch.Tensor, params: dict, config: LlamaConfig) -> torch.Ten
     return x.float() @ w.float()
 
 
+KERNEL_ATTENTION_IMPLS = ("auto", "pallas")
+
+
+def check_attention_impl(config: LlamaConfig, device) -> None:
+    """Refuse on the card an ``attention_impl`` that asks for another path
+    than the kernels. ray_tpu's "xla" runs XLA's attention at any head dim;
+    the port's only attention on the card is K1-K3, which take head_dim 64
+    or 128, and a silent switch to the plain version would be a fallback."""
+    if torch.device(device).type == "cuda" and config.attention_impl not in KERNEL_ATTENTION_IMPLS:
+        raise ValueError(
+            f"LlamaConfig.attention_impl={config.attention_impl!r}: on the card attention runs only the "
+            f"flash-attention kernels K1-K3 (attention_impl 'auto' or 'pallas'; head_dim 64 or 128, this "
+            f"config has {config.hd}); an XLA-style path is not ported (ROADMAP.md, queue 2)")
+
+
+def attention(q, k, v, config: LlamaConfig):
+    """Causal attention as ``config.attention_impl`` asks: the
+    ``FlashAttention`` Function, whose wrappers launch K1-K3 on the card
+    and run the plain versions on the host (ray_tpu's "xla" numbers there,
+    whatever the value)."""
+    check_attention_impl(config, q.device)
+    return flash_attention(q, k, v, True, None)
+
+
 def _attention_block(x, layer, config: LlamaConfig, cos, sin):
     B, T, _ = x.shape
     nh, nkv, hd = config.num_heads, config.num_kv_heads, config.hd
@@ -170,7 +196,7 @@ def _attention_block(x, layer, config: LlamaConfig, cos, sin):
     v = (xn @ layer["wv"]).reshape(B, T, nkv, hd).transpose(1, 2).contiguous()
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, True, None)
+    o = attention(q, k, v, config)
     o = o.transpose(1, 2).reshape(B, T, nh * hd)
     return x + o @ layer["wo"]
 

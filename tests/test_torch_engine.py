@@ -1,7 +1,8 @@
 """The port's LLMEngine against ray_tpu's on the same weights: greedy
 generation token-identical under the paged schedule that preempts (3
 slots, 8 pages of 16, 6 prompts of 8-40 tokens, 40 new tokens each),
-with equal preemption counts. Plus abort, the device rule and the
+with equal preemption counts and prefix caching off on both sides
+(tests/test_torch_prefix_cache.py holds it on). Plus abort, the device rule and the
 features this slice does not port."""
 
 import queue
@@ -58,10 +59,10 @@ def test_generate_token_identical_to_ray_tpu_under_preemption(params, batch_pref
     jp, tp = params
     je = JaxEngine(jllama.LlamaConfig.tiny(**KW), jp, kv_layout="paged", enable_prefix_caching=False,
                    device_resident=False, telemetry=False, batch_prefill=batch_prefill, **SCHED)
-    for name in ("_prefill", "_insert", "_decode"):
+    for name in ("_prefill", "_insert", "_decode", "_extend"):
         setattr(je, name, _synced(getattr(je, name)))
     ref = je.generate(_prompts(), JaxParams(max_tokens=40))
-    te = _torch_engine(tp, batch_prefill=batch_prefill)
+    te = _torch_engine(tp, batch_prefill=batch_prefill, enable_prefix_caching=False)
     out = te.generate(_prompts(), SamplingParams(max_tokens=40))
     assert [o.token_ids for o in out] == [o.token_ids for o in ref]
     assert all(len(o.token_ids) == 40 and o.finish_reason == "length" for o in out)
@@ -106,14 +107,13 @@ def test_default_device_is_the_card():
     "kw",
     [
         dict(kv_layout="slots"),
-        dict(enable_prefix_caching=True),
         dict(device_resident=True),
         dict(cache_dtype="int8"),
         dict(telemetry=True),
         dict(speculative=object()),
         dict(mesh=object()),
     ],
-    ids=["slots", "prefix_cache", "device_resident", "int8", "telemetry", "speculative", "mesh"],
+    ids=["slots", "device_resident", "int8", "telemetry", "speculative", "mesh"],
 )
 def test_unported_features_raise_naming_roadmap(params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -10,7 +10,8 @@ kernel relative to the running max and the plain version relative to the
 final logsumexp; one bf16 ulp at |o| ~ 1 is 2^-7);
 f32 outputs and lse 1e-4 / 1e-3 (f32 sums in another order); K4
 partials 1e-4 relative (l and acc where the bound is above 0; at bound 0
-the kernel returns l = acc = 0, csrc/paged_attn.cu). K2/K3 gradients relative to the largest |grad| (at least 1):
+the kernel returns l = acc = 0, csrc/paged_attn.cu), at decode and at the
+extend's row counts; the extend's normalised attention 1e-4 absolute. K2/K3 gradients relative to the largest |grad| (at least 1):
 f32 1e-4 (f32 sums in another order), bf16 2e-2 (the kernels round P and
 dS to bf16, 2^-9 relative each, before the f32 sums over up to T terms, and
 the outputs to bf16 after them; the plain version keeps P and dS in f32). K5: f32 1e-5
@@ -181,12 +182,59 @@ def test_k4_split_plan_matches_plain(dev, layout, kind, T, hd, rep):
     assert torch.all(l[~live] == 0) and torch.all(acc[~live] == 0) and torch.all(m[~live] == tpa._NEG)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("T", [17, 64, 512])
+def test_k4_extend_rows_match_plain(dev, kind, hd, T):
+    """The prefix-cache extend's shapes: rep 4 and a suffix bucket's T, so
+    R = 68 (a 64-row tile and a ragged 4-row one), 256 and 2048 rows per kv
+    head, one lane at a prefix start as the engine gives it and two more at
+    ragged bounds, bf16 and int8 pools at both head dims."""
+    g = torch.Generator(device=dev).manual_seed(T + hd)
+    B, nkv, rep, max_pg = 3, 2, 4, 20
+    P = B * max_pg + 1
+    pk, pv, ks, vs = _pool(g, P, nkv, hd, kind, dev)
+    qf = _randn(g, B, nkv, rep, T, hd, device=dev) * hd**-0.5
+    rng = np.random.default_rng(T)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(B, max_pg).astype(np.int32)).to(dev)
+    bound = torch.tensor([4 * PAGE, 9 * PAGE + 5, max_pg * PAGE - 1], dtype=torch.int32, device=dev)
+    before = tpa.paged_attn_partials.launches
+    m, l, acc = tpa.paged_attn_partials(qf, pk, pv, tables, bound, ks, vs)
+    torch.cuda.synchronize()
+    assert tpa.paged_attn_partials.launches == before + 1
+    m_r, l_r, acc_r = tpa.paged_attn_partials_ref(qf, pk, pv, tables, bound, ks, vs)
+    assert torch.allclose(m, m_r, atol=1e-4)
+    assert torch.allclose(l, l_r, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(acc, acc_r, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k4_extend_rows_at_the_served_widths(dev, kind, hd):
+    """R = 8192 (T = 2048) on one lane with 8 kv heads and page 64 at a
+    1024-token prefix, as the engine's extend of a 2048-token bucket over a
+    cached prefix gives it: 1024 row-tile blocks, no split."""
+    g = torch.Generator(device=dev).manual_seed(hd)
+    nkv, rep, T, max_pg, page = 8, 4, 2048, 32, 64
+    pk, pv, ks, vs = _pool(g, max_pg + 1, nkv, hd, kind, dev, page)
+    qf = _randn(g, 1, nkv, rep, T, hd, device=dev) * hd**-0.5
+    tables = torch.arange(1, max_pg + 1, dtype=torch.int32, device=dev)[None]
+    bound = torch.tensor([1024], dtype=torch.int32, device=dev)
+    assert tpa.split_plan(max_pg, page, nkv * tpa.row_tiles(rep * T), tpa._sm_count(dev.index))[1] == 1
+    m, l, acc = tpa.paged_attn_partials(qf, pk, pv, tables, bound, ks, vs)
+    m_r, l_r, acc_r = tpa.paged_attn_partials_ref(qf, pk, pv, tables, bound, ks, vs)
+    assert torch.allclose(m, m_r, atol=1e-4)
+    assert torch.allclose(l, l_r, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(acc, acc_r, rtol=1e-4, atol=1e-3)
+
+
 @pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
-@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("T", [1, 5, 17, 64, 512])
 def test_k4_never_reads_at_or_past_the_bound(dev, kind, T):
     """NaN in every pool position at or past each lane's bound (for int8
     the scales there are NaN and the values 127), including the tail of
-    the last page below the bound and the pages of a split past it: the
+    the last page below the bound and the pages of a split past it, at
+    decode and extend rows (T 17-512: R = 68-2048, several row tiles): the
     outputs stay finite and equal to those of the clean pool."""
     g = torch.Generator(device=dev).manual_seed(11)
     qf, pk, pv, tables, bound, ks, vs = _k4_inputs(g, kind, T, 128, 4, "edges", dev)
@@ -218,7 +266,7 @@ def test_k4_wrapper_raises_on_inputs_the_kernel_does_not_take(dev):
     bound = torch.ones((1,), dtype=torch.int32, device=dev)
     q = torch.zeros((1, 2, 4, 1, 128), device=dev)
     with pytest.raises(ValueError, match="rep"):
-        tpa.paged_attn_partials(torch.zeros((1, 2, 8, 9, 128), device=dev), pk, pk, tables, bound)
+        tpa.paged_attn_partials(torch.zeros((1, 2, 4, 0, 128), device=dev), pk, pk, tables, bound)
     with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_attn_partials(torch.zeros((1, 2, 4, 1, 96), device=dev), pk, pk, tables, bound)
     with pytest.raises(ValueError, match="aligned"):
@@ -250,6 +298,32 @@ def test_page_attention_on_card_matches_host_and_ignores_write_target(dev):
         pk2[page_id, pos % PAGE] = 1e9
         pv2[page_id, pos % PAGE] = -1e9
     assert torch.equal(out, pkv._paged_attn_batch(qg, pk2, pv2, table, lengths, scale, k_self, v_self))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_extend_attention_on_card_matches_host(dev, kind):
+    """``_paged_attn_seq_batch`` (K4 over the prefix, the chunk causally from
+    registers) on the card against the host path at starts 0, 64 and 100,
+    hd 128, rep 4, T 64; and the kernel path against the per-lane plain
+    ``_paged_attn_seq`` on the card."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, nkv, rep, hd, T, max_pg = 3, 2, 4, 128, 64, 16
+    P = B * max_pg + 1
+    pk, pv, ks, vs = _pool(g, P, nkv, hd, kind, dev)
+    qg = _randn(g, B, nkv, rep, T, hd, device=dev)
+    kc, vc = _randn(g, B, T, nkv, hd, device=dev), _randn(g, B, T, nkv, hd, device=dev)
+    tables = torch.arange(1, P, dtype=torch.int32, device=dev).reshape(B, max_pg)
+    starts = torch.tensor([0, 64, 100], dtype=torch.int32, device=dev)
+    scale = hd**-0.5
+    before = tpa.paged_attn_partials.launches
+    out = pkv._paged_attn_seq_batch(qg, pk, pv, tables, starts, kc, vc, scale, ks, vs)
+    assert tpa.paged_attn_partials.launches == before + 1
+    cpu = [None if t is None else t.cpu() for t in (qg, pk, pv, tables, starts, kc, vc, ks, vs)]
+    host = pkv._paged_attn_seq_batch(*cpu[:7], scale, *cpu[7:])
+    assert (out.cpu() - host).abs().max().item() <= 1e-4
+    for b in range(B):
+        lane = pkv._paged_attn_seq(qg[b], pk, pv, tables[b], int(starts[b]), kc[b], vc[b], scale, ks, vs)
+        assert (lane - out[b]).abs().max().item() <= 1e-4
 
 
 def _rel_err(out, ref, floor=1e-30):

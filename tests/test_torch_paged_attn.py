@@ -1,10 +1,15 @@
 """K4 (paged-attention partials): the port's plain version against the
 JAX Pallas kernel in interpret mode, m/l/acc compared directly, at the
 ragged bounds that break off-by-one page masking (0, 1, page, page+1),
-for decode (T=1) and wide blocks (T=5), fp and int8 pools. Plus the
-write-target poison test (twin of tests/test_llm_pallas.py) and the
-combined page attention against ray_tpu's ``_paged_attn_batch``.
-f32 throughout: atol 1e-5 (same arithmetic, other summation order).
+for decode (T=1), wide blocks (T=5) and the extend's chunk rows (rep 4,
+T 17/32/64: R = 68, 128, 256, past one 64-row tile), fp and int8 pools.
+The kernel's split plan and row tiles emulated in plain PyTorch against
+both. The write-target poison test (twin of tests/test_llm_pallas.py),
+the combined page attention against ray_tpu's ``_paged_attn_batch`` and
+the extend's attention (prefix partials + causal chunk) against ray_tpu's
+``_paged_attn_seq_batch`` on both of its paths. f32 throughout: atol
+1e-5 (same arithmetic, other summation order); the extend's normalised
+output 1e-4 (a T-wide f32 softmax over the chunk in another order).
 The CUDA kernel against the plain version is in
 tests/test_torch_kernels_cuda.py."""
 
@@ -54,6 +59,24 @@ def test_plain_k4_matches_pallas_interpret_at_ragged_bounds(quant, T):
     qf = (rng.standard_normal((B, nkv, rep, T, hd)) / np.sqrt(hd)).astype(np.float32)
     tables = rng.integers(1, P, size=(B, 4)).astype(np.int32)
     bound = np.array([0, 1, PAGE, PAGE + 1], np.int32)
+    ref = pallas_partials(_j(qf), _j(k), _j(v), _j(tables), _j(bound), _j(ks), _j(vs), interpret=True)
+    out = tpa.paged_attn_partials(_t(qf), _t(k), _t(v), _t(tables), _t(bound), _t(ks), _t(vs))
+    for name, o, r in zip(("m", "l", "acc"), out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=ATOL, rtol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("T", [17, 32, 64])
+def test_plain_k4_matches_pallas_interpret_at_chunk_rows(quant, T):
+    """The extend's shapes: rep 4 and a suffix bucket's T, so R = 68, 128
+    and 256 rows per kv head (two, two and four of the kernel's row
+    tiles), at ragged bounds below, on and past page edges."""
+    rng = np.random.default_rng(T)
+    B, nkv, rep, hd, P = 3, 2, 4, 32, 9
+    k, v, ks, vs = _pool(rng, P, nkv, hd, quant)
+    qf = (rng.standard_normal((B, nkv, rep, T, hd)) / np.sqrt(hd)).astype(np.float32)
+    tables = rng.integers(1, P, size=(B, 4)).astype(np.int32)
+    bound = np.array([PAGE - 1, 2 * PAGE, 3 * PAGE + 5], np.int32)
     ref = pallas_partials(_j(qf), _j(k), _j(v), _j(tables), _j(bound), _j(ks), _j(vs), interpret=True)
     out = tpa.paged_attn_partials(_t(qf), _t(k), _t(v), _t(tables), _t(bound), _t(ks), _t(vs))
     for name, o, r in zip(("m", "l", "acc"), out, ref):
@@ -128,6 +151,10 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     (1, 16, 2, 132, (4, 1)),
     (0, 64, 8, 132, (1, 1)),  # no table columns: one empty split per lane
     (4096, 16, 10000, 132, (256, 16)),  # at most 256 table entries staged per split
+    # the extend at Llama-3-8B (B = 1, 8 kv heads, page 64, max_pg 32): lanes = 8 x row tiles
+    (32, 64, 8 * 128, 132, (32, 1)),  # T = 2048, R = 8192: 128 tiles fill the card unsplit, no scratch
+    (32, 64, 8 * 4, 132, (2, 16)),  # T = 64, R = 256: 4 tiles
+    (32, 64, 8 * 2, 132, (1, 32)),  # T = 17, R = 68: 2 tiles
 ])
 def test_split_plan(max_pg, page, lanes, sms, plan):
     pps, nsplit = tpa.split_plan(max_pg, page, lanes, sms)
@@ -135,36 +162,51 @@ def test_split_plan(max_pg, page, lanes, sms, plan):
     assert pps * nsplit >= max_pg and pps * (nsplit - 1) < max(max_pg, 1)
 
 
+def test_row_tiles():
+    assert [tpa.row_tiles(R) for R in (1, 4, 64, 65, 68, 256, 8192)] == [1, 1, 1, 2, 2, 4, 128]
+
+
 def _split_emulation(qf, k, v, tables, bound, ks, vs, sms):
-    """The kernel's split plan in plain PyTorch: ``split_plan``'s splits,
-    each one's partials over its table columns and positions below the
-    bound (the empty partial where the split starts at or past it), then
-    the merge: ``_combine`` over the splits that hold data, in order."""
-    B, nkv = qf.shape[:2]
+    """The kernel's grid in plain PyTorch: each kv head's R = rep * T rows
+    (contiguous in (rep, T) order) cut into ``row_tiles`` tiles of at most
+    64 rows, ``split_plan``'s splits over the lanes of row tiles, each
+    split's partials over its table columns and positions below the bound
+    (the empty partial where the split starts at or past it), then the
+    merge: ``_combine`` over the splits that hold data, in order."""
+    B, nkv, rep, T, hd = qf.shape
+    R = rep * T
     page, max_pg = k.shape[1], tables.shape[1]
-    pps, nsplit = tpa.split_plan(max_pg, page, B * nkv, sms)
+    pps, nsplit = tpa.split_plan(max_pg, page, B * nkv * tpa.row_tiles(R), sms)
     span = pps * page
     nb = bound.clamp(max=max_pg * page)
-    m = torch.full(qf.shape[:4], tpa._NEG)
-    l, acc = torch.zeros(qf.shape[:4]), torch.zeros(qf.shape)
-    for s in range(nsplit):
-        local = (nb - s * span).clamp(0, span).to(torch.int32)
-        ms, ls, accs = tpa.paged_attn_partials_ref(qf, k, v, tables[:, s * pps:(s + 1) * pps].contiguous(), local, ks, vs)
-        held = (local > 0)[:, None, None, None]
-        mm, ll, aa = tpkv._combine(m, l, acc, ms, ls, accs)
-        m, l, acc = torch.where(held, mm, m), torch.where(held, ll, l), torch.where(held[..., None], aa, acc)
-    return nsplit, (m, l, acc)
+    rows = qf.reshape(B, nkv, R, 1, hd)
+    outs = []
+    for r0 in range(0, R, tpa.ROWS):
+        q_tile = rows[:, :, r0:r0 + tpa.ROWS].contiguous()
+        m = torch.full(q_tile.shape[:4], tpa._NEG)
+        l, acc = torch.zeros(q_tile.shape[:4]), torch.zeros(q_tile.shape)
+        for s in range(nsplit):
+            local = (nb - s * span).clamp(0, span).to(torch.int32)
+            ms, ls, accs = tpa.paged_attn_partials_ref(q_tile, k, v, tables[:, s * pps:(s + 1) * pps].contiguous(),
+                                                       local, ks, vs)
+            held = (local > 0)[:, None, None, None]
+            mm, ll, aa = tpkv._combine(m, l, acc, ms, ls, accs)
+            m, l, acc = torch.where(held, mm, m), torch.where(held, ll, l), torch.where(held[..., None], aa, acc)
+        outs.append((m, l, acc))
+    m, l, acc = (torch.cat(parts, dim=2) for parts in zip(*outs))
+    return nsplit, (m.reshape(B, nkv, rep, T), l.reshape(B, nkv, rep, T), acc.reshape(B, nkv, rep, T, hd))
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
-@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("T", [1, 5, 40])
 def test_split_plan_emulation_matches_plain_and_pallas_interpret(quant, T):
     """Splitting each lane's pages and merging the splits gives the one-pass
     partials: against ``paged_attn_partials_ref`` and ray_tpu's K4 in
     interpret mode, at bounds 0, 1, a split's edge (64) and past it, and a
     full table, with 3 splits (one SM count) and 1 (another); splits past
-    a lane's bound hold nothing. At bound 0 the split plan gives the
-    kernel's l = acc = 0 (the documented difference); m agrees everywhere."""
+    a lane's bound hold nothing. T = 40 gives R = 80 rows: a 64-row tile
+    and a ragged 16-row one. At bound 0 the split plan gives the kernel's
+    l = acc = 0 (the documented difference); m agrees everywhere."""
     rng = np.random.default_rng(5)
     B, nkv, rep, hd, max_pg = 6, 2, 2, 32, 12
     P = B * max_pg + 1
@@ -186,3 +228,56 @@ def test_split_plan_emulation_matches_plain_and_pallas_interpret(quant, T):
                 o, p, r = o[live], p.numpy()[live], np.asarray(r)[live]
             np.testing.assert_allclose(o, np.asarray(p), atol=ATOL, rtol=1e-6, err_msg=name)
             np.testing.assert_allclose(o, np.asarray(r), atol=ATOL, rtol=1e-6, err_msg=name)
+
+
+def _seq_inputs(rng, quant, T, starts):
+    B, nkv, rep, hd, max_pg = len(starts), 2, 4, 32, 8
+    P = B * max_pg + 1
+    k, v, ks, vs = _pool(rng, P, nkv, hd, quant)
+    qg = rng.standard_normal((B, nkv, rep, T, hd)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, P)).reshape(B, max_pg).astype(np.int32)
+    k_chunk = rng.standard_normal((B, T, nkv, hd)).astype(np.float32)
+    v_chunk = rng.standard_normal((B, T, nkv, hd)).astype(np.float32)
+    return qg, k, v, tables, np.array(starts, np.int32), k_chunk, v_chunk, ks, vs
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("T", [5, 32])
+def test_extend_attention_matches_jax_paged_attn_seq_batch(quant, T):
+    """The extend's attention, a cached prefix below ``starts`` (K4) plus
+    the chunk causally from registers, against ray_tpu's
+    ``_paged_attn_seq_batch`` on its XLA path (the vmapped per-lane
+    oracle) and its Pallas path (interpret mode), at starts 0, 16, 17, 64;
+    and the port's per-lane ``_paged_attn_seq`` against the batched one.
+    At start 0 the partials differ by design (csrc/paged_attn.cu) and the
+    output agrees: the chunk's own softmax outweighs the empty prefix."""
+    rng = np.random.default_rng(T + 100 * quant)
+    qg, k, v, tables, starts, kc, vc, ks, vs = _seq_inputs(rng, quant, T, [0, 16, 17, 64])
+    scale = 1.0 / np.sqrt(qg.shape[-1])
+    out = tpkv._paged_attn_seq_batch(_t(qg), _t(k), _t(v), _t(tables), _t(starts), _t(kc), _t(vc), scale,
+                                     _t(ks), _t(vs))
+    assert out.shape == qg.shape and out.dtype == torch.float32
+    for impl in ("xla", "pallas"):
+        ref = jpkv._paged_attn_seq_batch(_j(qg), _j(k), _j(v), _j(tables), _j(starts), _j(kc), _j(vc), scale,
+                                         k_scale_l=_j(ks), v_scale_l=_j(vs), impl=impl)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, err_msg=impl)
+    for b in range(len(starts)):
+        lane = tpkv._paged_attn_seq(_t(qg[b]), _t(k), _t(v), _t(tables[b]), int(starts[b]), _t(kc[b]), _t(vc[b]),
+                                    scale, _t(ks), _t(vs))
+        np.testing.assert_allclose(lane.numpy(), out[b].numpy(), atol=1e-5)
+
+
+def test_extend_attention_never_reads_the_chunk_from_the_pool():
+    """The extend's aliasing contract: the chunk's own positions
+    (start .. start + T - 1, which the append writes after the attention)
+    poisoned in the pool change nothing."""
+    rng = np.random.default_rng(9)
+    qg, k, v, tables, starts, kc, vc, _, _ = _seq_inputs(rng, False, 8, [16, 21])
+    args = [_t(qg), None, None, _t(tables), _t(starts), _t(kc), _t(vc), 0.25]
+    clean = tpkv._paged_attn_seq_batch(*args[:1], _t(k), _t(v), *args[3:])
+    pk, pv = k.copy(), v.copy()
+    for b, start in enumerate(starts):
+        for pos in range(start, start + 8):
+            pk[tables[b, pos // PAGE], pos % PAGE] = 1e9
+            pv[tables[b, pos // PAGE], pos % PAGE] = -1e9
+    assert torch.equal(clean, tpkv._paged_attn_seq_batch(*args[:1], _t(pk), _t(pv), *args[3:]))
