@@ -28,16 +28,26 @@ Phases, in order; any failed check exits non-zero before the last line:
    partials and merge kernels) and the wrapper's host cost per call
    (perf_counter over 300 calls, no synchronise).
 4. The engine: full-width Llama-3-8B (random weights from a seed, bf16)
-   serves 8 seeded prompts of 50-1500 tokens, 32 greedy tokens each. The
-   kernels' launch counters are zeroed just before and read just after:
-   K1 must have run 32 times per prefill forward, K4 32 times per decode
-   step. Then a fresh engine admits the same prompts, steps until none
-   waits, and runs 4 decode-only steps under torch.profiler: per step the
-   wall time, device-busy time, idle share, K4's device time, cuBLAS's and
-   the rest's (the table in build/decode_step_profile.txt); K4's partials
-   kernel must appear 32 x 4 times.
-4b. Prefix caching on the same weights: a fresh engine (caching on, 64-token
-   blocks) generates a leader (a seeded 1024-token prefix + 256 tokens),
+   serves 8 seeded prompts of 50-1500 tokens, 32 greedy tokens each, first
+   with the default engine (device-resident: the decode step is one CUDA
+   graph captured when the engine is built and replayed every step, the
+   tokens read back one step behind), then with device_resident=False
+   (the synchronous loop). The kernels' launch counters are zeroed just
+   before each run and read just after: K1 must have run 32 times per
+   prefill forward, K4 32 times per decode step (a replay adds the K4
+   launches its capture recorded). The two modes' greedy tokens must be
+   identical. Each engine then generates 4 seeded prompts at temperature
+   0.8, top_p 0.9 (threefry lane keys from the seeds), which must also be
+   identical across the modes, then admits the 8 prompts again, steps
+   until none waits, and times 4 decode-only steps, then runs 4 more under
+   torch.profiler: per step the wall time (unprofiled), device-busy time,
+   idle share, K4's device time, cuBLAS's and the rest's (the tables in
+   build/decode_step_profile_graph.txt
+   and build/decode_step_profile_sync.txt); K4's partials kernel must
+   appear 32 x 4 times in each. Prints each mode's prefill ms, decode
+   ms/step, generated tok/s and peak memory, and the graph's capture time.
+4b. Prefix caching on the same weights: a fresh default engine (caching on,
+   64-token blocks) generates a leader (a seeded 1024-token prefix + 256 tokens),
    then 8 requests of the prefix + seeded suffixes of 32-900 tokens with
    pairwise distinct first suffix tokens, 32 greedy tokens each. It must
    count 8 hits, 1 miss, 8192 tokens saved, K1 32 times per prefill
@@ -122,6 +132,7 @@ K5_SHAPES = [(16384, 2048), (8, 4096)]  # training rows (8 x 2048 tokens at hidd
 K5_TOL = {"bf16": 2**-7, "f32": 1e-5}  # relative to max |out|: one bf16 ulp; f32 sums in another order
 TRAIN_STEPS = 5  # timed, after one warm-up step
 DECODE_PROFILE_STEPS = 4  # decode-only engine steps under torch.profiler (phase 4)
+SEEDED_TOKENS = 16  # phase 4's seeded streams, held equal across the two decode modes
 TRAIN_LOSS_TOL = 0.05  # first step's loss vs loss_fn on the initial params (bench.py's check)
 TRAIN_WHOLE_TOL = 1e-3  # card vs host, f32: loss and grad norm relative; gradients relative to each leaf's max
 
@@ -226,6 +237,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    marks = {}  # phase -> seconds since t_start at its end
+
+    def mark(phase):
+        marks[phase] = round(time.perf_counter() - t_start, 1)
 
     # ---------------------------------------------------------------- 1
     build_s = _kernels.build_all()
@@ -273,6 +288,7 @@ def main() -> int:
                   if "serialized" in line and "wgmma" in line]
     check(not serialized, f"ptxas runs a kernel's wgmma instructions one at a time: {serialized}")
 
+    mark("1")
     # ---------------------------------------------------------------- 2
     D = 128
     g = torch.Generator(device=dev).manual_seed(0)
@@ -324,6 +340,7 @@ def main() -> int:
             k1_err = max(k1_err, err)
         print(f"phase 2 K1 {dt} D={d} T={T} rep={rep} causal={causal}: |do| {err:.3g} |dlse| {err_lse:.3g}")
 
+    mark("2")
     # ---------------------------------------------------------------- 3
     Bl, NKV, REP, HD, PAGE, MAX_PG = 8, 8, 4, 128, 64, 32
     P = Bl * MAX_PG + 1
@@ -421,55 +438,77 @@ def main() -> int:
         check(err <= COMBINED_TOL, f"combined page attention {pname}: |d| {err:.3g} (tol {COMBINED_TOL})")
         print(f"phase 3 combined page attention {pname} at bounds {K4_BOUNDS}: |d| {err:.3g}")
 
+    mark("3")
     # ---------------------------------------------------------------- 4
-    torch.cuda.reset_peak_memory_stats()
     cfg = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64)
     lens = rng.integers(50, 1501, size=8)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in lens]
-    flash_attention_fwd.launches = 0
-    paged_attn_partials.launches = 0
-    t0 = time.perf_counter()
-    outs = eng.generate(prompts, SamplingParams(max_tokens=32))
-    wall_s = time.perf_counter() - t0
-    k1_launches, k4_launches = flash_attention_fwd.launches, paged_attn_partials.launches
-    check(all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in outs),
-          f"engine: not every request finished with 32 tokens: {[(len(o.token_ids), o.finish_reason) for o in outs]}")
-    check(all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids), "engine: token outside the vocabulary")
-    check(k1_launches == cfg.num_layers * eng.prefill_forwards > 0,
-          f"K1 launches {k1_launches} != {cfg.num_layers} x {eng.prefill_forwards} prefill forwards")
-    check(k4_launches == cfg.num_layers * eng.decode_steps > 0,
-          f"K4 launches {k4_launches} != {cfg.num_layers} x {eng.decode_steps} decode steps")
-    check(eng.kv_cache_stats()["attn_kernel"] == "cuda", "engine did not resolve the CUDA kernel")
-    peak = torch.cuda.max_memory_allocated()
-    gen_tok = sum(len(o.token_ids) for o in outs)
-    print(f"phase 4 engine llama3_8b (32 layers, bf16, random weights) 8 prompts of {sorted(int(n) for n in lens)} "
-          f"tokens, 32 greedy tokens each: init {init_s:.2f} s, prefill {eng.prefill_s * 1e3:.2f} ms over "
-          f"{eng.prefill_forwards} forwards, decode {eng.decode_s * 1e3 / eng.decode_steps:.3f} ms/step over "
-          f"{eng.decode_steps} steps, {gen_tok / wall_s:.2f} generated tok/s ({wall_s:.3f} s wall), "
-          f"K1 launches {k1_launches}, K4 launches {k4_launches}, peak memory {peak} bytes {card}")
-    del eng, outs
-    torch.cuda.empty_cache()
-    # a fresh engine admits the same prompts; once none waits, every step is decode only
-    eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64)
-    for prompt in prompts:
-        eng.add_request(prompt, SamplingParams(max_tokens=32))
-    while eng.num_waiting:
-        eng.step()
-    check(eng.num_running == 8, f"engine: {eng.num_running} of 8 requests running after admission")
-    decode_prof = profile_decode(torch, eng, DECODE_PROFILE_STEPS, card,
-                                 _kernels.BUILD_DIR / "decode_step_profile.txt")
-    n_prof = cfg.num_layers * DECODE_PROFILE_STEPS
-    check(decode_prof["calls"]["paged_partials_kernel"] == n_prof
-          and decode_prof["calls"]["paged_merge_kernel"] in (0, n_prof),
-          f"decode profile: K4's kernels ran {decode_prof['calls']} times in {DECODE_PROFILE_STEPS} steps, not {n_prof}")
-    del eng
-    torch.cuda.empty_cache()
+    seeded = [SamplingParams(max_tokens=SEEDED_TOKENS, temperature=0.8, top_p=0.9, seed=s) for s in range(4)]
+    serve = {}
+    for mode, kw in (("graph", {}), ("sync", dict(device_resident=False))):
+        torch.cuda.reset_peak_memory_stats()
+        eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64, **kw)  # the default engine is the graph one
+        check(eng.kv_cache_stats()["attn_kernel"] == "cuda", "engine did not resolve the CUDA kernel")
+        check((eng.graph_capture_s > 0) == (mode == "graph"), f"engine {mode}: graph capture {eng.graph_capture_s} s")
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, SamplingParams(max_tokens=32))
+        wall_s = time.perf_counter() - t0
+        k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
+        check(all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in outs),
+              f"engine {mode}: not every request finished with 32 tokens: "
+              f"{[(len(o.token_ids), o.finish_reason) for o in outs]}")
+        check(all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids), f"engine {mode}: token outside the vocabulary")
+        check(k1_n == cfg.num_layers * eng.prefill_forwards > 0,
+              f"engine {mode}: K1 launches {k1_n} != {cfg.num_layers} x {eng.prefill_forwards} prefill forwards")
+        check(k4_n == cfg.num_layers * eng.decode_steps > 0,
+              f"engine {mode}: K4 launches {k4_n} != {cfg.num_layers} x {eng.decode_steps} decode steps")
+        peak = torch.cuda.max_memory_allocated()
+        gen_tok = sum(len(o.token_ids) for o in outs)
+        run = dict(tokens=[o.token_ids for o in outs], k1=k1_n, k4=k4_n, peak=peak, wall_s=wall_s,
+                   prefill_ms=eng.prefill_s * 1e3, decode_ms=eng.decode_s * 1e3 / eng.decode_steps,
+                   steps=eng.decode_steps, tok_s=gen_tok / wall_s, capture_s=eng.graph_capture_s)
+        print(f"phase 4 engine llama3_8b (32 layers, bf16, random weights) {mode} 8 "
+              f"prompts of {sorted(int(n) for n in lens)} tokens, 32 greedy tokens each: init {init_s:.2f} s, graph "
+              f"capture {run['capture_s']:.3f} s, prefill {run['prefill_ms']:.2f} ms over {eng.prefill_forwards} "
+              f"forwards, decode {run['decode_ms']:.3f} ms/step over {run['steps']} steps, {run['tok_s']:.2f} "
+              f"generated tok/s ({wall_s:.3f} s wall), K1 launches {k1_n}, K4 launches {k4_n} (= {cfg.num_layers} x "
+              f"{eng.decode_steps} decode steps), peak memory {peak} bytes {card}")
+        run["seeded"] = [o.token_ids for o in eng.generate(prompts[:4], seeded)]
+        check(all(len(t) == SEEDED_TOKENS for t in run["seeded"]), f"engine {mode}: seeded requests cut short")
+        # the 8 prompts again; once none waits, every step is decode only
+        for prompt in prompts:
+            eng.add_request(prompt, SamplingParams(max_tokens=32))
+        while eng.num_waiting:
+            eng.step()
+        check(eng.num_running == 8, f"engine {mode}: {eng.num_running} of 8 requests running after admission")
+        run["profile"] = profile_decode(torch, eng, DECODE_PROFILE_STEPS, mode, card,
+                                        _kernels.BUILD_DIR / f"decode_step_profile_{mode}.txt")
+        n_prof = cfg.num_layers * DECODE_PROFILE_STEPS
+        calls = run["profile"]["calls"]
+        check(calls["paged_partials_kernel"] == n_prof and calls["paged_merge_kernel"] in (0, n_prof),
+              f"decode profile {mode}: K4's kernels ran {calls} times in {DECODE_PROFILE_STEPS} steps, not {n_prof}")
+        serve[mode] = run
+        del eng, outs
+        torch.cuda.empty_cache()
+    gr, sy = serve["graph"], serve["sync"]
+    check(gr["tokens"] == sy["tokens"], "engine: the graph and sync engines' greedy tokens differ: "
+          f"{sum(a == b for a, b in zip(gr['tokens'], sy['tokens']))} of 8 streams equal")
+    check(gr["seeded"] == sy["seeded"], "engine: the graph and sync engines' seeded streams differ: "
+          f"{[sum(x == z for x, z in zip(a, b)) for a, b in zip(gr['seeded'], sy['seeded'])]} tokens equal per stream")
+    k1_launches, k4_launches = gr["k1"], gr["k4"]
+    print(f"phase 4 graph vs sync: greedy tokens identical in 8 of 8 streams, seeded streams (4 lanes, temperature "
+          f"0.8, top_p 0.9, {SEEDED_TOKENS} tokens) identical in 4 of 4; decode {gr['decode_ms']:.3f} vs "
+          f"{sy['decode_ms']:.3f} ms/step (sync / graph {sy['decode_ms'] / gr['decode_ms']:.3f}), {gr['tok_s']:.2f} vs "
+          f"{sy['tok_s']:.2f} generated tok/s, idle share {gr['profile']['idle']:.4f} vs {sy['profile']['idle']:.4f}, "
+          f"peak memory {gr['peak']} vs {sy['peak']} bytes {card}")
 
+    mark("4")
     # ---------------------------------------------------------------- 4b
     prefix = rng.integers(1, cfg.vocab_size, size=PREFIX_LEN).tolist()
     leader = prefix + rng.integers(1, cfg.vocab_size, size=LEADER_SUFFIX).tolist()
@@ -531,6 +570,7 @@ def main() -> int:
     del eng, params, hit_outs, off_outs
     torch.cuda.empty_cache()
 
+    mark("4b")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -592,6 +632,7 @@ def main() -> int:
           f"|dlogits| {ext_errs[0]:.3g}, pool |dk| {ext_errs[1]:.3g} |dv| {ext_errs[2]:.3g} (tol {WHOLE_PATH_TOL})")
     del p_gpu, p_cpu
 
+    mark("5")
     # ---------------------------------------------------------------- 6
     k23_rows = []
     for B, H_, HKV_, T, D_, dname, causal in K23_SHAPES:
@@ -687,6 +728,7 @@ def main() -> int:
     del k5_inputs
     torch.cuda.empty_cache()
 
+    mark("6")
     # ---------------------------------------------------------------- 7
     cfg7 = LlamaConfig(vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_layers=18, num_heads=16,
                        num_kv_heads=8, max_seq_len=2048)
@@ -734,6 +776,7 @@ def main() -> int:
     del state, batch, metrics
     torch.cuda.empty_cache()
 
+    mark("7")
     # ---------------------------------------------------------------- 8
     cfg8 = dataclasses.replace(cfg7, num_layers=2, dtype="float32")
     p0 = init_params(cfg8, torch.Generator(device=dev).manual_seed(2))
@@ -801,7 +844,8 @@ def main() -> int:
              bound_ms=rep5["bound_ms"], bound_by=rep5["bound_by"], library_ms=rep5["lib_ms"],
              device_ms=rep5["device_ms"], host_us=rep5["host_us"]),
     ]
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    mark("8")
+    print(f"total {time.perf_counter() - t_start:.1f} s (each phase's end: {marks})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -845,32 +889,44 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> dict[str, in
     return calls
 
 
-def profile_decode(torch, eng, steps, card, table_path) -> dict:
-    """``steps`` decode-only engine steps under torch.profiler, after one
-    unprofiled step: per step the wall time (host clock; a step ends in a
-    token readback), the device-busy time, the idle share, and the device
-    time of K4 (partials and merge kernels), of cuBLAS and of the rest; the
-    full table into ``table_path``. Returns the K4 kernels' call counts and
-    the per-step numbers."""
+def profile_decode(torch, eng, steps, mode, card, table_path) -> dict:
+    """Decode-only engine steps, after one unprofiled step and a
+    synchronise: ``steps`` steps timed without the profiler (host clock
+    from the first step's start to a synchronise after the last, so a
+    device-resident engine's last dispatched step is inside it), then
+    ``steps`` more under torch.profiler for the device-busy time and the
+    device time of K4 (partials and merge kernels), of cuBLAS and of the
+    rest (the full table into ``table_path``). The idle share is 1 -
+    busy / the unprofiled wall: the profiler's tracing slows the host's
+    launches (a graph replay most), so the profiled wall, also printed,
+    overstates it. Returns the K4 kernels' call counts and the per-step
+    numbers."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng.step()
-    torch.cuda.synchronize()
-    walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def timed_steps():
+        calls_ms = []
+        t_start = time.perf_counter()
         for _ in range(steps):
             t0 = time.perf_counter()
             eng.step()
-            walls.append((time.perf_counter() - t0) * 1e3)
+            calls_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_start) * 1e3 / steps, calls_ms
+
+    eng.step()
+    torch.cuda.synchronize()
+    wall, calls_ms = timed_steps()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall, _ = timed_steps()
     groups, calls = serving_groups(prof, table_path, steps)
     busy = sum(groups.values())
-    wall = sum(walls) / steps
     k4 = groups["K4 partials"] + groups["K4 merge"]
-    print(f"phase 4 decode profile ({steps} decode-only steps, 8 lanes): wall {wall:.3f} ms/step "
-          f"({', '.join(f'{w:.3f}' for w in walls)}), device busy {busy:.3f} ms/step, idle share {1 - busy / wall:.4f}, "
-          f"K4 {k4:.4f} ms/step (partials {groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS "
+    print(f"phase 4 decode profile {mode} ({steps} decode-only steps, 8 lanes): wall {wall:.3f} ms/step (step() "
+          f"calls {', '.join(f'{w:.3f}' for w in calls_ms)} ms; {prof_wall:.3f} ms/step under the profiler), device "
+          f"busy {busy:.3f} ms/step, idle share {1 - busy / wall:.4f} ({1 - busy / prof_wall:.4f} of the profiled "
+          f"wall), K4 {k4:.4f} ms/step (partials {groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS "
           f"{groups['gemm']:.3f} ms/step, rest {groups['other']:.3f} ms/step; K4 kernel calls {calls} {card}")
-    return dict(calls=calls, wall_ms=wall, busy_ms=busy, k4_ms=k4, groups=groups)
+    return dict(calls=calls, wall_ms=wall, busy_ms=busy, k4_ms=k4, groups=groups, idle=1 - busy / wall)
 
 
 def serving_groups(prof, table_path, steps=1):
@@ -908,6 +964,7 @@ def profile_hit_wave(torch, eng, prompts, sampling, card, table_path) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
+        torch.cuda.synchronize()  # the decode step it dispatched runs inside the window
         wall = (time.perf_counter() - t0) * 1e3
     groups, calls = serving_groups(prof, table_path)
     busy = sum(groups.values())

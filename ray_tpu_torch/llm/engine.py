@@ -1,5 +1,5 @@
 """Continuous-batching LLM engine over the paged KV pool (port of the
-paged, synchronous loop of ray_tpu/llm/engine.py).
+paged layout of ray_tpu/llm/engine.py).
 
 - prompt prefill bucketed to the prefill buckets and BATCHED: same-bucket
   admissions run as one forward (K1) with the batch padded to a power of
@@ -7,10 +7,17 @@ paged, synchronous loop of ray_tpu/llm/engine.py).
 - a host scheduler admits (waiting queue -> free slot + pages), grows
   pages before each decode step, preempts the youngest sequence when the
   pool runs dry (recompute-style, as vLLM does), and recycles slots;
-- every step() is three stages: admission, prefill, decode. Decode is the
-  synchronous host-driven loop (ray_tpu's ``device_resident=False``
-  oracle): upload the tables, run the read-only attention half (K4) and
-  the in-place append, sample, read the tokens back;
+- every step() is three stages: admission, prefill, decode. Decode is
+  device-resident by default, as in ray_tpu: the lanes (block tables,
+  lengths, next tokens, threefry keys, sampling parameters) live on the
+  device and change only by in-place deltas; each step dispatches the
+  fused step (attention with K4, sampling, append; on the card one
+  replay of a CUDA graph captured when the engine is built,
+  ``cuda/graph.py``) and then reads back the PREVIOUS step's tokens, so
+  emission trails the device by one step and each sequence runs one
+  discarded trailing step. ``device_resident=False`` keeps the
+  synchronous loop, ray_tpu's oracle: upload the lanes, attention,
+  append, sample, read the tokens back, all in one step;
 - prefix caching (on by default, as in ray_tpu): a fresh prompt's K/V is
   kept at every block boundary of it (``PrefixCache``, the local tier);
   admission looks up the longest cached block-aligned prefix of a new
@@ -35,6 +42,8 @@ import torch
 
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
+from ray_tpu_torch.llm import prng
+from ray_tpu_torch.llm.cuda.graph import FusedDecode
 from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache_dtype
 from ray_tpu_torch.llm.kvplane.index import prefix_key, token_bytes
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
@@ -214,6 +223,9 @@ class LLMEngine:
     config: ``models.llama.LlamaConfig``; params: the matching tree (None:
     random weights from ``seed``). ``device=None`` runs on the card and
     raises without one; ``device="cpu"`` runs the kernels' plain versions.
+    ``device_resident=True`` (the default) decodes from device-held lanes
+    with a one-step-delayed readback, on the card as one CUDA graph
+    captured here (``graph_capture_s``); ``False`` is the synchronous loop.
     """
 
     def __init__(
@@ -236,7 +248,7 @@ class LLMEngine:
         num_pages: int | None = None,
         page_size: int = 64,
         attn_kernel: str | None = None,
-        device_resident: bool = False,
+        device_resident: bool = True,
         batch_prefill: bool = True,
         speculative=None,
         telemetry: bool = False,
@@ -246,8 +258,6 @@ class LLMEngine:
             _not_ported("kv_layout='slots'", "serving item 3")
         if kv_layout != "paged":
             raise ValueError(f"kv_layout must be 'slots' or 'paged', got {kv_layout!r}")
-        if device_resident:
-            _not_ported("device_resident=True", "serving item 2")
         if telemetry:
             _not_ported("telemetry", "serving item 4")
         if speculative is not None:
@@ -313,12 +323,13 @@ class LLMEngine:
         self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         self._admit_counter = 0
 
-        # per-lane sampling state; seedless lanes draw from engine seed + slot
+        # per-lane sampling state (host shadows of the device lanes); a
+        # seedless lane's key starts as PRNGKey(slot), as in ray_tpu
         self._temps = np.zeros((B,), np.float32)
-        self._top_k = np.zeros((B,), np.int32)
+        self._top_k = np.zeros((B,), np.int64)
         self._top_p = np.ones((B,), np.float32)
-        self._gens = [torch.Generator().manual_seed(seed + s) for s in range(B)]
-        self._next_tokens = np.zeros((B,), np.int32)
+        self._keys = torch.stack([prng.prng_key(s) for s in range(B)]).numpy()  # [B, 2] uint32 words in int64
+        self._next_tokens = np.zeros((B,), np.int64)
 
         self._slots: list[RequestState | None] = [None] * B
         self._waiting: deque[RequestState] = deque()
@@ -334,6 +345,25 @@ class LLMEngine:
         self.decode_steps = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+
+        self._device_resident = bool(device_resident)
+        # the dispatched step awaiting its readback: (handle, [(RequestState, slot), ...])
+        self._pending = None
+        self.graph_capture_s = 0.0
+        if self._device_resident:
+            self._fused_attn, self._fused_append = mr.make_fused_paged_fns(config, self.attn_kernel)
+            self._set_lane, self._set_table, self._set_table_cell = mr.make_delta_fns()
+            dev = self.device
+            lanes = dict(tables=self._tables, lengths=self._lengths, tokens=self._next_tokens, keys=self._keys,
+                         temps=self._temps, top_k=self._top_k, top_p=self._top_p)
+            lanes = {name: torch.from_numpy(a.copy()).to(dev) for name, a in lanes.items()}
+            # the device-resident decode state; the host arrays above stay as
+            # the scheduler's shadows (never re-uploaded wholesale)
+            self._dtables, self._dlengths = lanes["tables"], lanes["lengths"]
+            self._dtokens, self._dkeys = lanes["tokens"], lanes["keys"]
+            self._dtemps, self._dtopk, self._dtopp = lanes["temps"], lanes["top_k"], lanes["top_p"]
+            self._decode = FusedDecode(self._fused_attn, self._fused_append, self.params, self.pool, lanes)
+            self.graph_capture_s = self._decode.capture_s
 
     # ------------------------------------------------------------- admission
     def add_request(self, prompt_token_ids, params: SamplingParams | None = None,
@@ -371,7 +401,7 @@ class LLMEngine:
 
     def has_unfinished(self) -> bool:
         with self._lock:
-            return bool(self._waiting) or any(s is not None for s in self._slots)
+            return bool(self._waiting) or any(s is not None for s in self._slots) or self._pending is not None
 
     @property
     def num_waiting(self) -> int:
@@ -429,11 +459,23 @@ class LLMEngine:
         if st.out_queue is not None:
             st.out_queue.put(None)  # sentinel
 
+    def _push_table(self, slot: int):
+        """Write one slot's table row and length into the device lanes (the
+        delta that replaces whole-array uploads)."""
+        row = torch.from_numpy(self._tables[slot].copy())
+        if self.device.type == "cuda":
+            row = row.pin_memory()  # copied without blocking the host
+        self._set_table(self._dtables, self._dlengths, slot, row, int(self._lengths[slot]))
+
     def _release_slot_pages(self, slot: int):
         self._page_alloc.free(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self._tables[slot, :] = 0
         self._lengths[slot] = 0
+        if self._device_resident:
+            # point the lane at the trash page, so the step in flight and
+            # idle steps write harmlessly instead of into recycled pages
+            self._push_table(slot)
 
     def _requeue(self, st: RequestState):
         """Recompute-preemption of one running sequence: free its pages and
@@ -461,11 +503,17 @@ class LLMEngine:
         """Before a decode step: a sequence whose next append crosses into
         an unallocated page gets one (preempting the youngest OTHER
         sequence when the pool is dry; a sequence that cannot grow at all
-        re-queues itself)."""
+        re-queues itself). Device-resident: a sequence that the step in
+        flight finishes at max_tokens is not grown (its next step is the
+        discarded trailing one, whose write lands in the trash page), as
+        the sync loop would already have freed it."""
         page = self._pcfg.page_size
+        pending = {id(st) for st, _ in self._pending[1]} if self._pending is not None else set()
         for st in [s for s in self._slots if s is not None]:
             if st.slot < 0 or self._slots[st.slot] is not st:
                 continue  # preempted by an earlier iteration
+            if id(st) in pending and len(st.token_ids) + 1 >= st.params.max_tokens:
+                continue
             slot = st.slot
             target_pg = int(self._lengths[slot]) // page + 1
             if target_pg > self._pcfg.max_pages_per_seq:
@@ -478,8 +526,11 @@ class LLMEngine:
                 if got is None:
                     self._requeue(st)
                     break
-                self._tables[slot, len(self._slot_pages[slot])] = got[0]
+                pg_ix = len(self._slot_pages[slot])
+                self._tables[slot, pg_ix] = got[0]
                 self._slot_pages[slot].extend(got)
+                if self._device_resident:
+                    self._set_table_cell(self._dtables, slot, pg_ix, got[0])
 
     def _pages_needed(self, st: RequestState, pref, prompt) -> int | None:
         """Pages to admit: the prompt bucket (a prefix hit: the prefix and
@@ -546,9 +597,10 @@ class LLMEngine:
             wave.append((st, slot, pref, pages, prompt))
         return wave
 
-    def _stage_prefill(self, wave: list) -> None:
+    def _stage_prefill(self, wave: list) -> list:
         """PREFILL: prefix hits extend their suffix one by one, in wave
-        order; then one batched forward per prefill bucket for the rest."""
+        order; then one batched forward per prefill bucket for the rest.
+        Returns the admitted requests."""
         plains = []
         for st, slot, pref, pages, prompt in wave:
             self._slot_pages[slot] = pages
@@ -560,6 +612,7 @@ class LLMEngine:
                 plains.append((st, slot, prompt))
         for group in self._bucket_groups(plains):
             self._admit_prefill_batch(group)
+        return [st for st, *_ in wave]
 
     def _bucket_groups(self, plains):
         if not self._batch_prefill:
@@ -590,6 +643,8 @@ class LLMEngine:
             row = torch.from_numpy(self._tables[slot, : T // page].copy()).to(self.device)
             pkv.insert_pages(self.pool, row, ks[:, i], vs[:, i])
             self._lengths[slot] = len(prompt)
+            if self._device_resident:
+                self._push_table(slot)
             self._bind_slot(st, slot, logits[i : i + 1])
 
     def _admit_prefix_hit(self, st: RequestState, slot: int, pref, prompt):
@@ -611,10 +666,16 @@ class LLMEngine:
                                             m, self.config)
         self.extend_forwards += 1
         self._lengths[slot] = n
+        if self._device_resident:
+            self._push_table(slot)
         self._bind_slot(st, slot, logits[None])
 
     def _bind_slot(self, st: RequestState, slot: int, logits):
-        """Bind the lane and sample the first token from the prefill logits."""
+        """Bind the lane and sample the first token from the prefill logits
+        with the lane's key: a seeded request's is PRNGKey(seed); a
+        seedless lane keeps the key its slot has advanced to, which
+        device-resident mode reads from the device (this waits for the
+        step in flight, as in ray_tpu). Then the lane delta."""
         st.slot = slot
         self._admit_counter += 1
         st.admit_seq = self._admit_counter
@@ -624,15 +685,18 @@ class LLMEngine:
         self._top_k[slot] = p.top_k
         self._top_p[slot] = p.top_p
         if p.seed is not None:
-            self._gens[slot].manual_seed(p.seed)
-        tok, logp = sample(
-            logits,
-            [self._gens[slot]],
-            torch.tensor([p.temperature], dtype=torch.float32, device=logits.device),
-            torch.tensor([p.top_k], dtype=torch.int64, device=logits.device),
-            torch.tensor([p.top_p], dtype=torch.float32, device=logits.device),
-        )
-        self._emit(st, int(tok[0]), float(logp[0]))
+            self._keys[slot] = prng.prng_key(p.seed).numpy()
+        elif self._device_resident:
+            self._keys[slot] = self._dkeys[slot].cpu().numpy()
+        lane = (torch.from_numpy(a[slot : slot + 1].copy()).to(logits.device)
+                for a in (self._keys, self._temps, self._top_k, self._top_p))
+        tok, logp, key = sample(logits, *lane)
+        self._keys[slot] = key[0].cpu().numpy()
+        token = int(tok[0])
+        if self._device_resident:
+            self._set_lane(self._dtokens, self._dkeys, self._dtemps, self._dtopk, self._dtopp, slot, token,
+                           self._keys[slot], p.temperature, p.top_k, p.top_p)
+        self._emit(st, token, float(logp[0]))
 
     def _emit(self, st: RequestState, token: int, logp: float):
         st.token_ids.append(token)
@@ -647,23 +711,66 @@ class LLMEngine:
             self._finish(st, "length")
 
     def step(self) -> list[RequestOutput]:
-        """Admit what fits, advance decode one step, return per-request deltas."""
+        """Admit what fits, advance decode one step, return per-request
+        deltas. Device-resident (the default): the decode step is
+        dispatched before the previous step's tokens are read back, so
+        emission (streaming, finish detection, slot recycling) trails the
+        device by exactly one step."""
         with self._lock:
             wave = self._stage_admission()
             t0 = time.perf_counter()
-            self._stage_prefill(wave)
+            admitted = self._stage_prefill(wave)
             t1 = time.perf_counter()
             self._paged_grow()
-            reported = self._stage_decode()
+            reported = self._stage_decode(admitted)
             self.prefill_s += t1 - t0
             self.decode_s += time.perf_counter() - t1
             return self._build_outputs(reported)
 
-    def _stage_decode(self) -> list:
-        """DECODE, the synchronous loop (ray_tpu's ``_sync_decode``): upload
-        tables/lengths/tokens, run attention then append, sample, read the
-        tokens back. Every active lane (just-admitted ones included) emits
-        one token; the returned list is the emit set."""
+    def _stage_decode(self, admitted: list) -> list:
+        """DECODE: device-resident mode dispatches the fused step and
+        drains the PREVIOUS one (the reported set is the admitted requests
+        and the drained lanes); sync mode is the blocking oracle loop,
+        where every active lane emits now."""
+        if self._device_resident:
+            prev, self._pending = self._pending, None
+            self._dispatch_fused()
+            return admitted + self._drain(prev)
+        return self._sync_decode()
+
+    def _dispatch_fused(self):
+        """Launch the fused step for the current occupancy (on the card one
+        graph replay); never waits for its result, which is left pending
+        for the next step's drain."""
+        active = [s for s in self._slots if s is not None]
+        if not active:
+            return
+        handle = self._decode.step(self.params, self.pool)
+        self.decode_steps += 1
+        for st in active:
+            self._lengths[st.slot] += 1  # host shadow, no upload
+        self._pending = (handle, [(st, st.slot) for st in active])
+
+    def _drain(self, pending) -> list:
+        """Read back and emit a dispatched step's tokens (a lane aborted or
+        finished since its dispatch emits nothing)."""
+        if pending is None:
+            return []
+        handle, lanes = pending
+        toks, logps = self._decode.read(handle)
+        emitted = []
+        for st, slot in lanes:
+            if st.finished:
+                continue
+            self._emit(st, int(toks[slot]), float(logps[slot]))
+            emitted.append(st)
+        return emitted
+
+    def _sync_decode(self) -> list:
+        """The synchronous loop (ray_tpu's ``_sync_decode``): upload the
+        lanes, run attention then append, sample, read the tokens and keys
+        back. Every active lane (just-admitted ones included) emits one
+        token; the returned list is the emit set."""
         active = [s for s in self._slots if s is not None]
         if not active:
             return []
@@ -673,21 +780,22 @@ class LLMEngine:
             self.pool,
             torch.from_numpy(self._tables).to(dev),
             torch.from_numpy(self._lengths).to(dev),
-            torch.from_numpy(self._next_tokens.astype(np.int64)).to(dev),
+            torch.from_numpy(self._next_tokens).to(dev),
             self.config,
         )
         self.decode_steps += 1
         for st in active:
             self._lengths[st.slot] += 1
-        toks, logps = sample(
+        toks, logps, keys = sample(
             logits,
-            self._gens,
+            torch.from_numpy(self._keys).to(dev),
             torch.from_numpy(self._temps).to(dev),
-            torch.from_numpy(self._top_k.astype(np.int64)).to(dev),
+            torch.from_numpy(self._top_k).to(dev),
             torch.from_numpy(self._top_p).to(dev),
         )
         toks = toks.cpu().numpy()
         logps = logps.cpu().numpy()
+        self._keys = keys.cpu().numpy()
         for st in active:
             self._emit(st, int(toks[st.slot]), float(logps[st.slot]))
         return active

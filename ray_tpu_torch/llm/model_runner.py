@@ -11,10 +11,18 @@ cached positions, the current token folded from registers), then
 suffix over a cached prefix) has the same two halves:
 ``extend_attn_paged`` (K4 over the prefix pages, the suffix causally
 from registers), then ``append_chunk_paged``.
+
+The device-resident loop's step is ``paged_fused_step`` (the attention
+half plus ``sample`` and the write targets, no host read) then
+``append_paged``, as ``make_fused_paged_fns`` returns them; the
+scheduler changes the lanes between steps with the in-place deltas
+``set_lane``, ``set_table`` and ``set_table_cell``, so the step's input
+tensors keep their addresses (a captured CUDA graph reads them there).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,6 +30,14 @@ from ray_tpu_torch.models.llama import LlamaConfig, attention, layer_params, une
 from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rotary_embedding
 from ray_tpu_torch.llm.kv_quant import quantize_heads
 from ray_tpu_torch.llm.paged_kv import _paged_attn_batch, _paged_attn_seq_batch
+from ray_tpu_torch.llm.sampling import sample
+
+
+def _attn_scale(hd: int) -> float:
+    """1 / sqrt(hd) rounded as ray_tpu computes it in f32, as a Python
+    float: no host-to-device copy per call (none may run inside a CUDA
+    graph's capture), and the same f32 value on the device."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
 def _qkv(xn, layer, cfg: LlamaConfig):
@@ -81,7 +97,7 @@ def decode_attn_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
     quant = "k_scale" in pool
     cos, sin = rotary_embedding(lengths[:, None], hd, cfg.rope_theta)
     x = params["embed"][tokens[:, None]]  # [B, 1, H]
-    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=x.device))
+    scale = _attn_scale(hd)
     k_new, v_new = [], []
     for i in range(cfg.num_layers):
         layer = layer_params(params, i)
@@ -139,6 +155,78 @@ def decode_step_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
     return logits, pool, lengths + 1
 
 
+@torch.no_grad()
+def paged_fused_step(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p, cfg: LlamaConfig):
+    """READ-ONLY half of the device-resident paged step: the write
+    targets, the attention half (``decode_attn_paged``) and ``sample``,
+    with no host read. Returns ray_tpu's 11 outputs: (tokens [B],
+    logprobs [B], new keys [B, 2], k_new, v_new [L, B, kv, hd], write_page,
+    write_off [B], lengths + 1, temps, top_k, top_p); the sampling lanes
+    pass through unchanged. The pool write is ``append_paged``."""
+    write_page, write_off = decode_write_targets(tables, lengths, pool["k"].shape[2])
+    logits, k_new, v_new = decode_attn_paged(params, pool, tables, lengths, tokens, cfg)
+    toks, logps, new_keys = sample(logits, keys, temps, top_k, top_p)
+    return toks, logps, new_keys, k_new, v_new, write_page, write_off, lengths + 1, temps, top_k, top_p
+
+
+ATTN_IMPLS = ("cuda", "torch")  # K4 on the card; its plain version on the host
+
+
+def make_fused_paged_fns(cfg: LlamaConfig, attn_impl: str):
+    """The device-resident step's two halves ``(attn_fn, append_fn)``:
+    ``paged_fused_step`` bound to ``cfg``, then ``append_paged``. The page
+    attention runs as ``attn_impl`` says, the engine's ``attn_kernel``:
+    "cuda" (K4) takes only CUDA tensors and "torch" (the plain version)
+    only CPU tensors, and a call on the other device raises. ray_tpu
+    compiles the halves as two programs because of XLA's buffer-donation
+    aliasing; here stream order runs the append after the attention, and
+    the pair is captured into one CUDA graph (``cuda/graph.py``)."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    on_card = attn_impl == "cuda"
+
+    def attn_fn(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p):
+        if tables.is_cuda != on_card:
+            raise ValueError(f"attn_impl={attn_impl!r} does not run on {tables.device.type} tensors")
+        return paged_fused_step(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p, cfg)
+
+    return attn_fn, append_paged
+
+
+def set_lane(tokens, keys, temps, top_k, top_p, slot: int, token: int, key, temp: float, tk: int, tp: float):
+    """Admission's lane delta, in place: one slot's next input token, key
+    (two uint32 words) and sampling parameters, each a scalar fill (no
+    host-to-device copy, so no wait on a step in flight)."""
+    tokens[slot] = int(token)
+    keys[slot, 0] = int(key[0])
+    keys[slot, 1] = int(key[1])
+    temps[slot] = float(temp)
+    top_k[slot] = int(tk)
+    top_p[slot] = float(tp)
+    return tokens, keys, temps, top_k, top_p
+
+
+def set_table(tables, lengths, slot: int, row, length: int):
+    """One slot's block-table row and length, in place. ``row``: [max_pg]
+    int32; a pinned host row is copied without blocking the host."""
+    tables[slot].copy_(row, non_blocking=True)
+    lengths[slot] = int(length)
+    return tables, lengths
+
+
+def set_table_cell(tables, slot: int, pg_ix: int, page: int):
+    """Page growth's delta, in place: one table entry."""
+    tables[slot, pg_ix] = int(page)
+    return tables
+
+
+def make_delta_fns():
+    """The scheduler's deltas on the device-resident state:
+    ``(set_lane, set_table, set_table_cell)``, each writing O(1) elements
+    in place (ray_tpu jits them as scatters that return new arrays)."""
+    return set_lane, set_table, set_table_cell
+
+
 def extend_write_targets(table_row, start, T: int, page: int):
     """(write_page [T], write_off [T]) for a suffix chunk at absolute
     positions start..start+T-1 (the last table column past the row's edge)."""
@@ -163,7 +251,7 @@ def extend_attn_paged(params, pool, table_row, start, tokens, length, cfg: Llama
     positions = int(start) + torch.arange(T, dtype=torch.int32, device=dev)
     cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
     x = params["embed"][tokens[None, :]]  # [1, T, H]
-    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=dev))
+    scale = _attn_scale(hd)
     tables = table_row[None].contiguous()
     starts = torch.full((1,), int(start), dtype=torch.int32, device=dev)
     k_chunk, v_chunk = [], []

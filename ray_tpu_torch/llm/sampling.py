@@ -1,9 +1,14 @@
 """Token sampling with per-lane parameters (port of ray_tpu/llm/sampling.py).
 
+Each lane carries a threefry2x32 key (``prng.py``, jax.random's bits):
+``sample`` splits it, draws with the first half through ``categorical``
+(argmax of logits plus Gumbel noise) and returns the second half as the
+lane's next key, for every lane on every call, greedy lanes included, as
+ray_tpu's ``vmap`` does. So seeded streams equal ray_tpu's, and the whole
+call is tensor arithmetic with no host read, which a CUDA graph captures.
 Greedy tokens and chosen-token logprobs match the JAX version exactly;
-``filter_logits`` matches it to float tolerance. Seeded draws use one
-``torch.Generator`` per lane and do not reproduce jax.random's threefry
-bits (ROADMAP.md records that decision).
+``filter_logits`` matches it to float tolerance (the top-p mass is summed
+in f64, see ``_apply_top_p``).
 """
 
 from __future__ import annotations
@@ -11,6 +16,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
+
+from ray_tpu_torch.llm import prng
 
 
 @dataclass(frozen=True)
@@ -68,21 +75,16 @@ def filter_logits(logits, temperature, top_k, top_p):
     return _apply_top_p(scaled, top_p)
 
 
-def sample(logits, generators, temperature, top_k, top_p):
-    """One token per row. logits: [B, V]; generators: B host
-    ``torch.Generator``s (one per lane); temperature/top_p: [B] f32;
-    top_k: [B] int, all on logits' device. Returns (tokens [B] int64,
-    logprobs [B] f32) on logits' device. Greedy rows (temperature 0)
-    never touch their generator."""
+def sample(logits, keys, temperature, top_k, top_p):
+    """One token per row. logits: [B, V]; keys: [B, 2] int64 lane keys
+    (``prng``); temperature/top_p: [B] f32; top_k: [B] int, all on logits'
+    device. Returns (tokens [B] int64, logprobs [B] f32, new keys [B, 2]).
+    Rows at temperature 0 take the argmax; their keys advance all the same."""
     logits = logits.float()
-    tokens = torch.argmax(logits, dim=-1)
-    hot = [i for i, t in enumerate(temperature.tolist()) if t != 0.0]
-    if hot:
-        rows = torch.tensor(hot, device=logits.device)
-        filt = filter_logits(logits[rows], temperature[rows], top_k[rows], top_p[rows]).cpu()
-        probs = torch.softmax(filt, dim=-1)
-        drawn = [torch.multinomial(probs[n], 1, generator=generators[i]) for n, i in enumerate(hot)]
-        tokens[rows] = torch.cat(drawn).to(logits.device)
+    greedy = torch.argmax(logits, dim=-1)
+    halves = prng.split(keys)
+    drawn = prng.categorical(halves[:, 0], filter_logits(logits, temperature, top_k, top_p))
+    tokens = torch.where(temperature == 0.0, greedy, drawn)
     logp = torch.log_softmax(logits, dim=-1)
     chosen = torch.gather(logp, -1, tokens[:, None])[:, 0]
-    return tokens, chosen
+    return tokens, chosen, halves[:, 1].contiguous()

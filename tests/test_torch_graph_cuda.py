@@ -1,0 +1,174 @@
+"""The device-resident decode step as a CUDA graph, on the card (``cuda``
+marker; skips elsewhere; imports no jax, so it runs on the chip machine:
+``python -m pytest tests/test_torch_graph_cuda.py``).
+
+A small f32 model with head_dim 64 (K4 takes 64 and 128), 3 lanes of
+mixed sampling. The replayed graph runs the same kernels as the eager step
+on the same inputs, so the comparisons are bit-equal: tokens, logprobs,
+keys, lengths and the pool. Plus the deltas between replays, K4's
+replay-aware launch count, the refusal of a moved pool or weight, the
+threefry bits on the card against the CPU, and the graph engine's greedy
+and seeded streams against the synchronous engine's."""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.llm import LLMEngine, SamplingParams
+from ray_tpu_torch.llm import model_runner as mr
+from ray_tpu_torch.llm import paged_kv as pkv
+from ray_tpu_torch.llm import prng
+from ray_tpu_torch.llm.cuda.graph import LANES, FusedDecode
+from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+pytestmark = pytest.mark.cuda
+
+CFG = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
+                  max_seq_len=256, dtype="float32", remat=False)
+PAGE, MAX_PG, P, B = 16, 4, 17, 3  # pages 13-16 stay free for the table deltas
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the decode graph and K4 have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _setup(dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(CFG, g)
+    pcfg = pkv.PagedCacheConfig(num_layers=CFG.num_layers, num_pages=P, page_size=PAGE, max_pages_per_seq=MAX_PG,
+                                num_slots=B, num_kv_heads=CFG.num_kv_heads, head_dim=CFG.hd, dtype="float32")
+    pool = pkv.alloc(pcfg, dev)
+    for t in pool.values():
+        t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    rng = np.random.default_rng(seed)
+    lanes = dict(
+        tables=torch.from_numpy(rng.permutation(np.arange(1, 13)).reshape(B, MAX_PG).astype(np.int32)),
+        lengths=torch.tensor([5, PAGE, 2 * PAGE - 1], dtype=torch.int32),
+        tokens=torch.from_numpy(rng.integers(1, CFG.vocab_size, size=B)),
+        keys=torch.stack([prng.prng_key(s) for s in (3, 4, 5)]),
+        temps=torch.tensor([0.0, 0.8, 1.3]), top_k=torch.tensor([0, 5, 0]), top_p=torch.tensor([1.0, 1.0, 0.8]))
+    lanes = {k: v.to(dev) for k, v in lanes.items()}
+    attn_fn, append_fn = mr.make_fused_paged_fns(CFG, "cuda")
+    return params, pool, lanes, attn_fn, append_fn
+
+
+def _eager_step(attn_fn, append_fn, params, pool, lanes):
+    """The same step without a graph, on the given (cloned) state."""
+    with torch.no_grad():
+        out = attn_fn(params, pool, *(lanes[k] for k in LANES))
+        append_fn(pool, *out[5:7], *out[3:5])
+    lanes["tokens"].copy_(out[0])
+    lanes["keys"].copy_(out[2])
+    lanes["lengths"].copy_(out[7])
+    return out[0], out[1]
+
+
+def _clone(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+def _deltas(lanes, step):
+    """The scheduler's deltas between steps: a lane bound, a row moved, a page grown."""
+    set_lane, set_table, set_table_cell = mr.make_delta_fns()
+    if step == 0:
+        set_lane(lanes["tokens"], lanes["keys"], lanes["temps"], lanes["top_k"], lanes["top_p"], 1, 7,
+                 prng.prng_key(77).tolist(), 0.7, 0, 0.9)
+    elif step == 1:
+        set_table(lanes["tables"], lanes["lengths"], 2, torch.tensor([13, 14, 0, 0], dtype=torch.int32).pin_memory(),
+                  20)
+        set_table_cell(lanes["tables"], 2, 2, 15)
+
+
+def test_replay_bit_equal_to_the_eager_step_with_deltas(dev):
+    params, pool, lanes, attn_fn, append_fn = _setup(dev)
+    fused = FusedDecode(attn_fn, append_fn, params, pool, lanes)
+    assert fused.capture_s > 0 and fused.k4_per_replay == CFG.num_layers
+    ref_pool, ref_lanes = _clone(pool), _clone(lanes)  # after the warm-up, which writes the trash page only
+    for step in range(3):
+        toks, logps = FusedDecode.read(fused.step(params, pool))
+        ref_toks, ref_logps = _eager_step(attn_fn, append_fn, params, ref_pool, ref_lanes)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(toks, ref_toks.cpu().numpy())
+        np.testing.assert_array_equal(logps, ref_logps.cpu().numpy())
+        for k in LANES:
+            assert torch.equal(lanes[k], ref_lanes[k]), (step, k)
+        for k in pool:
+            assert torch.equal(pool[k], ref_pool[k]), (step, k)
+        _deltas(lanes, step)
+        _deltas(ref_lanes, step)
+    assert lanes["lengths"].tolist() == [5 + 3, PAGE + 3, 20 + 1]  # lane 2 was set to 20 before the third step
+
+
+def test_replay_counts_k4_and_alternates_the_host_buffers(dev):
+    """Two replays before the first is read (the engine reads step N after
+    dispatching N + 1): each lands in its own pinned buffer, and K4's
+    counter grows by num_layers a replay (the warm-up's launches count,
+    the capture's do not)."""
+    params, pool, lanes, attn_fn, append_fn = _setup(dev, seed=1)
+    ref_params, ref_pool, ref_lanes, _, _ = _setup(dev, seed=1)
+    before = paged_attn_partials.launches
+    fused = FusedDecode(attn_fn, append_fn, params, pool, lanes)
+    assert paged_attn_partials.launches == before + CFG.num_layers
+    paged_attn_partials.launches = 0
+    h1 = fused.step(params, pool)
+    h2 = fused.step(params, pool)
+    assert h1[0].data_ptr() != h2[0].data_ptr()
+    t1, _ = FusedDecode.read(h1)
+    t2, _ = FusedDecode.read(h2)
+    assert paged_attn_partials.launches == 2 * CFG.num_layers and fused.replays == 2
+    for t in (t1, t2):
+        e, _ = _eager_step(attn_fn, append_fn, ref_params, ref_pool, ref_lanes)
+        np.testing.assert_array_equal(t, e.cpu().numpy())
+
+
+def test_moved_pool_or_weight_raises(dev):
+    params, pool, lanes, attn_fn, append_fn = _setup(dev)
+    fused = FusedDecode(attn_fn, append_fn, params, pool, lanes)
+    moved = dict(pool, k=pool["k"].clone())
+    with pytest.raises(RuntimeError, match="pool/k"):
+        fused.step(params, moved)
+    layers = dict(params["layers"], wq=params["layers"]["wq"].clone())
+    with pytest.raises(RuntimeError, match="layers/wq"):
+        fused.step(dict(params, layers=layers), pool)
+    fused.step(params, pool)  # the tensors it was built on still replay
+
+
+def test_threefry_on_the_card_bit_equal_to_the_cpu(dev):
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy(rng.integers(0, 2**32, size=(16, 2), dtype=np.uint64).astype(np.int64))
+    x = torch.from_numpy(rng.integers(0, 2**32, size=(2, 16, 4096), dtype=np.uint64).astype(np.int64))
+    on_card = prng.threefry2x32(k[:, :1].to(dev), k[:, 1:].to(dev), x[0].to(dev), x[1].to(dev))
+    on_host = prng.threefry2x32(k[:, :1], k[:, 1:], x[0], x[1])
+    for a, b in zip(on_card, on_host):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(prng.split(k.to(dev)).cpu(), prng.split(k))
+    u_card, u_host = prng.uniform(k.to(dev), (128256,)).cpu(), prng.uniform(k, (128256,))
+    assert torch.equal(u_card, u_host)
+    g_card, g_host = prng.gumbel(k.to(dev), (128256,)).cpu(), prng.gumbel(k, (128256,))
+    assert ((g_card - g_host).abs() <= 2 * torch.finfo(torch.float32).eps * g_host.abs().clamp(min=1)).all()
+
+
+def test_graph_engine_streams_equal_the_sync_engine(dev):
+    """The default engine (one graph) against ``device_resident=False`` on
+    the card: greedy and seeded streams equal, K4 launched num_layers
+    times per decode step, counted through the replays."""
+    params = init_params(CFG, torch.Generator(device=dev).manual_seed(3))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, CFG.vocab_size, size=int(n)).tolist() for n in (9, 30, 17, 50)]
+    sps = [SamplingParams(max_tokens=12), SamplingParams(max_tokens=12, temperature=0.8, top_p=0.9, seed=1),
+           SamplingParams(max_tokens=7, temperature=1.2, top_k=20, seed=2), SamplingParams(max_tokens=12)]
+    outs = {}
+    for resident in (True, False):
+        eng = LLMEngine(CFG, params, max_num_seqs=3, page_size=PAGE, prefill_buckets=(64, 128, 256),
+                        device_resident=resident)
+        assert (eng.graph_capture_s > 0) == resident
+        paged_attn_partials.launches = 0
+        outs[resident] = [o.token_ids for o in eng.generate(prompts, sps)]
+        assert paged_attn_partials.launches == CFG.num_layers * eng.decode_steps > 0
+        assert eng.kv_cache_stats()["pages_free"] == eng.kv_cache_stats()["pages_total"]
+    assert outs[True] == outs[False]

@@ -3,7 +3,11 @@
 f32 on the CPU, atol 1e-4 (the same f32 arithmetic through a few layers,
 in another summation order): batched prefill logits and K/V, the paged
 decode step's and the prefix-cache extend's logits and pool (fp and int8
-pools), and the training forward under every ``attention_impl``. Plus
+pools), the device-resident step (``paged_fused_step`` + ``append_paged``:
+tokens equal, keys bit-equal, logprobs and pool within ATOL) chained over
+steps with the lane deltas between them (``make_delta_fns``: the same
+arrays as ray_tpu's scatters), and the training forward under every
+``attention_impl``. Plus
 the card's refusal of an ``attention_impl`` it has no kernel for, and the
 bf16 weight round trip."""
 
@@ -128,6 +132,97 @@ def test_decode_step_paged_matches_jax(params, cache_dtype):
             else:
                 _close(tpool[name], jpool[name])
         lengths += 1
+
+
+def _fused_setup(jp, tp, rng, B=3, max_pg=4, P=13):
+    """Both pools with three prompts prefilled into their pages, and the
+    device-resident lanes on both sides (ray_tpu's dtypes: int32 tables,
+    lengths and tokens, uint32 keys)."""
+    pcfg = dict(num_layers=JCFG.num_layers, num_pages=P, page_size=PAGE, max_pages_per_seq=max_pg, num_slots=B,
+                num_kv_heads=JCFG.num_kv_heads, head_dim=JCFG.hd, dtype="float32")
+    jpool = jpkv.alloc(jpkv.PagedCacheConfig(**pcfg))
+    tpool = tpkv.alloc(tpkv.PagedCacheConfig(**pcfg), "cpu")
+    tables = rng.permutation(np.arange(1, P))[: B * max_pg].reshape(B, max_pg).astype(np.int32)
+    lens = np.array([5, PAGE, 2 * PAGE - 1], np.int32)[:B]
+    toks = rng.integers(1, JCFG.vocab_size, size=(B, 2 * PAGE)).astype(np.int32)
+    _, kj, vj = jmr.prefill(jp, jnp.asarray(toks), jnp.asarray(lens), JCFG)
+    _, kt, vt = tmr.prefill(tp, torch.from_numpy(toks.astype(np.int64)), torch.from_numpy(lens), TCFG)
+    for b in range(B):
+        row = tables[b, :2]
+        jpool = jpkv.insert_pages(jpool, jnp.asarray(row), kj[:, b], vj[:, b])
+        tpkv.insert_pages(tpool, torch.from_numpy(row), kt[:, b], vt[:, b])
+    keys = np.stack([np.asarray(jax.random.PRNGKey(100 + b)) for b in range(B)])
+    lanes = dict(tables=tables, lengths=lens, tokens=rng.integers(1, JCFG.vocab_size, size=B).astype(np.int32),
+                 keys=keys, temps=np.array([0.0, 0.8, 1.3], np.float32)[:B], top_k=np.array([0, 5, 0], np.int32)[:B],
+                 top_p=np.array([1.0, 1.0, 0.8], np.float32)[:B])
+    jl = {k: jnp.asarray(v) for k, v in lanes.items()}
+    wide = ("tokens", "keys", "top_k")  # int64 in the port
+    tl = {k: torch.from_numpy(v.astype(np.int64) if k in wide else v.copy()) for k, v in lanes.items()}
+    return jpool, tpool, jl, tl
+
+
+ORDER = ("tables", "lengths", "tokens", "keys", "temps", "top_k", "top_p")
+
+
+def test_fused_step_and_deltas_match_jax(params):
+    """Three device-resident steps on both sides, with a lane delta (a
+    seeded admission into slot 1), a table delta (slot 2's row and length
+    moved) and a table-cell delta (a grown page) between them: the 11
+    outputs of ``paged_fused_step``, the pool after ``append_paged`` and
+    the delta functions' arrays agree with ray_tpu's, every key advancing
+    every step."""
+    jp, tp = params
+    rng = np.random.default_rng(7)
+    jpool, tpool, jl, tl = _fused_setup(jp, tp, rng)
+    attn_fn, append_fn = tmr.make_fused_paged_fns(TCFG, "torch")
+    j_attn, j_append = jmr.make_fused_paged_fns(JCFG)
+    j_lane, j_table, j_cell = jmr.make_delta_fns()
+    t_lane, t_table, t_cell = tmr.make_delta_fns()
+    for step in range(3):
+        jo = j_attn(jp, jpool, *(jl[k] for k in ORDER))
+        to = attn_fn(tp, tpool, *(tl[k] for k in ORDER))
+        assert len(to) == len(jo) == 11
+        np.testing.assert_array_equal(to[0].numpy(), np.asarray(jo[0]))  # tokens
+        _close(to[1], jo[1])  # logprobs
+        np.testing.assert_array_equal(to[2].numpy(), np.asarray(jo[2]).astype(np.int64))  # keys
+        for t, j in zip(to[3:5], jo[3:5]):  # k_new, v_new
+            _close(t, j)
+        for t, j in zip(to[5:], jo[5:]):  # write targets, lengths + 1, the passed-through sampling lanes
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        assert not (to[2] == tl["keys"]).all(dim=-1).any()
+        jpool = j_append(jpool, *jo[5:7], *jo[3:5])
+        append_fn(tpool, *to[5:7], *to[3:5])
+        _close_pool(tpool, jpool, "float32")
+        jl.update(tokens=jo[0], keys=jo[2], lengths=jo[7], temps=jo[8], top_k=jo[9], top_p=jo[10])  # donated lanes
+        tl["tokens"].copy_(to[0])
+        tl["keys"].copy_(to[2])
+        tl["lengths"].copy_(to[7])
+        if step == 0:  # a seeded stochastic request bound into slot 1
+            key = np.asarray(jax.random.PRNGKey(77))
+            names = ("tokens", "keys", "temps", "top_k", "top_p")
+            jout = j_lane(*(jl[k] for k in names), np.int32(1), np.int32(9), key, np.float32(0.7), np.int32(0),
+                          np.float32(0.9))
+            tout = t_lane(*(tl[k] for k in names), 1, 9, key.tolist(), 0.7, 0, 0.9)
+            jl.update(zip(names, jout))
+            assert all(t is tl[k] for t, k in zip(tout, names))  # in place
+        elif step == 1:  # slot 2 moved to other pages at another length, then a grown page
+            row = np.array([11, 12, 0, 0], np.int32)
+            jl["tables"], jl["lengths"] = j_table(jl["tables"], jl["lengths"], np.int32(2), jnp.asarray(row),
+                                                  np.int32(20))
+            t_table(tl["tables"], tl["lengths"], 2, torch.from_numpy(row), 20)
+            jl["tables"] = j_cell(jl["tables"], np.int32(2), np.int32(2), np.int32(10))
+            t_cell(tl["tables"], 2, 2, 10)
+        for k in ORDER:
+            np.testing.assert_array_equal(tl[k].numpy(), np.asarray(jl[k]).astype(tl[k].numpy().dtype))
+
+
+def test_fused_fns_refuse_the_other_device(params):
+    _, tp = params
+    with pytest.raises(ValueError, match="attn_impl"):
+        tmr.make_fused_paged_fns(TCFG, "xla")
+    attn_fn, _ = tmr.make_fused_paged_fns(TCFG, "cuda")
+    with pytest.raises(ValueError, match="cpu"):
+        attn_fn(tp, {}, torch.zeros(1, 1, dtype=torch.int32), *([None] * 6))
 
 
 def _extend_setup(jp, tp, cache_dtype, rng, n_p, max_pg=8, P=12):

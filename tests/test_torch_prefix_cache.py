@@ -2,7 +2,8 @@
 content-stable keys byte for byte, the cache's byte accounting, and greedy
 streams token-identical to ray_tpu's engine with
 ``enable_prefix_caching=True`` (``kv_layout="paged"``,
-``device_resident=False``, ``telemetry=False``), with equal
+``telemetry=False``), each decode mode against the same mode
+(``device_resident`` True, the default, and False), with equal
 ``prefix_cache_stats()`` and preemption counts, in five schedules: hits
 after a leader, a hit on a shorter prefix than the stored pad width,
 same-wave followers (they miss; a blocked one re-resolves when the store
@@ -25,6 +26,17 @@ from ray_tpu_torch.models import llama as tllama  # noqa: E402
 from ray_tpu_torch.weights import params_from_jax  # noqa: E402
 
 KW = dict(dtype="float32", remat=False, max_seq_len=256)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's side of these tiny models runs on one intra-op thread:
+    beside other test workers, torch's thread pool spins against the XLA
+    runtime's and a schedule takes ~10x longer; the arithmetic is the same."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 300])
@@ -116,15 +128,19 @@ def _scenario(name):
     return sched, [[pre + _toks(rng, 4)], [pre + _toks(rng, n) for n in (8, 2, 12, 1, 6)]], 40, (5, 1, 0)
 
 
+@pytest.mark.parametrize("device_resident", [True, False], ids=["device_resident", "sync"])
 @pytest.mark.parametrize("name", ["hits", "shorter_prefix", "same_wave", "eviction", "preemption"])
-def test_prefix_cached_generation_token_identical_to_ray_tpu(params, name):
+def test_prefix_cached_generation_token_identical_to_ray_tpu(params, name, device_resident):
     jp, tp = params
     sched, waves, max_tokens, (hits, misses, evictions) = _scenario(name)
     je = JaxEngine(jllama.LlamaConfig.tiny(**KW), jp, kv_layout="paged", enable_prefix_caching=True,
-                   device_resident=False, telemetry=False, seed=5, **sched)
-    for fn in ("_prefill", "_insert", "_decode", "_extend"):
-        setattr(je, fn, _synced(getattr(je, fn)))
-    te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", seed=5, **sched)  # caching on by default
+                   device_resident=device_resident, telemetry=False, seed=5, **sched)
+    for fn in ("_prefill", "_insert", "_decode", "_extend", "_sample", "_fused_attn", "_fused_append", "_set_lane",
+               "_set_table", "_set_table_cell"):
+        if hasattr(je, fn):
+            setattr(je, fn, _synced(getattr(je, fn)))
+    # caching on by default
+    te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", seed=5, device_resident=device_resident, **sched)
     ref = [je.generate(w, JaxParams(max_tokens=max_tokens)) for w in waves]
     out = [te.generate(w, SamplingParams(max_tokens=max_tokens)) for w in waves]
     assert [[o.token_ids for o in w] for w in out] == [[o.token_ids for o in w] for w in ref]
