@@ -28,8 +28,9 @@ Phases, in order; any failed check exits non-zero before the last line:
    partials and merge kernels) and the wrapper's host cost per call
    (perf_counter over 300 calls, no synchronise).
 4. The engine: full-width Llama-3-8B (random weights from a seed, bf16)
-   serves 8 seeded prompts of 50-1500 tokens, 32 greedy tokens each, first
-   with the default engine (device-resident: the decode step is one CUDA
+   on the paged layout (kv_layout="paged", page 64, 257 pages) serves 8
+   seeded prompts of 50-1500 tokens, 32 greedy tokens each, first with the
+   graph engine (device-resident, the default: the decode step is one CUDA
    graph captured when the engine is built and replayed every step, the
    tokens read back one step behind), then with device_resident=False
    (the synchronous loop). The kernels' launch counters are zeroed just
@@ -42,11 +43,11 @@ Phases, in order; any failed check exits non-zero before the last line:
    until none waits, and times 4 decode-only steps, then runs 4 more under
    torch.profiler: per step the wall time (unprofiled), device-busy time,
    idle share, K4's device time, cuBLAS's and the rest's (the tables in
-   build/decode_step_profile_graph.txt
-   and build/decode_step_profile_sync.txt); K4's partials kernel must
-   appear 32 x 4 times in each. Prints each mode's prefill ms, decode
-   ms/step, generated tok/s and peak memory, and the graph's capture time.
-4b. Prefix caching on the same weights: a fresh default engine (caching on,
+   build/decode_step_profile_paged_bf16_{graph,sync}.txt); K4's partials
+   kernel must appear 32 x 4 times in each. Prints each mode's prefill ms,
+   decode ms/step, generated tok/s, the cache's layout, dtype, bytes per
+   token and allocation, peak memory, and the graph's capture time.
+4b. Prefix caching on the same weights: a fresh paged engine (caching on,
    64-token blocks) generates a leader (a seeded 1024-token prefix + 256 tokens),
    then 8 requests of the prefix + seeded suffixes of 32-900 tokens with
    pairwise distinct first suffix tokens, 32 greedy tokens each. It must
@@ -58,11 +59,26 @@ Phases, in order; any failed check exits non-zero before the last line:
    Prints the hit wave's prefill ms beside a caching-off engine's on the
    same 8 prompts, the count of first tokens the two agree on, and both
    waves' peak memory.
+4c. The slot layout (kv_layout="slots", the default) and the int8 cache,
+   on phase 4's weights and prompts, each engine run as phase 4 runs its
+   own (K1 32 times per prefill forward, every first token equal to phase
+   4's paged engine's, the allocation and bytes per token as computed):
+   the slot engine in bf16, graph then sync (streams identical, K4 never
+   launched, 2 GiB allocated; both modes profiled as in phase 4 into
+   build/decode_step_profile_slots_bf16_{graph,sync}.txt); the paged int8
+   engine, graph then sync (streams identical, K4's int8 branch 32 times
+   per decode step, 67584 bytes per token, the graph profiled); the slot
+   int8 engine, graph only; and phase 4b's leader and 8 followers on a
+   paged int8 engine (8 hits, 1 miss, 8192 tokens saved, K4 32 times per
+   decode step and extend forward). Prints the greedy tokens each engine
+   shares with phase 4's streams.
 5. The whole path, card against host: the same widths at 2 layers in f32,
-   a 64-token prompt and 8 teacher-forced decode steps; prefill and
-   decode logits must agree. Then the extend: a 64-token prefix in the
-   pool and a 40-token suffix in a 64 bucket over it; its logits must
-   agree.
+   a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
+   f32 and int8; prefill and decode logits must agree. Then the extend: a
+   64-token prefix in the pool and a 40-token suffix in a 64 bucket over
+   it; its logits must agree. Then the slot layout: the prompt into two
+   slots, 8 decode steps, and the suffix extended over the prompt in one
+   slot; logits and that slot's K/V must agree.
 6. K2/K3 against their plain version on the card at bench.py's two
    training shapes (B, H, Hkv, T, D) = (8, 16, 8, 2048, 128) and
    (2, 16, 8, 8192, 128) in bf16, a ragged T = 1000, f32 at D 64 and 128,
@@ -222,6 +238,7 @@ def main() -> int:
 
     from ray_tpu_torch import _kernels
     from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm import kv_cache as kvc
     from ray_tpu_torch.llm import model_runner as mr
     from ray_tpu_torch.llm import paged_kv as pkv
     from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
@@ -441,6 +458,7 @@ def main() -> int:
     mark("3")
     # ---------------------------------------------------------------- 4
     cfg = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False)
+    L = cfg.num_layers
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -448,65 +466,66 @@ def main() -> int:
     lens = rng.integers(50, 1501, size=8)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in lens]
     seeded = [SamplingParams(max_tokens=SEEDED_TOKENS, temperature=0.8, top_p=0.9, seed=s) for s in range(4)]
-    serve = {}
-    for mode, kw in (("graph", {}), ("sync", dict(device_resident=False))):
-        torch.cuda.reset_peak_memory_stats()
-        eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64, **kw)  # the default engine is the graph one
-        check(eng.kv_cache_stats()["attn_kernel"] == "cuda", "engine did not resolve the CUDA kernel")
-        check((eng.graph_capture_s > 0) == (mode == "graph"), f"engine {mode}: graph capture {eng.graph_capture_s} s")
-        flash_attention_fwd.launches = 0
-        paged_attn_partials.launches = 0
-        t0 = time.perf_counter()
-        outs = eng.generate(prompts, SamplingParams(max_tokens=32))
-        wall_s = time.perf_counter() - t0
-        k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
-        check(all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in outs),
-              f"engine {mode}: not every request finished with 32 tokens: "
-              f"{[(len(o.token_ids), o.finish_reason) for o in outs]}")
-        check(all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids), f"engine {mode}: token outside the vocabulary")
-        check(k1_n == cfg.num_layers * eng.prefill_forwards > 0,
-              f"engine {mode}: K1 launches {k1_n} != {cfg.num_layers} x {eng.prefill_forwards} prefill forwards")
-        check(k4_n == cfg.num_layers * eng.decode_steps > 0,
-              f"engine {mode}: K4 launches {k4_n} != {cfg.num_layers} x {eng.decode_steps} decode steps")
-        peak = torch.cuda.max_memory_allocated()
-        gen_tok = sum(len(o.token_ids) for o in outs)
-        run = dict(tokens=[o.token_ids for o in outs], k1=k1_n, k4=k4_n, peak=peak, wall_s=wall_s,
-                   prefill_ms=eng.prefill_s * 1e3, decode_ms=eng.decode_s * 1e3 / eng.decode_steps,
-                   steps=eng.decode_steps, tok_s=gen_tok / wall_s, capture_s=eng.graph_capture_s)
-        print(f"phase 4 engine llama3_8b (32 layers, bf16, random weights) {mode} 8 "
-              f"prompts of {sorted(int(n) for n in lens)} tokens, 32 greedy tokens each: init {init_s:.2f} s, graph "
-              f"capture {run['capture_s']:.3f} s, prefill {run['prefill_ms']:.2f} ms over {eng.prefill_forwards} "
-              f"forwards, decode {run['decode_ms']:.3f} ms/step over {run['steps']} steps, {run['tok_s']:.2f} "
-              f"generated tok/s ({wall_s:.3f} s wall), K1 launches {k1_n}, K4 launches {k4_n} (= {cfg.num_layers} x "
-              f"{eng.decode_steps} decode steps), peak memory {peak} bytes {card}")
-        run["seeded"] = [o.token_ids for o in eng.generate(prompts[:4], seeded)]
-        check(all(len(t) == SEEDED_TOKENS for t in run["seeded"]), f"engine {mode}: seeded requests cut short")
-        # the 8 prompts again; once none waits, every step is decode only
-        for prompt in prompts:
-            eng.add_request(prompt, SamplingParams(max_tokens=32))
-        while eng.num_waiting:
-            eng.step()
-        check(eng.num_running == 8, f"engine {mode}: {eng.num_running} of 8 requests running after admission")
-        run["profile"] = profile_decode(torch, eng, DECODE_PROFILE_STEPS, mode, card,
-                                        _kernels.BUILD_DIR / f"decode_step_profile_{mode}.txt")
-        n_prof = cfg.num_layers * DECODE_PROFILE_STEPS
-        calls = run["profile"]["calls"]
-        check(calls["paged_partials_kernel"] == n_prof and calls["paged_merge_kernel"] in (0, n_prof),
-              f"decode profile {mode}: K4's kernels ran {calls} times in {DECODE_PROFILE_STEPS} steps, not {n_prof}")
-        serve[mode] = run
-        del eng, outs
-        torch.cuda.empty_cache()
-    gr, sy = serve["graph"], serve["sync"]
-    check(gr["tokens"] == sy["tokens"], "engine: the graph and sync engines' greedy tokens differ: "
-          f"{sum(a == b for a, b in zip(gr['tokens'], sy['tokens']))} of 8 streams equal")
-    check(gr["seeded"] == sy["seeded"], "engine: the graph and sync engines' seeded streams differ: "
-          f"{[sum(x == z for x, z in zip(a, b)) for a, b in zip(gr['seeded'], sy['seeded'])]} tokens equal per stream")
+    print(f"phase 4 engine llama3_8b (32 layers, bf16, random weights from seed 0, init {init_s:.2f} s): 8 prompts of "
+          f"{sorted(int(n) for n in lens)} tokens, 32 greedy tokens each, then 4 seeded (temperature 0.8, top_p 0.9, "
+          f"{SEEDED_TOKENS} tokens)")
+
+    def serve_modes(phase, label, modes, profile_modes=(), **engine_kw):
+        """Serve the 8 prompts (32 greedy tokens each) and the 4 seeded ones on
+        one engine per decode mode ("graph": the default, device-resident;
+        "sync": device_resident=False); then, for ``profile_modes``, the 8
+        prompts again and 4 + 4 decode-only steps profiled. Returns each
+        mode's run; the graph and sync runs' streams must be identical."""
+        runs = {}
+        for mode in modes:
+            torch.cuda.reset_peak_memory_stats()
+            eng = LLMEngine(cfg, params, max_num_seqs=8, device_resident=mode == "graph", **engine_kw)
+            paged = eng.kv_layout == "paged"
+            check(eng.kv_cache_stats()["attn_kernel"] == ("cuda" if paged else "torch"),
+                  f"engine {label} {mode}: attention {eng.kv_cache_stats()['attn_kernel']}")
+            check((eng.graph_capture_s > 0) == (mode == "graph"), f"engine {label} {mode}: graph capture "
+                  f"{eng.graph_capture_s} s")
+            run = serve_engine(torch, eng, prompts, f"phase {phase} engine {label} {mode}", card,
+                               k4_per_step=L if paged else 0)
+            run["seeded"] = [o.token_ids for o in eng.generate(prompts[:4], seeded)]
+            check(all(len(t) == SEEDED_TOKENS for t in run["seeded"]), f"engine {label} {mode}: seeded requests cut short")
+            if mode in profile_modes:
+                # the 8 prompts again; once none waits, every step is decode only
+                for prompt in prompts:
+                    eng.add_request(prompt, SamplingParams(max_tokens=32))
+                while eng.num_waiting:
+                    eng.step()
+                check(eng.num_running == 8, f"engine {label} {mode}: {eng.num_running} of 8 requests running")
+                name = label.replace(" ", "_")
+                run["profile"] = profile_decode(torch, eng, DECODE_PROFILE_STEPS, f"phase {phase} {label} {mode}", card,
+                                                _kernels.BUILD_DIR / f"decode_step_profile_{name}_{mode}.txt")
+                n_prof = (L if paged else 0) * DECODE_PROFILE_STEPS
+                calls = run["profile"]["calls"]
+                check(calls["paged_partials_kernel"] == n_prof and calls["paged_merge_kernel"] in (0, n_prof),
+                      f"decode profile {label} {mode}: K4's kernels ran {calls} times in {DECODE_PROFILE_STEPS} steps, "
+                      f"not {n_prof}")
+            runs[mode] = run
+            del eng
+            torch.cuda.empty_cache()
+        if len(runs) == 2:
+            gr, sy = runs["graph"], runs["sync"]
+            check(gr["tokens"] == sy["tokens"], f"engine {label}: the graph and sync engines' greedy tokens differ: "
+                  f"{sum(a == b for a, b in zip(gr['tokens'], sy['tokens']))} of 8 streams equal")
+            check(gr["seeded"] == sy["seeded"], f"engine {label}: the graph and sync engines' seeded streams differ: "
+                  f"{[sum(x == z for x, z in zip(a, b)) for a, b in zip(gr['seeded'], sy['seeded'])]} tokens equal")
+            idle = (f", idle share {gr['profile']['idle']:.4f} vs {sy['profile']['idle']:.4f}"
+                    if "profile" in gr and "profile" in sy else "")
+            print(f"phase {phase} {label} graph vs sync: greedy tokens identical in 8 of 8 streams, seeded streams (4 lanes, "
+                  f"temperature 0.8, top_p 0.9, {SEEDED_TOKENS} tokens) identical in 4 of 4; decode "
+                  f"{gr['decode_ms']:.3f} vs {sy['decode_ms']:.3f} ms/step (sync / graph "
+                  f"{sy['decode_ms'] / gr['decode_ms']:.3f}), {gr['tok_s']:.2f} vs {sy['tok_s']:.2f} generated "
+                  f"tok/s{idle}, peak memory {gr['peak']} vs {sy['peak']} bytes {card}")
+        return runs
+
+    serve = serve_modes("4", "paged bf16", ("graph", "sync"), ("graph", "sync"), kv_layout="paged", page_size=64)
+    gr = serve["graph"]
     k1_launches, k4_launches = gr["k1"], gr["k4"]
-    print(f"phase 4 graph vs sync: greedy tokens identical in 8 of 8 streams, seeded streams (4 lanes, temperature "
-          f"0.8, top_p 0.9, {SEEDED_TOKENS} tokens) identical in 4 of 4; decode {gr['decode_ms']:.3f} vs "
-          f"{sy['decode_ms']:.3f} ms/step (sync / graph {sy['decode_ms'] / gr['decode_ms']:.3f}), {gr['tok_s']:.2f} vs "
-          f"{sy['tok_s']:.2f} generated tok/s, idle share {gr['profile']['idle']:.4f} vs {sy['profile']['idle']:.4f}, "
-          f"peak memory {gr['peak']} vs {sy['peak']} bytes {card}")
+    ref_tokens = gr["tokens"]  # phase 4c holds its engines' first tokens against these
 
     mark("4")
     # ---------------------------------------------------------------- 4b
@@ -516,29 +535,38 @@ def main() -> int:
     suffix_lens = rng.integers(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1, size=8)
     followers = [prefix + [int(f)] + rng.integers(1, cfg.vocab_size, size=int(n) - 1).tolist()
                  for f, n in zip(firsts, suffix_lens)]
-    eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64, prefix_block=64)  # prefix caching is on by default
-    flash_attention_fwd.launches = 0
-    paged_attn_partials.launches = 0
-    lead_out = eng.generate(leader, SamplingParams(max_tokens=32))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    prefill_before = eng.prefill_s
-    t0 = time.perf_counter()
-    hit_outs = eng.generate(followers, SamplingParams(max_tokens=32))
-    hit_wall_s = time.perf_counter() - t0
-    hit_prefill_s = eng.prefill_s - prefill_before
-    hit_peak = torch.cuda.max_memory_allocated()
-    k1_4b, k4_4b = flash_attention_fwd.launches, paged_attn_partials.launches
-    stats = eng.prefix_cache_stats()
-    check(len(lead_out.token_ids) == 32 and all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in hit_outs),
-          f"prefix caching: not every request finished with 32 tokens: {[len(o.token_ids) for o in hit_outs]}")
-    check((stats["hits"], stats["misses"], stats["tokens_saved"]) == (8, 1, 8 * PREFIX_LEN),
-          f"prefix caching: stats {stats}, expected 8 hits, 1 miss, {8 * PREFIX_LEN} tokens saved")
-    check(k1_4b == cfg.num_layers * eng.prefill_forwards > 0,
-          f"prefix caching: K1 launches {k1_4b} != {cfg.num_layers} x {eng.prefill_forwards} prefill forwards")
-    check(k4_4b == cfg.num_layers * (eng.decode_steps + eng.extend_forwards) and eng.extend_forwards == 8,
-          f"prefix caching: K4 launches {k4_4b} != {cfg.num_layers} x ({eng.decode_steps} decode steps + "
-          f"{eng.extend_forwards} extend forwards)")
+
+    def prefix_hits(label, **engine_kw):
+        """The leader, then the 8 followers, on a fresh engine with prefix
+        caching on (64-token blocks): 8 hits, 1 miss, 8192 tokens saved, K1
+        32 times per prefill forward, K4 32 times per decode step and extend
+        forward, every request 32 tokens. Returns the engine and its hit wave."""
+        eng = LLMEngine(cfg, params, max_num_seqs=8, kv_layout="paged", page_size=64, prefix_block=64, **engine_kw)
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        lead_out = eng.generate(leader, SamplingParams(max_tokens=32))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prefill_before = eng.prefill_s
+        t0 = time.perf_counter()
+        outs = eng.generate(followers, SamplingParams(max_tokens=32))
+        wave = dict(outs=outs, wall_s=time.perf_counter() - t0, prefill_s=eng.prefill_s - prefill_before,
+                    peak=torch.cuda.max_memory_allocated(), k1=flash_attention_fwd.launches,
+                    k4=paged_attn_partials.launches, stats=eng.prefix_cache_stats())
+        stats = wave["stats"]
+        check(len(lead_out.token_ids) == 32 and all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in outs),
+              f"prefix caching {label}: not every request finished with 32 tokens: {[len(o.token_ids) for o in outs]}")
+        check((stats["hits"], stats["misses"], stats["tokens_saved"]) == (8, 1, 8 * PREFIX_LEN),
+              f"prefix caching {label}: stats {stats}, expected 8 hits, 1 miss, {8 * PREFIX_LEN} tokens saved")
+        check(wave["k1"] == L * eng.prefill_forwards > 0,
+              f"prefix caching {label}: K1 launches {wave['k1']} != {L} x {eng.prefill_forwards} prefill forwards")
+        check(wave["k4"] == L * (eng.decode_steps + eng.extend_forwards) and eng.extend_forwards == 8,
+              f"prefix caching {label}: K4 launches {wave['k4']} != {L} x ({eng.decode_steps} decode steps + "
+              f"{eng.extend_forwards} extend forwards)")
+        return eng, wave
+
+    eng, wave = prefix_hits("bf16")
+    hit_outs, stats, k1_4b, k4_4b = wave["outs"], wave["stats"], wave["k1"], wave["k4"]
     # the same 8 prompts again on this engine (they hit the leader's prefix again): timed warm, then the
     # admitting step profiled
     prefill_before = eng.prefill_s
@@ -546,11 +574,11 @@ def main() -> int:
     hit_prefill_warm_s = eng.prefill_s - prefill_before
     wave_prof = profile_hit_wave(torch, eng, followers, SamplingParams(max_tokens=32), card,
                                  _kernels.BUILD_DIR / "hit_wave_profile.txt")
-    check(wave_prof["calls"]["paged_partials_kernel"] == cfg.num_layers * 9,
-          f"hit wave profile: K4 ran {wave_prof['calls']} times, not {cfg.num_layers} x (8 extends + 1 decode step)")
+    check(wave_prof["calls"]["paged_partials_kernel"] == L * 9,
+          f"hit wave profile: K4 ran {wave_prof['calls']} times, not {L} x (8 extends + 1 decode step)")
     del eng
     torch.cuda.empty_cache()
-    eng = LLMEngine(cfg, params, max_num_seqs=8, page_size=64, enable_prefix_caching=False)
+    eng = LLMEngine(cfg, params, max_num_seqs=8, kv_layout="paged", page_size=64, enable_prefix_caching=False)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     off_outs = eng.generate(followers, SamplingParams(max_tokens=32))
@@ -562,15 +590,56 @@ def main() -> int:
     same_first = sum(a.token_ids[0] == b.token_ids[0] for a, b in zip(hit_outs, off_outs))
     print(f"phase 4b prefix caching llama3_8b: leader {len(leader)} tokens, then 8 prompts of {PREFIX_LEN} + "
           f"{sorted(int(n) for n in suffix_lens)} tokens, 32 greedy tokens each: stats {stats}, hit wave prefill "
-          f"{hit_prefill_s * 1e3:.2f} ms over {8} extend forwards ({hit_wall_s:.3f} s wall, peak memory {hit_peak} "
-          f"bytes; {hit_prefill_warm_s * 1e3:.2f} ms the second time) against caching off {off_prefill_s * 1e3:.2f} "
-          f"ms over {off_forwards} prefill forwards ({off_wall_s:.3f} s wall, peak memory {off_peak} bytes; "
-          f"{off_prefill_warm_s * 1e3:.2f} ms the second time); K1 launches {k1_4b}, K4 launches {k4_4b}; "
-          f"first tokens equal in {same_first} of 8 (bf16 K1 vs f32 K4, not gated) {card}")
-    del eng, params, hit_outs, off_outs
+          f"{wave['prefill_s'] * 1e3:.2f} ms over {8} extend forwards ({wave['wall_s']:.3f} s wall, peak memory "
+          f"{wave['peak']} bytes; {hit_prefill_warm_s * 1e3:.2f} ms the second time) against caching off "
+          f"{off_prefill_s * 1e3:.2f} ms over {off_forwards} prefill forwards ({off_wall_s:.3f} s wall, peak memory "
+          f"{off_peak} bytes; {off_prefill_warm_s * 1e3:.2f} ms the second time); K1 launches {k1_4b}, K4 launches "
+          f"{k4_4b}; first tokens equal in {same_first} of 8 (bf16 K1 vs f32 K4, not gated) {card}")
+    del eng, off_outs
     torch.cuda.empty_cache()
 
     mark("4b")
+    # ---------------------------------------------------------------- 4c
+    # the slot layout (ray_tpu's default) and the int8 cache on both layouts, on phase 4's weights and prompts
+    bytes_tok_bf16, bytes_tok_int8 = 2 * L * cfg.num_kv_heads * cfg.hd * 2, 2 * L * cfg.num_kv_heads * (cfg.hd + 4)
+    check(bytes_tok_int8 == 67584, f"int8 bytes per token {bytes_tok_int8}")
+
+    def agree(runs, label, want_bytes, want_per_tok):
+        """Gates shared by phase 4c's engines: first tokens equal phase 4's
+        bf16 paged engine's (the same prefill forward), the cache's
+        allocation and bytes per token as computed; prints the greedy tokens
+        that agree with phase 4's streams (other attention arithmetic: not
+        gated)."""
+        for mode, run in runs.items():
+            firsts_eq = sum(a[0] == b[0] for a, b in zip(run["tokens"], ref_tokens))
+            check(firsts_eq == 8, f"engine {label} {mode}: first tokens equal phase 4's in {firsts_eq} of 8")
+            kv = run["stats"]
+            check(kv["allocated_bytes"] == want_bytes and kv["bytes_per_token"] == want_per_tok,
+                  f"engine {label} {mode}: allocated {kv['allocated_bytes']} bytes (want {want_bytes}), "
+                  f"{kv['bytes_per_token']} bytes per token (want {want_per_tok})")
+            same = sum(x == z for a, b in zip(run["tokens"], ref_tokens) for x, z in zip(a, b))
+            print(f"phase 4c {label} {mode}: first tokens equal phase 4's in 8 of 8; {same} of 256 greedy tokens equal "
+                  f"phase 4's bf16 paged streams (not gated)")
+
+    slots = serve_modes("4c", "slots bf16", ("graph", "sync"), ("graph", "sync"), kv_layout="slots")
+    agree(slots, "slots bf16", 2 * L * 8 * 2048 * cfg.num_kv_heads * cfg.hd * 2, bytes_tok_bf16)
+    int8_paged = serve_modes("4c", "paged int8", ("graph", "sync"), ("graph",), kv_layout="paged", page_size=64,
+                             cache_dtype="int8")
+    agree(int8_paged, "paged int8", 257 * 64 * bytes_tok_int8, bytes_tok_int8)
+    int8_slots = serve_modes("4c", "slots int8", ("graph",), kv_layout="slots", cache_dtype="int8")
+    agree(int8_slots, "slots int8", 8 * 2048 * bytes_tok_int8, bytes_tok_int8)
+    k4_int8_launches = int8_paged["graph"]["k4"]
+    eng, wave8 = prefix_hits("int8", cache_dtype="int8")
+    same_first = sum(a.token_ids[0] == b.token_ids[0] for a, b in zip(wave8["outs"], hit_outs))
+    print(f"phase 4c prefix caching int8 (phase 4b's leader and 8 followers, paged int8 cache): stats "
+          f"{wave8['stats']}, hit wave prefill {wave8['prefill_s'] * 1e3:.2f} ms over 8 extend forwards "
+          f"({wave8['wall_s']:.3f} s wall, peak memory {wave8['peak']} bytes), K1 launches {wave8['k1']}, K4 launches "
+          f"{wave8['k4']} (= {L} x ({eng.decode_steps} decode steps + {eng.extend_forwards} extend forwards)); first "
+          f"tokens equal phase 4b's bf16 hits in {same_first} of 8 (not gated) {card}")
+    del eng, params, hit_outs, wave, wave8
+    torch.cuda.empty_cache()
+
+    mark("4c")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -580,9 +649,9 @@ def main() -> int:
     flash_attention_fwd.launches = 0
     paged_attn_partials.launches = 0
 
-    def run(params, device):
+    def run(params, device, dtype="float32"):
         pcfg = pkv.PagedCacheConfig(num_layers=2, num_pages=3, page_size=64, max_pages_per_seq=2, num_slots=1,
-                                    num_kv_heads=cfg2.num_kv_heads, head_dim=cfg2.hd, dtype="float32")
+                                    num_kv_heads=cfg2.num_kv_heads, head_dim=cfg2.hd, dtype=dtype)
         pool = pkv.alloc(pcfg, device)
         table = torch.tensor([[1, 2]], dtype=torch.int32, device=device)
         toks = torch.from_numpy(prompt[None]).to(device)
@@ -596,16 +665,27 @@ def main() -> int:
             steps.append(logits.cpu())
         return steps
 
-    on_card = run(p_gpu, dev)
-    check(flash_attention_fwd.launches == 2 and paged_attn_partials.launches == 2 * len(forced),
-          "whole path: the card run did not go through K1 and K4")
-    on_host = run(p_cpu, torch.device("cpu"))
-    errs = [(a - b).abs().max().item() for a, b in zip(on_card, on_host)]
-    scale = max(b.abs().max().item() for b in on_host)
-    check(all(np.isfinite(errs)) and max(errs) <= WHOLE_PATH_TOL,
-          f"whole path: logits differ by {max(errs):.3g} (tol {WHOLE_PATH_TOL})")
+    def whole_path(name, fn, k1, k4):
+        """``fn`` on the card (K1 and K4 launched as stated) and on the host:
+        every logits tensor within WHOLE_PATH_TOL. Returns the errors."""
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        on_card = fn(p_gpu, dev)
+        check((flash_attention_fwd.launches, paged_attn_partials.launches) == (k1, k4),
+              f"whole path {name}: the card run launched K1/K4 {flash_attention_fwd.launches}/"
+              f"{paged_attn_partials.launches} times, not {k1}/{k4}")
+        on_host = fn(p_cpu, torch.device("cpu"))
+        errs = [(a - b).abs().max().item() for a, b in zip(on_card, on_host)]
+        check(all(np.isfinite(errs)) and max(errs) <= WHOLE_PATH_TOL,
+              f"whole path {name}: logits differ by {max(errs):.3g} (tol {WHOLE_PATH_TOL})")
+        return errs, max(b.abs().max().item() for b in on_host)
+
+    errs, scale = whole_path("paged", run, 2, 2 * len(forced))
     print(f"phase 5 whole path (2 layers, f32, card vs host): prefill |dlogits| {errs[0]:.3g}, decode max "
           f"{max(errs[1:]):.3g} over {len(forced)} steps (max |logit| {scale:.3g}, tol {WHOLE_PATH_TOL})")
+    errs, scale = whole_path("paged int8", partial(run, dtype="int8"), 2, 2 * len(forced))
+    print(f"phase 5 whole path int8 pool (K4's int8 branch, card vs host): prefill |dlogits| {errs[0]:.3g}, decode "
+          f"max {max(errs[1:]):.3g} over {len(forced)} steps (max |logit| {scale:.3g}, tol {WHOLE_PATH_TOL})")
     suffix = np.zeros(64, np.int64)
     suffix[:40] = rng.integers(1, cfg2.vocab_size, size=40)
 
@@ -621,15 +701,32 @@ def main() -> int:
         logits, pool = mr.extend_paged(params, pool, row, 64, torch.from_numpy(suffix).to(device), 40, cfg2)
         return logits.cpu(), pool["k"].cpu(), pool["v"].cpu()
 
-    paged_attn_partials.launches = 0
-    ext_card = run_extend(p_gpu, dev)
-    check(paged_attn_partials.launches == 2, "whole path: the card's extend did not go through K4")
-    ext_host = run_extend(p_cpu, torch.device("cpu"))
-    ext_errs = [(a - b).abs().max().item() for a, b in zip(ext_card, ext_host)]
-    check(all(np.isfinite(ext_errs)) and max(ext_errs) <= WHOLE_PATH_TOL,
-          f"whole path: the extend's logits / pool differ by {ext_errs} (tol {WHOLE_PATH_TOL})")
+    ext_errs, _ = whole_path("extend", run_extend, 2, 2)
     print(f"phase 5 extend (2 layers, f32, 64-token prefix + 40-token suffix in a 64 bucket, card vs host): "
           f"|dlogits| {ext_errs[0]:.3g}, pool |dk| {ext_errs[1]:.3g} |dv| {ext_errs[2]:.3g} (tol {WHOLE_PATH_TOL})")
+
+    def run_slots(params, device):
+        """The slot layout: the 64-token prompt into slot 0 of a 128-position
+        cache, 8 teacher-forced decode steps, then the 40-token suffix
+        extended over the prompt in slot 1."""
+        cache = kvc.alloc(kvc.CacheConfig(num_layers=2, num_slots=2, max_seq_len=128, num_kv_heads=cfg2.num_kv_heads,
+                                          head_dim=cfg2.hd, dtype="float32"), device)
+        logits, ks, vs = mr.prefill(params, torch.from_numpy(prompt[None]).to(device),
+                                    torch.tensor([64], device=device), cfg2)
+        kvc.insert_sequence(cache, 0, ks[:, 0], vs[:, 0], 64)
+        kvc.insert_sequence(cache, 1, ks[:, 0], vs[:, 0], 64)
+        out = [logits.cpu()]
+        for t in forced:
+            logits, cache = mr.decode_step(params, cache, torch.tensor([int(t), 0], device=device), cfg2)
+            out.append(logits[0].cpu())
+        cache["length"][1] = 64  # slot 1 back to the prompt: its 8 decoded positions are overwritten or masked
+        logits, cache = mr.extend(params, cache, 1, torch.from_numpy(suffix).to(device), 40, cfg2)
+        return out + [logits.cpu(), cache["k"][:, 1].cpu(), cache["v"][:, 1].cpu()]
+
+    slot_errs, scale = whole_path("slots", run_slots, 2, 0)
+    print(f"phase 5 slot layout (2 layers, f32, card vs host): prefill |dlogits| {slot_errs[0]:.3g}, decode max "
+          f"{max(slot_errs[1:9]):.3g} over {len(forced)} steps, extend |dlogits| {slot_errs[9]:.3g}, slot 1 |dk| "
+          f"{slot_errs[10]:.3g} |dv| {slot_errs[11]:.3g} (max |value| {scale:.3g}, tol {WHOLE_PATH_TOL})")
     del p_gpu, p_cpu
 
     mark("5")
@@ -812,6 +909,7 @@ def main() -> int:
 
     rep1 = next(r for r in k1_rows if (r["B"], r["T"]) == (2, 2048))
     rep4 = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("bf16", 1, Bl))
+    rep4q = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("int8", 1, Bl))
     rep23 = k23_rows[0]  # the sft training shape
     rep5 = k5_rows[0]  # the training rows, bf16
     kernels = [
@@ -833,6 +931,11 @@ def main() -> int:
              max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
              bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None,
              device_ms=rep4["device_ms"], host_us=rep4["host_us"]),
+        dict(name="K4 paged_attn_partials int8 pool", route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu",
+             replaces="ray_tpu/llm/pallas/paged_attn.py:134", launches=k4_int8_launches,
+             max_abs_err=max(r["err"] for r in k4_rows if r["pool"] == "int8"), ms=rep4q["ms"],
+             plain_ms=rep4q["plain_ms"], bound_ms=rep4q["bound_ms"], bound_by=rep4q["bound_by"], library_ms=None,
+             device_ms=rep4q["device_ms"], host_us=rep4q["host_us"]),
         *(dict(name=f"K4 paged_attn_partials extend T={r['T']} R={REP * r['T']} {r['pool']}", route="cuda",
                source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
                launches=k4_4b, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -889,6 +992,45 @@ def profile_step(torch, step_fn, state, batch, card, table_path) -> dict[str, in
     return calls
 
 
+def serve_engine(torch, eng, prompts, label, card, k4_per_step) -> dict:
+    """``eng.generate`` of ``prompts``, 32 greedy tokens each, with the
+    kernels' launch counters zeroed just before and read just after: every
+    request must finish with 32 tokens in the vocabulary, K1 must have run
+    num_layers times per prefill forward and K4 ``k4_per_step`` times per
+    decode step (a replay adds the K4 launches its capture recorded).
+    Returns the streams, the launches, the engine's times and
+    ``kv_cache_stats()``, and the peak memory since the caller's reset."""
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    L = eng.config.num_layers
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, SamplingParams(max_tokens=32))
+    wall_s = time.perf_counter() - t0
+    k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
+    check(all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in outs),
+          f"{label}: not every request finished with 32 tokens: {[(len(o.token_ids), o.finish_reason) for o in outs]}")
+    check(all(0 <= t < eng.config.vocab_size for o in outs for t in o.token_ids), f"{label}: token outside the vocabulary")
+    check(k1_n == L * eng.prefill_forwards > 0,
+          f"{label}: K1 launches {k1_n} != {L} x {eng.prefill_forwards} prefill forwards")
+    check(k4_n == k4_per_step * eng.decode_steps and eng.decode_steps > 0,
+          f"{label}: K4 launches {k4_n} != {k4_per_step} x {eng.decode_steps} decode steps")
+    peak = torch.cuda.max_memory_allocated()
+    stats = eng.kv_cache_stats()
+    run = dict(tokens=[o.token_ids for o in outs], k1=k1_n, k4=k4_n, peak=peak, wall_s=wall_s,
+               prefill_ms=eng.prefill_s * 1e3, decode_ms=eng.decode_s * 1e3 / eng.decode_steps, steps=eng.decode_steps,
+               tok_s=sum(len(o.token_ids) for o in outs) / wall_s, capture_s=eng.graph_capture_s, stats=stats)
+    kv = {k: stats[k] for k in ("layout", "dtype", "bytes_per_token", "allocated_bytes")}
+    print(f"{label}: graph capture {run['capture_s']:.3f} s, prefill {run['prefill_ms']:.2f} ms over "
+          f"{eng.prefill_forwards} forwards, decode {run['decode_ms']:.3f} ms/step over {run['steps']} steps, "
+          f"{run['tok_s']:.2f} generated tok/s ({wall_s:.3f} s wall), K1 launches {k1_n}, K4 launches {k4_n} (= "
+          f"{k4_per_step} x {eng.decode_steps} decode steps), cache {kv}, peak memory {peak} bytes {card}")
+    return run
+
+
 def profile_decode(torch, eng, steps, mode, card, table_path) -> dict:
     """Decode-only engine steps, after one unprofiled step and a
     synchronise: ``steps`` steps timed without the profiler (host clock
@@ -921,7 +1063,7 @@ def profile_decode(torch, eng, steps, mode, card, table_path) -> dict:
     groups, calls = serving_groups(prof, table_path, steps)
     busy = sum(groups.values())
     k4 = groups["K4 partials"] + groups["K4 merge"]
-    print(f"phase 4 decode profile {mode} ({steps} decode-only steps, 8 lanes): wall {wall:.3f} ms/step (step() "
+    print(f"{mode} decode profile ({steps} decode-only steps, 8 lanes): wall {wall:.3f} ms/step (step() "
           f"calls {', '.join(f'{w:.3f}' for w in calls_ms)} ms; {prof_wall:.3f} ms/step under the profiler), device "
           f"busy {busy:.3f} ms/step, idle share {1 - busy / wall:.4f} ({1 - busy / prof_wall:.4f} of the profiled "
           f"wall), K4 {k4:.4f} ms/step (partials {groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS "

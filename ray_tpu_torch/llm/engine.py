@@ -1,28 +1,36 @@
-"""Continuous-batching LLM engine over the paged KV pool (port of the
-paged layout of ray_tpu/llm/engine.py).
+"""Continuous-batching LLM engine (port of ray_tpu/llm/engine.py) over
+either KV layout, in bf16/f32 or int8 (``cache_dtype="int8"``: quantized
+on append, dequantized in attention, ``kv_quant.py``):
 
+- ``kv_layout="slots"`` (the default, as in ray_tpu): one static row of
+  ``max_seq_len`` positions per slot (``kv_cache.py``); decode attends
+  over the whole row with a length mask (plain PyTorch: the slot layout
+  has no page gather and no TPU kernel);
+- ``kv_layout="paged"``: a block-table page pool (``paged_kv.py``); the
+  scheduler grows pages before each decode step and preempts the youngest
+  sequence when the pool runs dry (recompute-style, as vLLM does); decode
+  and the extend attend through K4;
 - prompt prefill bucketed to the prefill buckets and BATCHED: same-bucket
   admissions run as one forward (K1) with the batch padded to a power of
   two;
-- a host scheduler admits (waiting queue -> free slot + pages), grows
-  pages before each decode step, preempts the youngest sequence when the
-  pool runs dry (recompute-style, as vLLM does), and recycles slots;
 - every step() is three stages: admission, prefill, decode. Decode is
-  device-resident by default, as in ray_tpu: the lanes (block tables,
-  lengths, next tokens, threefry keys, sampling parameters) live on the
-  device and change only by in-place deltas; each step dispatches the
-  fused step (attention with K4, sampling, append; on the card one
-  replay of a CUDA graph captured when the engine is built,
-  ``cuda/graph.py``) and then reads back the PREVIOUS step's tokens, so
-  emission trails the device by one step and each sequence runs one
-  discarded trailing step. ``device_resident=False`` keeps the
-  synchronous loop, ray_tpu's oracle: upload the lanes, attention,
-  append, sample, read the tokens back, all in one step;
+  device-resident by default, as in ray_tpu: the lanes (next tokens,
+  threefry keys, sampling parameters; the paged layout's tables and
+  lengths, the slot cache's length lane) live on the device and change
+  only by in-place deltas; each step dispatches the fused step
+  (attention, sampling, append; on the card one replay of a CUDA graph
+  captured when the engine is built, ``cuda/graph.py``) and then reads
+  back the PREVIOUS step's tokens, so emission trails the device by one
+  step and each sequence runs one discarded trailing step.
+  ``device_resident=False`` keeps the synchronous loop, ray_tpu's oracle:
+  upload the lanes, attention, append, sample, read the tokens back, all
+  in one step;
 - prefix caching (on by default, as in ray_tpu): a fresh prompt's K/V is
-  kept at every block boundary of it (``PrefixCache``, the local tier);
-  admission looks up the longest cached block-aligned prefix of a new
-  prompt, inserts it into the request's pages and re-attends only the
-  suffix (``model_runner.extend_paged``: K4 over the prefix pages).
+  kept at every block boundary of it (``PrefixCache``, the local tier, in
+  the prefill's dtype); admission looks up the longest cached
+  block-aligned prefix of a new prompt, inserts it into the request's
+  slot or pages (quantized there for an int8 cache) and re-attends only
+  the suffix (``model_runner.extend`` or ``extend_paged``).
 
 Features of ray_tpu's engine that this port does not have yet raise
 NotImplementedError naming their ROADMAP.md item.
@@ -40,10 +48,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ray_tpu_torch.llm import kv_cache as kvc
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm import prng
-from ray_tpu_torch.llm.cuda.graph import FusedDecode
+from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep
 from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache_dtype
 from ray_tpu_torch.llm.kvplane.index import prefix_key, token_bytes
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
@@ -218,11 +227,16 @@ def resolve_device(device) -> torch.device:
 
 
 class LLMEngine:
-    """Continuous-batching engine over a paged KV pool.
+    """Continuous-batching engine over a slot KV cache or a paged pool.
 
     config: ``models.llama.LlamaConfig``; params: the matching tree (None:
     random weights from ``seed``). ``device=None`` runs on the card and
     raises without one; ``device="cpu"`` runs the kernels' plain versions.
+    ``kv_layout``: "slots" (the default) or "paged" (``num_pages`` pages of
+    ``page_size`` positions; by default the slots' memory). ``cache_dtype``:
+    None (the model's dtype), "bfloat16", "float32" or "int8".
+    ``attn_kernel``: None resolves it, "cuda" (K4) for a paged engine on
+    the card, "torch" otherwise; naming another raises.
     ``device_resident=True`` (the default) decodes from device-held lanes
     with a one-step-delayed readback, on the card as one CUDA graph
     captured here (``graph_capture_s``); ``False`` is the synchronous loop.
@@ -244,7 +258,7 @@ class LLMEngine:
         prefix_cache_bytes: int = 256 << 20,
         prefix_block: int = 64,
         kv_plane=None,
-        kv_layout: str = "paged",
+        kv_layout: str = "slots",
         num_pages: int | None = None,
         page_size: int = 64,
         attn_kernel: str | None = None,
@@ -254,9 +268,7 @@ class LLMEngine:
         telemetry: bool = False,
         device=None,
     ):
-        if kv_layout == "slots":
-            _not_ported("kv_layout='slots'", "serving item 3")
-        if kv_layout != "paged":
+        if kv_layout not in ("slots", "paged"):
             raise ValueError(f"kv_layout must be 'slots' or 'paged', got {kv_layout!r}")
         if telemetry:
             _not_ported("telemetry", "serving item 4")
@@ -267,19 +279,19 @@ class LLMEngine:
         if kv_plane is not None:
             _not_ported("the cluster KV plane", "queue 1, disagg/kvplane")
         self.kv_dtype = normalize_cache_dtype(cache_dtype) if cache_dtype is not None else config.dtype
-        if is_int8(self.kv_dtype):
-            _not_ported("cache_dtype='int8' at engine level", "serving item 3")
+        self.kv_quant = is_int8(self.kv_dtype)
 
         self.device = resolve_device(device)
-        self.attn_kernel = "cuda" if self.device.type == "cuda" else "torch"
+        paged = kv_layout == "paged"
+        # the slot layout has no page gather: plain PyTorch on both devices (ray_tpu's "xla")
+        self.attn_kernel = "cuda" if paged and self.device.type == "cuda" else "torch"
         if attn_kernel is not None and attn_kernel != self.attn_kernel:
             raise ValueError(
-                f"attn_kernel={attn_kernel!r}: on {self.device.type} the paged attention runs "
-                f"{self.attn_kernel!r}; pass None"
+                f"attn_kernel={attn_kernel!r}: a {kv_layout} engine on {self.device.type} runs its attention "
+                f"as {self.attn_kernel!r} (K4 is the paged layout's kernel); pass None"
             )
         self.config = config
         self.kv_layout = kv_layout
-        self.kv_quant = False
         self.max_num_seqs = int(max_num_seqs)
         self.max_seq_len = int(max_seq_len or config.max_seq_len)
         if prefill_buckets is None:
@@ -290,38 +302,49 @@ class LLMEngine:
             buckets.append(self.max_seq_len)
             prefill_buckets = tuple(buckets)
         self.prefill_buckets = tuple(sorted(prefill_buckets))
-        if any(b % page_size for b in self.prefill_buckets):
-            raise ValueError(f"page_size {page_size} must divide every prefill bucket {self.prefill_buckets}")
-        if prefix_block % page_size:
-            raise ValueError(f"page_size {page_size} must divide prefix_block {prefix_block}")
-        max_pg = -(-self.max_seq_len // page_size)
-        if num_pages is None:
-            num_pages = self.max_num_seqs * max_pg + 1  # slot-equivalent memory (+1 trash)
-        self._pcfg = pkv.PagedCacheConfig(
-            num_layers=config.num_layers,
-            num_pages=int(num_pages),
-            page_size=int(page_size),
-            max_pages_per_seq=max_pg,
-            num_slots=self.max_num_seqs,
-            num_kv_heads=config.num_kv_heads,
-            head_dim=config.hd,
-            dtype=self.kv_dtype,
-        )
         self._batch_prefill = bool(batch_prefill)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(config, gen)
         self.params = params
-        self.pool = pkv.alloc(self._pcfg, self.device)
         self._prefix_cache = (
             PrefixCache(block=prefix_block, max_bytes=prefix_cache_bytes) if enable_prefix_caching else None
         )
-        self._page_alloc = pkv.PageAllocator(self._pcfg.num_pages)
         B = self.max_num_seqs
-        self._tables = np.zeros((B, max_pg), np.int32)
-        self._lengths = np.zeros((B,), np.int32)
-        self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         self._admit_counter = 0
+        if paged:
+            if any(b % page_size for b in self.prefill_buckets):
+                raise ValueError(f"page_size {page_size} must divide every prefill bucket {self.prefill_buckets}")
+            if prefix_block % page_size:
+                raise ValueError(f"page_size {page_size} must divide prefix_block {prefix_block}")
+            max_pg = -(-self.max_seq_len // page_size)
+            if num_pages is None:
+                num_pages = self.max_num_seqs * max_pg + 1  # slot-equivalent memory (+1 trash)
+            self._pcfg = pkv.PagedCacheConfig(
+                num_layers=config.num_layers,
+                num_pages=int(num_pages),
+                page_size=int(page_size),
+                max_pages_per_seq=max_pg,
+                num_slots=self.max_num_seqs,
+                num_kv_heads=config.num_kv_heads,
+                head_dim=config.hd,
+                dtype=self.kv_dtype,
+            )
+            self.pool = pkv.alloc(self._pcfg, self.device)
+            self._page_alloc = pkv.PageAllocator(self._pcfg.num_pages)
+            self._tables = np.zeros((B, max_pg), np.int32)
+            self._lengths = np.zeros((B,), np.int32)
+            self._slot_pages: list[list[int]] = [[] for _ in range(B)]
+        else:
+            # the lengths live in the cache (``cache["length"]``), on the device
+            self.cache = kvc.alloc(kvc.CacheConfig(
+                num_layers=config.num_layers,
+                num_slots=B,
+                max_seq_len=self.max_seq_len,
+                num_kv_heads=config.num_kv_heads,
+                head_dim=config.hd,
+                dtype=self.kv_dtype,
+            ), self.device)
 
         # per-lane sampling state (host shadows of the device lanes); a
         # seedless lane's key starts as PRNGKey(slot), as in ray_tpu
@@ -351,19 +374,32 @@ class LLMEngine:
         self._pending = None
         self.graph_capture_s = 0.0
         if self._device_resident:
-            self._fused_attn, self._fused_append = mr.make_fused_paged_fns(config, self.attn_kernel)
             self._set_lane, self._set_table, self._set_table_cell = mr.make_delta_fns()
-            dev = self.device
-            lanes = dict(tables=self._tables, lengths=self._lengths, tokens=self._next_tokens, keys=self._keys,
-                         temps=self._temps, top_k=self._top_k, top_p=self._top_p)
-            lanes = {name: torch.from_numpy(a.copy()).to(dev) for name, a in lanes.items()}
+            lanes = dict(tokens=self._next_tokens, keys=self._keys, temps=self._temps, top_k=self._top_k,
+                         top_p=self._top_p)
+            if paged:
+                self._fused_attn, self._fused_append = mr.make_fused_paged_fns(config, self.attn_kernel)
+                step = PagedStep(self._fused_attn, self._fused_append)
+                lanes.update(tables=self._tables, lengths=self._lengths)
+            else:
+                # the engine is fresh: the capture's warm-up writes position 0 of
+                # every slot, which each admission's insert_sequence overwrites
+                self._fused_step = mr.make_fused_fns(config)
+                step = SlotStep(self._fused_step)
+            lanes = {name: torch.from_numpy(a.copy()).to(self.device) for name, a in lanes.items()}
             # the device-resident decode state; the host arrays above stay as
             # the scheduler's shadows (never re-uploaded wholesale)
-            self._dtables, self._dlengths = lanes["tables"], lanes["lengths"]
+            if paged:
+                self._dtables, self._dlengths = lanes["tables"], lanes["lengths"]
             self._dtokens, self._dkeys = lanes["tokens"], lanes["keys"]
             self._dtemps, self._dtopk, self._dtopp = lanes["temps"], lanes["top_k"], lanes["top_p"]
-            self._decode = FusedDecode(self._fused_attn, self._fused_append, self.params, self.pool, lanes)
+            self._decode = FusedDecode(step, self.params, self.kv, lanes)
             self.graph_capture_s = self._decode.capture_s
+
+    @property
+    def kv(self) -> dict:
+        """The KV state the decode step reads: the pool or the slot cache."""
+        return self.pool if self.kv_layout == "paged" else self.cache
 
     # ------------------------------------------------------------- admission
     def add_request(self, prompt_token_ids, params: SamplingParams | None = None,
@@ -381,9 +417,11 @@ class LLMEngine:
                     f"exceeds max_seq_len ({self.max_seq_len})"
                 )
             T = _bucket(len(prompt_token_ids), self.prefill_buckets)
-            need = min(T // self._pcfg.page_size + 1, self._pcfg.max_pages_per_seq)
-            if need > self._pcfg.num_pages - 1:
-                raise ValueError(f"prompt needs {need} pages but the pool has {self._pcfg.num_pages - 1}; raise num_pages")
+            if self.kv_layout == "paged":
+                need = min(T // self._pcfg.page_size + 1, self._pcfg.max_pages_per_seq)
+                if need > self._pcfg.num_pages - 1:
+                    raise ValueError(
+                        f"prompt needs {need} pages but the pool has {self._pcfg.num_pages - 1}; raise num_pages")
             st = RequestState(request_id, list(prompt_token_ids), params)
             if stream or out_queue is not None:
                 st.out_queue = out_queue if out_queue is not None else queue.SimpleQueue()
@@ -423,16 +461,16 @@ class LLMEngine:
             return out
 
     def kv_cache_stats(self) -> dict:
-        """KV-cache accounting: dtype and layout, bytes/token, allocated vs
-        occupied bytes, slot and page occupancy, and which paged-attention
-        implementation runs ("cuda" = K4 on the card, "torch" = its plain
-        version on the host)."""
+        """KV-cache accounting: dtype and layout, bytes/token (int8 scales
+        included), allocated vs occupied bytes, slot (and page) occupancy,
+        and which attention implementation runs ("cuda" = K4 on the card,
+        "torch" = plain PyTorch: K4's plain version on the host, the slot
+        layout's attention on either device)."""
         cfg = self.config
         per_tok = bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd, self.kv_dtype)
         with self._lock:
-            allocated = int(sum(t.numel() * t.element_size() for t in self.pool.values()))
-            occupied = int(self._lengths.sum())
-            return {
+            allocated = int(sum(t.numel() * t.element_size() for name, t in self.kv.items() if name != "length"))
+            out = {
                 "layout": self.kv_layout,
                 "dtype": self.kv_dtype,
                 "quantized": self.kv_quant,
@@ -441,19 +479,25 @@ class LLMEngine:
                 "allocated_bytes": allocated,
                 "slots_total": self.max_num_seqs,
                 "slots_in_use": sum(1 for s in self._slots if s is not None),
-                "page_size": self._pcfg.page_size,
-                "pages_total": self._pcfg.num_pages - 1,  # page 0 = trash
-                "pages_free": self._page_alloc.free_pages,
-                "occupied_tokens": occupied,
-                "occupied_bytes": occupied * int(per_tok),
             }
+            if self.kv_layout == "paged":
+                occupied = int(self._lengths.sum())  # host shadow lengths, no device read
+                out["page_size"] = self._pcfg.page_size
+                out["pages_total"] = self._pcfg.num_pages - 1  # page 0 = trash
+                out["pages_free"] = self._page_alloc.free_pages
+            else:
+                occupied = sum(len(s.prompt_token_ids) + len(s.token_ids) for s in self._slots if s is not None)
+            out["occupied_tokens"] = occupied
+            out["occupied_bytes"] = occupied * int(per_tok)
+            return out
 
     # ---------------------------------------------------------------- engine
     def _finish(self, st: RequestState, reason: str):
         st.finished = True
         st.finish_reason = reason
         if st.slot >= 0:
-            self._release_slot_pages(st.slot)
+            if self.kv_layout == "paged":
+                self._release_slot_pages(st.slot)
             self._slots[st.slot] = None
             st.slot = -1
         if st.out_queue is not None:
@@ -564,15 +608,16 @@ class LLMEngine:
 
     def _prefix_fits(self, n_p: int, prompt_len: int) -> bool:
         """A prefix boundary is admissible when the bucket-padded suffix
-        still fits the sequence's table row after it."""
+        still fits the sequence's slot row or table row after it (a slot
+        extend past the row would clamp its start onto the prefix)."""
         return n_p + _bucket(prompt_len - n_p, self.prefill_buckets) <= self.max_seq_len
 
     def _stage_admission(self) -> list:  # holds-lock: _lock
-        """ADMISSION: admit waiting requests FIFO while a slot and pages
-        are free (a head-of-line request that cannot get pages blocks the
-        wave; admission never preempts), resolving prefix hits of fresh
+        """ADMISSION: admit waiting requests FIFO while a slot (and, paged,
+        pages) is free (a head-of-line request that cannot get pages blocks
+        the wave; admission never preempts), resolving prefix hits of fresh
         prompts before the wave's prefills run. Returns (st, slot, pref,
-        pages, prompt)."""
+        pages, prompt); pages is None on the slot layout."""
         wave = []
         while self._waiting and None in self._slots:
             st = self._waiting[0]
@@ -584,13 +629,15 @@ class LLMEngine:
             pref = None
             if self._prefix_cache is not None and not st.token_ids:
                 pref = self._resolve_prefix(st, prompt)
-            need = self._pages_needed(st, pref, prompt)
-            if need is None:
-                self._waiting.popleft()
-                continue
-            pages = self._page_alloc.alloc(need)
-            if pages is None:
-                break  # pool full: head-of-line waits
+            pages = None
+            if self.kv_layout == "paged":
+                need = self._pages_needed(st, pref, prompt)
+                if need is None:
+                    self._waiting.popleft()
+                    continue
+                pages = self._page_alloc.alloc(need)
+                if pages is None:
+                    break  # pool full: head-of-line waits
             self._waiting.popleft()
             st.cached_pref = None  # admission consumes the cached resolution
             self._slots[slot] = st  # reserve; _bind_slot fills the rest
@@ -602,12 +649,14 @@ class LLMEngine:
         order; then one batched forward per prefill bucket for the rest.
         Returns the admitted requests."""
         plains = []
+        paged = self.kv_layout == "paged"
         for st, slot, pref, pages, prompt in wave:
-            self._slot_pages[slot] = pages
-            self._tables[slot, :] = 0
-            self._tables[slot, : len(pages)] = pages
+            if paged:
+                self._slot_pages[slot] = pages
+                self._tables[slot, :] = 0
+                self._tables[slot, : len(pages)] = pages
             if pref is not None:
-                self._admit_prefix_hit(st, slot, pref, prompt)
+                (self._admit_prefix_hit if paged else self._admit_prefix_hit_slots)(st, slot, pref, prompt)
             else:
                 plains.append((st, slot, prompt))
         for group in self._bucket_groups(plains):
@@ -636,15 +685,19 @@ class LLMEngine:
             self.params, torch.from_numpy(toks).to(self.device), torch.from_numpy(lens).to(self.device), self.config
         )
         self.prefill_forwards += 1
-        page = self._pcfg.page_size
         for i, (st, slot, prompt) in enumerate(group):
             if self._prefix_cache is not None and not st.token_ids:  # fresh prompts only
                 self._prefix_cache.store(prompt, ks[:, i], vs[:, i], self.prefill_buckets)
-            row = torch.from_numpy(self._tables[slot, : T // page].copy()).to(self.device)
-            pkv.insert_pages(self.pool, row, ks[:, i], vs[:, i])
-            self._lengths[slot] = len(prompt)
-            if self._device_resident:
-                self._push_table(slot)
+            if self.kv_layout == "paged":
+                row = torch.from_numpy(self._tables[slot, : T // self._pcfg.page_size].copy()).to(self.device)
+                pkv.insert_pages(self.pool, row, ks[:, i], vs[:, i])
+                self._lengths[slot] = len(prompt)
+                if self._device_resident:
+                    self._push_table(slot)
+            else:
+                # device writes only (a copy and a length fill), stream-ordered
+                # after the step in flight
+                kvc.insert_sequence(self.cache, slot, ks[:, i], vs[:, i], len(prompt))
             self._bind_slot(st, slot, logits[i : i + 1])
 
     def _admit_prefix_hit(self, st: RequestState, slot: int, pref, prompt):
@@ -668,6 +721,20 @@ class LLMEngine:
         self._lengths[slot] = n
         if self._device_resident:
             self._push_table(slot)
+        self._bind_slot(st, slot, logits[None])
+
+    def _admit_prefix_hit_slots(self, st: RequestState, slot: int, pref, prompt):
+        """Admit a prefix hit into its slot: insert the cached group (its
+        whole bucket width; the slot's length is the prefix's n_p), then
+        extend the suffix from position n_p and sample from its logits."""
+        k_p, v_p, n_p = pref
+        m = len(prompt) - n_p
+        kvc.insert_sequence(self.cache, slot, k_p, v_p, n_p)
+        toks = np.zeros((_bucket(m, self.prefill_buckets),), np.int64)
+        toks[:m] = prompt[n_p:]
+        logits, self.cache = mr.extend(self.params, self.cache, slot, torch.from_numpy(toks).to(self.device), m,
+                                       self.config)
+        self.extend_forwards += 1
         self._bind_slot(st, slot, logits[None])
 
     def _bind_slot(self, st: RequestState, slot: int, logits):
@@ -721,7 +788,8 @@ class LLMEngine:
             t0 = time.perf_counter()
             admitted = self._stage_prefill(wave)
             t1 = time.perf_counter()
-            self._paged_grow()
+            if self.kv_layout == "paged":
+                self._paged_grow()
             reported = self._stage_decode(admitted)
             self.prefill_s += t1 - t0
             self.decode_s += time.perf_counter() - t1
@@ -745,10 +813,11 @@ class LLMEngine:
         active = [s for s in self._slots if s is not None]
         if not active:
             return
-        handle = self._decode.step(self.params, self.pool)
+        handle = self._decode.step(self.params, self.kv)
         self.decode_steps += 1
-        for st in active:
-            self._lengths[st.slot] += 1  # host shadow, no upload
+        if self.kv_layout == "paged":
+            for st in active:
+                self._lengths[st.slot] += 1  # host shadow, no upload
         self._pending = (handle, [(st, st.slot) for st in active])
 
     def _drain(self, pending) -> list:
@@ -775,17 +844,21 @@ class LLMEngine:
         if not active:
             return []
         dev = self.device
-        logits, self.pool, _ = mr.decode_step_paged(
-            self.params,
-            self.pool,
-            torch.from_numpy(self._tables).to(dev),
-            torch.from_numpy(self._lengths).to(dev),
-            torch.from_numpy(self._next_tokens).to(dev),
-            self.config,
-        )
+        tokens = torch.from_numpy(self._next_tokens).to(dev)
+        if self.kv_layout == "paged":
+            logits, self.pool, _ = mr.decode_step_paged(
+                self.params,
+                self.pool,
+                torch.from_numpy(self._tables).to(dev),
+                torch.from_numpy(self._lengths).to(dev),
+                tokens,
+                self.config,
+            )
+            for st in active:
+                self._lengths[st.slot] += 1
+        else:
+            logits, self.cache = mr.decode_step(self.params, self.cache, tokens, self.config)
         self.decode_steps += 1
-        for st in active:
-            self._lengths[st.slot] += 1
         toks, logps, keys = sample(
             logits,
             torch.from_numpy(self._keys).to(dev),

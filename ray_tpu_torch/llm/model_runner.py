@@ -1,6 +1,6 @@
-"""Cache-aware Llama forward passes: batched prefill, paged decode and
-the prefix-cache extend (port of the paged half of
-ray_tpu/llm/model_runner.py).
+"""Cache-aware Llama forward passes: batched prefill, then decode and
+the prefix-cache extend over either KV layout (port of
+ray_tpu/llm/model_runner.py without its tensor-parallel paths).
 
 Same parameter tree as ``models/llama.py``. Prefill runs the causal
 flash path (K1) over right-padded prompts and returns every layer's K/V
@@ -18,6 +18,15 @@ half plus ``sample`` and the write targets, no host read) then
 scheduler changes the lanes between steps with the in-place deltas
 ``set_lane``, ``set_table`` and ``set_table_cell``, so the step's input
 tensors keep their addresses (a captured CUDA graph reads them there).
+
+The slot layout (``kv_cache.py``) has no page gather and no kernel:
+``decode_step`` appends each slot's token in place first, then attends
+over the whole static cache with ray_tpu's mask (``-inf`` past each
+slot's length, then softmax), its products ``torch.matmul`` in f32, an
+int8 cache quantized on append and dequantized for attention as in
+ray_tpu. ``extend`` is the same for one slot's suffix over its cached
+prefix. The device-resident step is ``fused_step`` (decode, ``sample``;
+the cache's length lane advances inside ``decode_step``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.models.llama import LlamaConfig, attention, layer_params, unembed_f32
 from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rotary_embedding
+from ray_tpu_torch.llm.kv_cache import append_scale_layer, append_token_layer
 from ray_tpu_torch.llm.kv_quant import quantize_heads
 from ray_tpu_torch.llm.paged_kv import _paged_attn_batch, _paged_attn_seq_batch
 from ray_tpu_torch.llm.sampling import sample
@@ -38,6 +48,12 @@ def _attn_scale(hd: int) -> float:
     float: no host-to-device copy per call (none may run inside a CUDA
     graph's capture), and the same f32 value on the device."""
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _sqrt_hd(hd: int) -> float:
+    """sqrt(hd) in f32, the slot attention's divisor (ray_tpu divides the
+    scores by ``jnp.sqrt(hd)``), as a Python float of that value."""
+    return float(np.sqrt(np.float32(hd)))
 
 
 def _qkv(xn, layer, cfg: LlamaConfig):
@@ -288,3 +304,145 @@ def extend_paged(params, pool, table_row, start, tokens, length, cfg: LlamaConfi
     logits, k_chunk, v_chunk = extend_attn_paged(params, pool, table_row, start, tokens, length, cfg)
     pool = append_chunk_paged(pool, write_page, write_off, k_chunk, v_chunk)
     return logits, pool
+
+
+# ------------------------------------------------------------ slot layout
+def _dequant(rows, scales):
+    """Cache rows [..., S, hd] (a strided view) in f32 for the products,
+    which run in f32 as ray_tpu's ``preferred_element_type`` asks: a
+    contiguous copy, so the products read it without another, unless the
+    rows are f32 already (then the view itself); an int8 cache's copy
+    times its scales [..., S]."""
+    out = rows.to(torch.float32, memory_format=torch.contiguous_format)
+    return out if scales is None else out.mul_(scales[..., None])
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, cfg: LlamaConfig):
+    """Advance every slot one token, in place.
+
+    tokens: [slots] int (each slot's next input, garbage for empty
+    slots); cache: ``kv_cache`` dict. Each layer first writes the new
+    token's K/V at ``min(length, S-1)`` (quantized for an int8 cache),
+    then the token attends to positions 0..length of its slot's whole
+    row. The length lane grows by one for every slot. Returns (logits
+    [slots, vocab] f32, cache)."""
+    B = tokens.shape[0]
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = nh // nkv
+    quant = "k_scale" in cache
+    lengths = cache["length"]
+    S = cache["k"].shape[2]
+    cos, sin = rotary_embedding(lengths[:, None], hd, cfg.rope_theta)  # [B, 1, hd/2]
+    x = params["embed"][tokens[:, None]]  # [B, 1, H]
+    # the new token sits at index length and attends to 0..length
+    attn_ok = (torch.arange(S, device=lengths.device)[None, :] <= lengths[:, None])[:, None, None]  # [B, 1, 1, S]
+    write_pos = torch.clamp(lengths, max=S - 1)
+    div = _sqrt_hd(hd)
+    for i in range(cfg.num_layers):
+        layer = layer_params(params, i)
+        xn = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q, k_t, v_t = _qkv(xn, layer, cfg)  # [B, 1, nh/nkv, hd]
+        qh = apply_rope(q.transpose(1, 2), cos, sin).transpose(1, 2)
+        kh = apply_rope(k_t.transpose(1, 2), cos, sin).transpose(1, 2)
+        k_tok, v_tok = kh[:, 0], v_t[:, 0]
+        k_sc = v_sc = None
+        if quant:
+            k_tok, sk = quantize_heads(k_tok)  # [B, kv, hd] i8, [B, kv] f32
+            v_tok, sv = quantize_heads(v_tok)
+            k_sc = append_scale_layer(cache["k_scale"][i], sk, write_pos)  # [B, kv, S]
+            v_sc = append_scale_layer(cache["v_scale"][i], sv, write_pos)
+        k_layer, v_layer = append_token_layer(cache["k"][i], cache["v"][i], k_tok, v_tok, write_pos)
+        qg = qh[:, 0].reshape(B, nkv, rep, hd).float()
+        kc = _dequant(k_layer.transpose(1, 2), k_sc)  # [B, kv, S, hd]
+        vc = _dequant(v_layer.transpose(1, 2), v_sc)
+        scores = torch.matmul(qg, kc.transpose(-1, -2)) / div  # [B, kv, rep, S]
+        probs = torch.softmax(scores.masked_fill_(~attn_ok, float("-inf")), dim=-1)
+        o = torch.matmul(probs, vc).reshape(B, 1, nh * hd).to(x.dtype)
+        x = x + o @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+    x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
+    logits = unembed_f32(x, params, cfg)
+    cache["length"].add_(1)
+    return logits, cache
+
+
+@torch.no_grad()
+def extend(params, cache, slot: int, tokens, length: int, cfg: LlamaConfig):
+    """Chunked prefill of one slot whose cache holds a prefix, in place:
+    the suffix ``tokens`` [T] (right-padded, ``length`` real) at positions
+    start..start+T-1, start = the slot's length, is written there and
+    attends to the cached prefix plus itself causally. Returns (logits
+    [vocab] f32 at the last real token, cache) with the slot's length
+    start + length. ``start`` stays on the device (no host read)."""
+    T = tokens.shape[0]
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = nh // nkv
+    quant = "k_scale" in cache
+    S = cache["k"].shape[2]
+    slot = int(slot)
+    dev = tokens.device
+    start = cache["length"][slot].clone()
+    positions = start + torch.arange(T, dtype=torch.int32, device=dev)
+    # ray_tpu's dynamic_update_slice clamps the write so the chunk fits the row
+    rows = torch.clamp(start.long(), 0, S - T) + torch.arange(T, device=dev)
+    cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
+    x = params["embed"][tokens[None, :]]  # [1, T, H]
+    # token i (at position start+i) sees cache position j iff j <= start+i
+    attn_ok = torch.arange(S, device=dev)[None, :] <= positions[:, None]  # [T, S]
+    div = _sqrt_hd(hd)
+    for i in range(cfg.num_layers):
+        layer = layer_params(params, i)
+        xn = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q, k_t, v_t = _qkv(xn, layer, cfg)  # [1, T, nh/nkv, hd]
+        qh = apply_rope(q.transpose(1, 2), cos, sin)  # [1, nh, T, hd]
+        kh = apply_rope(k_t.transpose(1, 2), cos, sin).transpose(1, 2)  # [1, T, nkv, hd]
+        k_suf, v_suf = kh[0], v_t[0]  # [T, nkv, hd]
+        k_row, v_row = cache["k"][i, slot], cache["v"][i, slot]  # [S, nkv, hd]
+        k_sc = v_sc = None
+        if quant:
+            k_suf, sk = quantize_heads(k_suf)  # sk: [T, nkv]
+            v_suf, sv = quantize_heads(v_suf)
+            k_sc, v_sc = cache["k_scale"][i, slot], cache["v_scale"][i, slot]  # [nkv, S]
+            k_sc[:, rows] = sk.T
+            v_sc[:, rows] = sv.T
+        k_row[rows] = k_suf.to(k_row.dtype)
+        v_row[rows] = v_suf.to(v_row.dtype)
+        qg = qh[0].reshape(nkv, rep * T, hd).float()  # head h = g * rep + r
+        kc = _dequant(k_row.transpose(0, 1), k_sc)  # [nkv, S, hd]
+        vc = _dequant(v_row.transpose(0, 1), v_sc)
+        scores = (torch.matmul(qg, kc.transpose(-1, -2)) / div).reshape(nkv, rep, T, S)
+        probs = torch.softmax(scores.masked_fill_(~attn_ok, float("-inf")), dim=-1)
+        o = torch.matmul(probs.reshape(nkv, rep * T, S), vc).reshape(nkv, rep, T, hd)
+        o = o.permute(2, 0, 1, 3).reshape(1, T, nh * hd).to(x.dtype)
+        x = x + o @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+    x = rms_norm(x[0], params["final_norm"], cfg.rms_eps)  # [T, H]
+    logits = unembed_f32(x[max(int(length) - 1, 0)], params, cfg)
+    cache["length"][slot] = start + int(length)
+    return logits, cache
+
+
+@torch.no_grad()
+def fused_step(params, cache, tokens, keys, temps, top_k, top_p, cfg: LlamaConfig):
+    """The slot layout's device-resident step: ``decode_step`` (append,
+    attention, lengths + 1, in place) then ``sample``, with no host read.
+    Returns ray_tpu's 7 outputs: (cache, tokens [B], logprobs [B], new keys
+    [B, 2], temps, top_k, top_p); the sampling lanes pass through."""
+    logits, cache = decode_step(params, cache, tokens, cfg)
+    toks, logps, new_keys = sample(logits, keys, temps, top_k, top_p)
+    return cache, toks, logps, new_keys, temps, top_k, top_p
+
+
+def make_fused_fns(cfg: LlamaConfig, mesh=None):
+    """``fused_step`` bound to ``cfg``: the slot layout's device-resident
+    step, captured whole into one CUDA graph on the card
+    (``cuda/graph.py``). Tensor-parallel meshes are not ported."""
+    if mesh is not None:
+        raise NotImplementedError("tensor-parallel meshes are not ported to ray_tpu_torch yet "
+                                  "(ROADMAP.md, queue 1, multi-device axes)")
+
+    def step(params, cache, tokens, keys, temps, top_k, top_p):
+        return fused_step(params, cache, tokens, keys, temps, top_k, top_p, cfg)
+
+    return step

@@ -1,4 +1,6 @@
-"""The port's LLMEngine against ray_tpu's on the same weights, each
+"""The port's paged LLMEngine (``kv_layout="paged"``, pinned: the default
+is the slot layout, tests/test_torch_engine_slots.py) against ray_tpu's
+paged engine on the same weights, each
 decode mode against the same mode: greedy generation token-identical
 under the paged schedule that preempts (3 slots, 8 pages of 16, 6 prompts
 of 8-40 tokens, 40 new tokens each), with equal preemption counts and
@@ -11,7 +13,7 @@ lanes mixed with greedy ones): token-identical to ray_tpu's
 device-resident engine with equal finish reasons, preemption counts,
 prefix-cache stats and a drained pool, and to the port's own synchronous
 loop. Plus the one-step-delayed emission, abort, the device rule and the
-features this slice does not port."""
+features the port does not have yet."""
 
 import queue
 
@@ -84,7 +86,7 @@ def _jax_engine(jp, **kw):
 
 
 def _torch_engine(tp, **kw):
-    return LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", **{**SCHED, **kw})
+    return LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", **{"kv_layout": "paged", **SCHED, **kw})
 
 
 @MODES
@@ -138,13 +140,11 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(kv_layout="slots"),
-        dict(cache_dtype="int8"),
         dict(telemetry=True),
         dict(speculative=object()),
         dict(mesh=object()),
     ],
-    ids=["slots", "int8", "telemetry", "speculative", "mesh"],
+    ids=["telemetry", "speculative", "mesh"],
 )
 def test_unported_features_raise_naming_roadmap(params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -262,7 +262,7 @@ def test_device_resident_token_identical_to_ray_tpu(params, name, seeded):
     kw, sched, aborts = _schedule(name, seeded)
     je = _jax_engine(jp, device_resident=True, seed=5, **kw)
     ref, ref_r = _drive(je, JaxParams, sched, aborts)
-    te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", seed=5, **kw)
+    te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", kv_layout="paged", seed=5, **kw)
     out, out_r = _drive(te, SamplingParams, sched, aborts)
     assert out == ref and out_r == ref_r
     assert te.preemption_count == je.preemption_count
@@ -290,7 +290,8 @@ def test_device_resident_equals_the_sync_loop(params, name, seeded):
              for t, reqs in sched.items()}
     runs = []
     for device_resident in (True, False):
-        te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", seed=5, device_resident=device_resident, **kw)
+        te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", kv_layout="paged", seed=5,
+                       device_resident=device_resident, **kw)
         runs.append((*_drive(te, SamplingParams, sched, aborts), te))
     (fused, fused_r, ef), (sync, sync_r, es) = runs
     assert set(fused) == set(sync) and fused_r == sync_r

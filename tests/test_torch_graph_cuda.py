@@ -5,20 +5,24 @@ marker; skips elsewhere; imports no jax, so it runs on the chip machine:
 A small f32 model with head_dim 64 (K4 takes 64 and 128), 3 lanes of
 mixed sampling. The replayed graph runs the same kernels as the eager step
 on the same inputs, so the comparisons are bit-equal: tokens, logprobs,
-keys, lengths and the pool. Plus the deltas between replays, K4's
-replay-aware launch count, the refusal of a moved pool or weight, the
-threefry bits on the card against the CPU, and the graph engine's greedy
-and seeded streams against the synchronous engine's."""
+keys, lengths and the pool (f32, and int8 with its scales) or the slot
+cache. Plus the deltas between replays (on the slot layout an admission's
+``insert_sequence``, whose length write lands in the cache's own lane),
+K4's replay-aware launch count, the refusal of a moved pool, cache or
+weight, the threefry bits on the card against the CPU, and the graph
+engine's greedy and seeded streams against the synchronous engine's on
+each layout and on an int8 cache."""
 
 import numpy as np
 import pytest
 import torch
 
 from ray_tpu_torch.llm import LLMEngine, SamplingParams
+from ray_tpu_torch.llm import kv_cache as kvc
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm import prng
-from ray_tpu_torch.llm.cuda.graph import LANES, FusedDecode
+from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep
 from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
 from ray_tpu_torch.models.llama import LlamaConfig, init_params
 
@@ -27,6 +31,8 @@ pytestmark = pytest.mark.cuda
 CFG = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
                   max_seq_len=256, dtype="float32", remat=False)
 PAGE, MAX_PG, P, B = 16, 4, 17, 3  # pages 13-16 stay free for the table deltas
+LANES = PagedStep.LANES
+S = 96  # the slot cache's rows
 
 
 @pytest.fixture
@@ -37,35 +43,44 @@ def dev():
     return torch.device("cuda")
 
 
-def _setup(dev, seed=0):
+def _sampling_lanes(dev, rng):
+    return dict(tokens=torch.from_numpy(rng.integers(1, CFG.vocab_size, size=B)).to(dev),
+                keys=torch.stack([prng.prng_key(s) for s in (3, 4, 5)]).to(dev),
+                temps=torch.tensor([0.0, 0.8, 1.3], device=dev), top_k=torch.tensor([0, 5, 0], device=dev),
+                top_p=torch.tensor([1.0, 1.0, 0.8], device=dev))
+
+
+def _fill(tree, g, dtype):
+    """Random values for the K/V (int8: random codes and positive scales)."""
+    for name, t in tree.items():
+        if name == "length":
+            continue
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=t.device, dtype=torch.int8))
+        elif dtype == "int8":
+            t.copy_(torch.rand(t.shape, generator=g, device=t.device) * 0.05)
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device))
+
+
+def _setup(dev, seed=0, dtype="float32"):
     g = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(CFG, g)
     pcfg = pkv.PagedCacheConfig(num_layers=CFG.num_layers, num_pages=P, page_size=PAGE, max_pages_per_seq=MAX_PG,
-                                num_slots=B, num_kv_heads=CFG.num_kv_heads, head_dim=CFG.hd, dtype="float32")
+                                num_slots=B, num_kv_heads=CFG.num_kv_heads, head_dim=CFG.hd, dtype=dtype)
     pool = pkv.alloc(pcfg, dev)
-    for t in pool.values():
-        t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    _fill(pool, g, dtype)
     rng = np.random.default_rng(seed)
     lanes = dict(
-        tables=torch.from_numpy(rng.permutation(np.arange(1, 13)).reshape(B, MAX_PG).astype(np.int32)),
-        lengths=torch.tensor([5, PAGE, 2 * PAGE - 1], dtype=torch.int32),
-        tokens=torch.from_numpy(rng.integers(1, CFG.vocab_size, size=B)),
-        keys=torch.stack([prng.prng_key(s) for s in (3, 4, 5)]),
-        temps=torch.tensor([0.0, 0.8, 1.3]), top_k=torch.tensor([0, 5, 0]), top_p=torch.tensor([1.0, 1.0, 0.8]))
-    lanes = {k: v.to(dev) for k, v in lanes.items()}
+        tables=torch.from_numpy(rng.permutation(np.arange(1, 13)).reshape(B, MAX_PG).astype(np.int32)).to(dev),
+        lengths=torch.tensor([5, PAGE, 2 * PAGE - 1], dtype=torch.int32, device=dev), **_sampling_lanes(dev, rng))
     attn_fn, append_fn = mr.make_fused_paged_fns(CFG, "cuda")
     return params, pool, lanes, attn_fn, append_fn
 
 
 def _eager_step(attn_fn, append_fn, params, pool, lanes):
     """The same step without a graph, on the given (cloned) state."""
-    with torch.no_grad():
-        out = attn_fn(params, pool, *(lanes[k] for k in LANES))
-        append_fn(pool, *out[5:7], *out[3:5])
-    lanes["tokens"].copy_(out[0])
-    lanes["keys"].copy_(out[2])
-    lanes["lengths"].copy_(out[7])
-    return out[0], out[1]
+    return PagedStep(attn_fn, append_fn).run(params, pool, lanes)
 
 
 def _clone(tree):
@@ -84,9 +99,12 @@ def _deltas(lanes, step):
         set_table_cell(lanes["tables"], 2, 2, 15)
 
 
-def test_replay_bit_equal_to_the_eager_step_with_deltas(dev):
-    params, pool, lanes, attn_fn, append_fn = _setup(dev)
-    fused = FusedDecode(attn_fn, append_fn, params, pool, lanes)
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_replay_bit_equal_to_the_eager_step_with_deltas(dev, dtype):
+    """The paged step, on an f32 pool and on an int8 pool captured with
+    its scale tensors (K4's int8 branch, quantize-on-append)."""
+    params, pool, lanes, attn_fn, append_fn = _setup(dev, dtype=dtype)
+    fused = FusedDecode(PagedStep(attn_fn, append_fn), params, pool, lanes)
     assert fused.capture_s > 0 and fused.k4_per_replay == CFG.num_layers
     ref_pool, ref_lanes = _clone(pool), _clone(lanes)  # after the warm-up, which writes the trash page only
     for step in range(3):
@@ -112,7 +130,7 @@ def test_replay_counts_k4_and_alternates_the_host_buffers(dev):
     params, pool, lanes, attn_fn, append_fn = _setup(dev, seed=1)
     ref_params, ref_pool, ref_lanes, _, _ = _setup(dev, seed=1)
     before = paged_attn_partials.launches
-    fused = FusedDecode(attn_fn, append_fn, params, pool, lanes)
+    fused = FusedDecode(PagedStep(attn_fn, append_fn), params, pool, lanes)
     assert paged_attn_partials.launches == before + CFG.num_layers
     paged_attn_partials.launches = 0
     h1 = fused.step(params, pool)
@@ -128,7 +146,7 @@ def test_replay_counts_k4_and_alternates_the_host_buffers(dev):
 
 def test_moved_pool_or_weight_raises(dev):
     params, pool, lanes, attn_fn, append_fn = _setup(dev)
-    fused = FusedDecode(attn_fn, append_fn, params, pool, lanes)
+    fused = FusedDecode(PagedStep(attn_fn, append_fn), params, pool, lanes)
     moved = dict(pool, k=pool["k"].clone())
     with pytest.raises(RuntimeError, match="pool/k"):
         fused.step(params, moved)
@@ -136,6 +154,66 @@ def test_moved_pool_or_weight_raises(dev):
     with pytest.raises(RuntimeError, match="layers/wq"):
         fused.step(dict(params, layers=layers), pool)
     fused.step(params, pool)  # the tensors it was built on still replay
+
+
+def _slot_setup(dev, seed=0, dtype="float32"):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(CFG, g)
+    cache = kvc.alloc(kvc.CacheConfig(num_layers=CFG.num_layers, num_slots=B, max_seq_len=S,
+                                      num_kv_heads=CFG.num_kv_heads, head_dim=CFG.hd, dtype=dtype), dev)
+    _fill(cache, g, dtype)
+    cache["length"].copy_(torch.tensor([5, 40, S - 2], dtype=torch.int32))  # the last one reaches the row's end
+    return params, cache, _sampling_lanes(dev, np.random.default_rng(seed))
+
+
+def _slot_deltas(cache, lanes, step, g):
+    """Between steps: a seeded lane bound, then an admission into slot 0
+    (insert_sequence: K/V copied in, the length lane written in place)."""
+    set_lane, _, _ = mr.make_delta_fns()
+    if step == 0:
+        set_lane(lanes["tokens"], lanes["keys"], lanes["temps"], lanes["top_k"], lanes["top_p"], 1, 7,
+                 prng.prng_key(77).tolist(), 0.7, 0, 0.9)
+    elif step == 1:
+        k = torch.randn((CFG.num_layers, 32, CFG.num_kv_heads, CFG.hd), generator=g, device=cache["k"].device)
+        kvc.insert_sequence(cache, 0, k, -k, 20)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_slot_replay_bit_equal_to_the_eager_step_with_deltas(dev, dtype):
+    """The slot step (``fused_step``: append, attention over the whole
+    row, sampling) replayed three times against the eager step on cloned
+    state, a lane delta and an admission's insert between replays: tokens,
+    logprobs, lanes and the whole cache (its length lane included) equal.
+    The capture's warm-up leaves the length lane as it was."""
+    params, cache, lanes = _slot_setup(dev, dtype=dtype)
+    lengths0 = cache["length"].clone()
+    fused = FusedDecode(SlotStep(mr.make_fused_fns(CFG)), params, cache, lanes)
+    assert fused.capture_s > 0 and fused.k4_per_replay == 0 and torch.equal(cache["length"], lengths0)
+    ref_cache, ref_lanes = _clone(cache), _clone(lanes)
+    step = SlotStep(mr.make_fused_fns(CFG))
+    for i in range(3):
+        toks, logps = FusedDecode.read(fused.step(params, cache))
+        with torch.no_grad():
+            ref_toks, ref_logps = step.run(params, ref_cache, ref_lanes)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(toks, ref_toks.cpu().numpy())
+        np.testing.assert_array_equal(logps, ref_logps.cpu().numpy())
+        for k in SlotStep.LANES:
+            assert torch.equal(lanes[k], ref_lanes[k]), (i, k)
+        for k in cache:
+            assert torch.equal(cache[k], ref_cache[k]), (i, k)
+        _slot_deltas(cache, lanes, i, torch.Generator(device=dev).manual_seed(i))
+        _slot_deltas(ref_cache, ref_lanes, i, torch.Generator(device=dev).manual_seed(i))
+    assert cache["length"].tolist() == [20 + 1, 40 + 3, S + 1]
+
+
+def test_moved_slot_cache_raises(dev):
+    params, cache, lanes = _slot_setup(dev)
+    fused = FusedDecode(SlotStep(mr.make_fused_fns(CFG)), params, cache, lanes)
+    for name in ("k", "length"):
+        with pytest.raises(RuntimeError, match=f"cache/{name}"):
+            fused.step(params, dict(cache, **{name: cache[name].clone()}))
+    fused.step(params, cache)  # the tensors it was built on still replay
 
 
 def test_threefry_on_the_card_bit_equal_to_the_cpu(dev):
@@ -153,10 +231,12 @@ def test_threefry_on_the_card_bit_equal_to_the_cpu(dev):
     assert ((g_card - g_host).abs() <= 2 * torch.finfo(torch.float32).eps * g_host.abs().clamp(min=1)).all()
 
 
-def test_graph_engine_streams_equal_the_sync_engine(dev):
-    """The default engine (one graph) against ``device_resident=False`` on
-    the card: greedy and seeded streams equal, K4 launched num_layers
-    times per decode step, counted through the replays."""
+@pytest.mark.parametrize("layout,dtype", [("paged", None), ("paged", "int8"), ("slots", None), ("slots", "int8")])
+def test_graph_engine_streams_equal_the_sync_engine(dev, layout, dtype):
+    """The graph engine (the default) against ``device_resident=False`` on
+    the card, on each layout and cache dtype: greedy and seeded streams
+    equal; on the paged layout K4 launched num_layers times per decode step,
+    counted through the replays, and never on the slot layout."""
     params = init_params(CFG, torch.Generator(device=dev).manual_seed(3))
     rng = np.random.default_rng(3)
     prompts = [rng.integers(1, CFG.vocab_size, size=int(n)).tolist() for n in (9, 30, 17, 50)]
@@ -164,11 +244,13 @@ def test_graph_engine_streams_equal_the_sync_engine(dev):
            SamplingParams(max_tokens=7, temperature=1.2, top_k=20, seed=2), SamplingParams(max_tokens=12)]
     outs = {}
     for resident in (True, False):
-        eng = LLMEngine(CFG, params, max_num_seqs=3, page_size=PAGE, prefill_buckets=(64, 128, 256),
-                        device_resident=resident)
+        eng = LLMEngine(CFG, params, max_num_seqs=3, kv_layout=layout, cache_dtype=dtype, page_size=PAGE,
+                        prefill_buckets=(64, 128, 256), device_resident=resident)
         assert (eng.graph_capture_s > 0) == resident
         paged_attn_partials.launches = 0
         outs[resident] = [o.token_ids for o in eng.generate(prompts, sps)]
-        assert paged_attn_partials.launches == CFG.num_layers * eng.decode_steps > 0
-        assert eng.kv_cache_stats()["pages_free"] == eng.kv_cache_stats()["pages_total"]
+        per_step = CFG.num_layers if layout == "paged" else 0
+        assert paged_attn_partials.launches == per_step * eng.decode_steps and eng.decode_steps > 0
+        stats = eng.kv_cache_stats()
+        assert stats.get("pages_free") == stats.get("pages_total") and stats["occupied_tokens"] == 0
     assert outs[True] == outs[False]

@@ -7,7 +7,13 @@ pools), the device-resident step (``paged_fused_step`` + ``append_paged``:
 tokens equal, keys bit-equal, logprobs and pool within ATOL) chained over
 steps with the lane deltas between them (``make_delta_fns``: the same
 arrays as ray_tpu's scatters), and the training forward under every
-``attention_impl``. Plus
+``attention_impl``. The slot layout's forwards against ray_tpu's on f32
+and int8 caches holding the same bytes: ``decode_step`` chained over
+steps (an empty slot included), ``extend`` over a slot's prefix (a
+clamped chunk included) then a decode step, and the device-resident
+``fused_step`` with a lane delta between steps: logits within 1e-4 of
+the largest logit, sampled tokens and new keys equal, the cache within
+ATOL (int8 codes at most one step apart, see ``_close_pool``). Plus
 the card's refusal of an ``attention_impl`` it has no kernel for, and the
 bf16 weight round trip."""
 
@@ -20,9 +26,11 @@ import torch
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from ray_tpu.llm import kv_cache as jkvc  # noqa: E402
 from ray_tpu.llm import model_runner as jmr  # noqa: E402
 from ray_tpu.llm import paged_kv as jpkv  # noqa: E402
 from ray_tpu.models import llama as jllama  # noqa: E402
+from ray_tpu_torch.llm import kv_cache as tkvc  # noqa: E402
 from ray_tpu_torch.llm import model_runner as tmr  # noqa: E402
 from ray_tpu_torch.llm import paged_kv as tpkv  # noqa: E402
 from ray_tpu_torch.models import llama as tllama  # noqa: E402
@@ -295,6 +303,134 @@ def test_decode_write_targets_match_jax():
     wt = tmr.decode_write_targets(torch.from_numpy(tables), torch.from_numpy(lengths), PAGE)
     for a, b in zip(wt, wj):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+SLOT_S = 96  # the slot caches' rows
+LOGIT_RTOL = 1e-4  # relative to the largest |logit|: the same f32 arithmetic in another summation order
+
+
+def _close_logits(t, j):
+    j = np.asarray(j)
+    assert np.abs(t.numpy() - j).max() <= LOGIT_RTOL * np.abs(j).max()
+
+
+def _slot_caches(jp, cache_dtype, rng, lens, T=32):
+    """Both slot caches with one prompt per slot prefilled by ray_tpu and
+    inserted on both sides (the same bytes, so an int8 cache starts
+    byte-identical); a length-0 slot stays empty."""
+    ccfg = dict(num_layers=JCFG.num_layers, num_slots=len(lens), max_seq_len=SLOT_S,
+                num_kv_heads=JCFG.num_kv_heads, head_dim=JCFG.hd, dtype=cache_dtype)
+    jc = jkvc.alloc(jkvc.CacheConfig(**ccfg))
+    tc = tkvc.alloc(tkvc.CacheConfig(**ccfg), "cpu")
+    toks = rng.integers(1, JCFG.vocab_size, size=(len(lens), T)).astype(np.int32)
+    _, kj, vj = jmr.prefill(jp, jnp.asarray(toks), jnp.asarray(np.maximum(lens, 1), jnp.int32), JCFG)
+    for b, n in enumerate(lens):
+        if n:
+            jc = jkvc.insert_sequence(jc, b, kj[:, b], vj[:, b], int(n))
+            tkvc.insert_sequence(tc, b, torch.from_numpy(np.asarray(kj[:, b])), torch.from_numpy(np.asarray(vj[:, b])),
+                                 int(n))
+    return jc, tc
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_decode_step_matches_jax(params, cache_dtype):
+    """Three slot decode steps fed the same tokens, over three prompts and
+    an empty slot: logits, the whole cache (each step's appended token
+    included) and the length lane agree after every step."""
+    jp, tp = params
+    rng = np.random.default_rng(12)
+    lens = np.array([5, 16, 0, 31], np.int32)
+    jc, tc = _slot_caches(jp, cache_dtype, rng, lens)
+    for _ in range(3):
+        nxt = rng.integers(1, JCFG.vocab_size, size=len(lens)).astype(np.int32)
+        lj, jc = jmr.decode_step(jp, jc, jnp.asarray(nxt), JCFG)
+        lt, out = tmr.decode_step(tp, tc, torch.from_numpy(nxt.astype(np.int64)), TCFG)
+        assert out is tc and lt.dtype == torch.float32
+        _close_logits(lt, lj)
+        _close_pool(tc, jc, cache_dtype)
+        lens += 1
+        assert tc["length"].tolist() == lens.tolist()
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("n_p,T,length", [(32, 16, 11), (16, 32, 32), (0, 16, 5), (80, 32, 10)],
+                         ids=["prefix32_T16", "prefix16_T32", "no_prefix", "clamped"])
+def test_extend_matches_jax(params, cache_dtype, n_p, T, length):
+    """A prefix of n_p positions in slot 1, then the suffix (a T-token
+    bucket, ``length`` real) extended over it: the logits at the last real
+    token, the whole cache and the slot's new length agree with
+    ``jmr.extend`` (the last case's chunk passes the row's end, so ray_tpu
+    clamps its write: the port clamps the same way); then a decode step over
+    both slots agrees too."""
+    jp, tp = params
+    rng = np.random.default_rng(n_p + T)
+    jc, tc = _slot_caches(jp, cache_dtype, rng, np.array([9, n_p], np.int32), T=max(n_p, 16))
+    toks = np.zeros(T, np.int32)
+    toks[:length] = rng.integers(1, JCFG.vocab_size, size=length)
+    lj, jc = jmr.extend(jp, jc, 1, jnp.asarray(toks), jnp.asarray(length, jnp.int32), JCFG)
+    lt, out = tmr.extend(tp, tc, 1, torch.from_numpy(toks.astype(np.int64)), length, TCFG)
+    assert out is tc and tuple(lt.shape) == (JCFG.vocab_size,)
+    _close_logits(lt, lj)
+    _close_pool(tc, jc, cache_dtype)
+    assert tc["length"].tolist() == [9, n_p + length]
+    nxt = np.array([3, 7], np.int32)
+    lj, jc = jmr.decode_step(jp, jc, jnp.asarray(nxt), JCFG)
+    lt, _ = tmr.decode_step(tp, tc, torch.from_numpy(nxt.astype(np.int64)), TCFG)
+    _close_logits(lt, lj)
+
+
+SLOT_LANES = ("tokens", "keys", "temps", "top_k", "top_p")
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_slot_fused_step_and_lane_delta_match_jax(params, cache_dtype):
+    """Three device-resident slot steps (``make_fused_fns``) on both sides,
+    mixed greedy and stochastic lanes, with a seeded admission's lane delta
+    after the first: ray_tpu's 7 outputs agree (tokens and keys equal,
+    every key advancing; logprobs within ATOL; the sampling lanes passed
+    through), and so do the cache and its length lane."""
+    jp, tp = params
+    rng = np.random.default_rng(8)
+    lens = np.array([5, 16, 31], np.int32)
+    jc, tc = _slot_caches(jp, cache_dtype, rng, lens)
+    keys = np.stack([np.asarray(jax.random.PRNGKey(100 + b)) for b in range(3)])
+    lanes = dict(tokens=rng.integers(1, JCFG.vocab_size, size=3).astype(np.int32), keys=keys,
+                 temps=np.array([0.0, 0.8, 1.3], np.float32), top_k=np.array([0, 5, 0], np.int32),
+                 top_p=np.array([1.0, 1.0, 0.8], np.float32))
+    jl = {k: jnp.asarray(v) for k, v in lanes.items()}
+    tl = {k: torch.from_numpy(v.astype(np.int64) if k in ("tokens", "keys", "top_k") else v.copy())
+          for k, v in lanes.items()}
+    step = tmr.make_fused_fns(TCFG)
+    for i in range(3):
+        jo = jmr.fused_step(jp, jc, *(jl[k] for k in SLOT_LANES), JCFG)
+        to = step(tp, tc, *(tl[k] for k in SLOT_LANES))
+        assert len(to) == len(jo) == 7 and to[0] is tc
+        jc = jo[0]
+        np.testing.assert_array_equal(to[1].numpy(), np.asarray(jo[1]))  # tokens
+        _close(to[2], jo[2])  # logprobs
+        np.testing.assert_array_equal(to[3].numpy(), np.asarray(jo[3]).astype(np.int64))  # keys
+        assert not (to[3] == tl["keys"]).all(dim=-1).any()
+        for t, j in zip(to[4:], jo[4:]):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        _close_pool(tc, jc, cache_dtype)
+        lens += 1
+        assert tc["length"].tolist() == lens.tolist()
+        jl.update(tokens=jo[1], keys=jo[3])
+        tl["tokens"].copy_(to[1])
+        tl["keys"].copy_(to[3])
+        if i == 0:  # a seeded stochastic request bound into slot 1
+            key = np.asarray(jax.random.PRNGKey(77))
+            jout = jmr.set_lane(*(jl[k] for k in SLOT_LANES), np.int32(1), np.int32(9), key, np.float32(0.7),
+                                np.int32(0), np.float32(0.9))
+            jl.update(zip(SLOT_LANES, jout))
+            tmr.set_lane(*(tl[k] for k in SLOT_LANES), 1, 9, key.tolist(), 0.7, 0, 0.9)
+        for k in SLOT_LANES:
+            np.testing.assert_array_equal(tl[k].numpy(), np.asarray(jl[k]).astype(tl[k].numpy().dtype))
+
+
+def test_make_fused_fns_refuses_a_mesh():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmr.make_fused_fns(TCFG, mesh=object())
 
 
 def test_bf16_weights_round_trip_bit_exact():

@@ -140,7 +140,8 @@ def test_prefix_cached_generation_token_identical_to_ray_tpu(params, name, devic
         if hasattr(je, fn):
             setattr(je, fn, _synced(getattr(je, fn)))
     # caching on by default
-    te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", seed=5, device_resident=device_resident, **sched)
+    te = LLMEngine(tllama.LlamaConfig.tiny(**KW), tp, device="cpu", kv_layout="paged", seed=5,
+                   device_resident=device_resident, **sched)
     ref = [je.generate(w, JaxParams(max_tokens=max_tokens)) for w in waves]
     out = [te.generate(w, SamplingParams(max_tokens=max_tokens)) for w in waves]
     assert [[o.token_ids for o in w] for w in out] == [[o.token_ids for o in w] for w in ref]
@@ -161,7 +162,7 @@ def test_prefix_caching_defaults_and_validation(params):
     assert te.prefix_cache_stats()["local"] == {"hits": 0, "tokens_saved": 0}
     assert LLMEngine(cfg, tp, device="cpu", max_num_seqs=1, enable_prefix_caching=False).prefix_cache_stats() == {}
     with pytest.raises(ValueError, match="prefix_block"):
-        LLMEngine(cfg, tp, device="cpu", max_num_seqs=1, page_size=64, prefix_block=96)
+        LLMEngine(cfg, tp, device="cpu", kv_layout="paged", max_num_seqs=1, page_size=64, prefix_block=96)
 
 
 def test_hit_streams_equal_the_uncached_engine(params):
@@ -173,7 +174,7 @@ def test_hit_streams_equal_the_uncached_engine(params):
     rng = np.random.default_rng(4)
     pre = _toks(rng, 128)
     prompts = [pre + _toks(rng, n) for n in (1, 30, 64, 100)]
-    sched = dict(max_num_seqs=4, max_seq_len=256, page_size=16, seed=5)
+    sched = dict(max_num_seqs=4, max_seq_len=256, kv_layout="paged", page_size=16, seed=5)
     cfg = tllama.LlamaConfig.tiny(**KW)
     cached = LLMEngine(cfg, tp, device="cpu", **sched)
     leader = cached.generate(pre + _toks(rng, 20), SamplingParams(max_tokens=6))
