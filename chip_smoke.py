@@ -46,7 +46,15 @@ Phases, in order; any failed check exits non-zero before the last line:
    build/decode_step_profile_paged_bf16_{graph,sync}.txt); K4's partials
    kernel must appear 32 x 4 times in each. Prints each mode's prefill ms,
    decode ms/step, generated tok/s, the cache's layout, dtype, bytes per
-   token and allocation, peak memory, and the graph's capture time.
+   token and allocation, peak memory, and the graph's capture time. Every
+   engine runs with serving telemetry on (the default); on the graph
+   engine the flight recorder must count one step record per step() call,
+   8 request records, 248 tokens emitted by the decode steps (256 less the
+   8 first tokens sampled at admission), no recompile (re-capture) and a
+   TTFT histogram count of 8. Then the telemetry overhead on that engine:
+   interleaved rounds (8 prompts of 64 tokens, 24 new tokens each) with
+   the telemetry on and off, ray_tpu's gate: the best instrumented
+   decode-only step at most 1.05x the best plain one.
 4b. Prefix caching on the same weights: a fresh paged engine (caching on,
    64-token blocks) generates a leader (a seeded 1024-token prefix + 256 tokens),
    then 8 requests of the prefix + seeded suffixes of 32-900 tokens with
@@ -72,13 +80,32 @@ Phases, in order; any failed check exits non-zero before the last line:
    paged int8 engine (8 hits, 1 miss, 8192 tokens saved, K4 32 times per
    decode step and extend forward). Prints the greedy tokens each engine
    shares with phase 4's streams.
+4d. Speculative decoding on phase 4's weights, prompts and streams, three
+   engines: paged + SpecConfig(drafter="ngram", k=4), slots + ngram k=4,
+   and paged + drafter="model" with Llama-3.2-1B's published widths
+   (hidden 2048, intermediate 8192, 16 layers, 32/8 heads, head_dim 64,
+   vocab 128256, rope_theta 5e5, tied embeddings, bf16; random weights from
+   seed 1). Each serves the 8 prompts (32 greedy tokens) and the 4 seeded
+   ones: every first token must equal phase 4's, K4 must have run 32 times
+   per dispatched round on the paged engines (the verify's prefix
+   attention, R = 4 x 5 = 20 rows per kv head, inside the round's graph),
+   K1 32 times per target prefill forward and 16 per draft prefill, and
+   the pool must drain. Prints the greedy tokens equal to phase 4's, ms
+   per round, tokens per lane-round, acceptance rate, generated tok/s, the
+   capture time and the decode-only rounds' profile (tables in
+   build/decode_step_profile_spec_*.txt).
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
    64-token prefix in the pool and a 40-token suffix in a 64 bucket over
    it; its logits must agree. Then the slot layout: the prompt into two
    slots, 8 decode steps, and the suffix extended over the prompt in one
-   slot; logits and that slot's K/V must agree.
+   slot; logits and that slot's K/V must agree. Then the spec verify's
+   5-token block forward over the prompt on each layout, card vs host
+   (logits within the same tolerance), and on the card speculative engines
+   on each layout (the n-gram drafter, and a model drafter with the
+   target's own weights) whose greedy streams must equal the plain
+   engine's, the self-drafting one with an acceptance rate above 0.8.
 6. K2/K3 against their plain version on the card at bench.py's two
    training shapes (B, H, Hkv, T, D) = (8, 16, 8, 2048, 128) and
    (2, 16, 8, 8192, 128) in bf16, a ragged T = 1000, f32 at D 64 and 128,
@@ -149,6 +176,8 @@ K5_TOL = {"bf16": 2**-7, "f32": 1e-5}  # relative to max |out|: one bf16 ulp; f3
 TRAIN_STEPS = 5  # timed, after one warm-up step
 DECODE_PROFILE_STEPS = 4  # decode-only engine steps under torch.profiler (phase 4)
 SEEDED_TOKENS = 16  # phase 4's seeded streams, held equal across the two decode modes
+TEL_GATE = 1.05  # telemetry-on over telemetry-off decode step, best of interleaved rounds (ray_tpu's gate)
+SPEC_K = 4  # phase 4d's proposals a round: the verify block is SPEC_K + 1 tokens, K4 at R = 4 (SPEC_K + 1)
 TRAIN_LOSS_TOL = 0.05  # first step's loss vs loss_fn on the initial params (bench.py's check)
 TRAIN_WHOLE_TOL = 1e-3  # card vs host, f32: loss and grad norm relative; gradients relative to each leaf's max
 
@@ -237,12 +266,13 @@ def main() -> int:
     import torch.nn.functional as F
 
     from ray_tpu_torch import _kernels
-    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams, SpecConfig
     from ray_tpu_torch.llm import kv_cache as kvc
     from ray_tpu_torch.llm import model_runner as mr
     from ray_tpu_torch.llm import paged_kv as pkv
     from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
     from ray_tpu_torch.llm.kv_quant import quantize_heads
+    from ray_tpu_torch.llm.spec import verify as sver
     from ray_tpu_torch.models.llama import LlamaConfig, flops_per_token, init_params, loss_fn
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops.flash_attention import (attention_bwd_ref, attention_with_lse_ref, flash_attention_bwd_dkv,
@@ -470,16 +500,19 @@ def main() -> int:
           f"{sorted(int(n) for n in lens)} tokens, 32 greedy tokens each, then 4 seeded (temperature 0.8, top_p 0.9, "
           f"{SEEDED_TOKENS} tokens)")
 
-    def serve_modes(phase, label, modes, profile_modes=(), **engine_kw):
+    def serve_modes(phase, label, modes, profile_modes=(), overhead=False, **engine_kw):
         """Serve the 8 prompts (32 greedy tokens each) and the 4 seeded ones on
         one engine per decode mode ("graph": the default, device-resident;
         "sync": device_resident=False); then, for ``profile_modes``, the 8
-        prompts again and 4 + 4 decode-only steps profiled. Returns each
-        mode's run; the graph and sync runs' streams must be identical."""
+        prompts again and 4 + 4 decode-only steps profiled. Phase 4's graph
+        engine gates its telemetry and, with ``overhead``, measures the
+        telemetry's cost. Returns each mode's run; the graph and sync runs'
+        streams must be identical."""
         runs = {}
         for mode in modes:
             torch.cuda.reset_peak_memory_stats()
-            eng = LLMEngine(cfg, params, max_num_seqs=8, device_resident=mode == "graph", **engine_kw)
+            eng = LLMEngine(cfg, params, max_num_seqs=8, device_resident=mode == "graph",
+                            telemetry_tags={"model": f"phase {phase} {label} {mode}"}, **engine_kw)
             paged = eng.kv_layout == "paged"
             check(eng.kv_cache_stats()["attn_kernel"] == ("cuda" if paged else "torch"),
                   f"engine {label} {mode}: attention {eng.kv_cache_stats()['attn_kernel']}")
@@ -487,6 +520,8 @@ def main() -> int:
                   f"{eng.graph_capture_s} s")
             run = serve_engine(torch, eng, prompts, f"phase {phase} engine {label} {mode}", card,
                                k4_per_step=L if paged else 0)
+            if phase == "4" and mode == "graph":
+                run["telemetry"] = telemetry_gates(eng, run, f"phase 4 engine {label} {mode}", card)
             run["seeded"] = [o.token_ids for o in eng.generate(prompts[:4], seeded)]
             check(all(len(t) == SEEDED_TOKENS for t in run["seeded"]), f"engine {label} {mode}: seeded requests cut short")
             if mode in profile_modes:
@@ -504,6 +539,10 @@ def main() -> int:
                 check(calls["paged_partials_kernel"] == n_prof and calls["paged_merge_kernel"] in (0, n_prof),
                       f"decode profile {label} {mode}: K4's kernels ran {calls} times in {DECODE_PROFILE_STEPS} steps, "
                       f"not {n_prof}")
+            if overhead and mode == "graph":
+                while eng.has_unfinished():
+                    eng.step()
+                run["tel_ratio"] = telemetry_overhead(torch, eng, prompts, f"phase {phase} {label} {mode}", card)
             runs[mode] = run
             del eng
             torch.cuda.empty_cache()
@@ -522,10 +561,12 @@ def main() -> int:
                   f"tok/s{idle}, peak memory {gr['peak']} vs {sy['peak']} bytes {card}")
         return runs
 
-    serve = serve_modes("4", "paged bf16", ("graph", "sync"), ("graph", "sync"), kv_layout="paged", page_size=64)
+    serve = serve_modes("4", "paged bf16", ("graph", "sync"), ("graph", "sync"), overhead=True, kv_layout="paged",
+                        page_size=64)
     gr = serve["graph"]
     k1_launches, k4_launches = gr["k1"], gr["k4"]
-    ref_tokens = gr["tokens"]  # phase 4c holds its engines' first tokens against these
+    ref_tokens = gr["tokens"]  # phases 4c and 4d hold their engines' first tokens against these
+    tel_ratio = gr["tel_ratio"]
 
     mark("4")
     # ---------------------------------------------------------------- 4b
@@ -636,10 +677,29 @@ def main() -> int:
           f"({wave8['wall_s']:.3f} s wall, peak memory {wave8['peak']} bytes), K1 launches {wave8['k1']}, K4 launches "
           f"{wave8['k4']} (= {L} x ({eng.decode_steps} decode steps + {eng.extend_forwards} extend forwards)); first "
           f"tokens equal phase 4b's bf16 hits in {same_first} of 8 (not gated) {card}")
-    del eng, params, hit_outs, wave, wave8
+    del eng, hit_outs, wave, wave8
     torch.cuda.empty_cache()
 
     mark("4c")
+    # ---------------------------------------------------------------- 4d
+    # Llama-3.2-1B's published widths: the public draft model sharing Llama-3-8B's tokenizer
+    dcfg = LlamaConfig(vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_layers=16, num_heads=32,
+                       num_kv_heads=8, head_dim=64, max_seq_len=2048, rope_theta=500000.0, tie_embeddings=True,
+                       remat=False)
+    spec_runs = {}
+    for label, engine_kw in (
+        ("paged ngram", dict(kv_layout="paged", page_size=64, speculative=SpecConfig(drafter="ngram", k=SPEC_K))),
+        ("slots ngram", dict(kv_layout="slots", speculative=SpecConfig(drafter="ngram", k=SPEC_K))),
+        ("paged model", dict(kv_layout="paged", page_size=64,
+                             speculative=SpecConfig(drafter="model", k=SPEC_K, draft_config=dcfg, draft_seed=1))),
+    ):
+        spec_runs[label] = serve_spec(torch, cfg, params, prompts, seeded, ref_tokens, label, card, **engine_kw)
+        torch.cuda.empty_cache()
+    k4_spec_launches = spec_runs["paged ngram"]["k4"]
+    del params
+    torch.cuda.empty_cache()
+
+    mark("4d")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -727,6 +787,56 @@ def main() -> int:
     print(f"phase 5 slot layout (2 layers, f32, card vs host): prefill |dlogits| {slot_errs[0]:.3g}, decode max "
           f"{max(slot_errs[1:9]):.3g} over {len(forced)} steps, extend |dlogits| {slot_errs[9]:.3g}, slot 1 |dk| "
           f"{slot_errs[10]:.3g} |dv| {slot_errs[11]:.3g} (max |value| {scale:.3g}, tol {WHOLE_PATH_TOL})")
+    spec_blk = torch.from_numpy(forced[: SPEC_K + 1][None].astype(np.int64))
+
+    def run_verify(params, device, layout):
+        """The spec verify's block forward: the 64-token prompt cached, then
+        a (k + 1)-token block at positions 64..68 over it."""
+        toks = torch.from_numpy(prompt[None]).to(device)
+        _, ks, vs = mr.prefill(params, toks, torch.tensor([64], device=device), cfg2)
+        blk = spec_blk.to(device)
+        if layout == "paged":
+            pcfg = pkv.PagedCacheConfig(num_layers=2, num_pages=3, page_size=64, max_pages_per_seq=2, num_slots=1,
+                                        num_kv_heads=cfg2.num_kv_heads, head_dim=cfg2.hd, dtype="float32")
+            pool = pkv.alloc(pcfg, device)
+            table = torch.tensor([[1, 2]], dtype=torch.int32, device=device)
+            pkv.insert_pages(pool, table[0, :1], ks[:, 0], vs[:, 0])
+            logits, k_blk, v_blk = sver._forward_block_paged(params, pool, table,
+                                                             torch.tensor([64], dtype=torch.int32, device=device),
+                                                             blk, cfg2)
+            return [logits.cpu(), k_blk.cpu(), v_blk.cpu()]
+        cache = kvc.alloc(kvc.CacheConfig(num_layers=2, num_slots=1, max_seq_len=128, num_kv_heads=cfg2.num_kv_heads,
+                                          head_dim=cfg2.hd, dtype="float32"), device)
+        kvc.insert_sequence(cache, 0, ks[:, 0], vs[:, 0], 64)
+        logits = sver._forward_block_slots(params, cache, blk, cfg2)
+        return [logits.cpu(), cache["k"].cpu(), cache["v"].cpu()]
+
+    verify_errs = {}
+    for layout in ("paged", "slots"):
+        verify_errs[layout], scale = whole_path(f"spec verify {layout}", partial(run_verify, layout=layout), 2,
+                                                2 if layout == "paged" else 0)
+        print(f"phase 5 spec verify {layout} (2 layers, f32, a {SPEC_K + 1}-token block over the 64-token prompt, "
+              f"card vs host): |dlogits| {verify_errs[layout][0]:.3g}, block K/V max |d| "
+              f"{max(verify_errs[layout][1:]):.3g} (max |value| {scale:.3g}, tol {WHOLE_PATH_TOL})")
+    spec_prompts = [rng.integers(1, cfg2.vocab_size, size=n).tolist() for n in (40, 64, 100)]
+    for layout in ("paged", "slots"):
+        kw5 = dict(max_num_seqs=4, max_seq_len=256, kv_layout=layout, page_size=64)
+        plain = [o.token_ids for o in LLMEngine(cfg2, p_gpu, **kw5).generate(spec_prompts, SamplingParams(max_tokens=16))]
+        for drafter, spec in (("ngram", SpecConfig(drafter="ngram", k=SPEC_K)),
+                              ("self-drafting model", SpecConfig(drafter="model", k=SPEC_K, draft_config=cfg2,
+                                                                 draft_params=p_gpu))):
+            eng = LLMEngine(cfg2, p_gpu, speculative=spec, **kw5)
+            got = [o.token_ids for o in eng.generate(spec_prompts, SamplingParams(max_tokens=16))]
+            st = eng.spec_stats()
+            equal = sum(a == b for a, b in zip(got, plain))
+            check(equal == len(plain), f"phase 5 spec {layout} {drafter}: greedy streams equal the plain engine's in "
+                  f"{equal} of {len(plain)}")
+            if drafter != "ngram":
+                check(st["acceptance_rate"] > 0.8, f"phase 5 spec {layout} {drafter}: acceptance {st['acceptance_rate']}")
+            print(f"phase 5 spec engine {layout} {drafter} (2 layers, f32, on the card): greedy streams equal the plain "
+                  f"engine's in {equal} of {len(plain)}; acceptance {st['acceptance_rate']:.4f}, "
+                  f"{st['mean_tokens_per_round']:.3f} tokens per lane-round over {st['rounds']} rounds")
+            del eng
     del p_gpu, p_cpu
 
     mark("5")
@@ -910,6 +1020,7 @@ def main() -> int:
     rep1 = next(r for r in k1_rows if (r["B"], r["T"]) == (2, 2048))
     rep4 = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("bf16", 1, Bl))
     rep4q = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("int8", 1, Bl))
+    rep4v = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("bf16", SPEC_K + 1, Bl))  # the verify's shape
     rep23 = k23_rows[0]  # the sft training shape
     rep5 = k5_rows[0]  # the training rows, bf16
     kernels = [
@@ -941,6 +1052,11 @@ def main() -> int:
                launches=k4_4b, max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                bound_by=r["bound_by"], library_ms=None, device_ms=r["device_ms"], host_us=r["host_us"])
           for r in k4_rows if r.get("extend")),
+        dict(name=f"K4 paged_attn_partials spec verify T={SPEC_K + 1} R={REP * (SPEC_K + 1)} bf16", route="cuda",
+             source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
+             launches=k4_spec_launches, max_abs_err=rep4v["err"], ms=rep4v["ms"], plain_ms=rep4v["plain_ms"],
+             bound_ms=rep4v["bound_ms"], bound_by=rep4v["bound_by"], library_ms=None, device_ms=rep4v["device_ms"],
+             host_us=rep4v["host_us"]),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -948,6 +1064,7 @@ def main() -> int:
              device_ms=rep5["device_ms"], host_us=rep5["host_us"]),
     ]
     mark("8")
+    print(f"telemetry overhead (phase 4, paged graph engine): {tel_ratio:.4f}x (gate {TEL_GATE}) {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s (each phase's end: {marks})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1008,7 +1125,12 @@ def serve_engine(torch, eng, prompts, label, card, k4_per_step) -> dict:
     flash_attention_fwd.launches = 0
     paged_attn_partials.launches = 0
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, SamplingParams(max_tokens=32))
+    ids = [eng.add_request(p, SamplingParams(max_tokens=32)) for p in prompts]
+    finals, calls = {}, 0
+    while eng.has_unfinished():  # generate(), with its step() calls counted
+        finals.update((o.request_id, o) for o in eng.step() if o.finished)
+        calls += 1
+    outs = [finals[i] for i in ids]
     wall_s = time.perf_counter() - t0
     k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
     check(all(len(o.token_ids) == 32 and o.finish_reason == "length" for o in outs),
@@ -1021,13 +1143,149 @@ def serve_engine(torch, eng, prompts, label, card, k4_per_step) -> dict:
     peak = torch.cuda.max_memory_allocated()
     stats = eng.kv_cache_stats()
     run = dict(tokens=[o.token_ids for o in outs], k1=k1_n, k4=k4_n, peak=peak, wall_s=wall_s,
-               prefill_ms=eng.prefill_s * 1e3, decode_ms=eng.decode_s * 1e3 / eng.decode_steps, steps=eng.decode_steps,
-               tok_s=sum(len(o.token_ids) for o in outs) / wall_s, capture_s=eng.graph_capture_s, stats=stats)
+               prefill_ms=eng.prefill_s * 1e3, prefill_forwards=eng.prefill_forwards, decode_ms=eng.decode_s * 1e3 / eng.decode_steps, steps=eng.decode_steps,
+               tok_s=sum(len(o.token_ids) for o in outs) / wall_s, capture_s=eng.graph_capture_s, stats=stats,
+               calls=calls)
     kv = {k: stats[k] for k in ("layout", "dtype", "bytes_per_token", "allocated_bytes")}
     print(f"{label}: graph capture {run['capture_s']:.3f} s, prefill {run['prefill_ms']:.2f} ms over "
           f"{eng.prefill_forwards} forwards, decode {run['decode_ms']:.3f} ms/step over {run['steps']} steps, "
           f"{run['tok_s']:.2f} generated tok/s ({wall_s:.3f} s wall), K1 launches {k1_n}, K4 launches {k4_n} (= "
           f"{k4_per_step} x {eng.decode_steps} decode steps), cache {kv}, peak memory {peak} bytes {card}")
+    return run
+
+
+def telemetry_gates(eng, run, label, card) -> dict:
+    """Phase 4's flight-recorder gates on a fresh engine after its one
+    ``serve_engine`` run: a step record per step() call, 8 request records,
+    248 tokens emitted by the decode steps (the step record's ``emitted``
+    counts a lane's drained token; the 8 first tokens are sampled at
+    admission), no re-capture, 8 TTFT observations."""
+    snap = eng.telemetry()
+    n_tokens = sum(len(t) for t in run["tokens"])
+    emitted = sum(r["emitted"] for r in snap["steps"])
+    ttft = eng._tel._b_ttft
+    ttft_n = ttft._metric._series[ttft._key][0]
+    check(snap["step_count"] == run["calls"], f"{label}: {snap['step_count']} step records for {run['calls']} steps")
+    check(len(snap["requests"]) == 8, f"{label}: {len(snap['requests'])} request records")
+    check(emitted + 8 == n_tokens == 256, f"{label}: step records emitted {emitted} (+ 8 at admission) of {n_tokens}")
+    check(snap["recompiles"] == {}, f"{label}: recompiles {snap['recompiles']}")
+    check(ttft_n == 8, f"{label}: TTFT histogram count {ttft_n}")
+    ttfts = sorted(r["ttft_s"] for r in snap["requests"])
+    itl = [x for r in snap["requests"] for x in r["itl_s"]]
+    print(f"{label} telemetry: {snap['step_count']} step records, 8 request records, {emitted} + 8 tokens emitted, "
+          f"no recompile; TTFT {ttfts[0] * 1e3:.2f}-{ttfts[-1] * 1e3:.2f} ms, mean ITL {sum(itl) / len(itl) * 1e3:.3f} ms over "
+          f"{len(itl)} gaps {card}")
+    return snap
+
+
+def telemetry_overhead(torch, eng, prompts, label, card, tokens=24, max_rounds=18) -> float:
+    """ray_tpu's zero-overhead gate on one engine with its telemetry
+    toggled between rounds (tests/test_perf_smoke.py): each round admits the
+    8 prompts cut to 64 tokens, steps until none waits, then times the
+    decode-only steps to the end; rounds interleave the two modes and run
+    until the best instrumented round is within TEL_GATE of the best plain
+    one (at least 3 pairs, at most ``max_rounds``). Returns the ratio of
+    the bests, which must be within TEL_GATE."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    tel = eng._tel
+    rounds = {True: [], False: []}
+    short = [p[:64] for p in prompts]
+    for r in range(max_rounds):
+        for instrumented in ([True, False] if r % 2 == 0 else [False, True]):
+            eng._tel = tel if instrumented else None
+            for p in short:
+                eng.add_request(p, SamplingParams(max_tokens=tokens))
+            while eng.num_waiting:
+                eng.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = 0
+            while eng.has_unfinished():
+                eng.step()
+                steps += 1
+            rounds[instrumented].append((time.perf_counter() - t0) / max(steps, 1))
+        if r >= 2 and min(rounds[True]) <= TEL_GATE * min(rounds[False]):
+            break
+    eng._tel = tel
+    best = {m: min(v) for m, v in rounds.items()}
+    ratio = best[True] / best[False]
+    print(f"{label} telemetry overhead: best decode-only step {best[True] * 1e3:.3f} ms with telemetry, "
+          f"{best[False] * 1e3:.3f} ms without, ratio {ratio:.4f} (gate {TEL_GATE}) over {len(rounds[True])} + "
+          f"{len(rounds[False])} interleaved rounds (with: {[round(x * 1e3, 3) for x in rounds[True]]}, without: "
+          f"{[round(x * 1e3, 3) for x in rounds[False]]} ms) {card}")
+    check(ratio <= TEL_GATE, f"{label}: telemetry overhead {ratio:.4f}x > {TEL_GATE}")
+    return ratio
+
+
+def serve_spec(torch, cfg, params, prompts, seeded, ref_tokens, label, card, **engine_kw) -> dict:
+    """Phase 4d: one speculative engine (8 slots, ``engine_kw``) serves the
+    8 prompts, 32 greedy tokens each, with the launch counters zeroed just
+    before and read just after (K4: num_layers per dispatched round on the
+    paged layout, 0 on slots; K1: num_layers per target prefill forward and
+    the draft's num_layers per draft prefill), then the 4 seeded prompts,
+    then profiles 4 decode-only rounds, drains and checks the pool. Every
+    first token must equal phase 4's."""
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = LLMEngine(cfg, params, max_num_seqs=8, telemetry_tags={"model": f"phase 4d {label}"}, **engine_kw)
+    paged = eng.kv_layout == "paged"
+    L = cfg.num_layers
+    drafter = eng._drafter
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, SamplingParams(max_tokens=32))
+    wall_s = time.perf_counter() - t0
+    k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
+    st = eng.spec_stats()
+    rounds = st["rounds"]
+    tokens = [o.token_ids for o in outs]
+    check(all(len(t) == 32 and o.finish_reason == "length" for t, o in zip(tokens, outs)),
+          f"phase 4d {label}: not every request finished with 32 tokens: {[len(t) for t in tokens]}")
+    firsts = sum(a[0] == b[0] for a, b in zip(tokens, ref_tokens))
+    check(firsts == 8, f"phase 4d {label}: first tokens equal phase 4's in {firsts} of 8")
+    check(rounds > 0 and k4_n == (L if paged else 0) * rounds,
+          f"phase 4d {label}: K4 launches {k4_n} != {L if paged else 0} x {rounds} rounds")
+    draft_pf = getattr(drafter, "prefill_forwards", 0)
+    draft_l = drafter.cfg.num_layers if draft_pf else 0
+    check(k1_n == L * eng.prefill_forwards + draft_l * draft_pf > 0,
+          f"phase 4d {label}: K1 launches {k1_n} != {L} x {eng.prefill_forwards} target + {draft_l} x {draft_pf} "
+          f"draft prefill forwards")
+    same = sum(x == z for a, b in zip(tokens, ref_tokens) for x, z in zip(a, b))
+    run = dict(tokens=tokens, k1=k1_n, k4=k4_n, rounds=rounds, wall_s=wall_s, round_ms=eng.decode_s * 1e3 / rounds,
+               prefill_ms=eng.prefill_s * 1e3, prefill_forwards=eng.prefill_forwards,
+               tok_s=256 / wall_s, capture_s=eng.graph_capture_s, stats=st, same=same,
+               peak=torch.cuda.max_memory_allocated())
+    run["seeded"] = [o.token_ids for o in eng.generate(prompts[:4], seeded)]
+    check(all(len(t) == SEEDED_TOKENS for t in run["seeded"]), f"phase 4d {label}: seeded requests cut short")
+    for prompt in prompts:
+        eng.add_request(prompt, SamplingParams(max_tokens=32))
+    while eng.num_waiting:
+        eng.step()
+    name = label.replace(" ", "_")
+    run["profile"] = profile_decode(torch, eng, DECODE_PROFILE_STEPS, f"phase 4d spec {label}", card,
+                                    _kernels.BUILD_DIR / f"decode_step_profile_spec_{name}.txt")
+    n_prof = (L if paged else 0) * DECODE_PROFILE_STEPS
+    calls = run["profile"]["calls"]
+    check(calls["paged_partials_kernel"] == n_prof and calls["paged_merge_kernel"] in (0, n_prof),
+          f"phase 4d {label}: K4's kernels ran {calls} times in {DECODE_PROFILE_STEPS} rounds, not {n_prof}")
+    while eng.has_unfinished():
+        eng.step()
+    kv = eng.kv_cache_stats()
+    check(eng.num_running == 0 and kv.get("pages_free") == kv.get("pages_total") and kv["occupied_tokens"] == 0,
+          f"phase 4d {label}: the cache did not drain: {kv}")
+    print(f"phase 4d spec {label}: graph capture {run['capture_s']:.3f} s, prefill {run['prefill_ms']:.2f} ms over "
+          f"{run['prefill_forwards']} forwards and {draft_pf} draft prefills, {rounds} rounds for 256 greedy tokens, "
+          f"{run['round_ms']:.3f} ms per round, {st['mean_tokens_per_round']:.4f} tokens per lane-round, acceptance "
+          f"{st['acceptance_rate']:.4f} ({st['accepted']} of {st['proposed']} proposed), {run['tok_s']:.2f} generated "
+          f"tok/s ({wall_s:.3f} s wall), K1 launches {k1_n}, K4 launches {k4_n} (= {k4_n // max(rounds, 1)} a round), "
+          f"peak memory {run['peak']} bytes; first tokens equal phase 4's in 8 of 8, {same} of 256 greedy tokens equal "
+          f"phase 4's (not gated); the pool drained {card}")
     return run
 
 

@@ -30,7 +30,20 @@ on append, dequantized in attention, ``kv_quant.py``):
   the prefill's dtype); admission looks up the longest cached
   block-aligned prefix of a new prompt, inserts it into the request's
   slot or pages (quantized there for an int8 cache) and re-attends only
-  the suffix (``model_runner.extend`` or ``extend_paged``).
+  the suffix (``model_runner.extend`` or ``extend_paged``);
+- speculative decoding (``speculative=SpecConfig(...)``, ``llm/spec/``,
+  device-resident only, as in ray_tpu): a drafter (prompt-lookup n-grams
+  or a small draft model with its own slot cache) proposes up to k tokens
+  per lane, one verify forward over all k+1 positions accepts the longest
+  agreeing prefix (exact match for greedy lanes, one-hot rejection
+  sampling for stochastic ones) and emits up to k+1 tokens a lane a
+  round; on the card the whole round is one CUDA graph (the paged
+  verify's prefix attention is K4 at R = rep * (k + 1)). Greedy output is
+  token-identical to the plain loop;
+- serving telemetry (``telemetry=True``, the default, as in ray_tpu;
+  ``llm/telemetry.py``): a flight recorder of per-step and per-request
+  records, the SLO metrics, request tracing and a JSONL dump on an engine
+  error, all from host shadow state (``LLMEngine.telemetry()``).
 
 Features of ray_tpu's engine that this port does not have yet raise
 NotImplementedError naming their ROADMAP.md item.
@@ -52,7 +65,7 @@ from ray_tpu_torch.llm import kv_cache as kvc
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm import prng
-from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep
+from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep, SpecPagedStep, SpecSlotStep
 from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache_dtype
 from ray_tpu_torch.llm.kvplane.index import prefix_key, token_bytes
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
@@ -76,6 +89,18 @@ class RequestState:
     # prefix resolution cached while the request waits: None = not resolved,
     # (k, v, n) = a hit, (_PREF_MISS, gen) = a miss at the cache's generation gen
     cached_pref: tuple | None = None
+    # telemetry lifecycle stamps (llm/telemetry.py; host wall clocks only)
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+    t_last: float = 0.0
+    itls: list = field(default_factory=list)
+    queue_wait: float | None = None
+    kv_transferred: bool = False
+    # (trace_id, root_span_id, parent_span_id) when RT_TRACING=1
+    trace: tuple | None = None
+    # restore ingress wall clock (0.0 = never migrated; migration is not ported)
+    t_restore: float = 0.0
 
 
 @dataclass
@@ -240,6 +265,10 @@ class LLMEngine:
     ``device_resident=True`` (the default) decodes from device-held lanes
     with a one-step-delayed readback, on the card as one CUDA graph
     captured here (``graph_capture_s``); ``False`` is the synchronous loop.
+    ``speculative``: a ``spec.SpecConfig`` (device-resident only; the
+    round is the captured graph then). ``telemetry`` (on by default) keeps
+    the flight recorder and the SLO metrics, tagged with
+    ``telemetry_tags`` (model / replica / stage).
     """
 
     def __init__(
@@ -265,15 +294,17 @@ class LLMEngine:
         device_resident: bool = True,
         batch_prefill: bool = True,
         speculative=None,
-        telemetry: bool = False,
+        telemetry: bool = True,
+        telemetry_tags: dict | None = None,
         device=None,
     ):
         if kv_layout not in ("slots", "paged"):
             raise ValueError(f"kv_layout must be 'slots' or 'paged', got {kv_layout!r}")
-        if telemetry:
-            _not_ported("telemetry", "serving item 4")
-        if speculative is not None:
-            _not_ported("speculative decoding", "queue 1, speculative decoding")
+        if speculative is not None and not device_resident:
+            raise ValueError(
+                "speculative decoding runs on the device-resident loop only "
+                "(the plain loop is kept untouched as its equivalence oracle)"
+            )
         if mesh is not None or tp_collective != "fp":
             _not_ported("tensor-parallel meshes", "queue 1, multi-device axes")
         if kv_plane is not None:
@@ -370,22 +401,16 @@ class LLMEngine:
         self.decode_s = 0.0
 
         self._device_resident = bool(device_resident)
-        # the dispatched step awaiting its readback: (handle, [(RequestState, slot), ...])
+        # the dispatched step awaiting its readback: (handle, [(RequestState, slot[, k_eff]), ...])
         self._pending = None
         self.graph_capture_s = 0.0
+        self._spec_cfg = None
         if self._device_resident:
             self._set_lane, self._set_table, self._set_table_cell = mr.make_delta_fns()
             lanes = dict(tokens=self._next_tokens, keys=self._keys, temps=self._temps, top_k=self._top_k,
                          top_p=self._top_p)
             if paged:
-                self._fused_attn, self._fused_append = mr.make_fused_paged_fns(config, self.attn_kernel)
-                step = PagedStep(self._fused_attn, self._fused_append)
                 lanes.update(tables=self._tables, lengths=self._lengths)
-            else:
-                # the engine is fresh: the capture's warm-up writes position 0 of
-                # every slot, which each admission's insert_sequence overwrites
-                self._fused_step = mr.make_fused_fns(config)
-                step = SlotStep(self._fused_step)
             lanes = {name: torch.from_numpy(a.copy()).to(self.device) for name, a in lanes.items()}
             # the device-resident decode state; the host arrays above stay as
             # the scheduler's shadows (never re-uploaded wholesale)
@@ -393,8 +418,108 @@ class LLMEngine:
                 self._dtables, self._dlengths = lanes["tables"], lanes["lengths"]
             self._dtokens, self._dkeys = lanes["tokens"], lanes["keys"]
             self._dtemps, self._dtopk, self._dtopp = lanes["temps"], lanes["top_k"], lanes["top_p"]
+            if speculative is not None:
+                step = self._init_spec(speculative, lanes)
+            elif paged:
+                self._fused_attn, self._fused_append = mr.make_fused_paged_fns(config, self.attn_kernel)
+                step = PagedStep(self._fused_attn, self._fused_append)
+            else:
+                # the engine is fresh: the capture's warm-up writes position 0 of
+                # every slot, which each admission's insert_sequence overwrites
+                self._fused_step = mr.make_fused_fns(config)
+                step = SlotStep(self._fused_step)
             self._decode = FusedDecode(step, self.params, self.kv, lanes)
             self.graph_capture_s = self._decode.capture_s
+        # serving telemetry (llm/telemetry.py): flight recorder, live SLO
+        # metrics, request-lifecycle tracing, from host state only;
+        # telemetry=False opts the whole plane out
+        self._last_spec_drain = None
+        self._step_emitted = 0
+        self._tel = None
+        if telemetry:
+            from ray_tpu_torch.llm.telemetry import EngineTelemetry
+
+            self._tel = EngineTelemetry(self, telemetry_tags)
+            self._tel.register_fused_entries()
+
+    def _init_spec(self, spec_cfg, lanes: dict):
+        """Speculative decoding state: drafter, adaptive-k controller,
+        the device history and effective-k lanes (added to ``lanes``), and
+        the spec round's step for this KV layout (``llm/spec/``)."""
+        from ray_tpu_torch.llm.spec import verify as specv
+        from ray_tpu_torch.llm.spec.controller import AdaptiveKController, SpecConfig
+        from ray_tpu_torch.llm.spec.drafter import ModelDrafter, NGramDrafter
+
+        if not isinstance(spec_cfg, SpecConfig):
+            raise TypeError(f"speculative must be a llm.spec.SpecConfig, got {type(spec_cfg).__name__}")
+        self._spec_cfg = spec_cfg
+        B, k = self.max_num_seqs, spec_cfg.k
+        if spec_cfg.drafter == "model":
+            dcfg = spec_cfg.draft_config
+            if dcfg is None:
+                raise ValueError("drafter='model' needs SpecConfig.draft_config (a smaller LlamaConfig)")
+            if dcfg.vocab_size != self.config.vocab_size:
+                raise ValueError(
+                    f"draft vocab ({dcfg.vocab_size}) must match the target's ({self.config.vocab_size})"
+                )
+            self._drafter = ModelDrafter(dcfg, params=spec_cfg.draft_params, k=k, seed=spec_cfg.draft_seed,
+                                         device=self.device)
+        else:
+            self._drafter = NGramDrafter(k=k, n=spec_cfg.ngram)
+        self._drafter.init_slots(B, self.max_seq_len, self.prefill_buckets, self.device)
+        self._controller = AdaptiveKController(spec_cfg)
+        # token-history lanes: prompt + everything emitted on the device, one
+        # round AHEAD of host emission (the drafter's matching corpus); +k+1
+        # headroom so trailing-round writes never wrap
+        self._spec_hist_width = self.max_seq_len + k + 1
+        self._dhist = specv.spec_hist_buffer(B, self._spec_hist_width, self.device)
+        self._dhist_len = torch.zeros((B,), dtype=torch.int64, device=self.device)
+        self._dspec_k = torch.full((B,), k, dtype=torch.int64, device=self.device)
+        self._lane_k = np.full((B,), k, np.int32)  # host mirror, updated with the device lane
+        lanes.update(hist=self._dhist, hist_len=self._dhist_len, spec_k=self._dspec_k)
+        self._set_hist, self._set_slot_scalar = specv.set_hist_row, specv.set_slot_scalar
+        self._spec_rounds = self._spec_lane_rounds = 0
+        self._spec_proposed = self._spec_accepted = self._spec_emitted = 0
+        if self.kv_layout == "paged":
+            self._verify_attn, self._verify_append = specv.make_spec_verify_paged(self.config, self.attn_kernel)
+            return SpecPagedStep(self._drafter, self._verify_attn, self._verify_append)
+        self._verify_step = specv.make_spec_verify_slots(self.config)
+        # as the slot decode step's: the warm-up's block writes land at and
+        # past each fresh slot's length 0, where admissions insert first
+        return SpecSlotStep(self._drafter, self._verify_step)
+
+    def spec_stats(self) -> dict:
+        """Speculation counters (empty when speculative decoding is off):
+        verify rounds, proposed/accepted totals, acceptance-rate and
+        tokens-per-round means, and each live request's effective k."""
+        with self._lock:
+            if self._spec_cfg is None:
+                return {}
+            return {
+                "drafter": self._drafter.kind,
+                "k": self._spec_cfg.k,
+                "rounds": self._spec_rounds,
+                "lane_rounds": self._spec_lane_rounds,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "emitted": self._spec_emitted,
+                "acceptance_rate": self._spec_accepted / max(self._spec_proposed, 1),
+                # per LANE per round: the per-sequence tokens/step multiplier
+                "mean_tokens_per_round": self._spec_emitted / max(self._spec_lane_rounds, 1),
+                "k_per_request": {
+                    rid: kk for rid, kk in self._controller.current().items() if rid in self._requests
+                },
+            }
+
+    def telemetry(self) -> dict:
+        """Flight-recorder snapshot (``llm/telemetry.py``): the per-step
+        ring (phase, wall ms, occupancy, queue depth, spec accounting,
+        recompile sentinel), finished-request lifecycle records (TTFT /
+        queue-wait / per-token ITL samples), recompile counts, tags. Empty
+        dict when the engine was built with telemetry=False."""
+        if self._tel is None:
+            return {}
+        return self._tel.snapshot()
 
     @property
     def kv(self) -> dict:
@@ -403,7 +528,11 @@ class LLMEngine:
 
     # ------------------------------------------------------------- admission
     def add_request(self, prompt_token_ids, params: SamplingParams | None = None,
-                    request_id: str | None = None, stream: bool = False, out_queue=None) -> str:
+                    request_id: str | None = None, stream: bool = False, out_queue=None,
+                    submitted_at: float | None = None) -> str:
+        """``submitted_at`` (time.time()) backdates the telemetry clock to
+        the true ingress arrival when a front-end queued the request before
+        admitting it here."""
         params = params or SamplingParams()
         with self._lock:
             if request_id is None:
@@ -425,6 +554,8 @@ class LLMEngine:
             st = RequestState(request_id, list(prompt_token_ids), params)
             if stream or out_queue is not None:
                 st.out_queue = out_queue if out_queue is not None else queue.SimpleQueue()
+            if self._tel is not None:
+                self._tel.on_submit(st, submitted_at)
             self._requests[request_id] = st
             self._waiting.append(st)
             return request_id
@@ -495,6 +626,10 @@ class LLMEngine:
     def _finish(self, st: RequestState, reason: str):
         st.finished = True
         st.finish_reason = reason
+        if self._tel is not None:
+            self._tel.on_finish(st, reason)
+        if self._spec_cfg is not None:
+            self._controller.forget(st.request_id)
         if st.slot >= 0:
             if self.kv_layout == "paged":
                 self._release_slot_pages(st.slot)
@@ -544,25 +679,46 @@ class LLMEngine:
         return True
 
     def _paged_grow(self):
-        """Before a decode step: a sequence whose next append crosses into
-        an unallocated page gets one (preempting the youngest OTHER
+        """Before a decode step: a sequence whose upcoming appends cross
+        into unallocated pages gets them (preempting the youngest OTHER
         sequence when the pool is dry; a sequence that cannot grow at all
-        re-queues itself). Device-resident: a sequence that the step in
-        flight finishes at max_tokens is not grown (its next step is the
-        discarded trailing one, whose write lands in the trash page), as
-        the sync loop would already have freed it."""
+        re-queues itself). Plain decode looks ahead one token; a
+        speculative lane needs up to k_eff+1 appends for the round about to
+        dispatch plus k+1 for the still-pending round, capped at the
+        request's own prompt + max_tokens (KV past it is never attended, so
+        those writes may land in the trash page). Device-resident: a
+        sequence that the step in flight finishes at max_tokens is not
+        grown (its next step is the discarded trailing one, whose write
+        lands in the trash page), as the sync loop would already have
+        freed it."""
         page = self._pcfg.page_size
-        pending = {id(st) for st, _ in self._pending[1]} if self._pending is not None else set()
+        spec = self._spec_cfg is not None
+        pending_k: dict = {}
+        if self._pending is not None:
+            for entry in self._pending[-1]:  # lanes: (st, slot[, k_eff])
+                pending_k[id(entry[0])] = entry[2] if len(entry) > 2 else 0
         for st in [s for s in self._slots if s is not None]:
             if st.slot < 0 or self._slots[st.slot] is not st:
                 continue  # preempted by an earlier iteration
-            if id(st) in pending and len(st.token_ids) + 1 >= st.params.max_tokens:
+            if id(st) in pending_k and len(st.token_ids) + 1 >= st.params.max_tokens:
                 continue
             slot = st.slot
-            target_pg = int(self._lengths[slot]) // page + 1
-            if target_pg > self._pcfg.max_pages_per_seq:
+            l = int(self._lengths[slot])
+            if spec:
+                look = int(self._lane_k[slot]) + 1
+                if id(st) in pending_k:
+                    look += pending_k[id(st)] + 1
+                budget = len(st.prompt_token_ids) + st.params.max_tokens
+                horizon = min(l + look, max(budget, l))
+            else:
+                horizon = l + 1
+            if horizon <= l:
+                continue
+            target_pg = (horizon - 1) // page + 1
+            if not spec and target_pg > self._pcfg.max_pages_per_seq:
                 self._finish(st, "length")  # table row exhausted
                 continue
+            target_pg = min(target_pg, self._pcfg.max_pages_per_seq)
             while len(self._slot_pages[slot]) < target_pg:
                 got = self._page_alloc.alloc(1)
                 if got is None and self._preempt_for(1, exclude=st):
@@ -604,6 +760,8 @@ class LLMEngine:
             return None if cached[0] is _PREF_MISS else cached
         pref = self._prefix_cache.lookup(prompt, admissible=lambda n_p: self._prefix_fits(n_p, len(prompt)))
         st.cached_pref = (_PREF_MISS, self._prefix_cache.gen) if pref is None else pref
+        if pref is not None and self._tel is not None:
+            self._tel.on_prefix_hit("local", pref[2])
         return pref
 
     def _prefix_fits(self, n_p: int, prompt_len: int) -> bool:
@@ -650,6 +808,8 @@ class LLMEngine:
         Returns the admitted requests."""
         plains = []
         paged = self.kv_layout == "paged"
+        if wave:
+            self._t_prefill_start = time.time()  # telemetry: the wave's prefill span start
         for st, slot, pref, pages, prompt in wave:
             if paged:
                 self._slot_pages[slot] = pages
@@ -747,6 +907,8 @@ class LLMEngine:
         self._admit_counter += 1
         st.admit_seq = self._admit_counter
         self._slots[slot] = st
+        if self._tel is not None:
+            self._tel.on_bind(st, getattr(self, "_t_prefill_start", st.t_submit))
         p = st.params
         self._temps[slot] = p.temperature
         self._top_k[slot] = p.top_k
@@ -763,11 +925,37 @@ class LLMEngine:
         if self._device_resident:
             self._set_lane(self._dtokens, self._dkeys, self._dtemps, self._dtopk, self._dtopp, slot, token,
                            self._keys[slot], p.temperature, p.top_k, p.top_p)
+        spec_hist = (st.prompt_token_ids + st.token_ids + [token]) if self._spec_cfg is not None else None
         self._emit(st, token, float(logp[0]))
+        if spec_hist is not None:
+            self._spec_admit(st, slot, spec_hist)
+
+    def _spec_admit(self, st: RequestState, slot: int, hist_tokens: list):
+        """Spec lane state for a freshly (re)admitted sequence: the token
+        history row (prompt + recompute-folded generation + the first
+        sampled token), the controller's sticky effective k, and the
+        drafter's own prefill. A request that finished at admission
+        (stop/max_tokens on the first token) never drafts."""
+        if st.finished or st.slot != slot:
+            return
+        n = len(hist_tokens)
+        row = np.zeros((self._spec_hist_width,), np.int64)
+        row[:n] = hist_tokens
+        row = torch.from_numpy(row)
+        if self.device.type == "cuda":
+            row = row.pin_memory()  # copied without blocking the host
+        k0 = self._controller.admit(st.request_id)
+        self._lane_k[slot] = k0
+        self._set_hist(self._dhist, self._dhist_len, self._dspec_k, slot, row, n, k0)
+        # the drafter caches everything the target has cached: the full
+        # admitted prompt, NOT the fresh token (the first chain input)
+        self._drafter.admit(slot, hist_tokens[:-1])
 
     def _emit(self, st: RequestState, token: int, logp: float):
         st.token_ids.append(token)
         st.logprobs.append(logp)
+        if self._tel is not None:
+            self._tel.on_emit(st)
         if st.out_queue is not None:
             st.out_queue.put(token)
         if st.slot >= 0:
@@ -782,29 +970,54 @@ class LLMEngine:
         deltas. Device-resident (the default): the decode step is
         dispatched before the previous step's tokens are read back, so
         emission (streaming, finish detection, slot recycling) trails the
-        device by exactly one step."""
-        with self._lock:
-            wave = self._stage_admission()
-            t0 = time.perf_counter()
-            admitted = self._stage_prefill(wave)
-            t1 = time.perf_counter()
-            if self.kv_layout == "paged":
-                self._paged_grow()
-            reported = self._stage_decode(admitted)
-            self.prefill_s += t1 - t0
-            self.decode_s += time.perf_counter() - t1
-            return self._build_outputs(reported)
+        device by exactly one step. Under speculation that trailing step
+        would cost a whole drafter round, so wasted work is capped: a round
+        whose every lane is sure to finish from the still-pending round is
+        skipped, and a finished lane never enters another round. An error
+        dumps the flight ring (telemetry) before it surfaces."""
+        tel = self._tel
+        t_step = time.perf_counter()
+        try:
+            with self._lock:
+                self._last_spec_drain = None
+                self._step_emitted = 0
+                wave = self._stage_admission()
+                t0 = time.perf_counter()
+                admitted = self._stage_prefill(wave)
+                t1 = time.perf_counter()
+                if self.kv_layout == "paged":
+                    self._paged_grow()
+                reported = self._stage_decode(admitted)
+                self.prefill_s += t1 - t0
+                self.decode_s += time.perf_counter() - t1
+                outs = self._build_outputs(reported)
+                if tel is not None:
+                    tel.on_step(t_step, len(admitted), self._step_emitted, self._last_spec_drain)
+                return outs
+        except BaseException as exc:
+            # postmortem: the flight ring as JSONL in the session dir
+            if tel is not None:
+                tel.dump_on_error(exc)
+            raise
 
     def _stage_decode(self, admitted: list) -> list:
-        """DECODE: device-resident mode dispatches the fused step and
-        drains the PREVIOUS one (the reported set is the admitted requests
-        and the drained lanes); sync mode is the blocking oracle loop,
-        where every active lane emits now."""
+        """DECODE: device-resident mode dispatches the fused step (or the
+        speculative round) and drains the PREVIOUS one (the reported set is
+        the admitted requests and the drained lanes); sync mode is the
+        blocking oracle loop, where every active lane emits now."""
         if self._device_resident:
             prev, self._pending = self._pending, None
-            self._dispatch_fused()
-            return admitted + self._drain(prev)
-        return self._sync_decode()
+            if self._spec_cfg is not None:
+                self._dispatch_spec(prev)
+                emitted = self._drain_spec(prev)
+            else:
+                self._dispatch_fused()
+                emitted = self._drain(prev)
+            self._step_emitted = len(emitted)
+            return admitted + emitted
+        reported = self._sync_decode()
+        self._step_emitted = len(reported)
+        return reported
 
     def _dispatch_fused(self):
         """Launch the fused step for the current occupancy (on the card one
@@ -833,6 +1046,74 @@ class LLMEngine:
                 continue
             self._emit(st, int(toks[slot]), float(logps[slot]))
             emitted.append(st)
+        return emitted
+
+    def _dispatch_spec(self, prev):
+        """Launch one speculative round (draft -> verify -> append ->
+        write-back; on the card one graph replay) for the current
+        occupancy; never waits for its result. The drafter reads the device
+        history and length lanes the PREVIOUS round wrote, so the draft
+        chains on the verify with no host round trip."""
+        active = [s for s in self._slots if s is not None]
+        if not active:
+            return
+        if prev is not None:
+            # wasted-work cap: the pending round emits >= 1 token per lane,
+            # so a lane within one token of max_tokens is finished whatever
+            # drains; if EVERY active lane is, this round could only produce
+            # discarded tokens: skip it
+            pend = {id(entry[0]) for entry in prev[1]}
+            if all(id(s) in pend and len(s.token_ids) + 1 >= s.params.max_tokens for s in active):
+                return
+        handle = self._decode.step(self.params, self.kv)
+        self._spec_rounds += 1
+        self._pending = (handle, [(st, st.slot, int(self._lane_k[st.slot])) for st in active])
+
+    def _drain_spec(self, pending) -> list:
+        """Read back and emit the PREVIOUS speculative round: up to
+        accepted+1 tokens per lane, stopping at finish (stop ids /
+        max_tokens mid-round) and, for the paged layout, at the table row's
+        capacity (the point where the plain path's page growth finishes a
+        row-exhausted sequence with reason "length")."""
+        if pending is None:
+            return []
+        handle, lanes = pending
+        emit, logps, acc = self._decode.read(handle)
+        row_cap = self._pcfg.max_pages_per_seq * self._pcfg.page_size if self.kv_layout == "paged" else None
+        emitted = []
+        for st, slot, k_eff in lanes:
+            if st.finished:
+                continue  # aborted (or finished) between dispatch and drain
+            a = int(acc[slot])
+            n_new = a + 1
+            cap = n_new
+            if row_cap is not None and self._slots[slot] is st:
+                # a recompute-preempted lane's shadow was already reset; only
+                # a live occupant mirrors the device's length advance
+                cap = max(row_cap - int(self._lengths[slot]), 0)
+                self._lengths[slot] += n_new
+            self._spec_proposed += k_eff
+            self._spec_accepted += a
+            self._spec_lane_rounds += 1
+            for i in range(min(n_new, cap)):
+                self._emit(st, int(emit[slot, i]), float(logps[slot, i]))
+                self._spec_emitted += 1
+                if st.finished:
+                    break
+            if not st.finished and cap < n_new:
+                # accepted tokens past the row edge had their KV dropped to
+                # the trash page; the plain path would have finished here
+                self._finish(st, "length")
+            if not st.finished:
+                new_k = self._controller.observe(st.request_id, k_eff, a)
+                if st.slot == slot and new_k != self._lane_k[slot]:
+                    self._lane_k[slot] = new_k
+                    self._set_slot_scalar(self._dspec_k, slot, new_k)
+            emitted.append(st)
+        if emitted and self._tel is not None:
+            # per-round accounting for the flight record (host ints only)
+            self._last_spec_drain = (int(sum(entry[2] for entry in lanes)),
+                                     int(sum(int(acc[entry[1]]) for entry in lanes)))
         return emitted
 
     def _sync_decode(self) -> list:

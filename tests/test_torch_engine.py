@@ -140,11 +140,10 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(telemetry=True),
-        dict(speculative=object()),
         dict(mesh=object()),
+        dict(kv_plane=object()),
     ],
-    ids=["telemetry", "speculative", "mesh"],
+    ids=["mesh", "kv_plane"],
 )
 def test_unported_features_raise_naming_roadmap(params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

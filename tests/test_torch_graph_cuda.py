@@ -11,19 +11,28 @@ cache. Plus the deltas between replays (on the slot layout an admission's
 K4's replay-aware launch count, the refusal of a moved pool, cache or
 weight, the threefry bits on the card against the CPU, and the graph
 engine's greedy and seeded streams against the synchronous engine's on
-each layout and on an int8 cache."""
+each layout and on an int8 cache. The speculative round as one graph
+(``SpecPagedStep``, ``SpecSlotStep``) with either drafter: replays
+bit-equal to the eager round (emit, logprobs, acc, lanes, the pool or
+cache, the draft cache), a moved draft cache refused, the capture's
+warm-up leaving the draft cache's rows untouched, and the spec engine's
+greedy streams equal to the plain engine's on the card with K4 counted
+num_layers times a round on the paged layout; a re-capture counted by the
+telemetry's recompile sentinel."""
 
 import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.llm import LLMEngine, SamplingParams
+from ray_tpu_torch.llm import LLMEngine, SamplingParams, SpecConfig
 from ray_tpu_torch.llm import kv_cache as kvc
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm import prng
-from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep
+from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep, SpecPagedStep, SpecSlotStep
 from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+from ray_tpu_torch.llm.spec import drafter as sdr
+from ray_tpu_torch.llm.spec import verify as sver
 from ray_tpu_torch.models.llama import LlamaConfig, init_params
 
 pytestmark = pytest.mark.cuda
@@ -135,7 +144,7 @@ def test_replay_counts_k4_and_alternates_the_host_buffers(dev):
     paged_attn_partials.launches = 0
     h1 = fused.step(params, pool)
     h2 = fused.step(params, pool)
-    assert h1[0].data_ptr() != h2[0].data_ptr()
+    assert h1[0][0].data_ptr() != h2[0][0].data_ptr()
     t1, _ = FusedDecode.read(h1)
     t2, _ = FusedDecode.read(h2)
     assert paged_attn_partials.launches == 2 * CFG.num_layers and fused.replays == 2
@@ -254,3 +263,136 @@ def test_graph_engine_streams_equal_the_sync_engine(dev, layout, dtype):
         stats = eng.kv_cache_stats()
         assert stats.get("pages_free") == stats.get("pages_total") and stats["occupied_tokens"] == 0
     assert outs[True] == outs[False]
+
+
+# ------------------------------------------------------------ the spec round
+K = 4  # proposals a round
+H = 80  # history columns
+DCFG = LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=1, num_heads=2, num_kv_heads=1,
+                   head_dim=64, max_seq_len=256, dtype="float32", remat=False)
+
+
+def _spec_setup(dev, layout, drafter_kind, seed=0):
+    """A paged pool (or slot cache) with its lanes, the spec lanes (a
+    repeating history so the n-gram drafter proposes real matches) and a
+    drafter (a model drafter's cache filled at random)."""
+    if layout == "paged":
+        params, kv, lanes, attn_fn, append_fn = _setup(dev, seed)
+    else:
+        params, kv, lanes = _slot_setup(dev, seed)
+        kv["length"].copy_(torch.tensor([5, 40, S - 3], dtype=torch.int32))  # the last block runs past the row
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    hist = sver.spec_hist_buffer(B, H, dev)
+    hist.copy_(torch.randint(1, 40, (B, H), generator=g, device=dev))
+    hist[:, 20:40] = hist[:, :20]
+    lanes.update(hist=hist, hist_len=torch.tensor([30, 45, H - 2], device=dev), spec_k=torch.tensor([K, K, 1], device=dev))
+    if drafter_kind == "ngram":
+        drafter = sdr.NGramDrafter(k=K, n=2)
+    else:
+        drafter = sdr.ModelDrafter(DCFG, k=K, seed=seed, device=dev)
+        drafter.init_slots(B, S, (64,), dev)
+        _fill(drafter.cache, g, "float32")
+    if layout == "paged":
+        step = SpecPagedStep(drafter, *sver.make_spec_verify_paged(CFG, "cuda"))
+    else:
+        step = SpecSlotStep(drafter, sver.make_spec_verify_slots(CFG))
+    return params, kv, lanes, drafter, step
+
+
+def _clone_lanes(lanes):
+    out = _clone(lanes)
+    out["hist"] = sver.clone_hist(lanes["hist"])
+    return out
+
+
+@pytest.mark.parametrize("drafter_kind", ["ngram", "model"])
+@pytest.mark.parametrize("layout", ["paged", "slots"])
+def test_spec_replay_bit_equal_to_the_eager_round(dev, layout, drafter_kind):
+    """Three replays of the captured round against the eager round on
+    cloned state (the draft cache too), a lane's effective k moved between
+    them: emit, logprobs, acc, every lane, the pool or cache and the draft
+    cache equal. The capture's warm-up (lanes at length 0) leaves the draft
+    cache's rows and the target's lengths as they were; K4 runs once a
+    layer a round on the paged layout."""
+    params, kv, lanes, drafter, step = _spec_setup(dev, layout, drafter_kind)
+    cache = drafter.state().get("cache")  # a model drafter's; the n-gram drafter has none
+    draft0 = _clone(cache) if cache is not None else None
+    kv0 = _clone(kv)
+    fused = FusedDecode(step, params, kv, lanes)
+    assert fused.captures == 1 and fused.k4_per_replay == (CFG.num_layers if layout == "paged" else 0)
+    if draft0 is not None:
+        for name in draft0:
+            assert torch.equal(drafter.cache[name], draft0[name]), name
+    if layout == "slots":
+        assert torch.equal(kv["length"], kv0["length"])
+    ref_kv, ref_lanes = _clone(kv), _clone_lanes(lanes)
+    ref_draft = _clone(cache) if cache is not None else None
+    for i in range(3):
+        out = FusedDecode.read(fused.step(params, kv))
+        ref = step.run(params, ref_kv, ref_lanes, ref_draft)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            np.testing.assert_array_equal(a, b.cpu().numpy())
+        for k in step.LANES:
+            assert torch.equal(lanes[k], ref_lanes[k]), (i, k)
+        for k in kv:
+            assert torch.equal(kv[k], ref_kv[k]), (i, k)
+        if ref_draft is not None:
+            for k in ref_draft:
+                assert torch.equal(drafter.cache[k], ref_draft[k]), (i, k)
+        sver.set_slot_scalar(lanes["spec_k"], i % B, 2)
+        sver.set_slot_scalar(ref_lanes["spec_k"], i % B, 2)
+    assert fused.captures == 1 and fused.replays == 3
+
+
+def test_spec_moved_draft_cache_raises(dev):
+    params, pool, lanes, drafter, step = _spec_setup(dev, "paged", "model")
+    fused = FusedDecode(step, params, pool, lanes)
+    cache = drafter.cache
+    drafter.cache = dict(cache, k=cache["k"].clone())
+    with pytest.raises(RuntimeError, match="draft/cache/k"):
+        fused.step(params, pool)
+    drafter.cache = cache
+    fused.step(params, pool)  # the tensors it was built on still replay
+
+
+@pytest.mark.parametrize("drafter_kind", ["ngram", "model"])
+@pytest.mark.parametrize("layout", ["paged", "slots"])
+def test_spec_engine_streams_equal_the_plain_engine(dev, layout, drafter_kind):
+    """The spec graph engine's greedy streams equal the plain engine's on
+    the card; K4 is launched num_layers times per dispatched round on the
+    paged layout (counted through the replays) and never on slots; the
+    pool drains."""
+    params = init_params(CFG, torch.Generator(device=dev).manual_seed(3))
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(1, 40, size=int(n)).tolist() * 3)[:n] for n in (9, 30, 17, 50)]
+    sp = SamplingParams(max_tokens=16)
+    kw = dict(max_num_seqs=3, kv_layout=layout, page_size=PAGE, prefill_buckets=(64, 128, 256))
+    plain = [o.token_ids for o in LLMEngine(CFG, params, **kw).generate(prompts, sp)]
+    spec = (SpecConfig(drafter="ngram", k=K, ngram=2) if drafter_kind == "ngram"
+            else SpecConfig(drafter="model", k=K, draft_config=CFG, draft_params=params))
+    eng = LLMEngine(CFG, params, speculative=spec, **kw)
+    paged_attn_partials.launches = 0
+    assert [o.token_ids for o in eng.generate(prompts, sp)] == plain
+    stats = eng.spec_stats()
+    assert paged_attn_partials.launches == (CFG.num_layers if layout == "paged" else 0) * stats["rounds"]
+    if drafter_kind == "model":
+        assert stats["acceptance_rate"] > 0.8
+    kv = eng.kv_cache_stats()
+    assert kv.get("pages_free") == kv.get("pages_total") and eng.telemetry()["recompiles"] == {}
+
+
+def test_recapture_counts_in_the_recompile_sentinel(dev):
+    """The telemetry's sentinel over a real graph: the capture in the
+    constructor is the warm baseline, a second capture is one recompile,
+    and the re-captured graph still replays."""
+    from ray_tpu_torch.llm.telemetry import FlightRecorder
+
+    params, pool, lanes, attn_fn, append_fn = _setup(dev)
+    fused = FusedDecode(PagedStep(attn_fn, append_fn), params, pool, lanes)
+    rec = FlightRecorder()
+    rec.register_entry("fused_attn", fused)
+    assert rec.check_recompiles() == [] and fused.captures == 1
+    fused._capture()
+    assert fused.captures == 2 and rec.check_recompiles() == ["fused_attn"] and rec.recompiles == {"fused_attn": 1}
+    FusedDecode.read(fused.step(params, pool))
