@@ -94,6 +94,34 @@ Phases, in order; any failed check exits non-zero before the last line:
    per round, tokens per lane-round, acceptance rate, generated tok/s, the
    capture time and the decode-only rounds' profile (tables in
    build/decode_step_profile_spec_*.txt).
+4e. KV between engines, on phase 4's weights and prompts. Handoff: a paged
+   prefill-only engine (8 slots, page 64, 257 pages) takes the 8 prompts
+   with add_prefill_request, one step() runs phase 4's batched forwards
+   and extracts each block into host tensors: K1 32 times per forward, K4
+   never, every page back, each payload's n its prompt's length, its width
+   the prompt's bucket, its k + v bytes width x 131072 (9280 tokens in
+   all); the same with an int8 cache (width x 67584 bytes, scales
+   included). Then a paged graph engine, a slot graph engine and a paged
+   int8 graph engine (the bf16 blocks quantized on the way in) each
+   add_prefilled the 8 bf16 payloads and generate 32 greedy tokens: first
+   tokens 8 of 8 equal phase 4's, K1 never, K4 32 times per decode step on
+   the paged ones, captures 1, rt_llm_handoffs_total 8 "scattered" (8
+   "extracted" on the prefill engine). Migration: a paged graph engine
+   serves the 8 prompts (4 greedy, 4 seeded at temperature 0.8, top_p 0.9)
+   uninterrupted, then again; after 11 steps 4 lanes (2 greedy, 2 seeded)
+   are checkpointed (12 tokens each: the first checkpoint drains the step
+   in flight), finished as migrated (their pages back), sent through the
+   wire codec and restored on a second paged graph engine: each restored
+   lane's device key, read right after the bind, equals the checkpoint's
+   bit for bit; each spliced stream has 32 tokens, its first 12 the
+   checkpoint's; captures 1 on both engines. Suspend: one of the source's
+   running requests is suspended (its pages back, spilled bytes = the
+   checkpoint's) and resumed (32 tokens). Prints extract ms a handoff
+   (mean, at the 2048 bucket), scatter-in admission ms (upload, scatter,
+   first-token sample) and the device scatter's, bytes a handoff bf16 and
+   int8, checkpoint ms, restore to first post-splice token ms
+   (rt_llm_migration_splice_s), and the post-splice tokens equal to the
+   uninterrupted run's (not gated).
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -106,6 +134,13 @@ Phases, in order; any failed check exits non-zero before the last line:
    on each layout (the n-gram drafter, and a model drafter with the
    target's own weights) whose greedy streams must equal the plain
    engine's, the self-drafting one with an acceptance rate above 0.8.
+   Then the handoff path: extract -> scatter-in -> extract on both
+   layouts, in the four dtype directions (bf16 into bf16 and into int8,
+   int8 with its scales into int8 and into bf16), bit-identical card vs
+   host; and migration on the card: a request checkpointed at 6 of 16
+   tokens and restored on a second engine equals the uninterrupted stream,
+   greedy and seeded, on the slot and paged graph engines, the paged
+   n-gram spec engine (greedy) and the paged sync engine.
 6. K2/K3 against their plain version on the card at bench.py's two
    training shapes (B, H, Hkv, T, D) = (8, 16, 8, 2048, 128) and
    (2, 16, 8, 8192, 128) in bf16, a ragged T = 1000, f32 at D 64 and 128,
@@ -696,10 +731,26 @@ def main() -> int:
         spec_runs[label] = serve_spec(torch, cfg, params, prompts, seeded, ref_tokens, label, card, **engine_kw)
         torch.cuda.empty_cache()
     k4_spec_launches = spec_runs["paged ngram"]["k4"]
-    del params
     torch.cuda.empty_cache()
 
     mark("4d")
+    # ---------------------------------------------------------------- 4e
+    # KV between engines on phase 4's weights and prompts: handoffs, live migration, suspend
+    handoffs = serve_handoffs(torch, cfg, params, prompts, ref_tokens, card)
+    moves = migrate_and_suspend(torch, cfg, params, prompts, card)
+    k1_4e, k4_4e = handoffs["bf16"]["k1"], handoffs["paged bf16"]["k4"]
+    print(f"phase 4e summary: extract {handoffs['bf16']['extract_ms']:.3f} ms a bf16 handoff "
+          f"({handoffs['bf16']['extract_2048_ms']:.3f} at the 2048 bucket; int8 {handoffs['int8']['extract_ms']:.3f} / "
+          f"{handoffs['int8']['extract_2048_ms']:.3f}), scatter-in admission {handoffs['paged bf16']['admit_ms']:.3f} ms "
+          f"(device scatter {handoffs['paged bf16']['scatter_ms']:.3f}; int8 pool {handoffs['paged int8']['admit_ms']:.3f} "
+          f"/ {handoffs['paged int8']['scatter_ms']:.3f}; slots {handoffs['slots bf16']['admit_ms']:.3f}), bytes a "
+          f"handoff {handoffs['bf16']['bytes'] / 8:.0f} bf16 and {handoffs['int8']['bytes'] / 8:.0f} int8 "
+          f"({handoffs['bf16']['tokens']} tokens over 8); checkpoint {moves['checkpoint_ms']:.3f} ms, restore to first "
+          f"token {moves['splice_ms']:.3f} ms {card}")
+    del params
+    torch.cuda.empty_cache()
+
+    mark("4e")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -837,6 +888,12 @@ def main() -> int:
                   f"engine's in {equal} of {len(plain)}; acceptance {st['acceptance_rate']:.4f}, "
                   f"{st['mean_tokens_per_round']:.3f} tokens per lane-round over {st['rounds']} rounds")
             del eng
+    cases = exact_handoffs(torch, cfg2, dev)
+    print(f"phase 5 handoff extract -> scatter-in -> extract (2 layers, 8 kv heads, head_dim 128, a 128 bucket, card vs "
+          f"host): bit-identical in {len(cases)} of {len(cases)} cases {cases}; same-dtype round trips return the block")
+    cases = migrated_streams_on_card(torch, cfg2, p_gpu, np.random.default_rng(10))
+    print(f"phase 5 migration on the card (2 layers, f32, checkpoint at 6 of 16 tokens, wire codec, restore on a "
+          f"second engine): spliced streams equal the uninterrupted ones in {len(cases)} of {len(cases)} cases {cases}")
     del p_gpu, p_cpu
 
     mark("5")
@@ -1057,6 +1114,15 @@ def main() -> int:
              launches=k4_spec_launches, max_abs_err=rep4v["err"], ms=rep4v["ms"], plain_ms=rep4v["plain_ms"],
              bound_ms=rep4v["bound_ms"], bound_by=rep4v["bound_by"], library_ms=None, device_ms=rep4v["device_ms"],
              host_us=rep4v["host_us"]),
+        dict(name="K1 flash_attention_fwd prefill-only handoff engine", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention.cu", replaces="ray_tpu/ops/flash_attention.py:104",
+             launches=k1_4e, max_abs_err=k1_err, ms=rep1["ms"], plain_ms=rep1["plain_ms"], bound_ms=rep1["bound_ms"],
+             bound_by=rep1["bound_by"], library_ms=rep1["sdpa_ms"]),
+        dict(name="K4 paged_attn_partials handoff-fed decode", route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu",
+             replaces="ray_tpu/llm/pallas/paged_attn.py:134", launches=k4_4e,
+             max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
+             bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None, device_ms=rep4["device_ms"],
+             host_us=rep4["host_us"]),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -1287,6 +1353,338 @@ def serve_spec(torch, cfg, params, prompts, seeded, ref_tokens, label, card, **e
           f"peak memory {run['peak']} bytes; first tokens equal phase 4's in 8 of 8, {same} of 256 greedy tokens equal "
           f"phase 4's (not gated); the pool drained {card}")
     return run
+
+
+def tel_count(eng, name, **tags) -> float:
+    """One engine's value of a telemetry counter's series (the series are
+    per process, keyed by tags: each engine here has a model tag of its own)."""
+    m = eng._tel.m[name]
+    return m._series.get(m._key({**eng._tel.tags, **tags}), 0.0)
+
+
+def timed_calls(torch, fn, log):
+    """``fn`` wrapped to append (its arguments, the call's milliseconds on
+    the host clock, the card synchronised before and after) to ``log``."""
+
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log.append((args, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    return run
+
+
+def serve_handoffs(torch, cfg, params, prompts, ref_tokens, card) -> dict:
+    """Phase 4e, disaggregation: a paged prefill-only engine takes the 8
+    prompts (one step: phase 4's batched forwards, then each block
+    extracted into host tensors), in bf16 and then with an int8 cache (for
+    the int8 handoff's bytes); then a paged graph engine, a slot graph
+    engine and a paged int8 graph engine each admit the 8 bf16 handoffs
+    and generate 32 greedy tokens. Returns the times, bytes and launches."""
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.models.llama import torch_dtype
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    L = cfg.num_layers
+    bucket = lambda n: max(64, 1 << (n - 1).bit_length())  # the default prefill buckets: 64 .. 2048
+    per_tok = {"bf16": 2 * L * cfg.num_kv_heads * cfg.hd * torch_dtype(cfg.dtype).itemsize,
+               "int8": 2 * L * cfg.num_kv_heads * (cfg.hd + 4)}
+    out = {}
+    for dtype in ("bf16", "int8"):
+        pre = LLMEngine(cfg, params, max_num_seqs=8, kv_layout="paged", page_size=64,
+                        cache_dtype=None if dtype == "bf16" else "int8",
+                        telemetry_tags={"model": f"phase 4e prefill {dtype}"})
+        ext = []
+        pre._extract_block = timed_calls(torch, pre._extract_block, ext)
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        ids = [pre.add_prefill_request(p) for p in prompts]
+        outs = pre.step()
+        k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
+        pays = [pre.pop_handoff(i) for i in ids]
+        check(all(o.finish_reason == "handoff" for o in outs) and len(outs) == 8 and all(p is not None for p in pays),
+              f"phase 4e prefill {dtype}: {[(o.request_id, o.finish_reason) for o in outs]}")
+        check(k1_n == L * pre.prefill_forwards > 0 and k4_n == 0 and pre.decode_steps == 0,
+              f"phase 4e prefill {dtype}: K1 {k1_n} != {L} x {pre.prefill_forwards} forwards, or K4 {k4_n} != 0")
+        kv = pre.kv_cache_stats()
+        check(kv["pages_free"] == kv["pages_total"] == 256, f"phase 4e prefill {dtype}: pages not returned: {kv}")
+        for p, pay in zip(prompts, pays):
+            T = bucket(len(p))
+            nbytes = pay["k"].nbytes + pay["v"].nbytes + (
+                pay["k_scale"].nbytes + pay["v_scale"].nbytes if "k_scale" in pay else 0)
+            check(pay["n"] == len(p) and pay["k"].shape[1] == T and nbytes == T * per_tok[dtype],
+                  f"phase 4e prefill {dtype}: payload n {pay['n']} (prompt {len(p)}), width {pay['k'].shape[1]} "
+                  f"(bucket {T}), {nbytes} bytes (want {T * per_tok[dtype]})")
+        check(tel_count(pre, "rt_llm_handoffs_total", event="extracted") == 8,
+              f"phase 4e prefill {dtype}: rt_llm_handoffs_total extracted "
+              f"{tel_count(pre, 'rt_llm_handoffs_total', event='extracted')}")
+        tokens = sum(pay["k"].shape[1] for pay in pays)
+        nbytes = sum(int(pay["k"].nbytes + pay["v"].nbytes) + (int(pay["k_scale"].nbytes + pay["v_scale"].nbytes)
+                     if "k_scale" in pay else 0) for pay in pays)
+        ext_2048 = [ms for (slot, T), ms in ext if T == 2048]
+        out[dtype] = dict(pays=pays, k1=k1_n, tokens=tokens, bytes=nbytes, prefill_ms=pre.prefill_s * 1e3,
+                          extract_ms=sum(ms for _, ms in ext) / len(ext), extract_2048_ms=sum(ext_2048) / len(ext_2048),
+                          forwards=pre.prefill_forwards)
+        print(f"phase 4e prefill-only {dtype} (paged, 8 slots, page 64): one step, {pre.prefill_forwards} prefill "
+              f"forwards, K1 launches {k1_n}, K4 {k4_n}; 8 handoffs of {tokens} tokens at their buckets, {nbytes} "
+              f"bytes ({nbytes // tokens} a token, k + v{' + scales' if dtype == 'int8' else ''}); extract "
+              f"{out[dtype]['extract_ms']:.3f} ms a handoff (device gather and copy to the host), "
+              f"{out[dtype]['extract_2048_ms']:.3f} ms at the 2048 bucket; prefill stage {pre.prefill_s * 1e3:.2f} ms; "
+              f"all 256 pages back {card}")
+        del pre
+        torch.cuda.empty_cache()
+    pays = out["bf16"]["pays"]
+    for label, kw in (("paged bf16", dict(kv_layout="paged", page_size=64)), ("slots bf16", dict(kv_layout="slots")),
+                      ("paged int8", dict(kv_layout="paged", page_size=64, cache_dtype="int8"))):
+        torch.cuda.reset_peak_memory_stats()
+        dec = LLMEngine(cfg, params, max_num_seqs=8, telemetry_tags={"model": f"phase 4e decode {label}"}, **kw)
+        paged = dec.kv_layout == "paged"
+        adm, scat = [], []
+        dec._admit_prefilled = timed_calls(torch, dec._admit_prefilled, adm)
+        if paged:
+            dec._scatter_paged = timed_calls(torch, dec._scatter_paged, scat)
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        t0 = time.perf_counter()
+        ids = [dec.add_prefilled(pay, SamplingParams(max_tokens=32)) for pay in pays]
+        finals = {}
+        while dec.has_unfinished():
+            finals.update((o.request_id, o) for o in dec.step() if o.finished)
+        wall_s = time.perf_counter() - t0
+        k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
+        toks = [finals[i].token_ids for i in ids]
+        check(all(len(t) == 32 and finals[i].finish_reason == "length" for t, i in zip(toks, ids)),
+              f"phase 4e decode {label}: not every request finished with 32 tokens")
+        firsts = sum(a[0] == b[0] for a, b in zip(toks, ref_tokens))
+        check(firsts == 8, f"phase 4e decode {label}: first tokens equal phase 4's in {firsts} of 8")
+        check(k1_n == 0 and k4_n == (L if paged else 0) * dec.decode_steps and dec.decode_steps > 0,
+              f"phase 4e decode {label}: K1 {k1_n} (want 0), K4 {k4_n} != {L if paged else 0} x {dec.decode_steps}")
+        check(dec._decode.captures == 1, f"phase 4e decode {label}: {dec._decode.captures} captures")
+        scattered = tel_count(dec, "rt_llm_handoffs_total", event="scattered")
+        check(scattered == 8, f"phase 4e decode {label}: rt_llm_handoffs_total scattered {scattered}")
+        kv = dec.kv_cache_stats()
+        check(kv["occupied_tokens"] == 0 and kv.get("pages_free") == kv.get("pages_total"),
+              f"phase 4e decode {label}: the cache did not drain: {kv}")
+        same = sum(x == z for a, b in zip(toks, ref_tokens) for x, z in zip(a, b))
+        run = dict(tokens=toks, k4=k4_n, steps=dec.decode_steps, same=same, admit_ms=sum(ms for _, ms in adm) / 8,
+                   scatter_ms=sum(ms for _, ms in scat) / 8 if scat else None, wall_s=wall_s,
+                   decode_ms=dec.decode_s * 1e3 / dec.decode_steps, peak=torch.cuda.max_memory_allocated())
+        out[label] = run
+        scat_txt = f", device scatter (pool pages, table row, length lane) {run['scatter_ms']:.3f} ms" if scat else ""
+        print(f"phase 4e decode {label} (graph, add_prefilled x 8): admission {run['admit_ms']:.3f} ms a handoff "
+              f"(upload, scatter-in, first-token sample){scat_txt}; decode {run['decode_ms']:.3f} ms/step over "
+              f"{dec.decode_steps} steps, {256 / wall_s:.2f} generated tok/s ({wall_s:.3f} s wall); K1 launches {k1_n}, "
+              f"K4 launches {k4_n}; captures 1; handoffs scattered 8; first tokens equal phase 4's in 8 of 8, {same} of "
+              f"256 greedy tokens equal phase 4's paged graph streams (not gated); peak memory {run['peak']} bytes "
+              f"{card}")
+        del dec
+        torch.cuda.empty_cache()
+    out["bf16"].pop("pays")
+    out["int8"].pop("pays")
+    return out
+
+
+def migrate_and_suspend(torch, cfg, params, prompts, card) -> dict:
+    """Phase 4e, live migration and suspend: a paged graph engine serves
+    the 8 prompts (4 greedy, 4 seeded at temperature 0.8, top_p 0.9), 32
+    tokens each, uninterrupted; then again, and after 11 steps 4 lanes (2
+    greedy, 2 seeded) are checkpointed (the first checkpoint drains the
+    step in flight: 12 tokens each), finished as migrated, sent through
+    the wire codec and restored on a second paged graph engine; then one
+    of the source's running requests is suspended and resumed. Returns
+    the times."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm import migrate
+
+    sps = [SamplingParams(max_tokens=32)] * 4 + [
+        SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9, seed=s) for s in range(4)]
+    kw = dict(max_num_seqs=8, kv_layout="paged", page_size=64, enable_prefix_caching=False)
+    src = LLMEngine(cfg, params, telemetry_tags={"model": "phase 4e migrate source"}, **kw)
+    ref = [o.token_ids for o in src.generate(prompts, sps)]
+    check(all(len(t) == 32 for t in ref), "phase 4e migrate: the uninterrupted run cut a stream short")
+    ids = [src.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    for _ in range(11):
+        src.step()
+    moved = [ids[0], ids[1], ids[4], ids[5]]
+    pages = {rid: len(src._slot_pages[src._requests[rid].slot]) for rid in moved}
+    free0 = src.kv_cache_stats()["pages_free"]
+    states, ckpt_ms = [], []
+    for rid in moved:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states.append(src.checkpoint_request(rid))
+        ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+        check(src.finish_migrated(rid), f"phase 4e migrate: finish_migrated({rid}) refused")
+    free1 = src.kv_cache_stats()["pages_free"]
+    check(free1 - free0 == sum(pages.values()),
+          f"phase 4e migrate: {free1 - free0} pages returned, the migrated lanes held {sum(pages.values())}")
+    check(all(len(s["emitted_token_ids"]) == 12 for s in states),
+          f"phase 4e migrate: checkpoints hold {[len(s['emitted_token_ids']) for s in states]} tokens, not 12")
+    wires = [migrate.encode(s) for s in states]
+    dst = LLMEngine(cfg, params, telemetry_tags={"model": "phase 4e migrate peer"}, **kw)
+    seen = {}
+    bind = dst._bind_resume
+
+    def spy(st, slot):
+        bind(st, slot)
+        seen[st.request_id] = migrate.key_to_wire(dst._dkeys[slot].cpu().numpy())
+
+    dst._bind_resume = spy
+    new_ids = [dst.restore_request(migrate.decode(w)) for w in wires]
+    # the source goes on with its other 4; one of them suspends and resumes
+    sus = ids[2]
+    sus_pages = len(src._slot_pages[src._requests[sus].slot])
+    free2 = src.kv_cache_stats()["pages_free"]
+    t0 = time.perf_counter()
+    info = src.suspend_request(sus)
+    suspend_ms = (time.perf_counter() - t0) * 1e3
+    sus_state = src._suspended[sus]["state"]
+    check(src.kv_cache_stats()["pages_free"] - free2 == sus_pages,
+          f"phase 4e suspend: {src.kv_cache_stats()['pages_free'] - free2} pages returned, it held {sus_pages}")
+    t0 = time.perf_counter()
+    src.resume_suspended(sus)
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    finals = {}
+    while src.has_unfinished() or dst.has_unfinished():
+        for eng in (src, dst):
+            finals.update((o.request_id, o.token_ids) for o in eng.step()
+                          if o.finished and o.finish_reason not in ("migrated", "suspended"))
+    stats = src.suspend_stats()
+    check((stats["suspended"], stats["resumed"]) == (1, 1) and info["nbytes"] == stats["spilled_bytes"]
+          == migrate.state_nbytes(sus_state) > 0 and info["published"] is False,
+          f"phase 4e suspend: stats {stats}, info {info}, state {migrate.state_nbytes(sus_state)} bytes")
+    check(len(finals[sus]) == 32, f"phase 4e suspend: the resumed stream has {len(finals[sus])} tokens")
+    spliced = [finals[i] for i in new_ids]
+    for s, toks, rid in zip(states, spliced, new_ids):
+        check(len(toks) == 32 and toks[:12] == s["emitted_token_ids"],
+              f"phase 4e migrate: a spliced stream has {len(toks)} tokens or its first 12 differ")
+        check(np.array_equal(seen[rid], s["rng_key"]),
+              f"phase 4e migrate: the restored lane's device key {seen[rid]} != the checkpoint's {s['rng_key']}")
+    for label, eng in (("source", src), ("peer", dst)):
+        check(eng._decode.captures == 1, f"phase 4e migrate {label}: {eng._decode.captures} captures")
+        kv = eng.kv_cache_stats()
+        check(kv["pages_free"] == kv["pages_total"], f"phase 4e migrate {label}: the pool did not drain: {kv}")
+    splice = dst._tel.m["rt_llm_migration_splice_s"]
+    count, total = splice._series[splice._key(dst._tel.tags)][:2]
+    same_post = sum(x == z for rid, toks in zip(moved, spliced) for x, z in zip(toks[12:], ref[ids.index(rid)][12:]))
+    same_sus = sum(x == z for x, z in zip(finals[sus], ref[2]))
+    nb = [migrate.state_nbytes(s) for s in states]
+    res = dict(checkpoint_ms=sum(ckpt_ms) / 4, checkpoint_first_ms=ckpt_ms[0], splice_ms=total / count * 1e3,
+               suspend_ms=suspend_ms, resume_ms=resume_ms, state_bytes=nb, same_post=same_post)
+    print(f"phase 4e migrate (paged graph engines, 4 of 8 lanes at 12 tokens: 2 greedy, 2 seeded): checkpoint "
+          f"{res['checkpoint_ms']:.3f} ms a lane ({ckpt_ms[0]:.3f} ms the first, which drains the step in flight; "
+          f"{[round(x, 3) for x in ckpt_ms]}), {nb} bytes; restore to first post-splice token "
+          f"{res['splice_ms']:.3f} ms (rt_llm_migration_splice_s, mean of {int(count)}); every device key equal to its "
+          f"checkpoint's; spliced streams 32 tokens, their first 12 the checkpoint's; {same_post} of 80 post-splice "
+          f"tokens equal the uninterrupted run's (not gated); captures 1 on both engines {card}")
+    print(f"phase 4e suspend (one running lane of the source): suspend {suspend_ms:.3f} ms ({info['nbytes']} bytes "
+          f"spilled, published False), resume call {resume_ms:.3f} ms, stats {stats}; the resumed stream 32 tokens, "
+          f"{same_sus} of 32 equal the uninterrupted run's (not gated) {card}")
+    del src, dst
+    torch.cuda.empty_cache()
+    return res
+
+
+def exact_handoffs(torch, cfg2, dev) -> list:
+    """Phase 5: extract -> scatter-in -> extract on the card, against the
+    same on the host, on both layouts and in the four dtype directions
+    (bf16 into bf16, bf16 into int8, int8 with its scales into int8, int8
+    into bf16), at 2 layers of Llama-3-8B's kv widths (8 heads, head_dim
+    128) and a 128-token bucket: every tensor bit-identical card vs host,
+    and a same-dtype round trip returns the block's own bytes. Returns the
+    (layout, direction) cases checked."""
+    from ray_tpu_torch.llm import kv_cache as kvc
+    from ray_tpu_torch.llm import paged_kv as pkv
+    from ray_tpu_torch.llm.disagg import scatter
+
+    L, KVH, HD, T, PAGE = 2, cfg2.num_kv_heads, cfg2.hd, 128, 64
+    cases = []
+
+    def block(dtype, g):
+        k = torch.randn((L, T, KVH, HD), generator=g) * 2
+        v = torch.randn((L, T, KVH, HD), generator=g) * 2
+        if dtype == "int8":
+            sc = lambda: torch.rand((L, KVH, T), generator=g) * 0.05 + 0.01
+            return (k.clamp(-127, 127).round().to(torch.int8), v.clamp(-127, 127).round().to(torch.int8), sc(), sc())
+        return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+    def run(layout, src_dtype, dst_dtype, device, seed):
+        g = torch.Generator().manual_seed(seed)
+        blk = [t.to(device) for t in block(src_dtype, g)]
+        if layout == "slots":
+            cache = kvc.alloc(kvc.CacheConfig(num_layers=L, num_slots=2, max_seq_len=256, num_kv_heads=KVH,
+                                              head_dim=HD, dtype=dst_dtype), device)
+            scatter.kv_scatter_in_slots(cache, 1, blk[0], blk[1], 100, *blk[2:])
+            got = scatter.kv_extract_slots(cache, 1, T)
+            return blk, got, [cache["length"]]
+        pool = pkv.alloc(pkv.PagedCacheConfig(num_layers=L, num_pages=6, page_size=PAGE, max_pages_per_seq=4,
+                                               num_slots=2, num_kv_heads=KVH, head_dim=HD, dtype=dst_dtype), device)
+        tables = torch.zeros((2, 4), dtype=torch.int32, device=device)
+        lengths = torch.zeros((2,), dtype=torch.int32, device=device)
+        row = torch.tensor([4, 2, 0, 0], dtype=torch.int32, device=device)
+        scatter.kv_scatter_in_paged(pool, tables, lengths, 1, row, blk[0], blk[1], 100, *blk[2:])
+        got = scatter.kv_extract_paged(pool, row[: T // PAGE])
+        return blk, got, [tables, lengths]
+
+    for layout in ("slots", "paged"):
+        for i, (src, dst) in enumerate((("bfloat16", "bfloat16"), ("bfloat16", "int8"), ("int8", "int8"),
+                                        ("int8", "bfloat16"))):
+            blk_c, got_c, lanes_c = run(layout, src, dst, dev, 100 + i)
+            blk_h, got_h, lanes_h = run(layout, src, dst, torch.device("cpu"), 100 + i)
+            for a, b in zip(list(got_c) + lanes_c, list(got_h) + lanes_h):
+                check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                      f"phase 5 handoff {layout} {src} into {dst}: the card's extract differs from the host's")
+            if src == dst:
+                check(all(torch.equal(a, b) for a, b in zip(got_c, blk_c)),
+                      f"phase 5 handoff {layout} {src}: the round trip changed the block")
+            cases.append(f"{layout} {src}->{dst}")
+    return cases
+
+
+def migrated_streams_on_card(torch, cfg2, params, rng) -> list:
+    """Phase 5: a request migrated mid-decode on the card (checkpoint at 6
+    tokens, the wire codec, restore on a second engine) continues the
+    uninterrupted stream on the card token for token, greedy and seeded,
+    on the slot and paged graph engines, the paged n-gram spec engine
+    (greedy) and the paged sync engine. Returns the cases checked."""
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams, SpecConfig
+    from ray_tpu_torch.llm import migrate
+
+    prompt = rng.integers(1, cfg2.vocab_size, size=40).tolist()
+    greedy = SamplingParams(max_tokens=16)
+    seeded = SamplingParams(max_tokens=16, temperature=0.8, top_p=0.9, seed=3)
+    cases = []
+    for label, kw, sps in (
+        ("slots graph", dict(kv_layout="slots"), (greedy, seeded)),
+        ("paged graph", dict(kv_layout="paged"), (greedy, seeded)),
+        ("paged spec n-gram", dict(kv_layout="paged", speculative=SpecConfig(drafter="ngram", k=SPEC_K)), (greedy,)),
+        ("paged sync", dict(kv_layout="paged", device_resident=False), (greedy, seeded)),
+    ):
+        kw = dict(max_num_seqs=2, max_seq_len=256, page_size=64, **kw)
+        for sp in sps:
+            want = LLMEngine(cfg2, params, **kw).generate(prompt, sp).token_ids
+            src = LLMEngine(cfg2, params, **kw)
+            rid = src.add_request(prompt, sp)
+            while len(src._requests[rid].token_ids) < 6:
+                src.step()
+            state = migrate.decode(migrate.encode(src.checkpoint_request(rid)))
+            src.finish_migrated(rid)
+            dst = LLMEngine(cfg2, params, **kw)
+            new = dst.restore_request(state)
+            got = None
+            while dst.has_unfinished():
+                got = next((o.token_ids for o in dst.step() if o.request_id == new and o.finished), got)
+            check(got == want and got[: len(state["emitted_token_ids"])] == state["emitted_token_ids"],
+                  f"phase 5 migration {label} temperature {sp.temperature}: the spliced stream differs from the "
+                  f"uninterrupted one ({sum(a == b for a, b in zip(got or [], want))} of {len(want)} equal)")
+            cases.append(f"{label} {'seeded' if sp.temperature else 'greedy'}")
+    return cases
 
 
 def profile_decode(torch, eng, steps, mode, card, table_path) -> dict:

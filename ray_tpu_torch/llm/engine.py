@@ -43,7 +43,16 @@ on append, dequantized in attention, ``kv_quant.py``):
 - serving telemetry (``telemetry=True``, the default, as in ray_tpu;
   ``llm/telemetry.py``): a flight recorder of per-step and per-request
   records, the SLO metrics, request tracing and a JSONL dump on an engine
-  error, all from host shadow state (``LLMEngine.telemetry()``).
+  error, all from host shadow state (``LLMEngine.telemetry()``);
+- KV moving between engines (``llm/disagg/``, ``llm/migrate.py``): a
+  prefill-only request finishes with its KV block extracted into a
+  handoff payload (``add_prefill_request``, ``pop_handoff``); a decode
+  engine admits such a block (``add_prefilled``), a mid-decode
+  checkpoint (``checkpoint_request``, ``restore_request``: live
+  migration) or a suspended conversation spilled to host memory
+  (``suspend_request``, ``resume_suspended``) by scattering it into its
+  cache or pages in place, so a captured decode graph keeps its
+  addresses, and decodes on from it.
 
 Features of ray_tpu's engine that this port does not have yet raise
 NotImplementedError naming their ROADMAP.md item.
@@ -62,10 +71,13 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.llm import kv_cache as kvc
+from ray_tpu_torch.llm import migrate as mig
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm import prng
 from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep, SpecPagedStep, SpecSlotStep
+from ray_tpu_torch.llm.disagg.handoff import OBJECT_PLANE_ITEM, host_tensor
+from ray_tpu_torch.llm.disagg.scatter import make_handoff_fns
 from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache_dtype
 from ray_tpu_torch.llm.kvplane.index import prefix_key, token_bytes
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
@@ -83,6 +95,12 @@ class RequestState:
     finished: bool = False
     finish_reason: str | None = None
     out_queue: "queue.SimpleQueue | None" = None
+    # KV computed by another engine: a handoff payload, or a checkpoint's
+    # block (disaggregation, migration, suspend)
+    prefilled: dict | None = None
+    # prefill-only: run the admission and prefill stages, extract the KV
+    # block into a handoff (pop_handoff) and finish; never decodes
+    prefill_only: bool = False
     # admission order (preemption picks the youngest) and preemption count
     admit_seq: int = -1
     preemptions: int = 0
@@ -99,7 +117,12 @@ class RequestState:
     kv_transferred: bool = False
     # (trace_id, root_span_id, parent_span_id) when RT_TRACING=1
     trace: tuple | None = None
-    # restore ingress wall clock (0.0 = never migrated; migration is not ported)
+    # live migration (llm/migrate.py): a restored request's splice state
+    # (its lane key, the spec controller's state), consumed by _bind_resume
+    # together with ``prefilled``
+    resume: dict | None = None
+    # restore ingress wall clock (0.0 = never migrated): the splice
+    # latency observed at the first post-splice token
     t_restore: float = 0.0
 
 
@@ -242,6 +265,13 @@ def _not_ported(feature: str, item: str):
     raise NotImplementedError(f"{feature} is not ported to ray_tpu_torch yet (ROADMAP.md, {item})")
 
 
+def _parent_trace(payload: dict) -> tuple | None:
+    """(trace_id, parent span) of the trace context a handoff payload or a
+    checkpoint carries, for the receiving engine's telemetry."""
+    tr = payload.get("trace")
+    return (tr["trace_id"], tr.get("parent_id")) if isinstance(tr, dict) else None
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card; raises when there is none."""
     if device is None:
@@ -308,7 +338,7 @@ class LLMEngine:
         if mesh is not None or tp_collective != "fp":
             _not_ported("tensor-parallel meshes", "queue 1, multi-device axes")
         if kv_plane is not None:
-            _not_ported("the cluster KV plane", "queue 1, disagg/kvplane")
+            _not_ported("the cluster KV plane", OBJECT_PLANE_ITEM)
         self.kv_dtype = normalize_cache_dtype(cache_dtype) if cache_dtype is not None else config.dtype
         self.kv_quant = is_int8(self.kv_dtype)
 
@@ -391,6 +421,15 @@ class LLMEngine:
         self._lock = threading.Lock()
         self._auto_id = 0
         self.preemption_count = 0
+        # disaggregation and migration (llm/disagg/, llm/migrate.py): the
+        # extract and scatter-in functions of both layouts, the finished
+        # prefill-only requests' payloads awaiting pop_handoff, and the
+        # suspended conversations (request_id -> {"state", "nbytes", "t"})
+        (self._extract_slots, self._extract_paged,
+         self._scatter_slots, self._scatter_paged) = make_handoff_fns()
+        self._handoffs: dict[str, dict] = {}  # guarded-by: _lock
+        self._suspended: dict[str, dict] = {}  # guarded-by: _lock
+        self._suspend_stats = {"suspended": 0, "resumed": 0, "spilled_bytes": 0, "dropped": 0}
         # forwards run (callers match kernel launch counts against them)
         # and host seconds spent in each stage; both stages end in a host
         # read of sampled tokens, so on the card these include device time
@@ -622,12 +661,367 @@ class LLMEngine:
             out["occupied_bytes"] = occupied * int(per_tok)
             return out
 
+    # ------------------------------------------- prefill/decode disaggregation
+    def add_prefill_request(self, prompt_token_ids, request_id: str | None = None,
+                            submitted_at: float | None = None) -> str:
+        """PREFILL-ONLY admission (disaggregated serving, ``llm/disagg/``).
+
+        The request rides the normal admission and prefill stages, batched
+        into the same bucketed forwards as everything else admitted that
+        step, prefix-cache reuse included, then finishes with reason
+        "handoff": its KV block is extracted into contiguous host tensors
+        and stashed for ``pop_handoff``, and the slot and pages recycle at
+        once. It never decodes."""
+        with self._lock:
+            if request_id is None:
+                request_id = f"req-{self._auto_id}"
+                self._auto_id += 1
+            n = len(prompt_token_ids)
+            if not 0 < n <= self.prefill_buckets[-1]:
+                raise ValueError(f"prompt length {n} outside prefill buckets (max {self.prefill_buckets[-1]})")
+            if self.kv_layout == "paged":
+                T = _bucket(n, self.prefill_buckets)
+                need = min(T // self._pcfg.page_size + 1, self._pcfg.max_pages_per_seq)
+                if need > self._pcfg.num_pages - 1:
+                    raise ValueError(
+                        f"prompt needs {need} pages but the pool has {self._pcfg.num_pages - 1}; raise num_pages")
+            st = RequestState(request_id, list(prompt_token_ids), SamplingParams(max_tokens=1), prefill_only=True)
+            if self._tel is not None:
+                self._tel.on_submit(st, submitted_at)
+            self._requests[request_id] = st
+            self._waiting.append(st)
+            return request_id
+
+    def pop_handoff(self, request_id: str) -> dict | None:
+        """Claim a finished prefill-only request's handoff payload (None
+        until the prefill stage has run it): ``add_prefilled``'s input, k/v
+        [L, T_pad, kv, hd] host tensors at the prompt's bucket width (with
+        k_scale/v_scale [L, kv, T_pad] from an int8 cache), n, the
+        first-token logits, prompt_token_ids."""
+        with self._lock:
+            return self._handoffs.pop(request_id, None)
+
+    def prefill_handoff(self, prompt_token_ids, submitted_at: float | None = None) -> dict:
+        """Blocking convenience for single-threaded drivers: admit a
+        prefill-only request and step until its handoff is ready.
+        ``submitted_at`` backdates the telemetry clock to the true ingress
+        arrival (it rides the handoff, so the decode side's TTFT spans the
+        whole pipeline)."""
+        rid = self.add_prefill_request(prompt_token_ids, submitted_at=submitted_at)
+        while True:
+            outs = self.step()
+            kv = self.pop_handoff(rid)
+            if kv is not None:
+                return kv
+            for o in outs:
+                if o.request_id == rid and o.finished:
+                    raise RuntimeError(f"prefill-only request failed: {o.finish_reason}")
+
+    def prefill_remote(self, prompt_token_ids) -> dict:
+        """Prefill-only, outside the scheduler: one B = 1 forward of the
+        prompt, returned as a handoff payload of host tensors (k/v at the
+        prompt's bucket width, n, logits, prompt_token_ids)."""
+        n = len(prompt_token_ids)
+        T = _bucket(n, self.prefill_buckets)
+        toks = np.zeros((1, T), np.int64)
+        toks[0, :n] = prompt_token_ids
+        logits, ks, vs = mr.prefill(self.params, torch.from_numpy(toks).to(self.device),
+                                    torch.tensor([n], device=self.device), self.config)
+        self.prefill_forwards += 1
+        return {
+            "k": ks[:, 0].cpu(),
+            "v": vs[:, 0].cpu(),
+            "n": n,
+            "logits": logits[0].float().cpu(),
+            "prompt_token_ids": list(prompt_token_ids),
+        }
+
+    def add_prefilled(self, kv: dict, params: SamplingParams | None = None, request_id: str | None = None,
+                      stream: bool = False, out_queue=None) -> str:
+        """Admit a sequence whose prefill ran on another engine (a handoff
+        payload): its block is scattered into this engine's cache or pages
+        in place, its first token sampled from the shipped logits, and
+        decoding starts without touching the prompt again. A block of
+        another cache dtype is requantized on the way in."""
+        params = params or SamplingParams()
+        with self._lock:
+            if request_id is None:
+                request_id = f"req-{self._auto_id}"
+                self._auto_id += 1
+            prompt = list(kv["prompt_token_ids"])
+            if len(prompt) + params.max_tokens > self.max_seq_len:
+                raise ValueError(
+                    f"prompt ({len(prompt)}) + max_tokens ({params.max_tokens}) "
+                    f"exceeds max_seq_len ({self.max_seq_len})"
+                )
+            st = RequestState(request_id, prompt, params, prefilled=kv)
+            if stream or out_queue is not None:
+                st.out_queue = out_queue if out_queue is not None else queue.SimpleQueue()
+            if self._tel is not None:
+                # the payload carries the ORIGINAL submit stamp and trace
+                # context: TTFT spans the pipeline, one trace both engines
+                self._tel.on_submit(st, kv.get("submitted_at"), parent_trace=_parent_trace(kv))
+            self._requests[request_id] = st
+            self._waiting.append(st)
+            return request_id
+
+    def release_handoffs(self) -> int:
+        """Drop every stashed (never popped) handoff payload; returns how
+        many were dropped. A draining replica calls this once admission
+        stops, so the host tensors do not outlive their consumers."""
+        with self._lock:
+            n = len(self._handoffs)
+            self._handoffs.clear()
+            return n
+
+    # ------------------------------------------------------- live migration
+    def checkpoint_request(self, request_id: str) -> dict:
+        """One in-flight request's COMPLETE resumable state
+        (``llm/migrate.py``): the KV block over every attended position
+        (an int8 cache ships int8 values and wire scales), the emitted
+        tokens and logprobs, the lane's live PRNG key, the sampling
+        parameters and the spec controller's (ema, k). A peer's
+        ``restore_request`` continues the stream token for token.
+
+        The step in flight drains FIRST, so the checkpoint holds every
+        token the device has minted and the lane's advanced key. It is a
+        snapshot: the request runs on here until ``finish_migrated``.
+        Raises MigrationError for state that cannot move: an unknown or
+        finished request, a prefill-only one, a streaming one, or a
+        WAITING sampled request with generated tokens (its live key
+        existed only on a bound lane)."""
+        with self._lock:
+            return self._checkpoint_locked(request_id)
+
+    def _checkpoint_locked(self, request_id: str) -> dict:  # holds-lock: _lock
+        """checkpoint_request's body, shared with suspend_request, which
+        checkpoints and retires under one acquisition of the lock."""
+        st = self._requests.get(request_id)
+        if st is None or st.finished:
+            raise mig.MigrationError(f"request {request_id!r} is not in flight")
+        if st.prefill_only:
+            raise mig.MigrationError("prefill-only requests hand off, they do not migrate")
+        if st.out_queue is not None:
+            raise mig.MigrationError("streaming requests cannot migrate (the consumer holds a live token queue)")
+        if self._device_resident and self._pending is not None:
+            prev, self._pending = self._pending, None
+            (self._drain_spec if self._spec_cfg is not None else self._drain)(prev)
+            if st.finished:
+                raise mig.MigrationError(f"request {request_id!r} finished while settling the in-flight step")
+        p = st.params
+        state: dict = {
+            "kind": mig.LIVE_KIND,
+            "prompt_token_ids": list(st.prompt_token_ids),
+            "emitted_token_ids": list(st.token_ids),
+            "emitted_logprobs": [float(x) for x in st.logprobs],
+            "sampling": mig._sampling_to_wire(p),
+            "spec": None,
+        }
+        if st.t_submit:
+            state["submitted_at"] = float(st.t_submit)
+        if st.trace is not None:
+            state["trace"] = {"trace_id": st.trace[0], "parent_id": st.trace[1]}
+        if self._spec_cfg is not None:
+            exp = self._controller.export(request_id)
+            if exp is not None:
+                state["spec"] = {"ema": exp[0], "k": int(exp[1])}
+        if st.slot < 0:
+            # COLD checkpoint: the request waits (queued or recompute-
+            # preempted), with no bound lane and no live KV or key; the
+            # peer re-admits prompt + generated as a recompute preemption
+            if st.token_ids and p.temperature > 0.0:
+                raise mig.MigrationError(
+                    "cannot cold-checkpoint a sampled request with generated tokens "
+                    "(its live PRNG key exists only on a bound lane); a re-prefill is "
+                    "the token-identical fallback"
+                )
+            if self._tel is not None:
+                self._tel.on_migration("checkpointed", 0)
+            return state
+        slot = st.slot
+        n = len(st.prompt_token_ids) + len(st.token_ids) - 1
+        # the authoritative length must agree with the host's view before
+        # the block can claim to cover n positions
+        l_auth = int(self._lengths[slot]) if self.kv_layout == "paged" else int(self.cache["length"][slot])
+        if l_auth != n:
+            raise mig.MigrationError(f"inconsistent decode state for {request_id!r}: cache length {l_auth} != "
+                                     f"prompt + emitted - 1 = {n}")
+        out = self._extract_block(slot, _bucket(n, self.prefill_buckets))
+        state.update(k=out[0], v=out[1], n=n)
+        if len(out) == 4:
+            state.update(k_scale=out[2], v_scale=out[3])
+        # the LIVE key: the device-resident loop advances it on the device
+        # (seeded lanes included), the sync loop on the host
+        lane_key = self._dkeys[slot].cpu().numpy() if self._device_resident else self._keys[slot]
+        state["rng_key"] = mig.key_to_wire(lane_key)
+        if self._tel is not None:
+            self._tel.on_migration("checkpointed", mig.state_nbytes(state))
+        return state
+
+    def _extract_block(self, slot: int, T: int) -> tuple:
+        """A bound slot's first T positions as host tensors: (k, v) or, from
+        an int8 cache, (k, v, k_scale, v_scale). The paged table cells past
+        the allocated pages are 0 (trash): that tail is garbage the
+        consumer masks by length."""
+        if self.kv_layout == "paged":
+            row = torch.from_numpy(self._tables[slot, : T // self._pcfg.page_size].copy()).to(self.device)
+            out = self._extract_paged(self.pool, row)
+        else:
+            out = self._extract_slots(self.cache, slot, T)
+        return tuple(t.cpu() for t in out)
+
+    def finish_migrated(self, request_id: str) -> bool:
+        """Finish a checkpointed request here with reason "migrated" (its
+        continuation lives on a peer now): the slot and pages recycle, the
+        spec state drops, a stream consumer gets its sentinel."""
+        with self._lock:
+            st = self._requests.get(request_id)
+            if st is None or st.finished:
+                return False
+            self._finish(st, "migrated")
+            return True
+
+    def restore_request(self, state, request_id: str | None = None, stream: bool = False, out_queue=None) -> str:
+        """Splice a checkpointed request into THIS engine and continue its
+        stream token for token (``llm/migrate.py``). ``state`` is a
+        live_state dict (``migrate.decode``'s product, or a checkpoint
+        handed over in the process). ray_tpu also takes an object-plane
+        reference there; with no object plane ported, anything but a dict
+        raises NotImplementedError.
+
+        A HOT checkpoint's block scatters in through the transferred-KV
+        admission (requantized across cache dtypes), then ``_bind_resume``
+        rebinds the lane from the checkpoint and emits NOTHING. A COLD one
+        re-admits prompt + generated like a recompute preemption. Raises
+        MigrationError when the state does not fit this engine's geometry."""
+        if not isinstance(state, dict):
+            _not_ported("restore_request from an object-plane reference", OBJECT_PLANE_ITEM)
+        mig.check_state(state)
+        params = mig.params_of(state)
+        prompt = [int(t) for t in state["prompt_token_ids"]]
+        emitted = [int(t) for t in state["emitted_token_ids"]]
+        hot = state.get("k") is not None
+        with self._lock:
+            if request_id is None:
+                request_id = f"req-{self._auto_id}"
+                self._auto_id += 1
+            if len(prompt) + params.max_tokens > self.max_seq_len:
+                raise mig.MigrationError(f"prompt ({len(prompt)}) + max_tokens ({params.max_tokens}) exceeds this "
+                                         f"engine's max_seq_len ({self.max_seq_len})")
+            st = RequestState(request_id, prompt, params)
+            st.token_ids = list(emitted)
+            st.logprobs = [float(x) for x in state.get("emitted_logprobs", [])]
+            st.t_restore = time.time()
+            if stream or out_queue is not None:
+                st.out_queue = out_queue if out_queue is not None else queue.SimpleQueue()
+            nbytes = 0
+            if hot:
+                T_pad = int(state["k"].shape[1])
+                if T_pad > self.max_seq_len:
+                    raise mig.MigrationError(f"checkpoint block width {T_pad} exceeds this engine's cache row "
+                                             f"({self.max_seq_len}); the producer's bucket ladder is wider")
+                if self.kv_layout == "paged":
+                    page = self._pcfg.page_size
+                    need = min(-(-T_pad // page) + 1, self._pcfg.max_pages_per_seq)
+                    if need > self._pcfg.num_pages - 1:
+                        raise mig.MigrationError(f"checkpoint needs {need} pages but the pool has "
+                                                 f"{self._pcfg.num_pages - 1}")
+                pref = {"k": state["k"], "v": state["v"], "n": int(state["n"]), "prompt_token_ids": prompt}
+                if state.get("k_scale") is not None:
+                    pref.update(k_scale=state["k_scale"], v_scale=state["v_scale"])
+                st.prefilled = pref
+                st.resume = {"rng_key": mig.key_from_wire(state["rng_key"]), "spec": state.get("spec")}
+                nbytes = mig.state_nbytes(state)
+            elif self._spec_cfg is not None and state.get("spec"):
+                # cold restore: the sticky spec state survives (the eventual
+                # bind's _spec_admit reads it back under the NEW request id)
+                sp = state["spec"]
+                self._controller.restore(request_id, sp.get("ema"), sp.get("k"))
+            if self._tel is not None:
+                self._tel.on_submit(st, state.get("submitted_at"), parent_trace=_parent_trace(state))
+                self._tel.on_migration("restored", nbytes)
+            self._requests[request_id] = st
+            self._waiting.append(st)
+            return request_id
+
+    # ------------------------------------------------ tiered conversation KV
+    def suspend_request(self, request_id: str, *, publish: bool = True) -> dict:
+        """Spill an IDLE conversation's KV out of the card: checkpoint the
+        request (the block, the live PRNG key) and retire its slot and
+        pages under ONE acquisition of the lock, keeping the state in host
+        memory; ``resume_suspended`` scatters the block back in instead of
+        re-prefilling. Raises MigrationError when the request cannot
+        suspend (unknown or finished, streaming, prefill-only, a waiting
+        sampled request with tokens); the conversation is then untouched.
+
+        Two parts of ray_tpu's are not ported:
+        - its chaos gate at ``llm.suspend``: the chaos plane is not ported
+          (ROADMAP.md, queue 1, the rest);
+        - its object-plane publish (``migrate.publish``, tried when
+          ``publish`` is true, the default): with no object plane
+          (ROADMAP.md, queue 1, the object plane) nothing is published,
+          whatever ``publish`` says, and ``"published"`` is False."""
+        with self._lock:
+            state = self._checkpoint_locked(request_id)
+            self._finish(self._requests[request_id], "suspended")
+            nbytes = mig.state_nbytes(state)
+            self._suspend_stats["suspended"] += 1
+            self._suspend_stats["spilled_bytes"] += nbytes
+            self._suspended[request_id] = {"state": state, "nbytes": nbytes, "t": time.time()}
+        if self._tel is not None:
+            self._tel.on_kv_spill(nbytes)
+        return {"request_id": request_id, "nbytes": nbytes, "published": False}
+
+    def resume_suspended(self, request_id: str, stream: bool = False, out_queue=None) -> str:
+        """Re-admit a suspended conversation under its ORIGINAL request id:
+        the spilled block scatters back in through ``restore_request``
+        (the exact PRNG key, no re-prefill, no token emitted again). It
+        races a concurrent admission safely: the restore only appends to
+        the waiting queue under the lock. Raises MigrationError for an
+        unknown suspension; a refused restore keeps the record."""
+        with self._lock:
+            rec = self._suspended.pop(request_id, None)
+        if rec is None:
+            raise mig.MigrationError(f"no suspended conversation {request_id!r}")
+        try:
+            rid = self.restore_request(rec["state"], request_id=request_id, stream=stream, out_queue=out_queue)
+        except Exception:
+            with self._lock:  # refused restore: the record stays claimable
+                self._suspended.setdefault(request_id, rec)
+            raise
+        with self._lock:
+            self._suspend_stats["resumed"] += 1
+        return rid
+
+    def suspended_requests(self) -> list:
+        """Request ids currently spilled to the conversation tier."""
+        with self._lock:
+            return sorted(self._suspended)
+
+    def drop_suspended(self, request_id: str) -> bool:
+        """Discard a suspended conversation (client gone, TTL expired) and
+        free its host copy."""
+        with self._lock:
+            rec = self._suspended.pop(request_id, None)
+            if rec is not None:
+                self._suspend_stats["dropped"] += 1
+            return rec is not None
+
+    def suspend_stats(self) -> dict:
+        """Counters of the conversation tier: suspended, resumed,
+        spilled_bytes, dropped, and how many are held now."""
+        with self._lock:
+            return dict(self._suspend_stats, held=len(self._suspended))
+
     # ---------------------------------------------------------------- engine
     def _finish(self, st: RequestState, reason: str):
         st.finished = True
         st.finish_reason = reason
         if self._tel is not None:
             self._tel.on_finish(st, reason)
+        if st.prefill_only and reason != "handoff":
+            # an aborted or failed prefill-only request: nobody will pop its block
+            self._handoffs.pop(st.request_id, None)
         if self._spec_cfg is not None:
             self._controller.forget(st.request_id)
         if st.slot >= 0:
@@ -734,11 +1128,14 @@ class LLMEngine:
 
     def _pages_needed(self, st: RequestState, pref, prompt) -> int | None:
         """Pages to admit: the prompt bucket (a prefix hit: the prefix and
-        the suffix's bucket) + one decode headroom page, capped at the
-        table row. None = can never fit; the request is finished with an
-        error instead of waiting forever."""
+        the suffix's bucket; transferred KV: its block width rounded up to
+        a page, the padding included) + one decode headroom page, capped at
+        the table row. None = can never fit; the request is finished with
+        an error instead of waiting forever."""
         page = self._pcfg.page_size
-        if pref is not None:
+        if st.prefilled is not None:
+            need = -(-int(st.prefilled["k"].shape[1]) // page) + 1
+        elif pref is not None:
             n_p = pref[2]
             need = (n_p + _bucket(len(prompt) - n_p, self.prefill_buckets)) // page + 1
         else:
@@ -785,7 +1182,7 @@ class LLMEngine:
             slot = self._slots.index(None)
             prompt = st.prompt_token_ids + st.token_ids  # preempted: generated tail joins the prompt
             pref = None
-            if self._prefix_cache is not None and not st.token_ids:
+            if st.prefilled is None and self._prefix_cache is not None and not st.token_ids:
                 pref = self._resolve_prefix(st, prompt)
             pages = None
             if self.kv_layout == "paged":
@@ -803,9 +1200,10 @@ class LLMEngine:
         return wave
 
     def _stage_prefill(self, wave: list) -> list:
-        """PREFILL: prefix hits extend their suffix one by one, in wave
-        order; then one batched forward per prefill bucket for the rest.
-        Returns the admitted requests."""
+        """PREFILL: transferred KV scatters in and prefix hits extend their
+        suffix one by one, in wave order; then one batched forward per
+        prefill bucket for the rest. Prefill-only requests complete into
+        handoff payloads as they bind. Returns the admitted requests."""
         plains = []
         paged = self.kv_layout == "paged"
         if wave:
@@ -815,7 +1213,9 @@ class LLMEngine:
                 self._slot_pages[slot] = pages
                 self._tables[slot, :] = 0
                 self._tables[slot, : len(pages)] = pages
-            if pref is not None:
+            if st.prefilled is not None:
+                self._admit_prefilled(st, slot)
+            elif pref is not None:
                 (self._admit_prefix_hit if paged else self._admit_prefix_hit_slots)(st, slot, pref, prompt)
             else:
                 plains.append((st, slot, prompt))
@@ -897,6 +1297,48 @@ class LLMEngine:
         self.extend_forwards += 1
         self._bind_slot(st, slot, logits[None])
 
+    def _admit_prefilled(self, st: RequestState, slot: int):
+        """Admit transferred KV (a handoff payload, or a restored
+        checkpoint's block) into its slot or its pages (already in the host
+        table), in place. The paged block is padded to a page multiple,
+        its scales with zeros, so no tail position carries a scale read as
+        real. On the paged graph engine one ``kv_scatter_in_paged`` writes
+        the pages, the device table row and the length lane; the sync loop
+        inserts the pages (its lanes are uploaded each step). A block of
+        another cache dtype is requantized on the way in. Then a handoff
+        binds by sampling its first token from the shipped logits, a
+        restore by splicing its lane (``_bind_resume``)."""
+        kv, st.prefilled = st.prefilled, None
+        t_scatter = time.time()
+        dev = self.device
+        k, v = host_tensor(kv["k"]), host_tensor(kv["v"])
+        scales = () if kv.get("k_scale") is None else (host_tensor(kv["k_scale"]), host_tensor(kv["v_scale"]))
+        n = int(kv["n"])
+        if self.kv_layout == "paged":
+            page = self._pcfg.page_size
+            T = k.shape[1]
+            T_pad = -(-T // page) * page
+            if T_pad != T:
+                pad = (0, 0, 0, 0, 0, T_pad - T)  # [L, T, kv, hd]: zeros after position T
+                k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+                scales = tuple(torch.nn.functional.pad(sc, (0, T_pad - T)) for sc in scales)  # [L, kv, T]
+            k, v = k.to(dev), v.to(dev)
+            scales = tuple(sc.to(dev) for sc in scales)
+            row = torch.from_numpy(self._tables[slot].copy()).to(dev)
+            if self._device_resident:
+                self._scatter_paged(self.pool, self._dtables, self._dlengths, slot, row, k, v, n, *scales)
+            else:
+                pkv.insert_pages(self.pool, row[: T_pad // page], k, v, *scales)
+            self._lengths[slot] = n
+        else:
+            self._scatter_slots(self.cache, slot, k.to(dev), v.to(dev), n, *(sc.to(dev) for sc in scales))
+        if self._tel is not None:
+            self._tel.on_scatter_in(st, t_scatter)
+        if st.resume is not None:
+            self._bind_resume(st, slot)
+        else:
+            self._bind_slot(st, slot, host_tensor(kv["logits"]).to(dev)[None])
+
     def _bind_slot(self, st: RequestState, slot: int, logits):
         """Bind the lane and sample the first token from the prefill logits
         with the lane's key: a seeded request's is PRNGKey(seed); a
@@ -909,6 +1351,10 @@ class LLMEngine:
         self._slots[slot] = st
         if self._tel is not None:
             self._tel.on_bind(st, getattr(self, "_t_prefill_start", st.t_submit))
+        if st.prefill_only:
+            # the prefill engine's path: the block leaves, the slot recycles
+            self._complete_handoff(st, slot, logits)
+            return
         p = st.params
         self._temps[slot] = p.temperature
         self._top_k[slot] = p.top_k
@@ -929,6 +1375,58 @@ class LLMEngine:
         self._emit(st, token, float(logp[0]))
         if spec_hist is not None:
             self._spec_admit(st, slot, spec_hist)
+
+    def _bind_resume(self, st: RequestState, slot: int):
+        """Splice a restored request into the decode loop
+        (``llm/migrate.py``): bind the slot and every lane from the
+        CHECKPOINTED state (its advanced PRNG key, never re-derived from
+        the seed; the last emitted token as the next decode input; on a
+        spec engine the controller's sticky state and the drafter over
+        prompt + emitted) and emit NOTHING: the next token comes from this
+        engine's first decode step, so the stream neither repeats nor
+        drops a token at the splice."""
+        st.slot = slot
+        self._admit_counter += 1
+        st.admit_seq = self._admit_counter
+        self._slots[slot] = st
+        if self._tel is not None:
+            self._tel.on_bind(st, getattr(self, "_t_prefill_start", st.t_submit))
+        rs, st.resume = st.resume, None
+        p = st.params
+        self._temps[slot] = p.temperature
+        self._top_k[slot] = p.top_k
+        self._top_p[slot] = p.top_p
+        self._keys[slot] = rs["rng_key"]
+        token = int(st.token_ids[-1])
+        self._next_tokens[slot] = token
+        if self._device_resident:
+            self._set_lane(self._dtokens, self._dkeys, self._dtemps, self._dtopk, self._dtopp, slot, token,
+                           self._keys[slot], p.temperature, p.top_k, p.top_p)
+        if self._spec_cfg is not None:
+            spec = rs.get("spec") or {}
+            self._controller.restore(st.request_id, spec.get("ema"), spec.get("k"))
+            # history = prompt + everything emitted; the drafter caches
+            # hist[:-1], the positions the restored block covers
+            self._spec_admit(st, slot, st.prompt_token_ids + st.token_ids)
+
+    def _complete_handoff(self, st: RequestState, slot: int, logits):
+        """Finish a prefill-only request: extract its KV block at the
+        prompt's bucket width (the tail past the real length is garbage
+        the decode side masks by length; an int8 cache ships int8 values
+        and wire scales), stash the payload for ``pop_handoff``, and free
+        the slot and its pages."""
+        t_extract = time.time()
+        prompt = st.prompt_token_ids
+        out = self._extract_block(slot, _bucket(len(prompt), self.prefill_buckets))
+        payload = {"k": out[0], "v": out[1], "n": len(prompt), "logits": logits[0].float().cpu(),
+                   "prompt_token_ids": list(prompt)}
+        if len(out) == 4:
+            payload.update(k_scale=out[2], v_scale=out[3])
+        if self._tel is not None:
+            # plants the trace context and the submit stamp in the payload
+            self._tel.on_handoff_extract(st, payload, t_extract)
+        self._handoffs[st.request_id] = payload
+        self._finish(st, "handoff")
 
     def _spec_admit(self, st: RequestState, slot: int, hist_tokens: list):
         """Spec lane state for a freshly (re)admitted sequence: the token

@@ -42,10 +42,13 @@ def quantize_heads(x: torch.Tensor):
     vectors quantize to q=0, scale=0."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
-    scale = amax / INT8_MAX
-    # a tensor numerator: torch evaluates ``scalar / tensor`` as a
-    # reciprocal times the scalar, which rounds differently from jnp's divide
-    inv = torch.where(amax > 0.0, torch.full_like(amax, INT8_MAX) / torch.clamp(amax, min=1e-30), torch.zeros_like(amax))
+    # tensor operands on both sides of each divide: torch evaluates
+    # ``scalar / tensor`` as a reciprocal times the scalar, and on the card
+    # ``tensor / scalar`` as a product with the scalar's reciprocal, which
+    # round differently from jnp's divide (and from each other)
+    full = torch.full_like(amax, INT8_MAX)
+    scale = amax / full
+    inv = torch.where(amax > 0.0, full / torch.clamp(amax, min=1e-30), torch.zeros_like(amax))
     q = torch.clamp(torch.round(xf * inv[..., None]), -INT8_MAX, INT8_MAX).to(torch.int8)
     return q, scale
 

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
-from ray_tpu_torch.llm.kv_quant import is_int8, quantize_heads
+from ray_tpu_torch.llm.kv_quant import dequantize, is_int8, quantize_heads
 from ray_tpu_torch.models.llama import torch_dtype
 
 _NEG = -1e30  # -inf surrogate: keeps exp() NaN-free for fully-masked pages
@@ -77,25 +77,55 @@ class PageAllocator:
                 self._free.append(int(p))
 
 
-def insert_pages(pool: dict, page_ids: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
+def insert_pages(pool: dict, page_ids: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None) -> dict:
     """Write a prefilled sequence's K/V into its pages, in place.
 
-    k_new/v_new: [L, T_pad, kv, hd] fp with T_pad == len(page_ids) * page;
-    page_ids: [n_pg] int (padding entries = 0 -> trash). An int8 pool
-    quantizes on insert."""
+    k_new/v_new: [L, T_pad, kv, hd] with T_pad == len(page_ids) * page;
+    page_ids: [n_pg] int (padding entries = 0 -> trash). All four dtype
+    directions, as ``kv_cache.insert_sequence``: an fp block into an int8
+    pool quantizes here; an int8 block with ``k_scale``/``v_scale``
+    [L, kv, T_pad] (the handoff wire layout) into an int8 pool copies
+    bytes; int8 into an fp pool dequantizes; fp into fp copies."""
     L, T, kvh, hd = k_new.shape
     npg = page_ids.shape[0]
     page = pool["k"].shape[2]
     ids = page_ids.long()
-    if "k_scale" in pool:
-        k_new, sk = quantize_heads(k_new)  # sk: [L, T, kv]
-        v_new, sv = quantize_heads(v_new)
-        # [L, T, kv] -> page-major [L, npg, kv, page]
-        pool["k_scale"][:, ids] = sk.reshape(L, npg, page, kvh).transpose(2, 3)
-        pool["v_scale"][:, ids] = sv.reshape(L, npg, page, kvh).transpose(2, 3)
+    quant = "k_scale" in pool
+    if not quant and k_scale is not None:  # int8 block -> fp pool
+        k_new = dequantize(k_new, k_scale.transpose(1, 2))
+        v_new = dequantize(v_new, v_scale.transpose(1, 2))
+    if quant:
+        if k_scale is None:  # fp block -> quantize on insert
+            k_new, sk = quantize_heads(k_new)  # sk: [L, T, kv]
+            v_new, sv = quantize_heads(v_new)
+            k_scale, v_scale = sk.transpose(1, 2), sv.transpose(1, 2)
+        # wire layout [L, kv, T] -> page-major [L, npg, kv, page]
+        pool["k_scale"][:, ids] = k_scale.reshape(L, kvh, npg, page).transpose(1, 2).float()
+        pool["v_scale"][:, ids] = v_scale.reshape(L, kvh, npg, page).transpose(1, 2).float()
     pool["k"][:, ids] = k_new.reshape(L, npg, page, kvh, hd).to(pool["k"].dtype)
     pool["v"][:, ids] = v_new.reshape(L, npg, page, kvh, hd).to(pool["v"].dtype)
     return pool
+
+
+def gather_pages(pool: dict, page_ids: torch.Tensor):
+    """A sequence's pages read back as one contiguous block, the inverse
+    of ``insert_pages``: (k [L, n_pg * page, kv, hd], v same), plus
+    (k_scale [L, kv, n_pg * page], v_scale same) for an int8 pool, the
+    handoff wire layout. Padding entries of ``page_ids`` point at the
+    trash page and give garbage that the consumer masks by length. Only
+    reads the pool (the disaggregated prefill's extract, ``llm/disagg/``)."""
+    L, _, page, kvh, hd = pool["k"].shape
+    npg = page_ids.shape[0]
+    ids = page_ids.long()
+    k = pool["k"][:, ids].reshape(L, npg * page, kvh, hd)
+    v = pool["v"][:, ids].reshape(L, npg * page, kvh, hd)
+    if "k_scale" in pool:
+        # [L, npg, kv, page] -> wire layout [L, kv, npg * page]
+        k_sc = pool["k_scale"][:, ids].transpose(1, 2).reshape(L, kvh, npg * page)
+        v_sc = pool["v_scale"][:, ids].transpose(1, 2).reshape(L, kvh, npg * page)
+        return k, v, k_sc, v_sc
+    return k, v
 
 
 def _combine(m1, l1, a1, m2, l2, a2):

@@ -92,7 +92,7 @@ class AdaptiveKController:
 
     def export(self, request_id: str) -> tuple | None:
         """(ema, effective_k) for a live request — the sticky state a
-        migration checkpoint carries (ray_tpu's llm/migrate.py; not ported) so the restoring
+        migration checkpoint carries (``llm/migrate.py``) so the restoring
         engine's controller continues where this one left off."""
         st = self._state.get(request_id)
         return None if st is None else (st[0], st[1])

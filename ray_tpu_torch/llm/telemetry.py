@@ -47,10 +47,11 @@ Three pieces, as in ray_tpu:
 - **Request-lifecycle tracing**: admission, prefill, first-token, decode
   and request spans when RT_TRACING=1.
 
-The hooks for paths the port does not have yet (the disagg handoff,
-migration, the cluster KV plane's fetch and prefetch, KV spill) are
-ported and called from nowhere; ``RouterTelemetry`` waits for the serve
-wiring (ROADMAP.md, queue 1).
+The disagg handoff, migration and KV-spill hooks are called by the
+engine's ``llm/disagg/`` and ``llm/migrate.py`` paths. The hooks of the
+cluster KV plane's fetch and prefetch are ported and called from nowhere
+(the plane waits for the object plane), and ``RouterTelemetry`` waits for
+the serve wiring (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -542,8 +543,7 @@ class EngineTelemetry:
         self._b_pfx_prefetch.inc(1.0)
 
     def on_kv_spill(self, nbytes: int) -> None:
-        """``suspend_request`` spilled a conversation's KV (not ported,
-        called from nowhere yet)."""
+        """``suspend_request`` spilled a conversation's KV to host memory."""
         self._b_spill.inc(float(nbytes))
 
     def on_prefix_fetch(self, t0: float, t1: float, tokens: int, hit: bool) -> None:
@@ -553,9 +553,9 @@ class EngineTelemetry:
         self.recorder.record_fetch({"t0": float(t0), "t1": float(t1), "tokens": int(tokens), "hit": bool(hit)})
 
     def on_handoff_extract(self, st, payload: dict, t_start: float) -> None:
-        """Prefill side of the disagg handoff (not ported, called from
-        nowhere yet): the KV block left the cache into a handoff payload;
-        plants the trace context and the submit stamp in it."""
+        """Prefill side of the disagg handoff (``_complete_handoff``): the
+        KV block left the cache into a handoff payload; plants the trace
+        context and the submit stamp in it."""
         nbytes = int(payload["k"].nbytes + payload["v"].nbytes + payload["logits"].nbytes)
         if payload.get("k_scale") is not None:
             nbytes += int(payload["k_scale"].nbytes + payload["v_scale"].nbytes)
@@ -567,14 +567,17 @@ class EngineTelemetry:
             self._span(st, "llm.handoff", t_start, time.time(), nbytes=nbytes)
 
     def on_scatter_in(self, st, t_start: float) -> None:
-        """Decode side of the disagg handoff (not ported, called from
-        nowhere yet): a transferred KV block scattered into the cache."""
+        """Decode side of the disagg handoff (``_admit_prefilled``): a
+        transferred KV block (a handoff, or a restored checkpoint's)
+        scattered into the cache."""
         self.m["rt_llm_handoffs_total"].inc(1.0, tags={**self.tags, "event": "scattered"})
         if st.trace is not None:
             self._span(st, "llm.handoff.scatter_in", t_start, time.time())
 
     def on_migration(self, outcome: str, nbytes: int = 0) -> None:
-        """Live-migration event (not ported, called from nowhere yet)."""
+        """Live-migration event: "checkpointed" (``checkpoint_request``,
+        also under ``suspend_request``) or "restored" (``restore_request``),
+        with the block's bytes."""
         self.m["rt_llm_migrations_total"].inc(1.0, tags={**self.tags, "outcome": str(outcome)})
         if nbytes:
             self.m["rt_llm_migration_bytes_total"].inc(float(nbytes), tags=self.tags)

@@ -18,7 +18,10 @@ cache, the draft cache), a moved draft cache refused, the capture's
 warm-up leaving the draft cache's rows untouched, and the spec engine's
 greedy streams equal to the plain engine's on the card with K4 counted
 num_layers times a round on the paged layout; a re-capture counted by the
-telemetry's recompile sentinel."""
+telemetry's recompile sentinel. KV entering a graph engine from outside
+its prefill (handoffs scattered in, a restored checkpoint, a resumed
+suspension) on both layouts and cache dtypes: every captured address
+kept, ``captures`` 1, the restored device key equal to the checkpoint's."""
 
 import numpy as np
 import pytest
@@ -396,3 +399,80 @@ def test_recapture_counts_in_the_recompile_sentinel(dev):
     fused._capture()
     assert fused.captures == 2 and rec.check_recompiles() == ["fused_attn"] and rec.recompiles == {"fused_attn": 1}
     FusedDecode.read(fused.step(params, pool))
+
+
+# ------------------------------------------ KV entering the graph engine
+def _addresses(eng):
+    """Every address the engine's captured graph reads: the weights, the
+    pool or cache, the draft state (``FusedDecode._addresses``) and the
+    lanes."""
+    fd = eng._decode
+    return fd._addresses(eng.params, eng.kv), {name: t.data_ptr() for name, t in fd.lanes.items()}
+
+
+def _finish_all(eng, ids):
+    finals = {}
+    while eng.has_unfinished():
+        finals.update((o.request_id, o.token_ids) for o in eng.step()
+                      if o.finished and o.finish_reason not in ("suspended", "migrated"))
+    return [finals[i] for i in ids]
+
+
+@pytest.mark.parametrize("layout,dtype", [("paged", None), ("paged", "int8"), ("slots", None), ("slots", "int8")])
+def test_scatter_restore_resume_keep_the_captured_graph(dev, layout, dtype):
+    """Handoffs scattered into a graph engine, a checkpoint restored into
+    another and a conversation suspended and resumed there: every captured
+    address unchanged and ``captures`` 1 on each engine; the restored
+    lane's device key, read right after the bind (before its first step),
+    equal to the checkpoint's bit for bit; the disaggregated streams equal
+    the sync engine's on the same handoffs, the spliced and the resumed
+    streams the uninterrupted ones, greedy and seeded."""
+    from ray_tpu_torch.llm import migrate
+
+    params = init_params(CFG, torch.Generator(device=dev).manual_seed(3))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, CFG.vocab_size, size=int(n)).tolist() for n in (9, 30, 50)]
+    sps = [SamplingParams(max_tokens=12), SamplingParams(max_tokens=12, temperature=0.8, top_p=0.9, seed=1),
+           SamplingParams(max_tokens=12, temperature=1.2, top_k=20, seed=2)]
+    kw = dict(max_num_seqs=3, kv_layout=layout, cache_dtype=dtype, page_size=PAGE, prefill_buckets=(64, 128, 256))
+    pre = LLMEngine(CFG, params, **kw)
+    pays = [pre.prefill_handoff(p) for p in prompts]  # B = 1 forwards, as each request's own prefill below
+    sync = LLMEngine(CFG, params, device_resident=False, **kw)
+    want = _finish_all(sync, [sync.add_prefilled(pay, sp) for pay, sp in zip(pays, sps)])
+    dec = LLMEngine(CFG, params, **kw)
+    before = _addresses(dec)
+    got = _finish_all(dec, [dec.add_prefilled(pay, sp) for pay, sp in zip(pays, sps)])
+    assert got == want
+    # migration: the seeded request checkpointed mid-decode on dec, restored on dst
+    rid = dec.add_request(prompts[1], sps[1])
+    while len(dec._requests[rid].token_ids) < 5:
+        dec.step()
+    state = migrate.decode(migrate.encode(dec.checkpoint_request(rid)))
+    assert dec.finish_migrated(rid)
+    dst = LLMEngine(CFG, params, **kw)
+    dst_before = _addresses(dst)
+    seen = {}
+    bind = dst._bind_resume
+
+    def spy(st, slot):
+        bind(st, slot)
+        seen[st.request_id] = migrate.key_to_wire(dst._dkeys[slot].cpu().numpy())
+
+    dst._bind_resume = spy
+    rid2 = dst.restore_request(state)
+    spliced = _finish_all(dst, [rid2])[0]
+    np.testing.assert_array_equal(seen[rid2], state["rng_key"])
+    assert spliced == want[1] and spliced[: len(state["emitted_token_ids"])] == state["emitted_token_ids"]
+    # suspend and resume on dst
+    rid3 = dst.add_request(prompts[2], sps[2])
+    while len(dst._requests[rid3].token_ids) < 4:
+        dst.step()
+    info = dst.suspend_request(rid3)
+    assert info["published"] is False and info["nbytes"] == migrate.state_nbytes(dst._suspended[rid3]["state"])
+    if layout == "paged":
+        assert dst.kv_cache_stats()["pages_free"] == dst._pcfg.num_pages - 1
+    dst.resume_suspended(rid3)
+    assert _finish_all(dst, [rid3])[0] == want[2]
+    assert dst.suspend_stats()["resumed"] == 1
+    for eng, ptrs in ((dec, before), (dst, dst_before)):
+        assert _addresses(eng) == ptrs and eng._decode.captures == 1
