@@ -122,6 +122,41 @@ Phases, in order; any failed check exits non-zero before the last line:
    int8, checkpoint ms, restore to first post-splice token ms
    (rt_llm_migration_splice_s), and the post-splice tokens equal to the
    uninterrupted run's (not gated).
+4f. The serving control plane over graph engines, on phase 4's weights and
+   prompts (32 greedy tokens each), engines driven through closures as
+   ray_tpu's tests drive its routers: a paged prefill-only engine (B = 1
+   prefill_handoff forwards under one lock, the encoded payload passed as
+   the "ref") and two paged graph decode engines D0 and D1 (each shared by
+   caller threads: a caller admits under the engine's lock, then steps it
+   until its own request has finished). DisaggRouter, 8 concurrent
+   requests: (a) decode on D0: first tokens 8 of 8 equal phase 4's,
+   prefills 8, decode_retries 0, rt_llm_handoffs_total 8 "published", K1
+   32 times per prefill forward, K4 32 times per decode step (the counters
+   zeroed just before and read just after); (b) D0's AdmissionController
+   draining: each first decode attempt sheds with ReplicaDrainingError and
+   the retry lands on D1 with the same handoff (prefills 8, decode_retries
+   8, tokens equal (a)'s); then, one request at a time, (c) a decode that
+   raises HandoffLostError once (prefills 2, handoffs_lost 1, tokens equal
+   (a)'s), (d) the resume leg: after 11 steps on D0 the lane is
+   checkpointed and raised as RequestMigratedError, restored on D1 (the
+   spliced stream equals (a)'s; migrations 1, resumed 1, prefills 1), and
+   (e) both decode engines draining: OverloadedError, http_error_of's 429,
+   shed 1. CacheAwareRouter over D0 and D1 with an in-process PrefixIndex
+   that nothing registers into, 8 requests admitted in order and then
+   stepped together: by load order (as rank_replicas gives it), with D0
+   draining (all 8 on D1, retries 8), and under a kvplane.index chaos drop
+   (index_errors one per prompt with a 64-token boundary, the streams equal
+   the load-order leg's); first tokens 8 of 8 equal phase 4's in each.
+   Admission on D0, its EMAs seeded: a burst of 16 alternating classes
+   past max_queue_depth 8 (class_fracs 0.5, 1.0) sheds class 0 from depth
+   4 and class 1 only from depth 8 (429); check()'s host cost; the decode
+   ms/step with the controller attached (its gauge refresh as the
+   telemetry's sample hook) over detached, interleaved rounds as phase 4's
+   telemetry gate, best ratio at most 1.05; captures 1 on all three
+   engines. Prints the router overhead a request (router wall less the
+   closures' wall) of each router, the reuse leg's wall against the
+   re-prefill leg's, and the resume call's wall against re-prefilling the
+   prompt and the tokens emitted by then (not gated).
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -212,6 +247,8 @@ TRAIN_STEPS = 5  # timed, after one warm-up step
 DECODE_PROFILE_STEPS = 4  # decode-only engine steps under torch.profiler (phase 4)
 SEEDED_TOKENS = 16  # phase 4's seeded streams, held equal across the two decode modes
 TEL_GATE = 1.05  # telemetry-on over telemetry-off decode step, best of interleaved rounds (ray_tpu's gate)
+ADMIT_GATE = 1.05  # the admission controller attached over detached, decode step, as TEL_GATE (phase 4f)
+MIGRATE_STEPS = 11  # decode steps before phases 4e and 4f checkpoint a lane
 SPEC_K = 4  # phase 4d's proposals a round: the verify block is SPEC_K + 1 tokens, K4 at R = 4 (SPEC_K + 1)
 TRAIN_LOSS_TOL = 0.05  # first step's loss vs loss_fn on the initial params (bench.py's check)
 TRAIN_WHOLE_TOL = 1e-3  # card vs host, f32: loss and grad norm relative; gradients relative to each leaf's max
@@ -747,10 +784,22 @@ def main() -> int:
           f"handoff {handoffs['bf16']['bytes'] / 8:.0f} bf16 and {handoffs['int8']['bytes'] / 8:.0f} int8 "
           f"({handoffs['bf16']['tokens']} tokens over 8); checkpoint {moves['checkpoint_ms']:.3f} ms, restore to first "
           f"token {moves['splice_ms']:.3f} ms {card}")
+    mark("4e")
+    # ---------------------------------------------------------------- 4f
+    # the serving control plane over graph engines on phase 4's weights and prompts
+    plane = control_plane(torch, cfg, params, prompts, ref_tokens, card)
+    dis, ca, adm = plane["disagg"], plane["kvplane"], plane["admission"]
+    k1_4f, k4_4f = plane["disagg_a"]["k1"], plane["disagg_a"]["k4"]
+    print(f"phase 4f summary: router overhead a request, DisaggRouter {plane['disagg_a']['overhead_us']} us (8 "
+          f"concurrent) and {dis['overhead_seq_us']} us (alone), CacheAwareRouter {ca['load']['overhead_us']} us (8 "
+          f"concurrent) and {ca['alone_us']} us (alone); the reuse leg {dis['reuse_s'] * 1e3:.1f} ms vs the re-prefill leg {dis['lost_s'] * 1e3:.1f} "
+          f"ms; the resume call {dis['resume_s'] * 1e3:.1f} ms vs re-prefilling prompt + {dis['emitted']} tokens "
+          f"{dis['reprefill_s'] * 1e3:.1f} ms; check() {adm['check_us']:.2f} us; decode ratio with the admission "
+          f"controller {adm['ratio']:.4f} (gate {ADMIT_GATE}) {card}")
     del params
     torch.cuda.empty_cache()
 
-    mark("4e")
+    mark("4f")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1120,6 +1169,15 @@ def main() -> int:
              bound_by=rep1["bound_by"], library_ms=rep1["sdpa_ms"]),
         dict(name="K4 paged_attn_partials handoff-fed decode", route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu",
              replaces="ray_tpu/llm/pallas/paged_attn.py:134", launches=k4_4e,
+             max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
+             bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None, device_ms=rep4["device_ms"],
+             host_us=rep4["host_us"]),
+        dict(name="K1 flash_attention_fwd router prefill", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention.cu", replaces="ray_tpu/ops/flash_attention.py:104",
+             launches=k1_4f, max_abs_err=k1_err, ms=rep1["ms"], plain_ms=rep1["plain_ms"], bound_ms=rep1["bound_ms"],
+             bound_by=rep1["bound_by"], library_ms=rep1["sdpa_ms"]),
+        dict(name="K4 paged_attn_partials router decode", route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu",
+             replaces="ray_tpu/llm/pallas/paged_attn.py:134", launches=k4_4f,
              max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
              bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None, device_ms=rep4["device_ms"],
              host_us=rep4["host_us"]),
@@ -1509,7 +1567,7 @@ def migrate_and_suspend(torch, cfg, params, prompts, card) -> dict:
     ref = [o.token_ids for o in src.generate(prompts, sps)]
     check(all(len(t) == 32 for t in ref), "phase 4e migrate: the uninterrupted run cut a stream short")
     ids = [src.add_request(p, sp) for p, sp in zip(prompts, sps)]
-    for _ in range(11):
+    for _ in range(MIGRATE_STEPS):
         src.step()
     moved = [ids[0], ids[1], ids[4], ids[5]]
     pages = {rid: len(src._slot_pages[src._requests[rid].slot]) for rid in moved}
@@ -1587,6 +1645,412 @@ def migrate_and_suspend(torch, cfg, params, prompts, card) -> dict:
           f"spilled, published False), resume call {resume_ms:.3f} ms, stats {stats}; the resumed stream 32 tokens, "
           f"{same_sus} of 32 equal the uninterrupted run's (not gated) {card}")
     del src, dst
+    torch.cuda.empty_cache()
+    return res
+
+
+class Replica:
+    """One engine shared by caller threads (a stand-in for a serving
+    replica's stepper): a caller runs ``fn(engine)`` under the replica's
+    lock, and ``wait`` steps the engine (every lane advances) whenever the
+    caller holds the lock, until the caller's own request has finished."""
+
+    def __init__(self, eng):
+        import threading
+
+        self.eng = eng
+        self.lock = threading.Lock()
+        self.done = {}
+
+    def call(self, fn):
+        with self.lock:
+            return fn(self.eng)
+
+    def wait(self, rid, max_steps: int = 5000) -> dict:
+        for _ in range(max_steps):
+            with self.lock:
+                o = self.done.pop(rid, None)
+                if o is None:
+                    self.done.update((x.request_id, x) for x in self.eng.step() if x.finished)
+                    o = self.done.pop(rid, None)
+            if o is not None:
+                return {"request_id": rid, "token_ids": list(o.token_ids), "finish_reason": o.finish_reason}
+        raise SmokeFailure(f"request {rid} never finished")
+
+
+def in_threads(calls, admitted=None, go=None, timeout: float = 300.0) -> list:
+    """Run each of ``calls`` in a daemon thread of its own and return their
+    results in order. With ``admitted`` (one event a call), thread i + 1
+    starts only once call i has set its event, and ``go`` is set once all
+    have: the callers admit in order, then step together."""
+    import threading
+
+    results, errors = [None] * len(calls), [None] * len(calls)
+
+    def body(i):
+        try:
+            results[i] = calls[i]()
+        except BaseException as e:  # noqa: BLE001 — re-raised in the caller's thread below
+            errors[i] = e
+
+    threads = [threading.Thread(target=body, args=(i,), daemon=True) for i in range(len(calls))]
+    for i, t in enumerate(threads):
+        t.start()
+        if admitted is not None:
+            while not admitted[i].wait(0.05):
+                check(t.is_alive() or errors[i] is None, f"call {i} failed before it admitted: {errors[i]!r}")
+                check(t.is_alive() or admitted[i].is_set(), f"call {i} ended without admitting")
+    if go is not None:
+        go.set()
+    for t in threads:
+        t.join(timeout)
+        check(not t.is_alive(), f"a caller thread outlived {timeout} s")
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
+
+
+def admission_overhead(torch, eng, ac, prompts, label, card, tokens=24, max_rounds=18) -> float:
+    """The admission controller's cost to a decode step, as phase 4's
+    telemetry gate measures the telemetry's: interleaved rounds on one
+    graph engine with the controller attached (its gauge refresh installed
+    as the telemetry's sample hook, a check() before each admission) and
+    detached; each round admits the 8 prompts cut to 64 tokens, steps until
+    none waits, then times the decode-only steps to the end. Returns the
+    ratio of the best rounds, which must be within ADMIT_GATE."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    hook = ac._refresh_wait_gauge
+    rounds = {True: [], False: []}
+    short = [p[:64] for p in prompts]
+    for r in range(max_rounds):
+        for attached in ([True, False] if r % 2 == 0 else [False, True]):
+            eng._tel.sample_hook = hook if attached else None
+            for p in short:
+                if attached:
+                    ac.check(1)
+                eng.add_request(p, SamplingParams(max_tokens=tokens))
+            while eng.num_waiting:
+                eng.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = 0
+            while eng.has_unfinished():
+                eng.step()
+                steps += 1
+            rounds[attached].append((time.perf_counter() - t0) / max(steps, 1))
+        if r >= 2 and min(rounds[True]) <= ADMIT_GATE * min(rounds[False]):
+            break
+    eng._tel.sample_hook = hook
+    best = {m: min(v) for m, v in rounds.items()}
+    ratio = best[True] / best[False]
+    print(f"{label} admission overhead: best decode-only step {best[True] * 1e3:.3f} ms with the controller, "
+          f"{best[False] * 1e3:.3f} ms without, ratio {ratio:.4f} (gate {ADMIT_GATE}) over {len(rounds[True])} + "
+          f"{len(rounds[False])} interleaved rounds {card}")
+    check(ratio <= ADMIT_GATE, f"{label}: admission overhead {ratio:.4f}x > {ADMIT_GATE}")
+    return ratio
+
+
+def control_plane(torch, cfg, params, prompts, ref_tokens, card) -> dict:
+    """Phase 4f, the serving control plane over graph engines: DisaggRouter
+    over a paged prefill-only engine and two paged graph decode engines D0
+    and D1 (legs a-e), CacheAwareRouter over D0 and D1 with an in-process
+    PrefixIndex (load order, a draining replica, a kvplane.index chaos
+    drop), then admission on D0. Returns the launches and times."""
+    import threading
+
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm import migrate
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.llm.disagg import DisaggRouter, handoff
+    from ray_tpu_torch.llm.kvplane import CacheAwareRouter, PrefixIndex, rank_replicas
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.serve import overload as ov
+
+    L = cfg.num_layers
+    kw = dict(max_num_seqs=8, kv_layout="paged", page_size=64, enable_prefix_caching=False)
+    t0 = time.perf_counter()
+    pre = LLMEngine(cfg, params, telemetry_tags={"model": "phase 4f prefill"}, **kw)
+    decs = [LLMEngine(cfg, params, telemetry_tags={"model": f"phase 4f D{i}"}, **kw) for i in range(2)]
+    build_s = time.perf_counter() - t0
+    reps = [Replica(d) for d in decs]
+    acs = [ov.AdmissionController(d) for d in decs]
+    sp = SamplingParams(max_tokens=32)
+    local = threading.local()  # per request (one thread each): closure seconds, decode attempts, its index
+    p_lock = threading.Lock()
+    leg = {"lose": 0, "cut": None}
+    res = {}
+
+    def counts():
+        return (flash_attention_fwd.launches, paged_attn_partials.launches, pre.prefill_forwards,
+                sum(d.prefill_forwards for d in decs), sum(d.decode_steps for d in decs))
+
+    def check_launches(before, label):
+        """K1 num_layers times per prefill forward, K4 num_layers times per
+        decode step, over the engines' counts since ``before``."""
+        k1, k4, pf, df, ds = (a - b for a, b in zip(counts(), before))
+        check(k1 == L * (pf + df) and k4 == L * ds and ds > 0,
+              f"phase 4f {label}: K1 {k1} != {L} x {pf + df} prefill forwards, or K4 {k4} != {L} x {ds} decode steps")
+        return dict(k1=k1, k4=k4, prefill_forwards=pf + df, decode_steps=ds)
+
+    def timed(fn):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                local.closure_s += time.perf_counter() - t
+
+        return run
+
+    def prefill(prompt):
+        with p_lock:  # one prefill engine: a B = 1 forward per request
+            wire = handoff.encode(pre.prefill_handoff(prompt))
+        return handoff.meta_of(wire), wire
+
+    def decode(meta, ref, prompt, sp_dict):
+        i = local.tries % 2  # a handoff's first attempt on D0, its retry on D1
+        local.tries += 1
+        if leg["lose"]:
+            leg["lose"] -= 1
+            raise handoff.HandoffLostError("handoff evicted before scatter-in")
+        acs[i].check(int(sp_dict.get("priority", 0)))
+        kv = handoff.decode(ref)
+        rid = reps[i].call(lambda e: e.add_prefilled(kv, sp))
+        if leg["cut"] is None:
+            return reps[i].wait(rid)
+        for _ in range(leg["cut"]):
+            reps[i].call(lambda e: e.step())
+        state = reps[i].call(lambda e: e.checkpoint_request(rid))
+        check(reps[i].call(lambda e: e.finish_migrated(rid)), f"phase 4f resume: finish_migrated({rid}) refused")
+        res["checkpoint"] = state
+        raise migrate.RequestMigratedError(rid, migrate.meta_of(state), migrate.encode(state))
+
+    def resume(meta, ref, sp_dict):
+        t = time.perf_counter()
+        state = migrate.decode(ref)
+        out = reps[1].wait(reps[1].call(lambda e: e.restore_request(state)))
+        res["resume_s"] = time.perf_counter() - t
+        return out
+
+    def request(router, prompt, i=0, shed=False):
+        """One request through ``router`` in this thread: its output (the
+        OverloadedError, where ``shed``), the router's wall, the closures'."""
+        local.closure_s, local.tries, local.i = 0.0, 0, i
+        t = time.perf_counter()
+        try:
+            out = router.generate(prompt, {})
+        except ov.OverloadedError as e:
+            if not shed:
+                raise
+            out = e
+        return out, time.perf_counter() - t, local.closure_s
+
+    def disagg(label):
+        return DisaggRouter(timed(prefill), timed(decode), resume=timed(resume),
+                            telemetry_tags={"model": f"phase 4f disagg {label}"})
+
+    def router_count(router, name, **tags):
+        m = router._tel.m[name]
+        return m._series.get(m._key({**router._tel.tags, **tags}), 0.0)
+
+    def overhead_us(runs):
+        return [round((wall - closure) * 1e6, 1) for _, wall, closure in runs]
+
+    # (a) the 8 requests, concurrently, through the router
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+    before = counts()
+    router = disagg("a")
+    t0 = time.perf_counter()
+    runs = in_threads([lambda p=p, i=i: request(router, p, i=i) for i, p in enumerate(prompts)])
+    wall_a = time.perf_counter() - t0
+    launches = check_launches(before, "disagg (a)")
+    toks_a = [o["token_ids"] for o, _, _ in runs]
+    st = router.stats()
+    firsts = sum(a[0] == b[0] for a, b in zip(toks_a, ref_tokens))
+    check(all(len(t) == 32 for t in toks_a), "phase 4f disagg (a): not every request has 32 tokens")
+    check(firsts == 8, f"phase 4f disagg (a): first tokens equal phase 4's in {firsts} of 8")
+    check((st["requests"], st["prefills"], st["decode_retries"], st["failed"]) == (8, 8, 0, 0),
+          f"phase 4f disagg (a): stats {st}")
+    published = router_count(router, "rt_llm_handoffs_total", event="published")
+    check(published == 8 and launches["prefill_forwards"] == 8, f"phase 4f disagg (a): {published} handoffs "
+          f"published, {launches['prefill_forwards']} prefill forwards")
+    same = sum(x == z for a, b in zip(toks_a, ref_tokens) for x, z in zip(a, b))
+    res["disagg_a"] = dict(launches, wall_s=wall_a, overhead_us=overhead_us(runs), same=same)
+    print(f"phase 4f disagg (a) (DisaggRouter: a paged prefill-only engine, B = 1 prefills under one lock; decode on "
+          f"D0; 8 concurrent requests): {wall_a:.3f} s wall, stats {st}; rt_llm_handoffs_total published 8; K1 "
+          f"launches {launches['k1']} ({launches['prefill_forwards']} forwards), K4 {launches['k4']} "
+          f"({launches['decode_steps']} decode steps); first tokens equal phase 4's in 8 of 8, {same} of 256 greedy "
+          f"tokens (not gated); router overhead a request {res['disagg_a']['overhead_us']} us {card}")
+
+    # (b) D0 draining: every first decode attempt sheds, the retry lands on D1 with the same handoff
+    acs[0].drain()
+    before = counts()
+    router = disagg("b")
+    runs = in_threads([lambda p=p, i=i: request(router, p, i=i) for i, p in enumerate(prompts)])
+    check_launches(before, "disagg (b)")
+    st = router.stats()
+    check((st["prefills"], st["decode_retries"], st["failed"]) == (8, 8, 0), f"phase 4f disagg (b): stats {st}")
+    check([o["token_ids"] for o, _, _ in runs] == toks_a, "phase 4f disagg (b): tokens differ from (a)'s")
+    check(acs[0].stats()["shed_draining"] == 8, f"phase 4f disagg (b): D0 admission {acs[0].stats()}")
+    reused = router_count(router, "rt_llm_handoffs_total", event="reused")
+    # the reuse leg's wall, one request alone, against the re-prefill leg's (c)
+    reuse = request(disagg("b1"), prompts[0])
+    acs[0] = ov.AdmissionController(decs[0])
+    print(f"phase 4f disagg (b) (D0 draining): stats {st}, handoffs reused {reused:.0f}, D0 shed 8 "
+          f"(ReplicaDrainingError, 429); tokens equal (a)'s in 8 of 8 streams {card}")
+
+    # (c) the handoff lost once: re-prefill
+    leg["lose"] = 1
+    router = disagg("c")
+    lost = request(router, prompts[0])
+    st = router.stats()
+    check((st["prefills"], st["handoffs_lost"], st["decode_retries"]) == (2, 1, 0), f"phase 4f disagg (c): {st}")
+    check(lost[0]["token_ids"] == toks_a[0], "phase 4f disagg (c): tokens differ from (a)'s")
+
+    # (d) the resume leg: a lane checkpointed after MIGRATE_STEPS steps on D0, resumed on D1
+    leg["cut"] = MIGRATE_STEPS
+    router = disagg("d")
+    resumed = request(router, prompts[0])
+    leg["cut"] = None
+    st = router.stats()
+    emitted = res["checkpoint"]["emitted_token_ids"]
+    check((st["prefills"], st["migrations"], st["resumed"]) == (1, 1, 1), f"phase 4f disagg (d): stats {st}")
+    check(resumed[0]["token_ids"] == toks_a[0] and emitted == toks_a[0][:len(emitted)],
+          f"phase 4f disagg (d): the spliced stream differs from (a)'s")
+    # the alternative to resuming: re-prefill the prompt and the tokens emitted by then on D1
+    t = time.perf_counter()
+    rid = reps[1].call(lambda e: e.add_request(prompts[0] + emitted, SamplingParams(max_tokens=32 - len(emitted))))
+    reps[1].wait(rid)
+    reprefill_s = time.perf_counter() - t
+
+    # (e) both decode engines draining: the router sheds with a 429
+    for ac in acs:
+        ac.drain()
+    router = disagg("e")
+    shed = request(router, prompts[0], shed=True)
+    st = router.stats()
+    http = ov.http_error_of(shed[0])
+    check(isinstance(shed[0], ov.OverloadedError) and http is not None and http[0] == 429 and st["shed"] == 1
+          and st["budget_exhausted"] == 1, f"phase 4f disagg (e): {shed[0]!r}, http {http}, stats {st}")
+    acs[:] = [ov.AdmissionController(d) for d in decs]
+    seq = dict(reuse=overhead_us([reuse])[0], lost=overhead_us([lost])[0], resume=overhead_us([resumed])[0])
+    res["disagg"] = dict(reuse_s=reuse[1], lost_s=lost[1], resume_s=res["resume_s"], reprefill_s=reprefill_s,
+                         emitted=len(emitted), overhead_seq_us=seq)
+    print(f"phase 4f disagg (c) handoff lost once: stats prefills 2, handoffs_lost 1; (d) resume after "
+          f"{MIGRATE_STEPS} steps ({len(emitted)} tokens): migrations 1, resumed 1, prefills 1, the spliced stream "
+          f"equals (a)'s; (e) both draining: {type(shed[0]).__name__} {http}, shed 1, budget exhausted 1. Walls: the "
+          f"reuse leg {reuse[1] * 1e3:.1f} ms vs the re-prefill leg {lost[1] * 1e3:.1f} ms (prompt 0, {len(prompts[0])} "
+          f"tokens); the resume call {res['resume_s'] * 1e3:.1f} ms vs re-prefilling the prompt + {len(emitted)} "
+          f"tokens {reprefill_s * 1e3:.1f} ms (the same {32 - len(emitted)} tokens to go); router overhead a request "
+          f"(sequential) {seq} us {card}")
+
+    # the cache-aware router over D0 (r0) and D1 (r1), an in-process index that nothing registers into
+    admitted = go = None
+
+    def submit(rid, prompt, sp_dict):
+        i = int(rid[1])
+        acs[i].check(int(sp_dict.get("priority", 0)))
+        req = reps[i].call(lambda e: e.add_request(prompt, sp))
+        local.landed = rid
+        admitted[local.i].set()
+        go.wait(120)
+        return reps[i].wait(req)
+
+    def cache_aware(label, expect_landed):
+        nonlocal admitted, go
+        admitted, go = [threading.Event() for _ in prompts], threading.Event()
+        router = CacheAwareRouter(PrefixIndex(), timed(submit), ["r0", "r1"],
+                                  telemetry_tags={"model": f"phase 4f kvplane {label}"})
+
+        def call(i):
+            out = request(router, prompts[i], i=i)
+            return out + (local.landed,)
+
+        before = counts()
+        t = time.perf_counter()
+        runs = in_threads([lambda i=i: call(i) for i in range(len(prompts))], admitted, go)
+        wall = time.perf_counter() - t
+        got = check_launches(before, f"kvplane {label}")
+        toks = [o["token_ids"] for o, *_ in runs]
+        landed = [r[3] for r in runs]
+        firsts = sum(a[0] == b[0] for a, b in zip(toks, ref_tokens))
+        check(landed == expect_landed, f"phase 4f kvplane {label}: landed {landed}, want {expect_landed}")
+        check(firsts == 8 and all(len(t) == 32 for t in toks), f"phase 4f kvplane {label}: first tokens equal "
+              f"phase 4's in {firsts} of 8")
+        return dict(got, toks=toks, stats=router.stats(), wall_s=wall, overhead_us=overhead_us([r[:3] for r in runs]))
+
+    loads, order = {"r0": 0, "r1": 0}, []
+    for p in prompts:  # what rank_replicas gives with every request still in flight
+        order.append(rank_replicas(["r0", "r1"], {}, loads, len(p))[0])
+        loads[order[-1]] += 1
+    ca = {"load": cache_aware("load order", order)}
+    st = ca["load"]["stats"]
+    check(st["cold"] == 8 and st["retries"] == 0 and st["index_errors"] == 0, f"phase 4f kvplane load order: {st}")
+    acs[0].drain()
+    ca["drain"] = cache_aware("r0 draining", ["r1"] * 8)
+    check(ca["drain"]["stats"]["retries"] == 8, f"phase 4f kvplane r0 draining: {ca['drain']['stats']}")
+    acs[0] = ov.AdmissionController(decs[0])
+    chaos.inject("kvplane.index", drop_prob=1.0)
+    try:
+        ca["down"] = cache_aware("index down", order)
+    finally:
+        chaos.clear()
+    # one request alone through the cache-aware router, for its overhead without concurrent callers
+    admitted, go = [threading.Event()], threading.Event()
+    go.set()
+    alone = request(CacheAwareRouter(PrefixIndex(), timed(submit), ["r0", "r1"],
+                                     telemetry_tags={"model": "phase 4f kvplane alone"}), prompts[0])
+    ca["alone_us"] = overhead_us([alone])[0]
+    keyed = sum(len(p) > 64 for p in prompts)  # prompts with a 64-token boundary key to look up
+    check(ca["down"]["stats"]["index_errors"] == keyed and ca["down"]["toks"] == ca["load"]["toks"],
+          f"phase 4f kvplane index down: {ca['down']['stats']}, tokens equal the load-order leg's: "
+          f"{ca['down']['toks'] == ca['load']['toks']}")
+    res["kvplane"] = ca
+    print(f"phase 4f kvplane (CacheAwareRouter over D0 and D1, empty PrefixIndex, 8 requests admitted in order, then "
+          f"stepped together): load order {order} ({ca['load']['wall_s']:.3f} s, K1 {ca['load']['k1']}, K4 "
+          f"{ca['load']['k4']}); r0 draining: all 8 on r1, retries 8; kvplane.index chaos drop: index_errors "
+          f"{keyed} of {keyed} keyed prompts, tokens equal the load-order leg's in 8 of 8 streams; first tokens equal "
+          f"phase 4's in 8 of 8 in each leg; router overhead a request {ca['load']['overhead_us']} us (load order), "
+          f"{ca['down']['overhead_us']} us (index down), {ca['alone_us']} us (one request alone) {card}")
+
+    # admission on D0, its EMAs seeded by the legs above
+    eng = decs[0]
+    ac = ov.AdmissionController(eng, ov.AdmissionConfig(max_queue_depth=8, class_fracs=(0.5, 1.0)))
+    burst, first_shed, errs = [], {}, []
+    for j in range(16):
+        cls = j % 2
+        try:
+            ac.check(cls)
+        except ov.OverloadedError as e:
+            first_shed.setdefault(cls, eng.num_waiting)
+            errs.append(e)
+            continue
+        burst.append(eng.add_request(prompts[j % 8], sp))
+    ast = ac.stats()
+    http = ov.http_error_of(errs[0])
+    check(ast["shed_by_class"] == {0: 6, 1: 2} and first_shed == {0: 4, 1: 8} and http[0] == 429
+          and errs[0].shed_class == 0, f"phase 4f admission burst: stats {ast}, first shed at depth {first_shed}, "
+          f"http {http}")
+    for rid in burst:
+        eng.abort_request(rid)
+    while eng.has_unfinished():
+        eng.step()
+    check_us = host_us(torch, lambda: ac.check(1), calls=2000)
+    ratio = admission_overhead(torch, eng, ac, prompts, "phase 4f D0", card)
+    for label, e in (("prefill", pre), ("D0", decs[0]), ("D1", decs[1])):
+        check(e._decode.captures == 1, f"phase 4f {label}: {e._decode.captures} captures")
+    res["admission"] = dict(check_us=check_us, ratio=ratio, stats=ast)
+    print(f"phase 4f admission (D0, max_queue_depth 8, class_fracs (0.5, 1.0), EMAs: service "
+          f"{eng._tel.service_ema_s * 1e3:.1f} ms, ITL {eng._tel.itl_ema_s * 1e3:.3f} ms): a burst of 16 alternating "
+          f"classes sheds class 0 from depth {first_shed[0]} and class 1 from depth {first_shed[1]}, shed_by_class "
+          f"{ast['shed_by_class']}, {http[0]} with retry_after_s {http[1]['retry_after_s']}; check() {check_us:.2f} us "
+          f"host; decode ratio with the controller {ratio:.4f}; captures 1 on all three engines; engines built in "
+          f"{build_s:.2f} s {card}")
+    del pre, decs, reps, eng
     torch.cuda.empty_cache()
     return res
 

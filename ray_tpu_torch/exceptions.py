@@ -1,6 +1,10 @@
 """The serving-error taxonomy, the port's own copy of the part of
-ray_tpu/exceptions.py that it raises: the KV handoff and live-migration
-errors.
+ray_tpu/exceptions.py that it raises: admission and shedding, the KV
+handoff and live-migration errors, the routers' terminal errors and the
+chaos plane's injected fault. The runtime's object and actor errors
+(``ObjectLostError``, ``GetTimeoutError``, ``ActorDiedError``, ...) and
+``TaskError`` wait for the object plane (ROADMAP.md, queue 1, the object
+plane).
 
 ``SERVING_ERRORS`` maps each typed error a client or a router may observe
 to its HTTP status code and a retryable flag, keyed by class name, with
@@ -23,6 +27,11 @@ class ServingErrorSpec:
 
 
 SERVING_ERRORS: dict[str, ServingErrorSpec] = {
+    # admission / shedding (serve/overload.py)
+    "OverloadedError": ServingErrorSpec(429, retryable=True),
+    "ReplicaDrainingError": ServingErrorSpec(429, retryable=True),
+    # replica stepper death (serve/overload.py): another replica serves
+    "StepperDiedError": ServingErrorSpec(503, retryable=True),
     # live migration (llm/migrate.py): a lost checkpoint fails over, a
     # malformed one is a hard fault (garbage must never reach a pool)
     "MigrationError": ServingErrorSpec(500, retryable=False),
@@ -31,6 +40,11 @@ SERVING_ERRORS: dict[str, ServingErrorSpec] = {
     # disagg handoff codec (llm/disagg/handoff.py)
     "HandoffError": ServingErrorSpec(500, retryable=False),
     "HandoffLostError": ServingErrorSpec(503, retryable=True),
+    # router terminal failures (llm/disagg/router.py, llm/kvplane/routing.py)
+    "DisaggRequestError": ServingErrorSpec(500, retryable=False),
+    "KVRouteError": ServingErrorSpec(500, retryable=False),
+    # injected faults (chaos.py) that escape a degradation path
+    "ChaosError": ServingErrorSpec(500, retryable=False),
 }
 
 
@@ -47,3 +61,15 @@ def serving_error(cls):
     cls.status_code = spec.status_code
     cls.retryable = spec.retryable
     return cls
+
+
+def serving_error_spec(e) -> ServingErrorSpec | None:
+    """Spec for an exception instance or class, by MRO name lookup (a
+    subclass of a registered error inherits its row unless it has its
+    own); None for anything outside the taxonomy."""
+    t = e if isinstance(e, type) else type(e)
+    for base in t.__mro__:
+        spec = SERVING_ERRORS.get(base.__name__)
+        if spec is not None:
+            return spec
+    return None

@@ -3,11 +3,12 @@ the engine-level half: a prefill engine extracts each request's KV block
 (``scatter.py``) into a handoff payload, the codec (``handoff.py``)
 validates it on the wire, and a decode engine scatters it into its slot
 cache or page pool in place and decodes from it (``LLMEngine``'s
-``add_prefill_request``/``pop_handoff``/``add_prefilled``).
+``add_prefill_request``/``pop_handoff``/``add_prefilled``). The router
+(``router.py``) is the split's control plane over injected prefill,
+decode and resume callables.
 
-Not ported yet (ROADMAP.md, queue 1, the object plane and what follows
-it): the object-plane legs ``publish``/``fetch`` (they raise) and the
-router (``router.py``).
+Not ported yet (ROADMAP.md, queue 1, the object plane): the object-plane
+legs ``publish``/``fetch`` (they raise).
 """
 
 from ray_tpu_torch.llm.disagg.handoff import (
@@ -19,6 +20,7 @@ from ray_tpu_torch.llm.disagg.handoff import (
     meta_of as handoff_meta,
     publish as publish_handoff,
 )
+from ray_tpu_torch.llm.disagg.router import DisaggRequestError, DisaggRouter
 from ray_tpu_torch.llm.disagg.scatter import (
     kv_extract_paged,
     kv_extract_slots,
@@ -28,6 +30,8 @@ from ray_tpu_torch.llm.disagg.scatter import (
 )
 
 __all__ = [
+    "DisaggRequestError",
+    "DisaggRouter",
     "HandoffError",
     "HandoffLostError",
     "decode_handoff",

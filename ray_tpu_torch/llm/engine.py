@@ -70,6 +70,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ray_tpu_torch import chaos
 from ray_tpu_torch.llm import kv_cache as kvc
 from ray_tpu_torch.llm import migrate as mig
 from ray_tpu_torch.llm import model_runner as mr
@@ -619,6 +620,40 @@ class LLMEngine:
     def num_running(self) -> int:
         return sum(1 for s in self._slots if s is not None)
 
+    def host_load(self) -> dict:
+        """Load snapshot for admission control (``serve/overload.py``):
+        queue depth, slot occupancy, occupied/queued/capacity tokens, all
+        host scheduler shadow state read under the lock. No device tensor
+        is read: the paged layout's occupancy comes from the host shadow
+        lengths (the graph engine keeps its own on the card). Queued
+        demand counts each waiting request's prompt + max_tokens, so the
+        caps bound BACKLOG, not just live occupancy; a preempted request
+        requeued keeps prompt + max_tokens (its generated tokens are part
+        of that budget)."""
+        with self._lock:
+            waiting = len(self._waiting)
+            queued_tokens = 0
+            queued_gen_tokens = 0
+            for st in self._waiting:
+                queued_tokens += len(st.prompt_token_ids) + st.params.max_tokens
+                queued_gen_tokens += st.params.max_tokens
+            slots_in_use = sum(1 for s in self._slots if s is not None)
+            if self.kv_layout == "paged":
+                occupied = int(self._lengths.sum())
+                capacity = (self._pcfg.num_pages - 1) * self._pcfg.page_size
+            else:
+                occupied = sum(len(s.prompt_token_ids) + len(s.token_ids) for s in self._slots if s is not None)
+                capacity = self.max_num_seqs * self.max_seq_len
+        return {
+            "queue_depth": waiting,
+            "queued_tokens": queued_tokens,
+            "queued_gen_tokens": queued_gen_tokens,
+            "slots_in_use": slots_in_use,
+            "slots_total": self.max_num_seqs,
+            "occupied_tokens": occupied,
+            "capacity_tokens": capacity,
+        }
+
     def prefix_cache_stats(self) -> dict:
         """Prefix-reuse accounting: the local cache's counters (hits,
         misses, tokens_saved, evictions, entries, bytes) and the same hits
@@ -952,15 +987,26 @@ class LLMEngine:
         memory; ``resume_suspended`` scatters the block back in instead of
         re-prefilling. Raises MigrationError when the request cannot
         suspend (unknown or finished, streaming, prefill-only, a waiting
-        sampled request with tokens); the conversation is then untouched.
+        sampled request with tokens), or when a chaos rule at
+        ``llm.suspend`` drops or faults the spill decision; in every
+        refusal the conversation is untouched and still RUNNING.
 
-        Two parts of ray_tpu's are not ported:
-        - its chaos gate at ``llm.suspend``: the chaos plane is not ported
-          (ROADMAP.md, queue 1, the rest);
-        - its object-plane publish (``migrate.publish``, tried when
-          ``publish`` is true, the default): with no object plane
-          (ROADMAP.md, queue 1, the object plane) nothing is published,
-          whatever ``publish`` says, and ``"published"`` is False."""
+        ray_tpu's object-plane publish (``migrate.publish``, tried when
+        ``publish`` is true, the default) is not ported: with no object
+        plane (ROADMAP.md, queue 1, the object plane) nothing is
+        published, whatever ``publish`` says, and ``"published"`` is
+        False."""
+        # the chaos gate sits OUTSIDE the lock and BEFORE the snapshot: an
+        # injected drop or fault models "the spill path is down" and must
+        # degrade to the typed refusal with no request state mutated
+        try:
+            ok = chaos.apply("llm.suspend")
+        except mig.MigrationError:
+            raise
+        except Exception as e:  # noqa: BLE001 — injected fault, typed on the way out
+            raise mig.MigrationError(f"suspend of {request_id!r} faulted: {e}") from e
+        if not ok:
+            raise mig.MigrationError(f"suspend of {request_id!r} dropped (chaos)")
         with self._lock:
             state = self._checkpoint_locked(request_id)
             self._finish(self._requests[request_id], "suspended")

@@ -48,10 +48,12 @@ Three pieces, as in ray_tpu:
   and request spans when RT_TRACING=1.
 
 The disagg handoff, migration and KV-spill hooks are called by the
-engine's ``llm/disagg/`` and ``llm/migrate.py`` paths. The hooks of the
-cluster KV plane's fetch and prefetch are ported and called from nowhere
-(the plane waits for the object plane), and ``RouterTelemetry`` waits for
-the serve wiring (ROADMAP.md, queue 1).
+engine's ``llm/disagg/`` and ``llm/migrate.py`` paths, and
+``RouterTelemetry`` by the routers (``llm/disagg/router.py``,
+``llm/kvplane/routing.py``) and ``serve/overload.py``. The hooks of the
+cluster KV plane's fetch and prefetch are ported and called from nowhere:
+the plane's client waits for the object plane (ROADMAP.md, queue 1, the
+object plane).
 """
 
 from __future__ import annotations
@@ -681,3 +683,52 @@ class EngineTelemetry:
         snap["tags"] = dict(self.tags)
         snap["wire_bytes_per_step"] = self._wire_bytes()
         return snap
+
+
+# ----------------------------------------------------------------------
+# router-facing metrics (control plane: no engine, no recorder)
+# ----------------------------------------------------------------------
+class RouterTelemetry:
+    """Counters for the routers' control-plane events, sharing the
+    serving catalog so one scrape covers the whole split."""
+
+    def __init__(self, tags: dict | None = None):
+        base = default_tags("router")
+        base.update(tags or {})
+        self.tags = {k: str(v) for k, v in base.items() if k in _SERVE_TAGS}
+        self.m = instruments()
+
+    def on_published(self, nbytes: int) -> None:
+        self.m["rt_llm_handoff_bytes_total"].inc(float(nbytes), tags=self.tags)
+        self.m["rt_llm_handoffs_total"].inc(1.0, tags={**self.tags, "event": "published"})
+
+    def on_lost(self) -> None:
+        self.m["rt_llm_handoffs_total"].inc(1.0, tags={**self.tags, "event": "lost"})
+
+    def on_reused(self) -> None:
+        self.m["rt_llm_handoffs_total"].inc(1.0, tags={**self.tags, "event": "reused"})
+
+    def on_failed(self) -> None:
+        self.m["rt_llm_requests_finished_total"].inc(1.0, tags={**self.tags, "reason": "error"})
+
+    def on_budget_exhausted(self) -> None:
+        """A request's shared failover budget (serve/overload.RetryBudget)
+        ran dry: the typed terminal error is about to surface."""
+        self.m["rt_llm_retry_budget_exhausted_total"].inc(1.0, tags=self.tags)
+
+    def on_migration(self, outcome: str) -> None:
+        """Router-stage migration event: "resumed" (a dying replica's
+        checkpoint spliced on a peer, zero recomputed tokens) or "lost"
+        (checkpoint gone before the fetch: degraded to re-prefill)."""
+        self.m["rt_llm_migrations_total"].inc(1.0, tags={**self.tags, "outcome": str(outcome)})
+
+    def on_shed(self, shed_class: int) -> None:
+        """The router itself shed a request (every ranked replica was
+        overloaded or draining). Same series as the replica-level sheds
+        but under this router's ``stage`` tag: a client request that shed
+        at several replicas during failover counts once per replica plus
+        once here, so separate by stage when summing request-level rates.
+        Label clamped like the replicas'."""
+        self.m["rt_llm_requests_shed_total"].inc(
+            1.0, tags={**self.tags, "class": str(max(0, min(int(shed_class), 9)))}
+        )

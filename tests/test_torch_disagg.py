@@ -171,6 +171,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     of jax (or jaxlib) and none of ray_tpu (ray_tpu_torch is the port)."""
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
+    # the serving control plane's modules are among them
+    control = ["chaos.py", "exceptions.py", "serve/__init__.py", "serve/overload.py", "llm/kvplane/__init__.py",
+               "llm/kvplane/index.py", "llm/kvplane/routing.py", "llm/kvplane/client.py", "llm/disagg/router.py"]
+    assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:
         for mod in _imports(path):
