@@ -157,6 +157,43 @@ Phases, in order; any failed check exits non-zero before the last line:
    closures' wall) of each router, the reuse leg's wall against the
    re-prefill leg's, and the resume call's wall against re-prefilling the
    prompt and the tokens emitted by then (not gated).
+4g. The object plane (ray_tpu_torch/core/), on phase 4's weights. This
+   process attaches a plane. (a) A paged prefill-only engine's 8 handoffs
+   (phase 4's prompts) are published with handoff.publish (in waves that
+   fit /dev/shm) and fetched owner-locally; a borrower process, started
+   with the spawn method and bounded in time, attaches its own plane with
+   this process's authkey, rebuilds the weights from seed 0 (its checksum
+   of three weight tensors must equal this process's), receives each
+   (meta, ref) pair over a pipe, fetches it across processes
+   (handoff.fetch: the owner's segment mapped, no copy), admits it into its
+   own paged graph engine and decodes 32 greedy tokens: first tokens 8 of
+   8 equal phase 4's, all 256 tokens equal phase 4e's in-process handoff
+   streams, K1 never and K4 32 times per decode step in the borrower,
+   captures 1; once it releases its refs this process's owned store must
+   empty within the grace window and five housekeeping passes (2 s).
+   (b) 4 of 8 live lanes of a paged graph engine are checkpointed and
+   migrate.published, restored on a second engine with
+   restore_request(ref): 4 of 4 streams equal the uninterrupted runs; a
+   fifth lane's suspend_request(publish=True) returns published True and
+   restore_request of its plane reference on the second engine continues
+   its stream token for token. (c) The cluster KV plane over one
+   in-process PrefixIndex: engine A serves phase 4b's leader and publishes
+   its prefix (KVPlaneClient, publish_min_hits=1); engine B, its local
+   prefix cache smaller than one 1024-token group, takes the 8 followers
+   as remote hits (fetch, upload, extend with K4): first tokens 8 of 8
+   equal phase 4b's hits, 8 remote hits, 8192 tokens saved, no local hit,
+   no prefill forward, K1 never, K4 32 times per decode step and extend;
+   CacheAwareRouter over A and B sends a ninth follower to the holder A; a
+   chaos drop at direct.get_owned_view makes B's fetch run out its retry
+   budget (2 attempts) and prefill locally (lost 1, fetch_lost 1, the
+   first token of a B = 1 prefill); the same pair on int8 caches ships an
+   int8 wire and B's first tokens equal phase 4c's int8 hits. Prints
+   /dev/shm's size and free bytes first, then per handoff the publish,
+   owner-local and cross-process fetch, fetch-to-device upload and
+   scatter-in ms, the bytes on the plane, checkpoint-publish and
+   restore-from-ref ms, the remote hits' fetch and splice ms and B's
+   prefill stage, and the launches of K1 and K4; no /dev/shm/rt* segment
+   may be left at the end.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -211,6 +248,7 @@ the device time and the host cost per call tell apart.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -680,6 +718,8 @@ def main() -> int:
 
     eng, wave = prefix_hits("bf16")
     hit_outs, stats, k1_4b, k4_4b = wave["outs"], wave["stats"], wave["k1"], wave["k4"]
+    hit_firsts = [o.token_ids[0] for o in hit_outs]  # phase 4g's remote hits are held against these
+    hit_prefill_ms = wave["prefill_s"] * 1e3
     # the same 8 prompts again on this engine (they hit the leader's prefix again): timed warm, then the
     # admitting step profiled
     prefill_before = eng.prefill_s
@@ -743,6 +783,7 @@ def main() -> int:
     agree(int8_slots, "slots int8", 8 * 2048 * bytes_tok_int8, bytes_tok_int8)
     k4_int8_launches = int8_paged["graph"]["k4"]
     eng, wave8 = prefix_hits("int8", cache_dtype="int8")
+    hit_firsts_int8 = [o.token_ids[0] for o in wave8["outs"]]
     same_first = sum(a.token_ids[0] == b.token_ids[0] for a, b in zip(wave8["outs"], hit_outs))
     print(f"phase 4c prefix caching int8 (phase 4b's leader and 8 followers, paged int8 cache): stats "
           f"{wave8['stats']}, hit wave prefill {wave8['prefill_s'] * 1e3:.2f} ms over 8 extend forwards "
@@ -796,10 +837,20 @@ def main() -> int:
           f"ms; the resume call {dis['resume_s'] * 1e3:.1f} ms vs re-prefilling prompt + {dis['emitted']} tokens "
           f"{dis['reprefill_s'] * 1e3:.1f} ms; check() {adm['check_us']:.2f} us; decode ratio with the admission "
           f"controller {adm['ratio']:.4f} (gate {ADMIT_GATE}) {card}")
-    del params
     torch.cuda.empty_cache()
 
     mark("4f")
+    # ---------------------------------------------------------------- 4g
+    # the object plane: handoffs across processes, migration and suspend through references, the cluster KV plane
+    objp = object_plane(torch, cfg, params, prompts, ref_tokens, handoffs["paged bf16"]["tokens"], leader, followers,
+                        hit_firsts, hit_firsts_int8, hit_prefill_ms, off_prefill_s * 1e3, card, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4g end: {torch.cuda.memory_allocated()} bytes still allocated on the card (the weights and every "
+          f"engine freed) {card}")
+
+    mark("4g")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1127,6 +1178,7 @@ def main() -> int:
     rep4 = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("bf16", 1, Bl))
     rep4q = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("int8", 1, Bl))
     rep4v = next(r for r in k4_rows if (r["pool"], r["T"], r["B"]) == ("bf16", SPEC_K + 1, Bl))  # the verify's shape
+    rep4x = next(r for r in k4_rows if r.get("extend") and (r["pool"], r["T"]) == ("bf16", 512))  # a remote hit's extend
     rep23 = k23_rows[0]  # the sft training shape
     rep5 = k5_rows[0]  # the training rows, bf16
     kernels = [
@@ -1181,6 +1233,21 @@ def main() -> int:
              max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"], plain_ms=rep4["plain_ms"],
              bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None, device_ms=rep4["device_ms"],
              host_us=rep4["host_us"]),
+        dict(name="K1 flash_attention_fwd object plane (phase 4g: the handoff prefills, the source and the KV-plane "
+                  "leaders, the chaos leg's local prefill)", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention.cu", replaces="ray_tpu/ops/flash_attention.py:104",
+             launches=objp["k1"], max_abs_err=k1_err, ms=rep1["ms"], plain_ms=rep1["plain_ms"],
+             bound_ms=rep1["bound_ms"], bound_by=rep1["bound_by"], library_ms=rep1["sdpa_ms"]),
+        dict(name="K4 paged_attn_partials borrower decode (phase 4g, the spawned process)", route="cuda",
+             source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
+             launches=objp["k4_borrower"], max_abs_err=max(r["err"] for r in k4_rows), ms=rep4["ms"],
+             plain_ms=rep4["plain_ms"], bound_ms=rep4["bound_ms"], bound_by=rep4["bound_by"], library_ms=None,
+             device_ms=rep4["device_ms"], host_us=rep4["host_us"]),
+        dict(name="K4 paged_attn_partials remote-hit extends and decode (phase 4g, bf16 and int8 pairs)",
+             route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
+             launches=objp["k4_remote"], max_abs_err=rep4x["err"], ms=rep4x["ms"], plain_ms=rep4x["plain_ms"],
+             bound_ms=rep4x["bound_ms"], bound_by=rep4x["bound_by"], library_ms=None, device_ms=rep4x["device_ms"],
+             host_us=rep4x["host_us"]),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -1420,15 +1487,17 @@ def tel_count(eng, name, **tags) -> float:
     return m._series.get(m._key({**eng._tel.tags, **tags}), 0.0)
 
 
-def timed_calls(torch, fn, log):
+def timed_calls(torch, fn, log, dev=None):
     """``fn`` wrapped to append (its arguments, the call's milliseconds on
     the host clock, the card synchronised before and after) to ``log``."""
 
     def run(*args):
-        torch.cuda.synchronize()
+        if dev is None or dev.type == "cuda":
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args)
-        torch.cuda.synchronize()
+        if dev is None or dev.type == "cuda":
+            torch.cuda.synchronize()
         log.append((args, (time.perf_counter() - t0) * 1e3))
         return out
 
@@ -2236,6 +2305,458 @@ def profile_hit_wave(torch, eng, prompts, sampling, card, table_path) -> dict:
           f"{groups['K4 partials']:.4f}, merge {groups['K4 merge']:.4f}), cuBLAS {groups['gemm']:.3f} ms, rest "
           f"{groups['other']:.3f} ms; K4 kernel calls {calls} {card}")
     return dict(calls=calls, wall_ms=wall, busy_ms=busy, k4_ms=k4, groups=groups)
+
+
+# ---------------------------------------------------------------- phase 4g: the object plane
+BORROWER_S = 420  # the borrower process's bound: spawn, CUDA init, weights, its engine, 32 decode steps
+SHM_USE = 0.8  # the share of /dev/shm's free bytes one wave of handoffs may take
+
+
+def shm_bytes() -> tuple[int, int]:
+    """/dev/shm's size and free bytes (os.statvfs)."""
+    s = os.statvfs("/dev/shm")
+    return s.f_frsize * s.f_blocks, s.f_frsize * s.f_bavail
+
+
+def rt_segments() -> list:
+    return sorted(n for n in os.listdir("/dev/shm") if n.startswith("rt"))
+
+
+def weights_checksum(params) -> list:
+    """Exact sums of three weight tensors' bits (16- or 32-bit words as int64)."""
+    import torch
+
+    out = []
+    for w in (params["embed"], params["layers"]["wq"], params["final_norm"]):
+        bits = w.view(torch.int16 if w.element_size() == 2 else torch.int32)
+        out.append(int(bits.sum(dtype=torch.int64).item()))
+    return out
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def free_wait_s() -> float:
+    """How soon the owner's store must empty after the last release: the
+    grace window plus five housekeeping passes (the borrower's flush, the
+    owner's gc pass, and slack for a loaded host)."""
+    from ray_tpu_torch._config import get_config
+
+    cfg = get_config()
+    return cfg.owned_object_grace_s + 5 * cfg.ref_counting_interval_s
+
+
+def wait_for(cond, timeout: float) -> float | None:
+    """Seconds until ``cond()`` held, polled every 10 ms; None past ``timeout``."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    return None
+
+
+def recv(conn, proc, timeout: float):
+    """The next message from a child, within ``timeout``; fails if the child dies or says nothing."""
+    t0 = time.perf_counter()
+    while not conn.poll(0.5):
+        if not proc.is_alive():
+            raise SmokeFailure(f"phase 4g: the borrower exited with code {proc.exitcode} before replying")
+        if time.perf_counter() - t0 > timeout:
+            raise SmokeFailure(f"phase 4g: the borrower sent nothing for {timeout} s")
+    return conn.recv()
+
+
+def borrower_main(conn, authkey: bytes, spec: dict):
+    """Phase 4g(a)'s borrower, a spawned process: attach a plane of its own
+    with the owner's authkey, rebuild the weights from seed 0, then fetch
+    each (meta, ref) handoff the owner sends over the plane, admit it into
+    a paged graph engine and decode 32 greedy tokens. Reports its weights'
+    checksum, the times, the launches and the streams."""
+    import torch
+
+    from ray_tpu_torch.core import direct
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.llm.disagg import handoff
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    st = direct.attach(authkey)
+    dev = torch.device(spec["device"])
+    cfg = LlamaConfig(**spec["config"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    conn.send(("ready", weights_checksum(params)))
+    eng = LLMEngine(cfg, params, max_num_seqs=8, kv_layout="paged", page_size=64, device=dev,
+                    telemetry_tags={"model": "phase 4g borrower"})
+    adm = []
+    eng._admit_prefilled = timed_calls(torch, eng._admit_prefilled, adm, dev)
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+    rids, fetch_ms, upload_ms, finals = [], [], [], {}
+    t_start = time.perf_counter()
+    while True:
+        msg = conn.recv()
+        if msg[0] == "end":
+            break
+        for meta, ref in msg[1]:
+            t0 = time.perf_counter()
+            pay = handoff.fetch(ref, meta)  # a cross-process borrow: the owner's segment mapped, no copy
+            fetch_ms.append((time.perf_counter() - t0) * 1e3)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            k, v = pay["k"].to(dev), pay["v"].to(dev)  # the block's upload from the mapping, timed alone
+            sync(torch, dev)
+            upload_ms.append((time.perf_counter() - t0) * 1e3)
+            del k, v
+            rids.append(eng.add_prefilled(pay, SamplingParams(max_tokens=32)))
+            del pay, ref, meta
+        del msg
+        while eng.num_waiting:  # admission scatters the wave's blocks in: their borrows can go
+            finals.update((o.request_id, o) for o in eng.step() if o.finished)
+        st.pump()  # the releases reach the owner now
+        conn.send(("released", len(rids)))
+    while eng.has_unfinished():
+        finals.update((o.request_id, o) for o in eng.step() if o.finished)
+    sync(torch, dev)
+    conn.send(("result", dict(
+        tokens=[list(finals[r].token_ids) for r in rids], reasons=[finals[r].finish_reason for r in rids],
+        k1=flash_attention_fwd.launches, k4=paged_attn_partials.launches, decode_steps=eng.decode_steps,
+        prefill_forwards=eng.prefill_forwards, captures=eng._decode.captures if eng._decode is not None else 0,
+        fetch_ms=fetch_ms, upload_ms=upload_ms, admit_ms=[ms for _, ms in adm],
+        wall_s=time.perf_counter() - t_start)))
+    direct.detach()
+
+
+def plane_handoffs(torch, cfg, params, prompts, ref_tokens, handoff_tokens, authkey, card, dev) -> dict:
+    """Phase 4g(a): a paged prefill-only engine's 8 handoffs published on
+    the object plane (in waves that fit /dev/shm), fetched owner-locally,
+    then borrowed by a spawned process that decodes them on its own engine."""
+    import dataclasses
+    import multiprocessing as mp
+
+    from ray_tpu_torch.core import direct
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.llm.disagg import handoff
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    st = direct.state()
+    L = cfg.num_layers
+    pre = LLMEngine(cfg, params, max_num_seqs=8, kv_layout="paged", page_size=64, device=dev,
+                    telemetry_tags={"model": "phase 4g prefill"})
+    k1_0, k4_0 = flash_attention_fwd.launches, paged_attn_partials.launches
+    ids = [pre.add_prefill_request(p) for p in prompts]
+    pre.step()
+    k1_n, k4_n = flash_attention_fwd.launches - k1_0, paged_attn_partials.launches - k4_0
+    pays = [pre.pop_handoff(i) for i in ids]
+    check(all(p is not None for p in pays) and k1_n == L * pre.prefill_forwards > 0 and k4_n == 0,
+          f"phase 4g prefill: payloads {[p is not None for p in pays]}, K1 {k1_n}, K4 {k4_n}")
+    del pre
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sizes = [int(p["k"].nbytes + p["v"].nbytes + p["logits"].nbytes) for p in pays]
+    _, free = shm_bytes()
+    check(max(sizes) <= SHM_USE * free, f"phase 4g: a {max(sizes)}-byte handoff does not fit /dev/shm's {free} free "
+          "bytes; shorten the plane legs' prompts (never the model's widths)")
+    waves, cur = [], []
+    for i, n in enumerate(sizes):
+        if cur and sum(sizes[j] for j in cur) + n > SHM_USE * free:
+            waves.append(cur)
+            cur = []
+        cur.append(i)
+    waves.append(cur)
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe()
+    spec = {"device": dev.type, "config": dataclasses.asdict(cfg)}
+    proc = ctx.Process(target=borrower_main, args=(child, authkey, spec), daemon=True, name="phase-4g-borrower")
+    t_spawn = time.perf_counter()
+    proc.start()
+    try:
+        kind, checksum = recv(parent, proc, BORROWER_S)
+        ready_s = time.perf_counter() - t_spawn
+        mine = weights_checksum(params)
+        check(kind == "ready" and checksum == mine, f"phase 4g: the borrower's weights {checksum} != the owner's {mine}")
+        publish_ms, local_ms, plane_bytes, released_s = [], [], 0, []
+        for wave in waves:
+            pairs = []
+            for i in wave:
+                t0 = time.perf_counter()
+                meta, ref = handoff.publish(pays[i])  # encode + writev into a fresh segment
+                publish_ms.append((time.perf_counter() - t0) * 1e3)
+                plane_bytes += st.owned.entry(ref.id.binary()).payload.shm.total_size
+                t0 = time.perf_counter()
+                got = handoff.fetch(ref, meta)  # owner-local: this process maps its own segment
+                local_ms.append((time.perf_counter() - t0) * 1e3)
+                check(torch.equal(got["k"], pays[i]["k"]) and got["n"] == pays[i]["n"],
+                      f"phase 4g: the owner-local fetch of handoff {i} differs")
+                del got
+                pays[i] = None  # the plane holds the bytes now
+                pairs.append((meta, ref))
+            parent.send(("wave", pairs))  # pickled out: each entry waits for its borrow-release
+            del pairs, meta, ref
+            kind, n = recv(parent, proc, BORROWER_S)
+            check(kind == "released", f"phase 4g: the borrower said {kind!r}")
+            freed = wait_for(lambda: st.owned.size() == 0, free_wait_s())
+            check(freed is not None, f"phase 4g: {st.owned.size()} handoffs still owned {free_wait_s()} s after the "
+                  "borrower released them")
+            released_s.append(freed)
+        parent.send(("end",))
+        kind, res = recv(parent, proc, BORROWER_S)
+        proc.join(60)
+        check(kind == "result" and not proc.is_alive() and proc.exitcode == 0,
+              f"phase 4g: the borrower ended with {kind!r}, alive {proc.is_alive()}, exit code {proc.exitcode}")
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    toks = res["tokens"]
+    firsts = sum(a[0] == b[0] for a, b in zip(toks, ref_tokens))
+    same = sum(x == z for a, b in zip(toks, handoff_tokens) for x, z in zip(a, b))
+    check(all(len(t) == 32 for t in toks) and firsts == 8,
+          f"phase 4g borrower: first tokens equal phase 4's in {firsts} of 8, lengths {[len(t) for t in toks]}")
+    check(same == 256, f"phase 4g borrower: {same} of 256 tokens equal phase 4e's in-process handoff streams")
+    check(res["k1"] == 0 and res["prefill_forwards"] == 0 and res["k4"] == L * res["decode_steps"] > 0,
+          f"phase 4g borrower: K1 {res['k1']} (want 0), K4 {res['k4']} != {L} x {res['decode_steps']} decode steps")
+    check(res["captures"] == 1 or dev.type != "cuda", f"phase 4g borrower: {res['captures']} captures")
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    out = dict(k1=k1_n, borrower=res, publish_ms=mean(publish_ms), local_fetch_ms=mean(local_ms),
+               fetch_ms=mean(res["fetch_ms"]), upload_ms=mean(res["upload_ms"]), admit_ms=mean(res["admit_ms"]),
+               plane_bytes=plane_bytes, waves=len(waves), ready_s=ready_s, freed_s=max(released_s))
+    print(f"phase 4g handoff across processes: {len(waves)} wave(s), {plane_bytes} bytes on the plane; publish "
+          f"{out['publish_ms']:.3f} ms a handoff (encode + writev; {[round(x, 3) for x in publish_ms]}), owner-local "
+          f"fetch {out['local_fetch_ms']:.3f} ms, cross-process fetch {out['fetch_ms']:.3f} ms "
+          f"({[round(x, 3) for x in res['fetch_ms']]}), fetch-to-device upload {out['upload_ms']:.3f} ms "
+          f"({[round(x, 3) for x in res['upload_ms']]}), scatter-in admission {out['admit_ms']:.3f} ms; borrower "
+          f"ready (spawn, CUDA, weights) {ready_s:.2f} s, weights checksum equal {checksum}; decode "
+          f"{res['decode_steps']} steps, K1 0, K4 {res['k4']}, captures {res['captures']}; first tokens equal phase "
+          f"4's in 8 of 8, 256 of 256 tokens equal phase 4e's; the owner's store empty {out['freed_s']:.3f} s after "
+          f"the release {card}")
+    return out
+
+
+def plane_migrate(torch, cfg, params, prompts, card, dev) -> dict:
+    """Phase 4g(b): 4 of 8 live lanes checkpointed and published, restored
+    on a second engine from their references; a fifth suspended with its
+    publish and restored from the plane copy on the second engine."""
+    from ray_tpu_torch.core import direct
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm import migrate
+
+    st = direct.state()
+    sps = [SamplingParams(max_tokens=32)] * 4 + [
+        SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9, seed=s) for s in range(4)]
+    kw = dict(max_num_seqs=8, kv_layout="paged", page_size=64, enable_prefix_caching=False, device=dev)
+    src = LLMEngine(cfg, params, telemetry_tags={"model": "phase 4g migrate source"}, **kw)
+    ref = [o.token_ids for o in src.generate(prompts, sps)]
+    ids = [src.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    for _ in range(MIGRATE_STEPS):
+        src.step()
+    moved = [ids[0], ids[1], ids[4], ids[5]]
+    pairs, ckpt_ms = [], []
+    for rid in moved:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        pairs.append(migrate.publish(src.checkpoint_request(rid)))
+        ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+        check(src.finish_migrated(rid), f"phase 4g migrate: finish_migrated({rid}) refused")
+    dst = LLMEngine(cfg, params, telemetry_tags={"model": "phase 4g migrate peer"}, **kw)
+    restore_ms, new_ids = [], []
+    for meta, r in pairs:
+        t0 = time.perf_counter()
+        new_ids.append(dst.restore_request(r))  # fetch over the plane, decode, validate
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    sus = ids[2]
+    t0 = time.perf_counter()
+    info = src.suspend_request(sus)  # publish=True, ray_tpu's default
+    suspend_ms = (time.perf_counter() - t0) * 1e3
+    check(info["published"] is True and src.suspend_publish_errors == 0, f"phase 4g suspend: {info}")
+    sus_id = dst.restore_request(src._suspended[sus]["ref"])
+    check(src.drop_suspended(sus), "phase 4g suspend: drop_suspended refused")
+    del pairs, meta, r
+    finals = {}
+    while src.has_unfinished() or dst.has_unfinished():
+        for eng in (src, dst):
+            finals.update((o.request_id, o.token_ids) for o in eng.step()
+                          if o.finished and o.finish_reason not in ("migrated", "suspended"))
+    got = [finals[i] for i in new_ids]
+    want = [ref[ids.index(rid)] for rid in moved]
+    equal = sum(a == b for a, b in zip(got, want))
+    check(equal == 4, f"phase 4g migrate: {equal} of 4 restored streams equal the uninterrupted runs")
+    check(finals[sus_id] == ref[2], "phase 4g suspend: the lane restored from its plane copy left its stream")
+    for label, eng in (("source", src), ("peer", dst)):
+        check(eng._decode.captures == 1 or dev.type != "cuda", f"phase 4g migrate {label}: captures")
+        kv = eng.kv_cache_stats()
+        check(kv["pages_free"] == kv["pages_total"], f"phase 4g migrate {label}: the pool did not drain: {kv}")
+    splice = dst._tel.m["rt_llm_migration_splice_s"]
+    count, total = splice._series[splice._key(dst._tel.tags)][:2]
+    del src, dst
+    freed = wait_for(lambda: st.owned.size() == 0, free_wait_s())
+    check(freed is not None, f"phase 4g migrate: {st.owned.size()} checkpoints still owned")
+    res = dict(checkpoint_publish_ms=sum(ckpt_ms) / 4, restore_ms=sum(restore_ms) / 4, suspend_ms=suspend_ms,
+               splice_ms=total / count * 1e3)
+    print(f"phase 4g migrate over the plane (paged graph engines, 4 of 8 lanes at 12 tokens: 2 greedy, 2 seeded): "
+          f"checkpoint + publish {res['checkpoint_publish_ms']:.3f} ms a lane ({[round(x, 3) for x in ckpt_ms]}), "
+          f"restore_request(ref) {res['restore_ms']:.3f} ms ({[round(x, 3) for x in restore_ms]}), restore to first "
+          f"token {res['splice_ms']:.3f} ms (rt_llm_migration_splice_s, mean of {int(count)}); 4 of 4 streams equal "
+          f"the uninterrupted runs; suspend with publish {suspend_ms:.3f} ms ({info['nbytes']} bytes, published "
+          f"True), restored from its plane copy on the peer: its stream equal; captures 1 {card}")
+    return res
+
+
+def plane_kv(torch, cfg, params, leader, followers, hit_firsts, hit_firsts_int8, local_ms, off_ms, card, dev) -> dict:
+    """Phase 4g(c): the cluster KV plane. Engine A serves phase 4b's leader
+    and publishes its prefix; engine B (its local cache too small for a
+    full-width group) takes the 8 followers as remote hits: fetch, upload,
+    extend with K4. Then CacheAwareRouter over A and B, a paged int8 pair
+    (an int8 wire), and a chaos drop at direct.get_owned_view."""
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.core import direct
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.llm.kvplane import CacheAwareRouter, KVPlaneClient, PrefixIndex
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    from ray_tpu_torch.models.llama import torch_dtype
+
+    st = direct.state()
+    L = cfg.num_layers
+    # engine B's local prefix cache holds less than one 1024-token group, so a
+    # fetched prefix is not re-stored there and each of the 8 followers is a remote hit
+    b_cache = L * 1024 * cfg.num_kv_heads * cfg.hd * torch_dtype(cfg.dtype).itemsize
+
+    def pair(label, dtype):
+        idx = PrefixIndex()
+        kw = dict(max_num_seqs=8, kv_layout="paged", page_size=64, prefix_block=64, cache_dtype=dtype, device=dev)
+        a = LLMEngine(cfg, params, kv_plane=KVPlaneClient(idx, "A", publish_min_hits=1),
+                      telemetry_tags={"model": f"phase 4g kv A {label}"}, **kw)
+        b = LLMEngine(cfg, params, kv_plane=KVPlaneClient(idx, "B", publish_min_hits=1),
+                      prefix_cache_bytes=b_cache, telemetry_tags={"model": f"phase 4g kv B {label}"}, **kw)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        a.generate(leader, SamplingParams(max_tokens=32))  # its prefill stores the prefix; the step tail publishes it
+        lead_s = time.perf_counter() - t0
+        sa = a.prefix_cache_stats()
+        check(sa["remote"]["published_blocks"] == 1 and idx.stats()["keys"] == len(leader) // 64 and st.owned.size() == 1,
+              f"phase 4g kv {label}: A published {sa['remote']}, index {idx.stats()}, owned {st.owned.size()}")
+        splices = []
+        b._splice_prefix_fetch = timed_calls(torch, b._splice_prefix_fetch, splices, dev)
+        k1_0, k4_0 = flash_attention_fwd.launches, paged_attn_partials.launches
+        prefill_before = b.prefill_s
+        t0 = time.perf_counter()
+        outs = b.generate(followers, SamplingParams(max_tokens=32))
+        wall_s = time.perf_counter() - t0
+        k1_n, k4_n = flash_attention_fwd.launches - k1_0, paged_attn_partials.launches - k4_0
+        s = b.prefix_cache_stats()
+        want = hit_firsts if dtype is None else hit_firsts_int8
+        firsts = sum(o.token_ids[0] == w for o, w in zip(outs, want))
+        check(all(len(o.token_ids) == 32 for o in outs) and firsts == 8,
+              f"phase 4g kv {label}: first tokens equal phase 4b/4c's hits in {firsts} of 8")
+        check(s["remote"]["hits"] == 8 and s["remote"]["tokens_saved"] == 8 * 1024 and s["local"]["hits"] == 0
+              and b.prefill_forwards == 0 and b.extend_forwards == 8,
+              f"phase 4g kv {label}: B's stats {s}, prefill forwards {b.prefill_forwards}, extends {b.extend_forwards}")
+        check(k1_n == 0 and k4_n == L * (b.decode_steps + b.extend_forwards),
+              f"phase 4g kv {label}: K1 {k1_n} (want 0), K4 {k4_n} != {L} x ({b.decode_steps} decode steps + "
+              f"{b.extend_forwards} extends)")
+        check(s["plane"]["wire_dtype"] == ("int8" if dtype else cfg.dtype), f"phase 4g kv {label}: {s['plane']}")
+        fetches = b._tel.recorder.snapshot()["fetches"]
+        run = dict(a=a, b=b, idx=idx, k1=k1_n, k4=k4_n, wall_s=wall_s, lead_s=lead_s,
+                   prefill_ms=(b.prefill_s - prefill_before) * 1e3, stats=s,
+                   fetch_ms=sum(f["t1"] - f["t0"] for f in fetches) / len(fetches) * 1e3,
+                   splice_ms=sum(ms for _, ms in splices) / len(splices), fetched=s["remote"]["fetched_bytes"])
+        print(f"phase 4g kv plane {label} (paged, A holds phase 4b's prefix, B's local tier {b_cache} bytes): "
+              f"leader on A {lead_s:.3f} s (prefill, 32 tokens, the publish at the step tail), 8 remote hits on B: "
+              f"fetch {run['fetch_ms']:.3f} ms a hit (worker: index lookup, borrow, decode), splice {run['splice_ms']:.3f}"
+              f" ms (upload to the card, counters), B's prefill stage {run['prefill_ms']:.2f} ms over 8 extends "
+              f"against phase 4b's local hits {local_ms:.2f} ms and caching off {off_ms:.2f} ms "
+              f"({wall_s:.3f} s wall, 32 tokens each), fetched {run['fetched']} bytes ({s['plane']['wire_dtype']} "
+              f"wire); K1 {k1_n}, K4 {k4_n}; first tokens equal phase {'4b' if dtype is None else '4c'}'s hits in 8 "
+              f"of 8 {card}")
+        return run
+
+    bf = pair("bf16", None)
+    a, b = bf["a"], bf["b"]
+    # the router over A and B: a ninth follower goes to the holder
+    ninth = followers[1][:1100]  # the prefix and a new tail: A holds its 1024-token boundary, B nothing
+    engines = {"A": a, "B": b}
+
+    def submit(rid, prompt, sp):
+        o = engines[rid].generate(prompt, SamplingParams(**sp))
+        return {"token_ids": list(o.token_ids), "finish_reason": o.finish_reason, "replica": rid}
+
+    router = CacheAwareRouter(bf["idx"], submit, ["A", "B"], block=64, telemetry_tags={"model": "phase 4g router"})
+    a_hits = a.prefix_cache_stats()["local"]["hits"]
+    routed = router.generate(ninth, {"max_tokens": 32})
+    rs = router.stats()
+    check(routed["replica"] == "A" and rs["routed_to_holder"] == 1 and a.prefix_cache_stats()["local"]["hits"] == a_hits + 1,
+          f"phase 4g router: landed on {routed['replica']}, stats {rs}")
+    # chaos: every borrow-get dropped; B's fetch runs out its budget and prefills locally
+    f0 = followers[0]
+    ref_first = int(b.prefill_remote(f0)["logits"].argmax())
+    lost0 = b.prefix_cache_stats()["remote"]["lost"]
+    rule = chaos.inject("direct.get_owned_view", drop_prob=1.0)
+    try:
+        o = b.generate(f0, SamplingParams(max_tokens=32))
+    finally:
+        chaos.clear()
+    s = b.prefix_cache_stats()
+    retries = b._kv_plane.fetch_retries
+    check(o.token_ids[0] == ref_first and len(o.token_ids) == 32, f"phase 4g chaos: first token {o.token_ids[0]} != "
+          f"the local prefill's {ref_first}")
+    check(s["remote"]["lost"] == lost0 + 1 and s["plane"]["fetch_lost"] == 1 and s["remote"]["hits"] == 8
+          and rule.hits == retries + 1, f"phase 4g chaos: stats {s}, rule hits {rule.hits}")
+    print(f"phase 4g router and chaos: CacheAwareRouter over A and B sent a ninth follower to the holder A (stats "
+          f"{ {k: rs[k] for k in ('routed_to_holder', 'cold', 'retries')} }, A local hits +1); a drop at "
+          f"direct.get_owned_view: B's fetch lost after {rule.hits} attempts, remote lost {s['remote']['lost']}, "
+          f"fetch_lost {s['plane']['fetch_lost']}, local prefill with the first token of a B = 1 prefill {card}")
+    for eng in (a, b):
+        eng._kv_plane.shutdown()
+    del a, b, eng, engines, router, bf["a"], bf["b"]
+    gc.collect()  # an engine and its plane client hold each other
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    i8 = pair("int8", "int8")
+    for eng in (i8["a"], i8["b"]):
+        eng._kv_plane.shutdown()
+    out = dict(bf16={k: v for k, v in bf.items() if k not in ("a", "b", "idx")},
+               int8={k: v for k, v in i8.items() if k not in ("a", "b", "idx")})
+    del i8, eng
+    gc.collect()
+    freed = wait_for(lambda: st.owned.size() == 0, free_wait_s())
+    check(freed is not None, f"phase 4g kv: {st.owned.size()} blocks still owned after the clients' shutdown")
+    return out
+
+
+def object_plane(torch, cfg, params, prompts, ref_tokens, handoff_tokens, leader, followers, hit_firsts,
+                 hit_firsts_int8, local_ms, off_ms, card, dev) -> dict:
+    """Phase 4g: attach the plane, run legs (a)-(c), detach; /dev/shm's rt
+    segments must be gone at the end."""
+    from ray_tpu_torch.core import direct
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    size, free = shm_bytes()
+    print(f"phase 4g /dev/shm: {size} bytes, {free} free (os.statvfs), rt segments {rt_segments()} {card}")
+    authkey = os.urandom(32)
+    direct.attach(authkey)
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+    try:
+        a = plane_handoffs(torch, cfg, params, prompts, ref_tokens, handoff_tokens, authkey, card, dev)
+        b = plane_migrate(torch, cfg, params, prompts, card, dev)
+        c = plane_kv(torch, cfg, params, leader, followers, hit_firsts, hit_firsts_int8, local_ms, off_ms, card, dev)
+    finally:
+        direct.detach()
+    k1_n, k4_n = flash_attention_fwd.launches, paged_attn_partials.launches
+    left = rt_segments()
+    check(not left, f"phase 4g: /dev/shm still holds {left}")
+    print(f"phase 4g launches: this process K1 {k1_n}, K4 {k4_n} (the remote hits' extends and decode "
+          f"{c['bf16']['k4'] + c['int8']['k4']} of them); the borrower K1 {a['borrower']['k1']}, K4 "
+          f"{a['borrower']['k4']}; /dev/shm rt segments at the end: none {card}")
+    return dict(handoffs=a, migrate=b, kv=c, k1=k1_n, k4=k4_n, k4_borrower=a["borrower"]["k4"],
+                k4_remote=c["bf16"]["k4"] + c["int8"]["k4"], shm=(size, free))
 
 
 if __name__ == "__main__":

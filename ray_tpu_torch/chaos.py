@@ -10,19 +10,20 @@ below names the ROADMAP.md queue 1 item that brings the call site:
 ======================  =================================================
 site                    injection point
 ======================  =================================================
-direct.put_owned        owner-local publish on the direct object plane
-                        (call site waits for: the object plane)
+direct.put_owned        owner-local publish on the direct object plane:
+                        ``core/direct.py::put_owned``
 direct.get_owned_view   borrow-get of an owned object (handoff/prefix/
-                        live-state fetch) (the object plane)
+                        live-state fetch): ``core/direct.py::
+                        get_owned_view``
 handoff.put             disagg/kvplane handoff publish (codec -> owned
-                        object) (the object plane)
-handoff.fetch           bounded-retry handoff fetch, each ATTEMPT a hit
-                        (the object plane)
+                        object): ``llm/disagg/handoff.py::publish``
+handoff.fetch           bounded-retry handoff fetch, each ATTEMPT a hit:
+                        ``llm/disagg/handoff.py::fetch``
 kvplane.index           every prefix-index call (filter with methods=):
                         ``llm/kvplane/client.py::index_call``
 kvplane.prefetch        one predictive-prefetch round of the plane
-                        client's worker (the object plane: the client
-                        publishes through it)
+                        client's worker: ``llm/kvplane/client.py::
+                        KVPlaneClient._prefetch_round``
 llm.suspend             ``LLMEngine.suspend_request``'s spill decision: a
                         DROP or raises rule refuses with a typed
                         MigrationError, the conversation still RUNNING
@@ -40,7 +41,8 @@ path), or RAISE a supplied exception type. ``max_hits`` bounds a rule,
 ``after`` skips the first N matches, ``methods`` filters multi-method
 sites like ``kvplane.index``. ray_tpu's ``rpc.<msg_type>`` namespace is
 accepted by ``inject`` as there; its transport adapter
-(``core/rpc_chaos.py``) waits for the object plane.
+(``core/rpc_chaos.py``, on the direct calls' results) waits for the
+runtime.
 
 Safety contract, as in ray_tpu:
 

@@ -1,0 +1,134 @@
+"""Serialization for the owned-object plane (port of
+ray_tpu/core/serialization.py): stdlib ``pickle`` protocol 5 with
+out-of-band buffers, and tracking of the ObjectRefs pickled inside a
+value.
+
+ray_tpu pickles with a third-party pickler that also serializes closures
+and lambdas, and carries numpy arrays out of band. The port pickles with
+the standard library: the values it moves (KV handoffs, checkpoints,
+prefix blocks: dicts of host tensors, lists and numbers) hold no code, and
+the card's machine has no such package.
+
+A host ``torch.Tensor`` travels out of band: the pickler's
+``reducer_override`` turns it into (dtype name, shape, one
+``PickleBuffer`` over its bytes), so its bytes never enter the header and
+land in shared memory with one ``writev`` (``object_store.write_to_shm``).
+A bf16 tensor is viewed as int16 for the buffer (bf16 has no numpy
+dtype). Decoding rebuilds it with ``torch.frombuffer`` over the buffer
+(a view into the mapped segment on the borrow path); a read-only buffer
+(inline ``bytes``) is copied first, so no tensor is ever writable over
+memory that must not change.
+
+A tensor on the card is refused with TypeError: move it with ``.cpu()``
+first (the handoff and migration codecs pass host tensors).
+"""
+
+from __future__ import annotations
+
+import io
+import pickle
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+@dataclass
+class Serialized:
+    header: bytes
+    buffers: list = field(default_factory=list)  # bytes / memoryview / bytearray
+    # ObjectRefs found inside the object (the borrow protocol's pins)
+    contained_refs: list = field(default_factory=list)
+
+    def total_size(self) -> int:
+        return len(self.header) + sum(memoryview(b).nbytes for b in self.buffers)
+
+
+# exact types that cannot hold ObjectRefs or tensors: the C pickler takes
+# them directly, with no sink and no reducer
+_FAST_TYPES = frozenset({bytes, bytearray, str, int, float, bool, type(None)})
+
+
+def _tensor_reduce(t: torch.Tensor):
+    """(rebuild, args) of a host tensor whose bytes go out of band."""
+    if t.device.type != "cpu":
+        raise TypeError(f"a tensor on {t.device} cannot be put on the object plane: move it to the host with .cpu() "
+                        "first")
+    if t.is_sparse or t.is_quantized or t.is_complex():
+        raise TypeError(f"the object plane carries dense real tensors, not {t.layout} {t.dtype}")
+    t = t.detach().contiguous()
+    flat = t.reshape(-1)
+    if t.dtype == torch.bfloat16:
+        flat = flat.view(torch.int16)
+    arr = flat.numpy()
+    return _rebuild_tensor, (str(t.dtype).removeprefix("torch."), tuple(t.shape), pickle.PickleBuffer(arr))
+
+
+def _rebuild_tensor(dtype_name: str, shape: tuple, buf) -> torch.Tensor:
+    dtype = getattr(torch, dtype_name)
+    if int(np.prod(shape, dtype=np.int64)) == 0:
+        return torch.empty(shape, dtype=dtype)
+    mv = memoryview(buf)
+    if mv.readonly:
+        # an inline payload's bytes: torch.frombuffer would hand back a
+        # writable tensor over immutable memory, so copy (< the inline
+        # threshold) into a buffer the tensor may own
+        mv = memoryview(bytearray(mv))
+    return torch.frombuffer(mv, dtype=torch.uint8).view(dtype).reshape(shape)
+
+
+class _Pickler(pickle.Pickler):
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            return _tensor_reduce(obj)
+        return NotImplemented
+
+
+def _dumps(obj, buffer_callback) -> bytes:
+    out = io.BytesIO()
+    _Pickler(out, protocol=5, buffer_callback=buffer_callback).dump(obj)
+    return out.getvalue()
+
+
+def serialize(obj) -> Serialized:
+    if type(obj) in _FAST_TYPES:
+        return Serialized(header=pickle.dumps(obj, protocol=5))
+    from ray_tpu_torch.core import object_ref as _oref
+
+    buffers: list[pickle.PickleBuffer] = []
+    contained: list = []
+    _track_contained_refs(obj, contained)
+    # pickle-time sink: ObjectRef.__reduce__ reports every ref actually
+    # serialized (those nested where the pre-scan cannot see included)
+    sink: list = []
+    token = _oref.push_ref_sink(sink)
+    try:
+        header = _dumps(obj, buffer_callback=lambda b: buffers.append(b) or False)
+    finally:
+        _oref.pop_ref_sink(token)
+    seen = {r.id.binary() for r in contained}
+    for oid in sink:
+        if oid.binary() not in seen:
+            seen.add(oid.binary())
+            contained.append(_oref.ObjectRef(oid))
+    return Serialized(header=header, buffers=[b.raw() for b in buffers], contained_refs=contained)
+
+
+def deserialize(header: bytes, buffers) -> object:
+    return pickle.loads(header, buffers=buffers)
+
+
+def _track_contained_refs(obj, out: list, depth: int = 0):
+    """The cheap shallow scan; the pickle-time sink catches the rest."""
+    if depth > 3:
+        return
+    from ray_tpu_torch.core.object_ref import ObjectRef
+
+    if isinstance(obj, ObjectRef):
+        out.append(obj)
+    elif isinstance(obj, (list, tuple, set)):
+        for x in obj:
+            _track_contained_refs(x, out, depth + 1)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _track_contained_refs(v, out, depth + 1)

@@ -1,10 +1,10 @@
-"""The serving-error taxonomy, the port's own copy of the part of
-ray_tpu/exceptions.py that it raises: admission and shedding, the KV
-handoff and live-migration errors, the routers' terminal errors and the
-chaos plane's injected fault. The runtime's object and actor errors
-(``ObjectLostError``, ``GetTimeoutError``, ``ActorDiedError``, ...) and
-``TaskError`` wait for the object plane (ROADMAP.md, queue 1, the object
-plane).
+"""Exception types, the port's own copy of the part of
+ray_tpu/exceptions.py that it raises: the serving-error taxonomy
+(admission and shedding, the KV handoff and live-migration errors, the
+routers' terminal errors, the chaos plane's injected fault) and the
+runtime errors the owned-object plane raises and the ported probes walk
+(``RayTpuError``, ``TaskError`` with its ``.cause`` and ``tb_str``,
+``ObjectLostError``, ``GetTimeoutError``, the worker and actor deaths).
 
 ``SERVING_ERRORS`` maps each typed error a client or a router may observe
 to its HTTP status code and a retryable flag, keyed by class name, with
@@ -15,6 +15,7 @@ stamps ``status_code``/``retryable`` on the class.
 
 from __future__ import annotations
 
+import traceback
 from dataclasses import dataclass
 
 
@@ -32,6 +33,13 @@ SERVING_ERRORS: dict[str, ServingErrorSpec] = {
     "ReplicaDrainingError": ServingErrorSpec(429, retryable=True),
     # replica stepper death (serve/overload.py): another replica serves
     "StepperDiedError": ServingErrorSpec(503, retryable=True),
+    # object plane / ownership (this module)
+    "ObjectLostError": ServingErrorSpec(503, retryable=True),
+    "ObjectReconstructionError": ServingErrorSpec(503, retryable=True),
+    "GetTimeoutError": ServingErrorSpec(504, retryable=True),
+    "ActorDiedError": ServingErrorSpec(503, retryable=True),
+    "ActorUnavailableError": ServingErrorSpec(503, retryable=True),
+    "WorkerCrashedError": ServingErrorSpec(503, retryable=True),
     # live migration (llm/migrate.py): a lost checkpoint fails over, a
     # malformed one is a hard fault (garbage must never reach a pool)
     "MigrationError": ServingErrorSpec(500, retryable=False),
@@ -73,3 +81,71 @@ def serving_error_spec(e) -> ServingErrorSpec | None:
         if spec is not None:
             return spec
     return None
+
+
+class RayTpuError(Exception):
+    pass
+
+
+class TaskError(RayTpuError):
+    """A task raised an exception; re-raised where its result is read.
+    Wraps the cause with the remote traceback (``tb_str``)."""
+
+    def __init__(self, cause: BaseException | None = None, tb_str: str = "", task_desc: str = ""):
+        self.cause = cause
+        self.tb_str = tb_str
+        self.task_desc = task_desc
+        super().__init__(f"task {task_desc} failed:\n{tb_str}")
+
+    @classmethod
+    def from_exception(cls, e: BaseException, task_desc: str = ""):
+        return cls(cause=e, tb_str="".join(traceback.format_exception(type(e), e, e.__traceback__)), task_desc=task_desc)
+
+    def __reduce__(self):
+        import pickle
+
+        cause = self.cause
+        if cause is not None:
+            try:
+                pickle.dumps(cause)
+            except Exception:
+                cause = None  # an unpicklable cause: keep the traceback string only
+        return (_rebuild_task_error, (cause, self.tb_str, self.task_desc))
+
+
+def _rebuild_task_error(cause, tb_str, task_desc):
+    return TaskError(cause=cause, tb_str=tb_str, task_desc=task_desc)
+
+
+@serving_error
+class WorkerCrashedError(RayTpuError):
+    """The worker process executing the task died unexpectedly."""
+
+
+@serving_error
+class ActorDiedError(RayTpuError):
+    def __init__(self, actor_id=None, reason: str = ""):
+        self.actor_id = actor_id
+        self.reason = reason
+        super().__init__(f"actor {actor_id} died: {reason}")
+
+
+@serving_error
+class ActorUnavailableError(RayTpuError):
+    """Actor temporarily unreachable (restarting)."""
+
+
+@serving_error
+class ObjectLostError(RayTpuError):
+    """The object was freed, or its owner died (owned objects die with
+    their owner)."""
+
+
+@serving_error
+class ObjectReconstructionError(ObjectLostError):
+    pass
+
+
+@serving_error
+class GetTimeoutError(RayTpuError, TimeoutError):
+    pass

@@ -5,10 +5,8 @@ validates it on the wire, and a decode engine scatters it into its slot
 cache or page pool in place and decodes from it (``LLMEngine``'s
 ``add_prefill_request``/``pop_handoff``/``add_prefilled``). The router
 (``router.py``) is the split's control plane over injected prefill,
-decode and resume callables.
-
-Not ported yet (ROADMAP.md, queue 1, the object plane): the object-plane
-legs ``publish``/``fetch`` (they raise).
+decode and resume callables. ``publish``/``fetch`` move a handoff
+between processes over the object plane (``core/direct.py``).
 """
 
 from ray_tpu_torch.llm.disagg.handoff import (

@@ -14,9 +14,11 @@ without ``ml_dtypes``. The codec also takes numpy arrays of the dtypes
 torch shares with numpy (f32, int8), so ray_tpu's f32 and int8 payloads
 decode here as they are.
 
-ray_tpu stores a handoff on its object plane (``publish``) and borrows it
-on the decode side (``fetch``). The object plane is not ported: both
-raise NotImplementedError naming its ROADMAP.md item.
+``publish`` stores a handoff as an owned object on the object plane
+(``core/direct.py``: the bytes in a shared-memory segment, the owner this
+process) and returns the small (meta, ref) pair that travels to the
+router; ``fetch`` borrows it on the decode side, zero-copy, under a
+bounded retry budget.
 """
 
 from __future__ import annotations
@@ -30,10 +32,6 @@ from ray_tpu_torch.exceptions import serving_error
 
 HANDOFF_VERSION = 1
 
-# the ROADMAP.md item that publish/fetch, the cluster KV plane and
-# restore-from-a-reference wait for
-OBJECT_PLANE_ITEM = "queue 1, the object plane"
-
 
 @serving_error
 class HandoffError(ValueError):
@@ -43,7 +41,7 @@ class HandoffError(ValueError):
 @serving_error
 class HandoffLostError(RuntimeError):
     """The handoff object vanished before the decode side could scatter
-    it in (raised by the object plane's fetch, which is not ported)."""
+    it in (``fetch``, after its bounded retries)."""
 
 
 def host_tensor(x) -> torch.Tensor:
@@ -82,8 +80,8 @@ def _scale_shape(shape: tuple) -> tuple:
     return (shape[0], shape[2], shape[1])
 
 
-PREFIX_KIND = "kv_prefix"  # a cluster prefix block (the KV plane, not
-# ported): the same wire validation, no first-token logits
+PREFIX_KIND = "kv_prefix"  # a cluster prefix block (llm/kvplane/): the
+# same wire validation, no first-token logits
 
 LIVE_KIND = "live_state"  # live request migration (llm/migrate.py): a
 # mid-decode checkpoint's KV half; its wire prompt_token_ids are the
@@ -205,14 +203,65 @@ def meta_of(payload: dict) -> dict:
 
 
 def publish(kv: dict):
-    """ray_tpu stores the encoded handoff as an owned object on its
-    object plane and returns (meta, ref). Not ported: raises."""
-    raise NotImplementedError(f"handoff.publish needs the object plane, which is not ported to ray_tpu_torch yet "
-                              f"(ROADMAP.md, {OBJECT_PLANE_ITEM})")
+    """Encode and store a handoff as an owned object in THIS process.
+
+    Returns (meta, ref): the multi-MB payload stays owner-local (shm for
+    anything over the inline threshold) and only the small (meta, ref)
+    pair travels back to the router."""
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.core import direct as _direct
+
+    payload = encode(kv)
+    t0 = time.time()
+    # chaos site: a dropped publish surfaces as the owner-side loss the
+    # router's re-prefill path must absorb (inert when unarmed)
+    if not chaos.apply("handoff.put"):
+        raise HandoffLostError("chaos: handoff publish dropped")
+    ref = _direct.put_owned(payload)
+    _handoff_span("llm.handoff.put", payload, t0, nbytes=meta_of(payload)["nbytes"])
+    return meta_of(payload), ref
 
 
-def fetch(ref, meta: dict | None = None, **kwargs) -> dict:
-    """ray_tpu borrows a published handoff from its object plane. Not
-    ported: raises."""
-    raise NotImplementedError(f"handoff.fetch needs the object plane, which is not ported to ray_tpu_torch yet "
-                              f"(ROADMAP.md, {OBJECT_PLANE_ITEM})")
+def fetch(
+    ref, meta: dict | None = None, *, timeout_s: float = 30.0, retries: int = 2,
+    retry_wait_s: float = 0.2, kind: str = "kv_handoff",
+) -> dict:
+    """Borrow-get a published handoff with a bounded retry budget.
+
+    The get decodes zero-copy: the tensors are views into a private,
+    copy-on-write mapping of the owner's segment, so the borrow path
+    copies no byte and the device upload at scatter-in is the only copy
+    the decode side pays. ``retries`` extra attempts absorb transient
+    owner-side races; a handoff that is GONE (the owner freed it, or the
+    owner process died) raises HandoffLostError after the final attempt:
+    a caller never hangs on a dead handoff. ``kind=PREFIX_KIND`` fetches a
+    cluster prefix block under the same contract (the KV plane client maps
+    the loss to its local-prefill fallback), ``LIVE_KIND`` a checkpoint."""
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.core import direct as _direct
+    from ray_tpu_torch.exceptions import GetTimeoutError, ObjectLostError
+
+    last: BaseException | None = None
+    for attempt in range(retries + 1):
+        try:
+            t0 = time.time()
+            # chaos site, INSIDE the bounded-retry loop: each attempt is one
+            # hit, so a max_hits rule can lose the first N attempts and let
+            # the retry succeed (or exhaust into HandoffLostError); a drop
+            # maps onto the native loss signal
+            if not chaos.apply("handoff.fetch"):
+                raise ObjectLostError("chaos: handoff fetch dropped")
+            value = _direct.get_owned_view(ref.id, timeout=timeout_s)
+            payload = decode(value, kind=kind)
+            if meta is not None and tuple(meta.get("shape", payload["k"].shape)) != tuple(payload["k"].shape):
+                raise HandoffError(f"fetched block {tuple(payload['k'].shape)} does not match routed meta "
+                                   f"{meta['shape']}")
+            _handoff_span("llm.handoff.fetch", payload, t0, attempts=attempt + 1)
+            return payload
+        except (ObjectLostError, GetTimeoutError, ConnectionError, FileNotFoundError) as e:
+            last = e
+            if attempt < retries:
+                time.sleep(retry_wait_s)
+    raise HandoffLostError(
+        f"handoff object {ref.id.hex()[:16]} lost before scatter-in ({retries + 1} attempts): {last}"
+    ) from last

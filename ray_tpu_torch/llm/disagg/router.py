@@ -6,9 +6,9 @@ plane is the handoff object, llm/disagg/handoff.py — the router never
 touches the KV bytes). Per request it:
 
 1. admits the prompt to the prefill pool and receives (meta, ref) — a
-   tiny summary plus a borrowed reference to the owned KV block (in
-   process, the ref is the handoff payload itself: the object plane that
-   would own it waits in ROADMAP.md, queue 1, the object plane);
+   tiny summary plus a borrowed reference to the owned KV block (the
+   router takes whatever its prefill callable returns: an object-plane
+   reference from ``handoff.publish``, or in process the payload itself);
 2. binds the handoff to a decode lane (a decode submit callable; under
    Serve this is the decode deployment handle, whose pow-2 router picks
    the replica) and waits for generation;

@@ -52,7 +52,18 @@ on append, dequantized in attention, ``kv_quant.py``):
   migration) or a suspended conversation spilled to host memory
   (``suspend_request``, ``resume_suspended``) by scattering it into its
   cache or pages in place, so a captured decode graph keeps its
-  addresses, and decodes on from it.
+  addresses, and decodes on from it. Over the object plane
+  (``core/direct.py``) a checkpoint or a suspended conversation is
+  published as an owned object and restored from its reference in
+  another engine or process;
+- the cluster KV plane (``kv_plane=KVPlaneClient(...)``,
+  ``llm/kvplane/``): a local prefix-cache miss consults the cluster
+  index; the lookup and the fetch of the longest live remote block run on
+  the engine's fetch worker, off the lock and off the card, while the
+  request waits; at a later admission the block is uploaded, inserted into
+  the request's slot or pages (requantized across cache dtypes), stored in
+  the local cache and republished. Freshly cached prefixes are published
+  at the step tail, outside the lock.
 
 Features of ray_tpu's engine that this port does not have yet raise
 NotImplementedError naming their ROADMAP.md item.
@@ -64,6 +75,7 @@ import numbers
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -77,10 +89,10 @@ from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm import paged_kv as pkv
 from ray_tpu_torch.llm import prng
 from ray_tpu_torch.llm.cuda.graph import FusedDecode, PagedStep, SlotStep, SpecPagedStep, SpecSlotStep
-from ray_tpu_torch.llm.disagg.handoff import OBJECT_PLANE_ITEM, host_tensor
+from ray_tpu_torch.llm.disagg.handoff import host_tensor
 from ray_tpu_torch.llm.disagg.scatter import make_handoff_fns
 from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache_dtype
-from ray_tpu_torch.llm.kvplane.index import prefix_key, token_bytes
+from ray_tpu_torch.llm.kvplane.index import boundary_keys, prefix_key, token_bytes
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
 from ray_tpu_torch.models.llama import init_params
 
@@ -106,7 +118,8 @@ class RequestState:
     admit_seq: int = -1
     preemptions: int = 0
     # prefix resolution cached while the request waits: None = not resolved,
-    # (k, v, n) = a hit, (_PREF_MISS, gen) = a miss at the cache's generation gen
+    # (k, v, n, k_scale, v_scale) = a hit, (_PREF_MISS, gen, expiry) = a miss
+    # at the cache's generation gen, good until the wall clock passes expiry
     cached_pref: tuple | None = None
     # telemetry lifecycle stamps (llm/telemetry.py; host wall clocks only)
     t_submit: float = 0.0
@@ -150,25 +163,32 @@ def _bucket(n: int, buckets) -> int:
 # (no lookup every step) until the cache's store generation moves: a leader
 # admitted in the same wave stores the prefix after the follower's lookup
 # missed, and the follower then re-resolves and hits. A local-only cache
-# never expires a miss otherwise (nothing else mints its keys).
+# never expires a miss otherwise (nothing else mints its keys); with a KV
+# plane the miss lapses after a short lease, since a PEER's publish cannot
+# move the local generation.
 _PREF_MISS = object()
+# _resolve_prefix's answer while the request's remote prefix fetch is in flight
+_DEFER = object()
 
 
 class PrefixCache:
     """Hash-prefix KV reuse across requests, the local tier (port of
-    ray_tpu/llm/engine.py::PrefixCache without the cluster plane's
-    ``evict_hook``).
+    ray_tpu/llm/engine.py::PrefixCache).
 
     One GROUP per stored prompt: its K/V ``[L, pad, kv, hd]`` on the
     device, padded to the prefill bucket of its block-aligned length, and
     keyed at every block boundary (``prefix_key``: content-stable blake2b,
     ray_tpu's key space) with that boundary's valid length. LRU over groups
     under a byte budget. A hit is verified token for token against the
-    group's one stored token tuple."""
+    group's one stored token tuple. ``evict_hook`` (set by the KV plane
+    client) hears each evicted group's keys, so a published copy
+    unregisters and frees before the bytes die."""
 
     def __init__(self, block: int = 64, max_bytes: int = 256 << 20):
         self.block = block
         self.max_bytes = max_bytes
+        # called with an evicted group's key list; None = a local-only cache
+        self.evict_hook = None
         # store generation: bumped whenever new boundary keys mint, so a
         # cached miss knows when the cache gained entries
         self.gen = 0
@@ -214,8 +234,10 @@ class PrefixCache:
         the batched prefill output; the group keeps a contiguous copy of
         the first ``pad`` positions (the bucket of the block-aligned
         length), so the budget counts exactly what it holds and the whole
-        batch's K/V is not kept alive by a view. Returns the stored pad
-        width, or None when nothing new was cached."""
+        batch's K/V is not kept alive by a view. Returns ``(new_keys, pad)``,
+        the freshly minted (key, n) boundary pairs and the stored width (a
+        KV plane client publishes exactly what was stored), or None when
+        nothing new was cached."""
         n_max = (len(prompt_token_ids) // self.block) * self.block
         if n_max < self.block:
             return None
@@ -241,7 +263,7 @@ class PrefixCache:
         self._order.append(gid)
         self._bytes += nbytes
         self.gen += 1
-        return pad
+        return new_keys, pad
 
     def _evict_one(self):
         gid = self._order.popleft()
@@ -250,6 +272,13 @@ class PrefixCache:
             self._keys.pop(key, None)
         self._bytes -= nbytes
         self.evictions += 1
+        if self.evict_hook is not None:
+            # the route dies before the bytes: the hook unregisters the
+            # published copy's keys and frees the owned block
+            try:
+                self.evict_hook(keys)
+            except Exception:  # noqa: BLE001 — plane trouble never breaks eviction
+                pass
 
     def stats(self) -> dict:
         return {
@@ -271,6 +300,31 @@ def _parent_trace(payload: dict) -> tuple | None:
     checkpoint carries, for the receiving engine's telemetry."""
     tr = payload.get("trace")
     return (tr["trace_id"], tr.get("parent_id")) if isinstance(tr, dict) else None
+
+
+def _prefix_fetch_worker(engine_ref, jobs: queue.SimpleQueue):
+    """An engine's fetch worker: drains its prefix-fetch jobs OFF the
+    engine lock and off the card (the index call, the object-plane borrow,
+    the token check) while step() keeps prefilling and decoding. It holds
+    the engine only while a job runs, and ends once the engine is gone, so
+    an engine its caller dropped is freed with its pool and weights."""
+    while True:
+        try:
+            job = jobs.get(timeout=1.0)
+        except queue.Empty:
+            if engine_ref() is None:
+                return
+            continue
+        eng = engine_ref()
+        if job is None or eng is None:
+            return
+        rec, prompt = job
+        try:
+            eng._run_prefix_fetch(rec, prompt)
+        except BaseException:  # noqa: BLE001 — a dying worker would wedge every deferral
+            rec["error"] = True
+            rec["done"] = True
+        del eng
 
 
 def resolve_device(device) -> torch.device:
@@ -299,7 +353,10 @@ class LLMEngine:
     ``speculative``: a ``spec.SpecConfig`` (device-resident only; the
     round is the captured graph then). ``telemetry`` (on by default) keeps
     the flight recorder and the SLO metrics, tagged with
-    ``telemetry_tags`` (model / replica / stage).
+    ``telemetry_tags`` (model / replica / stage). ``kv_plane``: a
+    ``kvplane.KVPlaneClient``, the prefix cache's cluster tier (needs
+    ``enable_prefix_caching``); ``prefix_fetch_deadline_s`` bounds how long
+    an admission waits for a remote fetch before a local prefill.
     """
 
     def __init__(
@@ -318,6 +375,7 @@ class LLMEngine:
         prefix_cache_bytes: int = 256 << 20,
         prefix_block: int = 64,
         kv_plane=None,
+        prefix_fetch_deadline_s: float = 2.0,
         kv_layout: str = "slots",
         num_pages: int | None = None,
         page_size: int = 64,
@@ -338,8 +396,9 @@ class LLMEngine:
             )
         if mesh is not None or tp_collective != "fp":
             _not_ported("tensor-parallel meshes", "queue 1, multi-device axes")
-        if kv_plane is not None:
-            _not_ported("the cluster KV plane", OBJECT_PLANE_ITEM)
+        if kv_plane is not None and not enable_prefix_caching:
+            raise ValueError("kv_plane is the prefix cache's cluster tier and needs enable_prefix_caching=True "
+                             "(remote hits re-store locally)")
         self.kv_dtype = normalize_cache_dtype(cache_dtype) if cache_dtype is not None else config.dtype
         self.kv_quant = is_int8(self.kv_dtype)
 
@@ -372,6 +431,41 @@ class LLMEngine:
         self._prefix_cache = (
             PrefixCache(block=prefix_block, max_bytes=prefix_cache_bytes) if enable_prefix_caching else None
         )
+        # the cluster KV plane (llm/kvplane/): publish stored prefixes, fetch
+        # remote hits, unregister on eviction. The remote tier's counters
+        # live here (the PrefixCache keeps the local tier's), the full set
+        # from the start so prefix_cache_stats() never changes shape.
+        self._kv_plane = kv_plane
+        self._plane_stats = {
+            "hits": 0, "tokens_saved": 0, "fetched_bytes": 0,
+            "lost": 0, "published_blocks": 0, "published_bytes": 0,
+            "errors": 0, "abandoned": 0,
+            "prefetched_blocks": 0, "prefetched_bytes": 0, "prefetch_hits": 0,
+        }
+        # the asynchronous remote fetch: admission LAUNCHES the lookup and
+        # fetch on the fetch worker and keeps planning; the landed result
+        # splices in at a later admission. request_id -> in-flight record
+        # (filled by the worker, "done" set last); guarded-by: _lock
+        self.prefix_fetch_deadline_s = float(prefix_fetch_deadline_s)
+        self._fetch_state: dict[str, dict] = {}
+        self._fetch_q = None  # SimpleQueue + daemon worker, made on the first launch
+        self._fetch_thread = None
+        # records abandoned at their deadline, awaiting the worker's terminal
+        # resolution: reaped (stats only) at admission and on a stats read
+        self._fetch_zombies: list[dict] = []  # guarded-by: _lock
+        # boundary keys the prefetcher minted: local hits on them count as
+        # prefetch hits
+        self._prefetched_keys: set[bytes] = set()  # guarded-by: _lock
+        # prefetched blocks (host tensors) waiting for the next admission,
+        # which uploads and stores them on the stepping thread
+        self._adoptions: list[tuple] = []  # guarded-by: _lock
+        # publishes minted under the lock (admission self-heal, the remote
+        # fetch's republish, the prefill store), made at the step tail with
+        # the lock released: serialization, put_owned and an index call
+        self._plane_offers: list[tuple] = []  # guarded-by: _lock
+        if kv_plane is not None:
+            kv_plane.attach(self)
+            self._prefix_cache.evict_hook = kv_plane.on_evict
         B = self.max_num_seqs
         self._admit_counter = 0
         if paged:
@@ -431,6 +525,8 @@ class LLMEngine:
         self._handoffs: dict[str, dict] = {}  # guarded-by: _lock
         self._suspended: dict[str, dict] = {}  # guarded-by: _lock
         self._suspend_stats = {"suspended": 0, "resumed": 0, "spilled_bytes": 0, "dropped": 0}
+        # suspends whose object-plane publish failed (the host copy kept)
+        self.suspend_publish_errors = 0
         # forwards run (callers match kernel launch counts against them)
         # and host seconds spent in each stage; both stages end in a host
         # read of sampled tokens, so on the card these include device time
@@ -657,12 +753,19 @@ class LLMEngine:
     def prefix_cache_stats(self) -> dict:
         """Prefix-reuse accounting: the local cache's counters (hits,
         misses, tokens_saved, evictions, entries, bytes) and the same hits
-        as the ``local`` tier; ``{}`` when prefix caching is off."""
+        as the ``local`` tier; with a KV plane also the ``remote`` tier
+        (blocks fetched over the object plane: hits, tokens_saved,
+        fetched_bytes, lost, published_*, ...) and the plane client's own
+        counters under ``plane``. ``{}`` when prefix caching is off."""
         with self._lock:
             if self._prefix_cache is None:
                 return {}
+            self._reap_fetch_zombies_locked()
             out = self._prefix_cache.stats()
             out["local"] = {"hits": out["hits"], "tokens_saved": out["tokens_saved"]}
+            if self._kv_plane is not None:
+                out["remote"] = dict(self._plane_stats, inflight_fetches=len(self._fetch_state))
+                out["plane"] = self._kv_plane.stats()
             return out
 
     def kv_cache_stats(self) -> dict:
@@ -920,9 +1023,9 @@ class LLMEngine:
         """Splice a checkpointed request into THIS engine and continue its
         stream token for token (``llm/migrate.py``). ``state`` is a
         live_state dict (``migrate.decode``'s product, or a checkpoint
-        handed over in the process). ray_tpu also takes an object-plane
-        reference there; with no object plane ported, anything but a dict
-        raises NotImplementedError.
+        handed over in the process), or an ObjectRef off the object plane
+        (``migrate.publish``), fetched and decoded here under the bounded
+        retry (MigrationLostError when it is gone).
 
         A HOT checkpoint's block scatters in through the transferred-KV
         admission (requantized across cache dtypes), then ``_bind_resume``
@@ -930,7 +1033,7 @@ class LLMEngine:
         re-admits prompt + generated like a recompute preemption. Raises
         MigrationError when the state does not fit this engine's geometry."""
         if not isinstance(state, dict):
-            _not_ported("restore_request from an object-plane reference", OBJECT_PLANE_ITEM)
+            state = mig.fetch(state)
         mig.check_state(state)
         params = mig.params_of(state)
         prompt = [int(t) for t in state["prompt_token_ids"]]
@@ -991,11 +1094,12 @@ class LLMEngine:
         ``llm.suspend`` drops or faults the spill decision; in every
         refusal the conversation is untouched and still RUNNING.
 
-        ray_tpu's object-plane publish (``migrate.publish``, tried when
-        ``publish`` is true, the default) is not ported: with no object
-        plane (ROADMAP.md, queue 1, the object plane) nothing is
-        published, whatever ``publish`` says, and ``"published"`` is
-        False."""
+        With ``publish`` (the default) the state also goes onto the object
+        plane (``migrate.publish``), so any process can resume it from the
+        reference (``restore_request``). The publish runs OUTSIDE the lock;
+        when it fails (no plane attached, a full ``/dev/shm``, an injected
+        fault) the host copy stays, resume still works, and
+        ``suspend_publish_errors`` counts it."""
         # the chaos gate sits OUTSIDE the lock and BEFORE the snapshot: an
         # injected drop or fault models "the spill path is down" and must
         # degrade to the typed refusal with no request state mutated
@@ -1013,24 +1117,43 @@ class LLMEngine:
             nbytes = mig.state_nbytes(state)
             self._suspend_stats["suspended"] += 1
             self._suspend_stats["spilled_bytes"] += nbytes
-            self._suspended[request_id] = {"state": state, "nbytes": nbytes, "t": time.time()}
+            rec = {"state": state, "meta": None, "ref": None, "nbytes": nbytes, "t": time.time()}
+            self._suspended[request_id] = rec
         if self._tel is not None:
             self._tel.on_kv_spill(nbytes)
-        return {"request_id": request_id, "nbytes": nbytes, "published": False}
+        if publish:
+            try:
+                meta, ref = mig.publish(state)
+                with self._lock:
+                    rec["ref"], rec["meta"] = ref, meta
+            except Exception:  # noqa: BLE001 — the plane is opportunism here: the host copy stays valid
+                with self._lock:
+                    self.suspend_publish_errors += 1
+        return {"request_id": request_id, "nbytes": nbytes, "published": rec["ref"] is not None}
 
     def resume_suspended(self, request_id: str, stream: bool = False, out_queue=None) -> str:
         """Re-admit a suspended conversation under its ORIGINAL request id:
         the spilled block scatters back in through ``restore_request``
         (the exact PRNG key, no re-prefill, no token emitted again). It
         races a concurrent admission safely: the restore only appends to
-        the waiting queue under the lock. Raises MigrationError for an
-        unknown suspension; a refused restore keeps the record."""
+        the waiting queue under the lock. Prefers the host copy and falls
+        back to fetching the plane reference. Raises MigrationError for an
+        unknown suspension, MigrationLostError when both tiers are gone; a
+        refused restore keeps the record."""
         with self._lock:
             rec = self._suspended.pop(request_id, None)
         if rec is None:
             raise mig.MigrationError(f"no suspended conversation {request_id!r}")
+        state = rec["state"]
+        if state is None:
+            try:
+                state = mig.fetch(rec["ref"], rec["meta"])
+            except Exception:
+                with self._lock:
+                    self._suspend_stats["dropped"] += 1
+                raise
         try:
-            rid = self.restore_request(rec["state"], request_id=request_id, stream=stream, out_queue=out_queue)
+            rid = self.restore_request(state, request_id=request_id, stream=stream, out_queue=out_queue)
         except Exception:
             with self._lock:  # refused restore: the record stays claimable
                 self._suspended.setdefault(request_id, rec)
@@ -1045,8 +1168,8 @@ class LLMEngine:
             return sorted(self._suspended)
 
     def drop_suspended(self, request_id: str) -> bool:
-        """Discard a suspended conversation (client gone, TTL expired) and
-        free its host copy."""
+        """Discard a suspended conversation (client gone, TTL expired): its
+        host copy goes; a plane copy ages out with its owner's refs."""
         with self._lock:
             rec = self._suspended.pop(request_id, None)
             if rec is not None:
@@ -1193,43 +1316,99 @@ class LLMEngine:
         return need
 
     def _resolve_prefix(self, st: RequestState, prompt):  # holds-lock: _lock
-        """The request's prefix hit ``(k, v, n)`` or None, resolved once
-        and cached on the request while it waits; a cached miss is looked
-        up again only after the cache's generation moved."""
+        """The request's prefix hit ``(k, v, n, k_scale, v_scale)`` (scales
+        None except for an int8 wire block off the KV plane), None, or
+        ``_DEFER`` while its remote fetch is in flight. Resolved once and
+        cached on the request while it waits; a cached miss is looked up
+        again once the cache's generation moved (or, with a plane, its
+        lease lapsed).
+
+        A local miss with a KV plane LAUNCHES the remote lookup and fetch
+        on the fetch worker (never under this lock) and defers the request;
+        the landed result splices in here; a fetch outliving its deadline
+        is abandoned to a plain local prefill, so admission never hangs."""
         cached = st.cached_pref
-        if cached is not None and cached[0] is _PREF_MISS and cached[1] != self._prefix_cache.gen:
-            cached = None  # keys minted since the miss: re-resolve
+        if cached is not None and cached[0] is _PREF_MISS and (
+                cached[1] != self._prefix_cache.gen or time.time() >= cached[2]):
+            cached = None  # keys minted, or the miss's lease lapsed: re-resolve
         if cached is not None:
             return None if cached[0] is _PREF_MISS else cached
-        pref = self._prefix_cache.lookup(prompt, admissible=lambda n_p: self._prefix_fits(n_p, len(prompt)))
-        st.cached_pref = (_PREF_MISS, self._prefix_cache.gen) if pref is None else pref
-        if pref is not None and self._tel is not None:
-            self._tel.on_prefix_hit("local", pref[2])
+        # the suffix-overrun guard applies INSIDE the lookup, so a rejected
+        # longest boundary falls through to the next shorter LOCAL one
+        local = self._prefix_cache.lookup(prompt, admissible=lambda n_p: self._prefix_fits(n_p, len(prompt)))
+        pref = None
+        if local is not None:
+            pref = local + (None, None)
+            if self._tel is not None:
+                self._tel.on_prefix_hit("local", local[2])
+            if self._prefetched_keys:
+                # a hit served by a block the prefetcher pulled in ahead of demand
+                if prefix_key(token_bytes(tuple(int(t) for t in prompt)), local[2]) in self._prefetched_keys:
+                    self._plane_stats["prefetch_hits"] += 1
+                    if self._tel is not None:
+                        self._tel.on_prefetch_hit()
+            if self._kv_plane is not None:
+                # publish self-heal: a boundary whose publish failed once
+                # would stay invisible to the cluster (a store never re-mints
+                # cached keys); the client skips published bounds
+                self._plane_publish(prompt[: local[2]], local[0], local[1])
+        elif self._kv_plane is not None:
+            rec = self._fetch_state.get(st.request_id)
+            if rec is None and not self._kv_plane.index_down():
+                rec = self._launch_prefix_fetch(st.request_id, prompt)
+            if rec is not None:
+                if rec["done"]:
+                    pref = self._splice_prefix_fetch(st, rec, prompt)
+                elif time.time() < rec["deadline"]:
+                    return _DEFER
+                else:
+                    # a wedged plane: abandon the fetch; the record waits in
+                    # the zombie list so its terminal resolution still counts
+                    self._fetch_state.pop(st.request_id, None)
+                    self._plane_stats["abandoned"] += 1
+                    self._fetch_zombies.append(rec)
+        if pref is None:
+            exp = time.time() + 1.0 if self._kv_plane is not None else float("inf")
+            st.cached_pref = (_PREF_MISS, self._prefix_cache.gen, exp)
+        else:
+            st.cached_pref = pref
         return pref
 
     def _prefix_fits(self, n_p: int, prompt_len: int) -> bool:
         """A prefix boundary is admissible when the bucket-padded suffix
         still fits the sequence's slot row or table row after it (a slot
-        extend past the row would clamp its start onto the prefix)."""
+        extend past the row would clamp its start onto the prefix). The one
+        predicate the local lookup and the remote candidates share."""
         return n_p + _bucket(prompt_len - n_p, self.prefill_buckets) <= self.max_seq_len
 
     def _stage_admission(self) -> list:  # holds-lock: _lock
         """ADMISSION: admit waiting requests FIFO while a slot (and, paged,
         pages) is free (a head-of-line request that cannot get pages blocks
         the wave; admission never preempts), resolving prefix hits of fresh
-        prompts before the wave's prefills run. Returns (st, slot, pref,
-        pages, prompt); pages is None on the slot layout."""
+        prompts before the wave's prefills run. A request whose remote
+        prefix fetch is in flight steps aside for this wave and keeps its
+        place in line. Returns (st, slot, pref, pages, prompt); pages is
+        None on the slot layout."""
+        if self._adoptions:
+            self._adopt_pending_locked()
+        if self._fetch_zombies:
+            self._reap_fetch_zombies_locked()
         wave = []
+        deferred: list[RequestState] = []
         while self._waiting and None in self._slots:
             st = self._waiting[0]
             if st.finished:  # aborted while waiting
                 self._waiting.popleft()
+                self._fetch_state.pop(st.request_id, None)
                 continue
             slot = self._slots.index(None)
             prompt = st.prompt_token_ids + st.token_ids  # preempted: generated tail joins the prompt
             pref = None
             if st.prefilled is None and self._prefix_cache is not None and not st.token_ids:
                 pref = self._resolve_prefix(st, prompt)
+                if pref is _DEFER:
+                    deferred.append(self._waiting.popleft())
+                    continue
             pages = None
             if self.kv_layout == "paged":
                 need = self._pages_needed(st, pref, prompt)
@@ -1243,7 +1422,207 @@ class LLMEngine:
             st.cached_pref = None  # admission consumes the cached resolution
             self._slots[slot] = st  # reserve; _bind_slot fills the rest
             wave.append((st, slot, pref, pages, prompt))
+        for st in reversed(deferred):
+            self._waiting.appendleft(st)  # original FIFO order
         return wave
+
+    # ------------------------------------------------ the remote prefix tier
+    def _ensure_fetch_worker(self):  # holds-lock: _lock
+        if self._fetch_thread is not None and self._fetch_thread.is_alive():
+            return
+        self._fetch_q = queue.SimpleQueue()
+        self._fetch_thread = threading.Thread(target=_prefix_fetch_worker, args=(weakref.ref(self), self._fetch_q),
+                                              daemon=True, name="llm-prefix-fetch")
+        self._fetch_thread.start()
+
+    def _launch_prefix_fetch(self, request_id: str, prompt) -> dict:  # holds-lock: _lock
+        """Mint the in-flight record and queue the job (nothing blocks). The
+        record is the ONLY shared state: the worker fills it and sets
+        ``done`` last; admission reads it once ``done`` is seen, or abandons
+        it at ``deadline``."""
+        rec = {
+            "request_id": request_id, "done": False, "error": False, "lost": False,
+            "pref": None, "restore": False, "nbytes": 0, "n_p": 0,
+            "t0": time.time(), "t1": 0.0,
+            "deadline": time.time() + self.prefix_fetch_deadline_s,
+        }
+        self._fetch_state[request_id] = rec
+        self._ensure_fetch_worker()
+        self._fetch_q.put((rec, [int(t) for t in prompt]))
+        return rec
+
+    def _run_prefix_fetch(self, rec: dict, prompt: list) -> None:
+        """One remote resolution, lock-free (the fetch worker): candidates,
+        index lookup, object-plane fetch, token check fill ``rec``; every
+        engine-state change (counters, upload, re-store, republish) waits
+        for ``_splice_prefix_fetch`` under the lock. EVERY failure (index
+        down, block evicted, owner dead, token mismatch) degrades to a
+        plain local prefill."""
+        try:
+            self._resolve_remote_prefix(rec, prompt)
+        except Exception:  # noqa: BLE001 — the plane is an accelerator, never a dependency
+            rec["error"] = True
+        rec["t1"] = time.time()
+        if self._tel is not None:
+            self._tel.on_prefix_fetch(rec["t0"], rec["t1"], rec["n_p"], rec["pref"] is not None)
+        rec["done"] = True
+
+    def _resolve_remote_prefix(self, rec: dict, prompt: list) -> None:
+        block = self._prefix_cache.block
+        # candidate boundaries whose bucket-padded suffix fits (the local
+        # lookup's guard)
+        cands = [(n, key) for n, key in boundary_keys(prompt, block) if self._prefix_fits(n, len(prompt))]
+        if not cands:
+            return
+        hit = self._kv_plane.lookup(cands)
+        if hit is None:
+            return
+        # the producer's bucket width, checked BEFORE the transfer from the
+        # routed meta: a producer whose ladder is narrower than our pad for
+        # this boundary costs nothing
+        shape = tuple(hit.get("meta", {}).get("shape") or ())
+        if len(shape) > 1 and shape[1] < _bucket(int(hit["n"]), self.prefill_buckets):
+            return
+        payload = self._kv_plane.fetch(hit)
+        if payload is None:
+            # lost after the bounded retries: the client reported the route
+            rec["lost"] = True
+            return
+        n_p = int(hit["n"])
+        # token-for-token check, as the local cache's: a hash collision or a
+        # stale publish never serves a foreign prompt's KV
+        if payload["n"] < n_p or payload["prompt_token_ids"][:n_p] != [int(t) for t in prompt[:n_p]]:
+            return
+        pad = _bucket(n_p, self.prefill_buckets)
+        if payload["k"].shape[1] < pad:
+            return  # the producer's bucket ladder is narrower than ours
+        k_w, v_w = payload["k"][:, :pad], payload["v"][:, :pad]
+        k_sc, v_sc = payload.get("k_scale"), payload.get("v_scale")
+        if k_sc is not None:
+            k_sc, v_sc = k_sc[:, :, :pad], v_sc[:, :, :pad]
+        rec["n_p"] = n_p
+        rec["nbytes"] = int(hit.get("meta", {}).get("nbytes") or (k_w.nbytes + v_w.nbytes))
+        # re-store locally only where a later local hit reproduces the same
+        # cache bytes: an fp wire into an fp cache, or an int8 wire into an
+        # int8 cache (dequantized for the fp PrefixCache, requantized byte
+        # for byte on insert); an fp cache re-storing a dequantized int8
+        # block would drift from its own prefill
+        rec["restore"] = (k_w.dtype == torch.int8) == self.kv_quant
+        rec["pref"] = (k_w, v_w, n_p, k_sc, v_sc)
+
+    def _reap_fetch_zombies_locked(self) -> None:  # holds-lock: _lock
+        """Credit the terminal resolution of deadline-abandoned fetches once
+        the worker finished them: lost and error keep their meaning; a
+        landed hit counts nothing (the request prefilled locally)."""
+        if not self._fetch_zombies:
+            return
+        live = []
+        for rec in self._fetch_zombies:
+            if not rec["done"]:
+                live.append(rec)
+            elif rec["error"]:
+                self._plane_stats["errors"] += 1
+            elif rec["lost"]:
+                self._plane_stats["lost"] += 1
+        self._fetch_zombies = live
+
+    def _splice_prefix_fetch(self, st: RequestState, rec: dict, prompt):  # holds-lock: _lock
+        """Apply a landed fetch at admission: counters and telemetry, the
+        upload of the block (and its scales) to the card, the local
+        re-store and the republish offer. Returns the pref tuple, or None
+        (miss, lost, error: a plain local prefill)."""
+        self._fetch_state.pop(st.request_id, None)
+        if rec["error"]:
+            self._plane_stats["errors"] += 1
+            return None
+        if rec["lost"]:
+            self._plane_stats["lost"] += 1
+            return None
+        if rec["pref"] is None:
+            return None
+        k_w, v_w, n_p, k_sc, v_sc = rec["pref"]
+        rec["pref"] = None  # the record no longer pins the owner's mapping
+        dev = self.device
+        # the one copy the borrow path pays: host mapping -> card
+        k_d, v_d = k_w.to(dev), v_w.to(dev)
+        sc = (None, None) if k_sc is None else (k_sc.to(dev), v_sc.to(dev))
+        self._plane_stats["hits"] += 1
+        self._plane_stats["tokens_saved"] += n_p
+        self._plane_stats["fetched_bytes"] += rec["nbytes"]
+        if self._tel is not None:
+            self._tel.on_prefix_hit("remote", n_p, rec["nbytes"])
+        if rec["restore"]:
+            k_fp, v_fp = (self._kv_plane.dequantize_wire(k_d, v_d, *sc) if k_d.dtype == torch.int8
+                          else (k_d, v_d))
+            stored = self._prefix_cache.store(prompt[:n_p], k_fp, v_fp, self.prefill_buckets)
+            if stored is not None:
+                # proven_reuse: this replica just fetched the block, which is
+                # itself reuse evidence, so the republish skips the policy
+                self._plane_publish(prompt[:n_p], k_fp, v_fp, *stored, proven_reuse=True)
+        return (k_d, v_d, n_p, *sc)
+
+    def adopt_prefetched(self, prompt_token_ids, k_fp, v_fp) -> int:
+        """Install a PREDICTIVELY fetched hot block (the plane client's
+        prefetch worker) in the local prefix cache, so the fleet's most
+        demanded prefixes become local hits before any request here asks.
+        ``k_fp``/``v_fp``: fp host tensors [L, T, kv, hd]. The block waits
+        for the next admission, which uploads it on the stepping thread
+        under the lock (the prefetch worker never touches the card), stores
+        it (quantized on insert for an int8 cache, as a remote re-store),
+        remembers its key for the prefetch-hit count and republishes it.
+        Returns the queued bytes (0 with prefix caching off)."""
+        ids = [int(t) for t in prompt_token_ids]
+        with self._lock:
+            if self._prefix_cache is None or not ids:
+                return 0
+            self._adoptions.append((ids, k_fp, v_fp))
+        return int(k_fp.nbytes + v_fp.nbytes)
+
+    def _adopt_pending_locked(self):  # holds-lock: _lock
+        adoptions, self._adoptions = self._adoptions, []
+        for ids, k, v in adoptions:
+            k_d, v_d = k.to(self.device), v.to(self.device)
+            stored = self._prefix_cache.store(ids, k_d, v_d, self.prefill_buckets)
+            if stored is None:
+                continue  # a duplicate, or wider than the cache
+            self._plane_stats["prefetched_blocks"] += 1
+            self._plane_stats["prefetched_bytes"] += int(k_d.nbytes + v_d.nbytes)
+            self._prefetched_keys.add(prefix_key(token_bytes(ids), len(ids)))
+            self._plane_publish(ids, k_d, v_d, *stored, proven_reuse=True)
+
+    def _plane_publish(self, prompt, ks, vs, new_keys=None, pad=None, proven_reuse=False):  # holds-lock: _lock
+        """Queue a prefix-block publish for the step tail (every caller
+        holds the lock). The offer holds the tensors the prefix cache just
+        stored or served: nothing is copied here."""
+        block = self._prefix_cache.block
+        if (len(prompt) // block) * block < block:
+            return
+        self._plane_offers.append((list(prompt), ks, vs, new_keys, pad, proven_reuse))
+
+    def _flush_plane_offers(self):
+        """Publish the queued prefix blocks (owned object + index
+        registration) with the engine lock RELEASED (the step tail).
+        ``new_keys`` scopes registration to the boundaries the local cache
+        just minted; None lets the client cover every unpublished boundary
+        (the local-hit self-heal). Failures degrade quietly: the client
+        counts them."""
+        if not self._plane_offers:
+            return
+        with self._lock:
+            offers, self._plane_offers = self._plane_offers, []
+        block = self._prefix_cache.block
+        for prompt, ks, vs, new_keys, pad, proven_reuse in offers:
+            n_max = (len(prompt) // block) * block
+            pad = int(ks.shape[1]) if pad is None else pad
+            nbytes = self._kv_plane.publish(
+                [int(t) for t in prompt[:n_max]], ks[:, :pad], vs[:, :pad],
+                bounds=None if new_keys is None else [(n, key) for key, n in new_keys],
+                proven_reuse=proven_reuse,
+            )
+            if nbytes:
+                with self._lock:
+                    self._plane_stats["published_blocks"] += 1
+                    self._plane_stats["published_bytes"] += nbytes
 
     def _stage_prefill(self, wave: list) -> list:
         """PREFILL: transferred KV scatters in and prefix hits extend their
@@ -1293,7 +1672,10 @@ class LLMEngine:
         self.prefill_forwards += 1
         for i, (st, slot, prompt) in enumerate(group):
             if self._prefix_cache is not None and not st.token_ids:  # fresh prompts only
-                self._prefix_cache.store(prompt, ks[:, i], vs[:, i], self.prefill_buckets)
+                stored = self._prefix_cache.store(prompt, ks[:, i], vs[:, i], self.prefill_buckets)
+                if stored is not None and self._kv_plane is not None:
+                    # the block every other replica would prefill again
+                    self._plane_publish(prompt, ks[:, i], vs[:, i], *stored)
             if self.kv_layout == "paged":
                 row = torch.from_numpy(self._tables[slot, : T // self._pcfg.page_size].copy()).to(self.device)
                 pkv.insert_pages(self.pool, row, ks[:, i], vs[:, i])
@@ -1309,16 +1691,18 @@ class LLMEngine:
     def _admit_prefix_hit(self, st: RequestState, slot: int, pref, prompt):
         """Admit a prefix hit into its pages (already in the host table):
         insert the cached prefix's first n_p positions into the first
-        n_p / page pages, then extend the suffix over them (K4 over the
-        prefix, the suffix causally from registers) and sample from the
-        extend's logits."""
-        k_p, v_p, n_p = pref
+        n_p / page pages (a remote int8 wire block with its scales, bytes
+        copied or requantized by the insert), then extend the suffix over
+        them (K4 over the prefix, the suffix causally from registers) and
+        sample from the extend's logits."""
+        k_p, v_p, n_p, k_sc, v_sc = pref
         page = self._pcfg.page_size
         n = len(prompt)
         m = n - n_p
         Tm = _bucket(m, self.prefill_buckets)
         row = torch.from_numpy(self._tables[slot].copy()).to(self.device)
-        pkv.insert_pages(self.pool, row[: n_p // page], k_p[:, :n_p], v_p[:, :n_p])
+        scales = () if k_sc is None else (k_sc[:, :, :n_p], v_sc[:, :, :n_p])
+        pkv.insert_pages(self.pool, row[: n_p // page], k_p[:, :n_p], v_p[:, :n_p], *scales)
         toks = np.zeros((Tm,), np.int64)
         toks[:m] = prompt[n_p:]
         logits, self.pool = mr.extend_paged(self.params, self.pool, row, n_p, torch.from_numpy(toks).to(self.device),
@@ -1331,11 +1715,12 @@ class LLMEngine:
 
     def _admit_prefix_hit_slots(self, st: RequestState, slot: int, pref, prompt):
         """Admit a prefix hit into its slot: insert the cached group (its
-        whole bucket width; the slot's length is the prefix's n_p), then
-        extend the suffix from position n_p and sample from its logits."""
-        k_p, v_p, n_p = pref
+        whole bucket width, with its scales for a remote int8 wire block;
+        the slot's length is the prefix's n_p), then extend the suffix from
+        position n_p and sample from its logits."""
+        k_p, v_p, n_p, k_sc, v_sc = pref
         m = len(prompt) - n_p
-        kvc.insert_sequence(self.cache, slot, k_p, v_p, n_p)
+        kvc.insert_sequence(self.cache, slot, k_p, v_p, n_p, k_sc, v_sc)
         toks = np.zeros((_bucket(m, self.prefill_buckets),), np.int64)
         toks[:m] = prompt[n_p:]
         logits, self.cache = mr.extend(self.params, self.cache, slot, torch.from_numpy(toks).to(self.device), m,
@@ -1537,7 +1922,12 @@ class LLMEngine:
                 outs = self._build_outputs(reported)
                 if tel is not None:
                     tel.on_step(t_step, len(admitted), self._step_emitted, self._last_spec_drain)
-                return outs
+            if self._kv_plane is not None:
+                # publish the step's minted prefix blocks and refresh the
+                # index lease (throttled), both with the lock released
+                self._flush_plane_offers()
+                self._kv_plane.maybe_heartbeat()
+            return outs
         except BaseException as exc:
             # postmortem: the flight ring as JSONL in the session dir
             if tel is not None:

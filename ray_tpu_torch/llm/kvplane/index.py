@@ -20,9 +20,8 @@ Demand is counted per key on every lookup and match, halving every
 ``demand_halflife_s`` (``top_hot``, the prefetch feed).
 
 The class is lock-safe dict work and never touches KV bytes: the refs it
-holds are opaque. Its publishing client (``KVPlaneClient``) waits for the
-object plane (ROADMAP.md, queue 1, the object plane); tests and scripts
-call it in process.
+holds are opaque. ``KVPlaneClient`` registers each published block here;
+tests and scripts call it in process.
 """
 
 from __future__ import annotations

@@ -12,8 +12,7 @@ already lives:
 - **remote tier**: load pushed the request OFF the holder — the chosen
   replica's engine fetches the block over the object plane (one transfer
   instead of a prefill forward) and re-publishes, growing the local tier
-  for the next request (the fetch waits for the object plane in the
-  port: ROADMAP.md, queue 1, the object plane);
+  for the next request;
 - **cold**: nobody holds anything — pure load balancing, and the chosen
   replica's prefill publishes the prefix for everyone after it.
 

@@ -27,12 +27,15 @@ Its second consumer is the conversation tier: ``suspend_request`` spills
 an idle conversation's state to host memory through the same dict and
 ``resume_suspended`` scatters it back in.
 
-ray_tpu stores a checkpoint on its object plane (``publish``) and
-borrows it on the peer (``fetch``). The object plane is not ported: both
-raise NotImplementedError naming its ROADMAP.md item.
+``publish`` stores a checkpoint as an owned object on the object plane
+(``core/direct.py``) and returns (meta, ref); ``fetch`` borrows it on the
+peer with a bounded retry budget (``LLMEngine.restore_request`` takes the
+ref directly).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -54,7 +57,7 @@ class MigrationError(ValueError):
 @serving_error
 class MigrationLostError(RuntimeError):
     """The published checkpoint vanished before a peer could fetch it
-    (raised by the object plane's fetch, which is not ported)."""
+    (``fetch``, after its bounded retries)."""
 
 
 @serving_error
@@ -306,14 +309,45 @@ def state_nbytes(state: dict) -> int:
 
 
 def publish(state: dict):
-    """ray_tpu stores the encoded checkpoint as an owned object on its
-    object plane and returns (meta, ref). Not ported: raises."""
-    raise NotImplementedError(f"migrate.publish needs the object plane, which is not ported to ray_tpu_torch yet "
-                              f"(ROADMAP.md, {_handoff.OBJECT_PLANE_ITEM})")
+    """Encode a checkpoint and store it as an owned object in THIS
+    process. Returns (meta, ref): only the small pair travels to the
+    router; the bytes stay owner-local until a peer's fetch borrows them.
+    The object lives as long as the dying replica does: a fetch that
+    arrives too late sees MigrationLostError, and the leak backstop
+    reclaims a checkpoint nobody fetched."""
+    from ray_tpu_torch.core import direct as _direct
+
+    wire = encode(state)
+    ref = _direct.put_owned(wire)
+    return meta_of(state), ref
 
 
-def fetch(ref, meta: dict | None = None, **kwargs) -> dict:
-    """ray_tpu borrows a published checkpoint from its object plane. Not
-    ported: raises."""
-    raise NotImplementedError(f"migrate.fetch needs the object plane, which is not ported to ray_tpu_torch yet "
-                              f"(ROADMAP.md, {_handoff.OBJECT_PLANE_ITEM})")
+def fetch(ref, meta: dict | None = None, *, timeout_s: float = 10.0, retries: int = 2,
+          retry_wait_s: float = 0.2) -> dict:
+    """Borrow-get a published checkpoint with a bounded retry budget and
+    full wire validation. A checkpoint that is GONE (its owner exited: the
+    normal case of a late fetch after a preemption) raises
+    MigrationLostError after the final attempt; a caller never hangs on a
+    dead replica's state."""
+    from ray_tpu_torch.core import direct as _direct
+    from ray_tpu_torch.exceptions import GetTimeoutError, ObjectLostError
+
+    last: BaseException | None = None
+    for attempt in range(retries + 1):
+        try:
+            t0 = time.time()
+            value = _direct.get_owned_view(ref.id, timeout=timeout_s)
+            state = decode(value)
+            if meta is not None and meta.get("emitted") is not None and int(meta["emitted"]) != len(
+                    state["emitted_token_ids"]):
+                raise MigrationError(f"fetched checkpoint emitted count {len(state['emitted_token_ids'])} does not "
+                                     f"match routed meta {meta['emitted']}")
+            _handoff._handoff_span("llm.migrate.fetch", value, t0, attempts=attempt + 1)
+            return state
+        except (ObjectLostError, GetTimeoutError, ConnectionError, FileNotFoundError) as e:
+            last = e
+            if attempt < retries:
+                time.sleep(retry_wait_s)
+    raise MigrationLostError(
+        f"live_state checkpoint {ref.id.hex()[:16]} lost before restore ({retries + 1} attempts): {last}"
+    ) from last

@@ -50,10 +50,9 @@ Three pieces, as in ray_tpu:
 The disagg handoff, migration and KV-spill hooks are called by the
 engine's ``llm/disagg/`` and ``llm/migrate.py`` paths, and
 ``RouterTelemetry`` by the routers (``llm/disagg/router.py``,
-``llm/kvplane/routing.py``) and ``serve/overload.py``. The hooks of the
-cluster KV plane's fetch and prefetch are ported and called from nowhere:
-the plane's client waits for the object plane (ROADMAP.md, queue 1, the
-object plane).
+``llm/kvplane/routing.py``) and ``serve/overload.py``. The cluster KV
+plane's hooks (``on_prefix_fetch``, ``on_prefetch_hit``) are called by
+the engine's remote-prefix tier.
 """
 
 from __future__ import annotations
@@ -533,7 +532,7 @@ class EngineTelemetry:
     def on_prefix_hit(self, tier: str, tokens: int, nbytes: int = 0) -> None:
         """A prompt admission reused a cached prefix: ``tier`` "local"
         (this engine's PrefixCache) or "remote" (the cluster KV plane,
-        ``nbytes`` transferred; not ported)."""
+        ``nbytes`` transferred)."""
         self._b_pfx_hits[tier].inc(1.0)
         self._b_pfx_tokens[tier].inc(float(tokens))
         if nbytes:
@@ -541,7 +540,7 @@ class EngineTelemetry:
 
     def on_prefetch_hit(self) -> None:
         """A local hit served by a predictively prefetched block (the
-        cluster KV plane; not ported, called from nowhere yet)."""
+        cluster KV plane's prefetcher)."""
         self._b_pfx_prefetch.inc(1.0)
 
     def on_kv_spill(self, nbytes: int) -> None:
@@ -549,8 +548,8 @@ class EngineTelemetry:
         self._b_spill.inc(float(nbytes))
 
     def on_prefix_fetch(self, t0: float, t1: float, tokens: int, hit: bool) -> None:
-        """An async remote prefix fetch span closed (the cluster KV
-        plane's fetch worker; not ported, called from nowhere yet)."""
+        """An async remote prefix fetch span closed (the engine's fetch
+        worker)."""
         self._b_fetch_overlap.observe(max(t1 - t0, 0.0))
         self.recorder.record_fetch({"t0": float(t0), "t1": float(t1), "tokens": int(tokens), "hit": bool(hit)})
 

@@ -100,12 +100,12 @@ def test_site_table_and_fault_modes_equal_ray_tpus():
     assert tchaos.SITES == jchaos.SITES
     assert tchaos.FAULT_MODES == jchaos.FAULT_MODES
     assert set(tchaos.FAULT_MODES) == set(tchaos.SITES)
-    # every declared mode the port raises has ray_tpu's row; the object
-    # plane's ObjectLostError waits with the object plane
+    # every declared mode has ray_tpu's row (the object plane's
+    # ObjectLostError included)
     missing = {n for names in tchaos.FAULT_MODES.values() for n in names} - set(texc.SERVING_ERRORS)
-    assert missing == {"ObjectLostError"}
+    assert missing == set()
     for names in tchaos.FAULT_MODES.values():
-        for name in set(names) - missing:
+        for name in names:
             spec = texc.SERVING_ERRORS[name]
             assert (spec.status_code, spec.retryable) == (jexc.SERVING_ERRORS[name].status_code,
                                                           jexc.SERVING_ERRORS[name].retryable), name

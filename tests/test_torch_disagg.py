@@ -168,18 +168,21 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Every module of ray_tpu_torch/ and chip_smoke.py, parsed: no import
-    of jax (or jaxlib) and none of ray_tpu (ray_tpu_torch is the port)."""
+    of jax (or jaxlib), none of ray_tpu (ray_tpu_torch is the port) and
+    none of cloudpickle (the card's machine has none)."""
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
-    # the serving control plane's modules are among them
+    # the serving control plane's modules and the object plane's are among them
     control = ["chaos.py", "exceptions.py", "serve/__init__.py", "serve/overload.py", "llm/kvplane/__init__.py",
-               "llm/kvplane/index.py", "llm/kvplane/routing.py", "llm/kvplane/client.py", "llm/disagg/router.py"]
+               "llm/kvplane/index.py", "llm/kvplane/routing.py", "llm/kvplane/client.py", "llm/disagg/router.py",
+               "_config.py", "core/ids.py", "core/task_spec.py", "core/serialization.py", "core/object_ref.py",
+               "core/object_store.py", "core/payloads.py", "core/direct.py", "llm/kvplane/quant.py"]
     assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "ray_tpu"):
+            if root in ("jax", "jaxlib", "ray_tpu", "cloudpickle"):
                 bad.append((str(path.relative_to(REPO)), mod))
     assert bad == []
 
@@ -377,11 +380,36 @@ def test_error_taxonomy_matches_ray_tpu():
         texc.serving_error(type("UnregisteredError", (Exception,), {}))
 
 
-def test_publish_and_fetch_name_the_object_plane():
-    with pytest.raises(NotImplementedError, match="the object plane"):
-        thandoff.publish({})
-    with pytest.raises(NotImplementedError, match="the object plane"):
-        thandoff.fetch(object())
+def test_publish_and_fetch_over_the_object_plane():
+    """handoff.publish stores the encoded payload as an owned object of
+    this process (its bytes in a /dev/shm segment) and returns ray_tpu's
+    meta; fetch returns the decoded payload field for field; a freed
+    handoff is HandoffLostError after the retries, and its segment is gone."""
+    from ray_tpu_torch.core import direct
+
+    rng = np.random.default_rng(3)
+    # 256 KiB of bf16 k + v: above the inline threshold, so it lands in shared memory
+    kv = {"k": torch.from_numpy(rng.standard_normal((2, 256, 2, 64)).astype(np.float32)).bfloat16(),
+          "v": torch.from_numpy(rng.standard_normal((2, 256, 2, 64)).astype(np.float32)).bfloat16(),
+          "n": 200, "logits": torch.from_numpy(rng.standard_normal(512).astype(np.float32)),
+          "prompt_token_ids": list(range(1, 201))}
+    st = direct.attach(b"disagg-test-key")
+    try:
+        meta, ref = thandoff.publish(kv)
+        assert meta == thandoff.meta_of(thandoff.encode(kv)) and meta["nbytes"] == 2 * 2 * 256 * 2 * 64 * 2 + 512 * 4
+        seg = st.owned.entry(ref.id.binary()).payload.shm.shm_name
+        assert (pathlib.Path("/dev/shm") / seg).exists()
+        got = thandoff.fetch(ref, meta)
+        want = thandoff.decode(thandoff.encode(kv))
+        assert set(got) == set(want)
+        for name, v in want.items():
+            assert torch.equal(got[name], v) if isinstance(v, torch.Tensor) else got[name] == v, name
+        direct.free_owned([ref.id])
+        assert not (pathlib.Path("/dev/shm") / seg).exists()
+        with pytest.raises(thandoff.HandoffLostError):
+            thandoff.fetch(ref, retries=1, retry_wait_s=0.01)
+    finally:
+        direct.detach()
 
 
 # --------------------------------------------------------- across packages

@@ -138,15 +138,17 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize(
-    "kw",
+    "kw, exc, match",
     [
-        dict(mesh=object()),
-        dict(kv_plane=object()),
+        (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+        # the KV plane is ported: ray_tpu's refusal of a plane without the
+        # prefix cache it is the cluster tier of (ray_tpu/llm/engine.py:587)
+        (dict(kv_plane=object(), enable_prefix_caching=False), ValueError, "enable_prefix_caching"),
     ],
     ids=["mesh", "kv_plane"],
 )
-def test_unported_features_raise_naming_roadmap(params, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_features_raise_naming_roadmap(params, kw, exc, match):
+    with pytest.raises(exc, match=match):
         _torch_engine(params[1], **kw)
 
 

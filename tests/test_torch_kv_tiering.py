@@ -10,10 +10,10 @@ tests/test_llm_kv_tiering.py without its object-plane tier.
   checkpoint's; its pages return at suspend.
 - A resume racing a concurrent admission into the freed slot.
 - Refusals (typed MigrationError, the conversation untouched) and drop.
-- ``"published": False`` whatever ``publish`` says: the object plane is
-  not ported, and nothing tries it. ``migrate.publish``/``fetch`` and
-  ``restore_request`` of a reference raise NotImplementedError naming
-  its ROADMAP.md item.
+- The object-plane tier: ``"published": False`` with no plane attached
+  (the host copy kept, the failed publish counted); with a plane, the
+  state published, restored from its reference on another engine, and
+  fetched back by ``resume_suspended`` when the host copy is gone.
 - ``on_kv_spill``'s byte counter.
 
 The port's streams are held against ray_tpu's engine on the same weights
@@ -209,18 +209,43 @@ def test_refused_resume_keeps_the_record(params):
     assert eng.suspended_requests() == [rid] and eng.suspend_stats()["resumed"] == 0
 
 
-def test_no_object_plane_leg(params):
-    """Nothing reaches an object plane: suspend returns published False
-    with publish=True, and the plane's entry points raise, naming it."""
+def test_object_plane_leg(params, oracle):
+    """The object-plane tier: without a plane attached, a publish=True
+    suspend keeps only the host copy ("published": False, counted in
+    suspend_publish_errors); with one, the state is also published, a
+    second engine restores the conversation from the reference and
+    continues ray_tpu's never-suspended stream, and with the host copy
+    gone resume_suspended fetches the plane copy."""
+    from ray_tpu_torch.core import direct
+
+    want = oracle("slots", None, SEEDED)
     eng = mk(params[1])
-    rid = eng.add_request(list(PROMPT), SamplingParams(**GREEDY))
+    rid = eng.add_request(list(PROMPT), SamplingParams(**SEEDED))
     run_until(eng, rid, 3)
     assert eng.suspend_request(rid, publish=True)["published"] is False
-    assert set(eng._suspended[rid]) == {"state", "nbytes", "t"}  # no plane ref or meta
-    state = eng._suspended[rid]["state"]
-    for call in (lambda: tmig.publish(state), lambda: tmig.fetch(object()),
-                 lambda: eng.restore_request(object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, the object plane"):
-            call()
-    with pytest.raises(NotImplementedError, match="the object plane"):
-        mk(params[1], kv_plane=object())
+    assert eng._suspended[rid]["ref"] is None and eng.suspend_publish_errors == 1
+    eng.resume_suspended(rid)
+    assert drain(eng, rid) == want
+    st = direct.attach(b"tiering-test-key")
+    try:
+        for source in ("reference", "plane fallback"):
+            eng = mk(params[1])
+            rid = eng.add_request(list(PROMPT), SamplingParams(**SEEDED))
+            run_until(eng, rid, 5)
+            info = eng.suspend_request(rid)
+            rec = eng._suspended[rid]
+            assert info["published"] is True and rec["meta"] == tmig.meta_of(rec["state"])
+            assert st.owned.size() == 1 and eng.suspend_publish_errors == 0
+            if source == "reference":
+                peer = mk(params[1])
+                new_rid = peer.restore_request(rec["ref"])
+                assert drain(peer, new_rid) == want
+                assert eng.drop_suspended(rid)
+            else:
+                rec["state"] = None  # the host copy gone: the plane copy serves
+                assert eng.resume_suspended(rid) == rid
+                assert drain(eng, rid) == want
+            del rec
+            direct.free_owned([k for k in list(st.owned._objects)])
+    finally:
+        direct.detach()

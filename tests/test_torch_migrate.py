@@ -34,6 +34,9 @@ from ray_tpu.llm import LLMEngine as JaxEngine  # noqa: E402
 from ray_tpu.llm import SamplingParams as JaxParams  # noqa: E402
 from ray_tpu.llm import migrate as jmig  # noqa: E402
 from ray_tpu.models import llama as jllama  # noqa: E402
+from ray_tpu_torch.core import direct  # noqa: E402
+from ray_tpu_torch.core.ids import ObjectID  # noqa: E402
+from ray_tpu_torch.core.object_ref import ObjectRef  # noqa: E402
 from ray_tpu_torch.llm import LLMEngine, SamplingParams, SpecConfig  # noqa: E402
 from ray_tpu_torch.llm import migrate as tmig  # noqa: E402
 from ray_tpu_torch.models import llama as tllama  # noqa: E402
@@ -315,8 +318,10 @@ def test_checkpoint_refuses_untransferable_state(params):
     with pytest.raises(tmig.MigrationError):  # finished
         src.checkpoint_request(rid)
     assert src.finish_migrated(rid) is False
-    with pytest.raises(NotImplementedError, match="the object plane"):
-        src.restore_request(object())
+    # a reference this process neither owns nor has an owner hint for goes
+    # through ray_tpu's head, which the port has not (the runtime's item)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, the runtime"):
+        src.restore_request(ObjectRef(ObjectID.from_put()))
 
 
 CORRUPTIONS = {
@@ -378,11 +383,37 @@ def test_int8_wire_scale_validation_and_geometry_guard(params):
         mk(params[1], "paged", page_size=16, num_pages=3).restore_request(tmig.decode(wire))
 
 
-def test_publish_and_fetch_name_the_object_plane():
-    with pytest.raises(NotImplementedError, match="the object plane"):
-        tmig.publish({})
-    with pytest.raises(NotImplementedError, match="the object plane"):
-        tmig.fetch(object())
+def test_publish_and_fetch_over_the_object_plane(params):
+    """migrate.publish stores the checkpoint as an owned object of this
+    process; fetch returns the state field for field (ray_tpu's meta), and
+    restore_request of the reference continues the stream; a freed
+    checkpoint is MigrationLostError (503, retryable) after the retries."""
+    src = mk(params[1])
+    want = list(src.generate(list(PROMPT), SamplingParams(**SEEDED)).token_ids)
+    rid = src.add_request(list(PROMPT), SamplingParams(**SEEDED))
+    run_until(src, rid, 5)
+    state = src.checkpoint_request(rid)
+    src.finish_migrated(rid)
+    st = direct.attach(b"migrate-test-key")
+    try:
+        meta, ref = tmig.publish(state)
+        assert meta == jmig.meta_of(to_numpy_state(state)) and st.owned.size() == 1
+        got = tmig.fetch(ref, meta)
+        assert set(got) == set(state)
+        for k, v in state.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(got[k], v), k
+            else:
+                assert np.array_equal(np.asarray(got[k]), np.asarray(v)), k
+        dst = mk(params[1])
+        new_rid = dst.restore_request(ref)
+        assert finish(dst, new_rid) == want
+        direct.free_owned([ref.id])
+        with pytest.raises(tmig.MigrationLostError) as e:
+            tmig.fetch(ref, retries=1, retry_wait_s=0.01)
+        assert (type(e.value).status_code, type(e.value).retryable) == (503, True)
+    finally:
+        direct.detach()
 
 
 # --------------------------------------------------------------- telemetry

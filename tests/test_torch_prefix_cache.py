@@ -61,7 +61,8 @@ def test_store_holds_contiguous_copies_and_counts_their_bytes():
     cache = PrefixCache(block=32, max_bytes=2 * one)
     prompts = [list(range(100 * i + 1, 100 * i + 71)) for i in range(3)]  # 70 tokens: boundaries 32, 64
     for i, prompt in enumerate(prompts):
-        assert cache.store(prompt, ks[:, i], vs[:, i], (64, 128)) == 64
+        new_keys, pad = cache.store(prompt, ks[:, i], vs[:, i], (64, 128))
+        assert pad == 64 and new_keys == [(tindex.prefix_key(tindex.token_bytes(prompt[:n]), n), n) for n in (32, 64)]
         held = [t for g in cache._groups.values() for t in g[:2]]
         assert all(t.is_contiguous() and t.untyped_storage().nbytes() == t.numel() * 4 for t in held)
         assert all(t.untyped_storage().data_ptr() != ks.untyped_storage().data_ptr() for t in held)
