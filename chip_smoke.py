@@ -194,6 +194,25 @@ Phases, in order; any failed check exits non-zero before the last line:
    restore-from-ref ms, the remote hits' fetch and splice ms and B's
    prefill stage, and the launches of K1 and K4; no /dev/shm/rt* segment
    may be left at the end.
+4h. The runtime on the card (ray_tpu_torch.init, the card as its "GPU"
+   resource), after 4g, on phase 4's weights, prompts and streams. A GPU
+   actor (CardServer, num_gpus=1, in a worker of its own that sees only
+   its card) rebuilds phase 4's weights from seed 0 (checksum equal to
+   this process's) and its paged graph engine, and generates the 8
+   prompts: 256 of 256 tokens equal phase 4's graph streams, K1 and K4
+   counted in the worker equal phase 4's (32 x 4 prefill forwards, 32 x 32
+   decode steps), this process's counts unmoved; its streaming method
+   yields the same streams. A second num_gpus=1 actor stays pending 2 s
+   with GPU available 0, and is ready after kill() of the first. A
+   max_restarts=1 actor's worker is SIGKILLed: it restarts, rebuilds and
+   generates the same 256 tokens. A num_gpus=1 task runs K1 at phase 2's
+   shape against its plain version in its worker. Prints the actor's time
+   to ready, its generate wall beside phase 4's, an empty method's round
+   trip direct and through the head, the card's free memory around the
+   kill, the restart-to-ready time, 1000 empty tasks' rate, a task's round
+   trip, a 256 MiB host tensor's put and get, and the workers' boot
+   times. After shutdown() no worker process, no /dev/shm/rt segment, and
+   the card's memory in use within 64 MiB of its value before 4h.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -251,9 +270,12 @@ from __future__ import annotations
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
+
+from ray_tpu_torch import remote
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -355,6 +377,27 @@ def host_us(torch, fn, calls: int = 300) -> float:
     elapsed = time.perf_counter() - t0
     torch.cuda.synchronize()
     return elapsed / calls * 1e6
+
+
+def k1_bound(B, H, HKV, T, D) -> tuple[float, str]:
+    """K1's least time in ms for causal bf16 q [B, H, T, D] over k/v
+    [B, HKV, T, D], and what bounds it."""
+    flops = 4.0 * B * H * D * T * (T + 1) / 2  # QK^T and PV over the causal pairs
+    nbytes = 2.0 * (2 * B * H * T * D + 2 * B * HKV * T * D) + 4.0 * B * H * T  # q, o, k, v bf16; lse f32
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k4_bound(qf, pk, sk, tables, bound, m, acc, bounds) -> tuple[float, str]:
+    """K4's least time in ms for its call on these tensors, the positions
+    it reads being each lane's bound, and what bounds it."""
+    nkv, hd, R = qf.shape[1], qf.shape[4], qf.shape[2] * qf.shape[3]
+    tok = sum(bounds)  # positions read: each lane's bound
+    nbytes = tok * nkv * hd * 2 * pk.element_size() + (tok * nkv * 2 * 4 if sk is not None else 0)
+    nbytes += qf.numel() * 4 + (m.numel() * 2 + acc.numel()) * 4 + (tables.numel() + bound.numel()) * 4
+    t_ops = 4.0 * tok * nkv * R * hd / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def self_device_us(event) -> float:
@@ -467,11 +510,9 @@ def main() -> int:
         plain_ms = cuda_ms(torch, lambda: attention_with_lse_ref(q, k, v, causal=True), iters=3, warmup=1)
         sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))
         flops = 4.0 * B * H * D * T * (T + 1) / 2  # QK^T and PV over the causal pairs
-        nbytes = 2.0 * (2 * B * H * T * D + 2 * B * HKV * T * D) + 4.0 * B * H * T  # q, o, k, v bf16; lse f32
-        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = k1_bound(B, H, HKV, T, D)
         row = dict(B=B, H=H, HKV=HKV, T=T, err_o=err_o, err_lse=err_lse, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-                   tflops=flops / ms * 1e-9, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   tflops=flops / ms * 1e-9, bound_ms=bound_ms, bound_by=bound_by)
         k1_rows.append(row)
         print(f"phase 2 K1 B={B} H={H}/{HKV} T={T}: |do| {err_o:.3g} |dlse| {err_lse:.3g} kernel {ms:.4f} ms "
               f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms "
@@ -517,17 +558,12 @@ def main() -> int:
 
     def k4_times(qf, pk, pv, tables, bound, sk, sv, m, acc, bounds):
         call = partial(paged_attn_partials, qf, pk, pv, tables, bound, sk, sv)
-        nkv, hd, R = qf.shape[1], qf.shape[4], qf.shape[2] * qf.shape[3]
-        tok = sum(bounds)  # positions read: each lane's bound
-        nbytes = tok * nkv * hd * 2 * pk.element_size() + (tok * nkv * 2 * 4 if sk is not None else 0)
-        nbytes += qf.numel() * 4 + (m.numel() * 2 + acc.numel()) * 4 + (tables.numel() + bound.numel()) * 4
-        t_ops = 4.0 * tok * nkv * R * hd / F32_FLOPS * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = k4_bound(qf, pk, sk, tables, bound, m, acc, bounds)
         return dict(ms=cuda_ms_turns(torch, [call])[0], device_ms=device_ms(torch, call, K4_KERNELS),
                     host_us=host_us(torch, call),
                     plain_ms=cuda_ms(torch, partial(paged_attn_partials_ref, qf, pk, pv, tables, bound, sk, sv),
                                      iters=5, warmup=1),
-                    bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+                    bound_ms=bound_ms, bound_by=bound_by)
 
     def k4_line(row):
         return (f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, host {row['host_us']:.2f} us a call), "
@@ -603,6 +639,7 @@ def main() -> int:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    drv_checksum = weights_checksum(params)  # phase 4h's card actors rebuild these weights
     lens = rng.integers(50, 1501, size=8)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in lens]
     seeded = [SamplingParams(max_tokens=SEEDED_TOKENS, temperature=0.8, top_p=0.9, seed=s) for s in range(4)]
@@ -851,6 +888,12 @@ def main() -> int:
           f"engine freed) {card}")
 
     mark("4g")
+    # ---------------------------------------------------------------- 4h
+    # the runtime on the card: a GPU actor serving phase 4's engine, the card as a resource, a restart, a GPU task
+    rtc = runtime_on_card(torch, cfg, prompts, gr, drv_checksum, card, dev)
+    torch.cuda.empty_cache()
+
+    mark("4h")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1248,6 +1291,23 @@ def main() -> int:
              launches=objp["k4_remote"], max_abs_err=rep4x["err"], ms=rep4x["ms"], plain_ms=rep4x["plain_ms"],
              bound_ms=rep4x["bound_ms"], bound_by=rep4x["bound_by"], library_ms=None, device_ms=rep4x["device_ms"],
              host_us=rep4x["host_us"]),
+        dict(name=f"K1 flash_attention_fwd GPU actor prefill (phase 4h, the actor's worker process; held and timed "
+                  f"there at its largest prefill {rtc['k1_check']['shape']})", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention.cu", replaces="ray_tpu/ops/flash_attention.py:104",
+             launches=rtc["k1_actor"], max_abs_err=rtc["k1_check"]["err_o"], ms=rtc["k1_check"]["ms"],
+             plain_ms=rtc["k1_check"]["plain_ms"], bound_ms=rtc["k1_check"]["bound_ms"],
+             bound_by=rtc["k1_check"]["bound_by"], library_ms=rtc["k1_check"]["sdpa_ms"]),
+        dict(name=f"K4 paged_attn_partials GPU actor decode (phase 4h, the actor's worker process; held and timed "
+                  f"there at its first decode step {rtc['k4_check']['shape']})", route="cuda",
+             source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
+             launches=rtc["k4_actor"], max_abs_err=rtc["k4_check"]["err"], ms=rtc["k4_check"]["ms"],
+             plain_ms=rtc["k4_check"]["plain_ms"], bound_ms=rtc["k4_check"]["bound_ms"],
+             bound_by=rtc["k4_check"]["bound_by"], library_ms=None),
+        dict(name="K1 flash_attention_fwd GPU task (phase 4h, B=2 T=2048 32/8 heads in the task's worker)",
+             route="cuda", source="ray_tpu_torch/csrc/flash_attention.cu", replaces="ray_tpu/ops/flash_attention.py:104",
+             launches=rtc["task"]["launches"], max_abs_err=max(rtc["task"]["err_o"], rtc["task"]["err_lse"]),
+             ms=rtc["task"]["ms"], plain_ms=rtc["task"]["plain_ms"], bound_ms=k1_bound(2, 32, 8, 2048, 128)[0],
+             bound_by=k1_bound(2, 32, 8, 2048, 128)[1], library_ms=rtc["task"]["sdpa_ms"]),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -2757,6 +2817,400 @@ def object_plane(torch, cfg, params, prompts, ref_tokens, handoff_tokens, leader
           f"{a['borrower']['k4']}; /dev/shm rt segments at the end: none {card}")
     return dict(handoffs=a, migrate=b, kv=c, k1=k1_n, k4=k4_n, k4_borrower=a["borrower"]["k4"],
                 k4_remote=c["bf16"]["k4"] + c["int8"]["k4"], shm=(size, free))
+
+
+# ---------------------------------------------------------------- phase 4h: the runtime on the card
+RUNTIME_TASKS = 1000  # empty tasks timed back to back
+RUNTIME_RTT_CALLS = 200  # sequential round trips timed per path
+RUNTIME_PUT_BYTES = 256 << 20  # the host tensor put and fetched through the head's store
+RUNTIME_MEM_SLACK = 64 << 20  # the card's memory in use after shutdown() vs before phase 4h
+RUNTIME_PENDING_S = 2.0  # how long the second card actor must stay pending
+
+
+@remote(num_gpus=1)
+class CardServer:
+    """Phase 4h's GPU actor: in its own worker, which sees only its card,
+    rebuild phase 4's weights from seed 0 and its paged graph engine
+    (``build``), and serve phase 4's prompts. ``build=False``: hold the
+    card with a bare CUDA context (the pending second actor)."""
+
+    def __init__(self, spec: dict, build: bool = True):
+        import torch
+
+        t0 = time.perf_counter()
+        self.visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        self.dev = torch.device("cuda")
+        torch.zeros(1, device=self.dev)  # the context: this process holds the card
+        self.eng, self.checksum = None, None
+        if build:
+            from ray_tpu_torch.llm import LLMEngine
+            from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+            cfg = self.cfg = LlamaConfig(**spec["config"])
+            params = init_params(cfg, torch.Generator(device=self.dev).manual_seed(0))
+            self.checksum = weights_checksum(params)
+            # caching off: the streaming leg serves the same prompts again,
+            # and a prefix hit's extend would take other arithmetic than
+            # phase 4's first pass (with no hit among the 8, equal tokens)
+            self.eng = LLMEngine(cfg, params, max_num_seqs=8, kv_layout="paged", page_size=64,
+                                 enable_prefix_caching=False, telemetry_tags={"model": "phase 4h card actor"})
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+
+    def facts(self) -> dict:
+        import torch
+
+        return dict(visible=self.visible, checksum=self.checksum, init_s=self.init_s, pid=os.getpid(),
+                    name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+                    allocated=torch.cuda.memory_allocated())
+
+    def ping(self):
+        return None
+
+    def generate(self, prompts) -> dict:
+        """Phase 4's 8 prompts, 32 greedy tokens each, with K1's and K4's
+        launch counters zeroed just before and read just after, here."""
+        import torch
+
+        from ray_tpu_torch.llm import SamplingParams
+        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+        from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        p0, d0 = self.eng.prefill_forwards, self.eng.decode_steps
+        t0 = time.perf_counter()
+        ids = [self.eng.add_request(p, SamplingParams(max_tokens=32)) for p in prompts]
+        finals = {}
+        while self.eng.has_unfinished():
+            finals.update((o.request_id, o) for o in self.eng.step() if o.finished)
+        torch.cuda.synchronize()
+        outs = [finals[i] for i in ids]
+        return dict(tokens=[list(o.token_ids) for o in outs], k1=flash_attention_fwd.launches,
+                    k4=paged_attn_partials.launches, wall_s=time.perf_counter() - t0,
+                    prefill_forwards=self.eng.prefill_forwards - p0, decode_steps=self.eng.decode_steps - d0)
+
+    def check_kernels(self, lens) -> dict:
+        """K1 at this actor's largest prefill (the prompts in the longest
+        prompt's bucket, one batch, as the engine batches a bucket) and K4 at
+        its first decode step (a lane per prompt over bf16 pages, each
+        lane's bound its prompt's length), each held against its plain
+        version here in the worker, on inputs from seed 0, and timed beside
+        it; the launch counts are put back as they were."""
+        import numpy as np
+        import torch
+        import torch.nn.functional as F
+
+        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
+        from ray_tpu_torch.llm.engine import _bucket
+        from ray_tpu_torch.ops.flash_attention import attention_with_lse_ref, flash_attention_fwd
+
+        counts = flash_attention_fwd.launches, paged_attn_partials.launches
+        cfg, dev, page = self.cfg, self.dev, self.eng._pcfg.page_size
+        H, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        g = torch.Generator(device=dev).manual_seed(0)
+        buckets = [_bucket(int(n), self.eng.prefill_buckets) for n in lens]
+        T = max(buckets)
+        B = buckets.count(T)
+        q = torch.randn((B, H, T, D), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16() for _ in range(2))
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=True)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        bound_ms, bound_by = k1_bound(B, H, HKV, T, D)
+        k1 = dict(shape=(B, H, HKV, T, D), err_o=err_o, err_lse=err_lse,
+                  ok=err_o <= K1_TOL_O and err_lse <= K1_TOL_LSE,
+                  ms=cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True)),
+                  plain_ms=cuda_ms(torch, lambda: attention_with_lse_ref(q, k, v, causal=True), iters=3, warmup=1),
+                  sdpa_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                                enable_gqa=True)),
+                  bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, o, lse, o_ref, lse_ref
+        Bl, max_pg = len(lens), self.eng._pcfg.max_pages_per_seq
+        P = Bl * max_pg + 1
+        rng = np.random.default_rng(0)
+        tables = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(Bl, max_pg).astype(np.int32)).to(dev)
+        bound = torch.tensor([int(n) for n in lens], dtype=torch.int32, device=dev)
+        pk, pv = (torch.randn((P, page, HKV, D), generator=g, device=dev).bfloat16() for _ in range(2))
+        qf = torch.randn((Bl, HKV, H // HKV, 1, D), generator=g, device=dev) * D**-0.5
+        m, l, acc = paged_attn_partials(qf, pk, pv, tables, bound)
+        m_r, l_r, acc_r = paged_attn_partials_ref(qf, pk, pv, tables, bound)
+        err = max((m - m_r).abs().max().item(), (l - l_r).abs().max().item(), (acc - acc_r).abs().max().item())
+        rel = max(((l - l_r).abs() / l_r.abs().clamp(min=1)).max().item(),
+                  ((acc - acc_r).abs() / acc_r.abs().clamp(min=1)).max().item())
+        bound_ms, bound_by = k4_bound(qf, pk, None, tables, bound, m, acc, [int(n) for n in lens])
+        k4 = dict(shape=(Bl, HKV, H // HKV, 1, D), err=err, rel=rel,
+                  ok=(m - m_r).abs().max().item() <= 1e-4 and rel <= K4_TOL,
+                  ms=cuda_ms(torch, lambda: paged_attn_partials(qf, pk, pv, tables, bound)),
+                  plain_ms=cuda_ms(torch, lambda: paged_attn_partials_ref(qf, pk, pv, tables, bound), iters=5,
+                                   warmup=1),
+                  bound_ms=bound_ms, bound_by=bound_by)
+        flash_attention_fwd.launches, paged_attn_partials.launches = counts
+        return dict(k1=k1, k4=k4)
+
+    def stream(self, prompts):
+        """Each request's tokens, yielded as the request finishes: (index, tokens)."""
+        from ray_tpu_torch.llm import SamplingParams
+
+        rids = [self.eng.add_request(p, SamplingParams(max_tokens=32)) for p in prompts]
+        index = {r: i for i, r in enumerate(rids)}
+        while self.eng.has_unfinished():
+            for o in self.eng.step():
+                if o.finished:
+                    yield index[o.request_id], list(o.token_ids)
+
+
+@remote(num_gpus=1)
+def card_k1_task(shape: tuple, tol_o: float, tol_lse: float) -> dict:
+    """Phase 4h's GPU task: K1 at phase 2's shape in the task's worker,
+    held against its plain version there; its launches and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.flash_attention import attention_with_lse_ref, flash_attention_fwd
+
+    B, H, HKV, T, D = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, H, T, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16()
+    flash_attention_fwd.launches = 0
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    launches = flash_attention_fwd.launches
+    o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    ms = cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = cuda_ms(torch, lambda: attention_with_lse_ref(q, k, v, causal=True), iters=3, warmup=1)
+    sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))
+    return dict(err_o=err_o, err_lse=err_lse, launches=launches, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                ok=err_o <= tol_o and err_lse <= tol_lse, visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+@remote
+def noop():
+    return None
+
+
+def median_us(fn, calls: int) -> float:
+    """The median of ``calls`` sequential calls of ``fn``, in µs."""
+    import statistics
+
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
+
+
+def card_used(torch) -> int:
+    """Bytes in use on the card, by every process (cudaMemGetInfo)."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def runtime_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> dict:
+    """Phase 4h: the port's runtime (``ray_tpu_torch.init``) with the card as
+    a resource. Legs: (1) the GPU count; (2) a GPU actor serving phase 4's
+    engine; (3) its streaming method; (4) a second card actor pending until
+    the first is killed; (5) a restart after SIGKILL; (6) a GPU task
+    running K1; (7) host costs; (8) shutdown leaves no worker, no rt
+    segment and the card's memory as before. Every leg is gated."""
+    import dataclasses
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.accelerators.gpu import GPUAcceleratorManager
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.core.object_ref import ObjectRef
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    spec = {"config": dataclasses.asdict(cfg)}
+    want_visible = GPUAcceleratorManager.worker_env_for_chips([0])["CUDA_VISIBLE_DEVICES"]
+    out = {}
+    t_phase = time.perf_counter()
+    # (1) the runtime, with the card counted
+    t0 = time.perf_counter()
+    rt = rtt.init(num_cpus=4)
+    total = rtt.cluster_resources()
+    check(total.get("GPU") == torch.cuda.device_count(),
+          f"phase 4h: cluster_resources GPU {total.get('GPU')} != torch.cuda.device_count() {torch.cuda.device_count()}")
+    print(f"phase 4h init: {time.perf_counter() - t0:.3f} s, cluster_resources {total} {card}")
+    try:
+        # (2) a GPU actor serving phase 4's engine in its own worker
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        t0 = time.perf_counter()
+        a = CardServer.remote(spec)
+        fa = rtt.get(a.facts.remote(), timeout=600)
+        ready_s = time.perf_counter() - t0
+        check(fa["checksum"] == drv_checksum, f"phase 4h: the actor's weights checksum {fa['checksum']} != the "
+                                               f"driver's {drv_checksum}")
+        check(fa["visible"] == want_visible, f"phase 4h: the actor's CUDA_VISIBLE_DEVICES {fa['visible']!r} != "
+                                             f"the assigned {want_visible!r}")
+        check(fa["count"] == 1 and fa["pid"] != os.getpid(), f"phase 4h: the actor sees {fa['count']} cards in "
+                                                             f"pid {fa['pid']}")
+        run = rtt.get(a.generate.remote(prompts), timeout=600)
+        same = sum(x == y for s1, s2 in zip(run["tokens"], serve_run["tokens"]) for x, y in zip(s1, s2))
+        check(run["tokens"] == serve_run["tokens"], f"phase 4h: the GPU actor's tokens equal phase 4's in {same} of "
+                                                    "256")
+        check(run["k1"] == serve_run["k1"] and run["k4"] == serve_run["k4"],
+              f"phase 4h: the actor's launches K1 {run['k1']} K4 {run['k4']} != phase 4's K1 {serve_run['k1']} K4 "
+              f"{serve_run['k4']}")
+        check(flash_attention_fwd.launches == 0 and paged_attn_partials.launches == 0,
+              f"phase 4h: the driver's K1/K4 counts moved: {flash_attention_fwd.launches}, "
+              f"{paged_attn_partials.launches}")
+        kc = rtt.get(a.check_kernels.remote([len(p) for p in prompts]), timeout=600)
+        k1c, k4c = kc["k1"], kc["k4"]
+        check(k1c["ok"], f"phase 4h: K1 in the actor's worker at {k1c['shape']}: |do| {k1c['err_o']:.3g} (tol "
+                         f"{K1_TOL_O}) |dlse| {k1c['err_lse']:.3g} (tol {K1_TOL_LSE})")
+        check(k4c["ok"], f"phase 4h: K4 in the actor's worker at {k4c['shape']}: max |d| {k4c['err']:.3g}, relative "
+                         f"{k4c['rel']:.3g} (tol {K4_TOL})")
+        print(f"phase 4h GPU actor's kernels, held against their plain versions in its worker: K1 at its largest "
+              f"prefill (B, H, Hkv, T, D) = {k1c['shape']}: |do| {k1c['err_o']:.3g} |dlse| {k1c['err_lse']:.3g}, "
+              f"kernel {k1c['ms']:.4f} ms, plain {k1c['plain_ms']:.4f} ms, sdpa {k1c['sdpa_ms']:.4f} ms, bound "
+              f"{k1c['bound_ms']:.4f} ms ({k1c['bound_by']}); K4 at its first decode step (B, kv, rep, T, hd) = "
+              f"{k4c['shape']}, bounds the prompts' lengths: max |d| {k4c['err']:.3g} (rel {k4c['rel']:.3g}), kernel "
+              f"{k4c['ms']:.4f} ms, plain {k4c['plain_ms']:.4f} ms, bound {k4c['bound_ms']:.4f} ms "
+              f"({k4c['bound_by']}) {card}")
+        direct_us = median_us(lambda: rtt.get(a.ping.remote(), timeout=60), RUNTIME_RTT_CALLS)
+        client = context.get_client()
+
+        def head_ping():
+            ids = client.submit_actor_task(actor_id=a._actor_id, method_name="ping", args=[], kwargs={},
+                                           num_returns=1, streaming=False, options={})
+            rtt.get(ObjectRef(ids[0]), timeout=60)
+
+        head_us = median_us(head_ping, RUNTIME_RTT_CALLS)
+        out.update(k1_actor=run["k1"], k4_actor=run["k4"], k1_check=k1c, k4_check=k4c, ready_s=ready_s,
+                   gen_wall_s=run["wall_s"],
+                   direct_us=direct_us, head_us=head_us)
+        print(f"phase 4h GPU actor (num_gpus=1, CUDA_VISIBLE_DEVICES={fa['visible']}, pid {fa['pid']}, "
+              f"{fa['name']}): ready {ready_s:.3f} s after .remote() (its __init__ {fa['init_s']:.3f} s: CUDA "
+              f"context, weights from seed 0, the paged graph engine), weights checksum equal to the driver's; "
+              f"generate 8 x 32 greedy tokens {run['wall_s']:.3f} s wall vs phase 4's in-process "
+              f"{serve_run['wall_s']:.3f} s, 256 of 256 tokens equal phase 4's, in the worker K1 {run['k1']} (= "
+              f"{cfg.num_layers} x {run['prefill_forwards']} prefill forwards) and K4 {run['k4']} (= {cfg.num_layers} "
+              f"x {run['decode_steps']} decode steps), the driver's K1 and K4 0; an empty method's round trip "
+              f"{direct_us:.1f} us direct, {head_us:.1f} us through the head (medians of {RUNTIME_RTT_CALLS}) {card}")
+        # (3) its streaming method
+        t0 = time.perf_counter()
+        streamed = {}
+        for ref in a.stream.options(num_returns="streaming").remote(prompts):
+            i, toks = rtt.get(ref, timeout=600)
+            streamed[i] = toks
+        check([streamed.get(i) for i in range(len(prompts))] == run["tokens"],
+              f"phase 4h: the streamed tokens differ from leg 2's in "
+              f"{sum(streamed.get(i) != t for i, t in enumerate(run['tokens']))} of 8 requests")
+        print(f"phase 4h streaming method: 8 requests streamed in {time.perf_counter() - t0:.3f} s, each equal to "
+              f"leg 2's stream {card}")
+        # (4) the card as a resource: a second card actor waits for the first
+        b = CardServer.remote(spec, build=False)
+        b_ready = b.facts.remote()
+        ready, _ = rtt.wait([b_ready], timeout=RUNTIME_PENDING_S)
+        avail = rtt.available_resources().get("GPU", 0)
+        check(ready == [] and avail == 0, f"phase 4h: the second card actor was not pending ({ready}), or GPU "
+                                          f"available {avail} != 0")
+        free_before = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        rtt.kill(a)
+        fb = rtt.get(b_ready, timeout=600)
+        swap_s = time.perf_counter() - t0
+        free_after = torch.cuda.mem_get_info()[0]
+        check(fb["visible"] == want_visible and fb["pid"] != fa["pid"], f"phase 4h: the second actor {fb}")
+        print(f"phase 4h card as a resource: the second num_gpus=1 actor pending {RUNTIME_PENDING_S} s with GPU "
+              f"available 0; ready {swap_s:.3f} s after kill() of the first (its process exited, its card released); "
+              f"the card's free memory {free_before} bytes before the kill, {free_after} after {card}")
+        rtt.kill(b)
+        # (5) a restart: SIGKILL the worker of a max_restarts=1 actor
+        t0 = time.perf_counter()
+        c = CardServer.options(max_restarts=1).remote(spec)
+        fc = rtt.get(c.facts.remote(), timeout=600)
+        c_ready_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.kill(fc["pid"], signal.SIGKILL)
+        fc2 = None
+        while time.perf_counter() - t0 < 600:
+            try:
+                fc2 = rtt.get(c.facts.remote(), timeout=600)
+            except rtt.exceptions.ActorDiedError:
+                time.sleep(0.1)  # the call raced the death: the restart is under way
+                continue
+            if fc2["pid"] != fc["pid"]:
+                break
+        restart_s = time.perf_counter() - t0
+        check(fc2 is not None and fc2["pid"] != fc["pid"] and fc2["checksum"] == drv_checksum,
+              f"phase 4h: the actor did not restart with the weights: {fc2}")
+        rerun = rtt.get(c.generate.remote(prompts), timeout=600)
+        check(rerun["tokens"] == serve_run["tokens"], "phase 4h: the restarted actor's tokens differ from phase 4's")
+        print(f"phase 4h restart: a max_restarts=1 card actor ready {c_ready_s:.3f} s after .remote(); its worker "
+              f"(pid {fc['pid']}) SIGKILLed, the restarted actor (pid {fc2['pid']}) ready {restart_s:.3f} s later "
+              f"(engine rebuilt), 256 of 256 tokens equal phase 4's {card}")
+        rtt.kill(c)
+        # (6) a GPU task running K1 at phase 2's shape in its worker
+        t0 = time.perf_counter()
+        task = rtt.get(card_k1_task.remote((2, 32, 8, 2048, 128), K1_TOL_O, K1_TOL_LSE), timeout=600)
+        check(task["ok"], f"phase 4h: the GPU task's K1 |do| {task['err_o']:.3g} (tol {K1_TOL_O}) |dlse| "
+                          f"{task['err_lse']:.3g} (tol {K1_TOL_LSE})")
+        check(task["launches"] >= 1 and task["visible"] == want_visible, f"phase 4h: the GPU task {task}")
+        out["task"] = task
+        print(f"phase 4h GPU task (num_gpus=1): K1 B=2 H=32/8 T=2048 D=128 bf16 causal in its worker: |do| "
+              f"{task['err_o']:.3g} |dlse| {task['err_lse']:.3g}, {task['launches']} launch, kernel {task['ms']:.4f} "
+              f"ms vs plain {task['plain_ms']:.4f} ms, {time.perf_counter() - t0:.3f} s with the worker's start {card}")
+        # (7) host costs
+        rtt.get(noop.remote(), timeout=60)
+        t0 = time.perf_counter()
+        rtt.get([noop.remote() for _ in range(RUNTIME_TASKS)], timeout=600)
+        tasks_s = RUNTIME_TASKS / (time.perf_counter() - t0)
+        task_us = median_us(lambda: rtt.get(noop.remote(), timeout=60), RUNTIME_RTT_CALLS)
+        host = torch.empty(RUNTIME_PUT_BYTES // 4, dtype=torch.float32).uniform_(generator=torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        ref = rtt.put(host)
+        put_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = rtt.get(ref, timeout=600)
+        get_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(back, host), "phase 4h: the 256 MiB tensor came back different")
+        del back, ref, host
+        boots = list(rt.worker_ready_s)
+        later = sorted(boots[1:])
+        out.update(tasks_s=tasks_s, task_us=task_us, put_ms=put_ms, get_ms=get_ms, boot_first_s=boots[0],
+                   boot_later_s=later[len(later) // 2] if later else None)
+        print(f"phase 4h host costs: {RUNTIME_TASKS} empty tasks {tasks_s:.1f} tasks/s; one task's round trip "
+              f"{task_us:.1f} us (median of {RUNTIME_RTT_CALLS}); put of a {RUNTIME_PUT_BYTES >> 20} MiB host "
+              f"tensor {put_ms:.2f} ms ({RUNTIME_PUT_BYTES / put_ms / 1e6:.2f} GB/s), get {get_ms:.2f} ms "
+              f"({RUNTIME_PUT_BYTES / get_ms / 1e6:.2f} GB/s); worker boot: the first {boots[0]:.3f} s (the zygote's "
+              f"start included), later ones median {out['boot_later_s']:.3f} s over {len(later)} {card}")
+    finally:
+        pids = [p for node in context.get_client().nodes.values() for p in node.worker_pids]
+        t0 = time.perf_counter()
+        rtt.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    # (8) shutdown: no worker left, no rt segment, the card's memory back
+    alive = []
+    for p in pids:
+        try:
+            os.kill(p, 0)
+            alive.append(p)
+        except ProcessLookupError:
+            pass
+    check(not alive, f"phase 4h: worker processes left after shutdown(): {alive}")
+    left = rt_segments()
+    check(not left, f"phase 4h: /dev/shm still holds {left}")
+    torch.cuda.synchronize()
+    used1 = card_used(torch)
+    check(abs(used1 - used0) <= RUNTIME_MEM_SLACK, f"phase 4h: the card's memory in use {used1} bytes after "
+                                                   f"shutdown() vs {used0} before phase 4h")
+    print(f"phase 4h shutdown: {shutdown_s:.3f} s, none of the {len(pids)} workers left, no rt segment, the card's "
+          f"memory in use {used1} bytes vs {used0} before phase 4h; phase 4h {time.perf_counter() - t_phase:.1f} s "
+          f"{card}")
+    return out
 
 
 if __name__ == "__main__":

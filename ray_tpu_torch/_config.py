@@ -1,18 +1,21 @@
-"""Runtime flags of the owned-object plane (port of the part of
-ray_tpu/_config.py that ``core/`` reads).
+"""Runtime flags (port of ray_tpu/_config.py's runtime part: the object
+plane, the head's store, the scheduler, the worker pool, retries and
+lineage; ray_tpu's health-check flags come with the node agents they
+probe).
 
 Each flag keeps ray_tpu's name and default and is overridable through the
 same ``RT_<NAME>`` environment variable, read when the config is first
-built (``get_config``); ``reset_config`` drops it so the next read sees
-the environment again. The runtime's other flags (object store memory,
-spilling, the scheduler, workers, health checks, ...) wait for the runtime
-(ROADMAP.md, queue 1, the runtime).
+built (``get_config``), and through ``init(_system_config={...})``
+(``update``); ``reset_config`` drops it so the next read sees the
+environment again. The serving engine's flags live on ``LLMEngine``'s
+arguments, as in the port's engine; the data library's flag waits for its
+port.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 from typing import Any
 
 _ENV_PREFIX = "RT_"
@@ -33,19 +36,54 @@ def _env_override(name: str, default: Any) -> Any:
 
 @dataclass
 class Config:
-    """The owned path's flags (one instance per process)."""
+    """The runtime's flags (one instance per process)."""
 
+    # --- object store ---
     # values serialized above this size go to shared memory; below it they
     # stay inline in the owner's store and ride the reply frame (reference:
     # max_direct_call_object_size, common/ray_config_def.h:198)
     max_direct_call_object_size: int = 100 * 1024
+    # the head store's shared-memory capacity
+    object_store_memory: int = 2 * 1024 * 1024 * 1024
+    # share of the capacity above which cold, unpinned objects are spilled
+    # (or evicted, for lineage to rebuild)
+    object_store_eviction_threshold: float = 0.8
+    # spill cold sealed objects to disk instead of evicting them; restore on read
+    object_spilling_enabled: bool = True
+    # directory of spill files; empty: <session_dir>/spill
+    object_spill_dir: str = ""
+    # disk budget for spilled bytes; past it cold objects are evicted
+    object_spill_max_bytes: int = 50 * 1024 * 1024 * 1024
+
+
+    # --- not ported: a set value raises naming its item (core/context.py) ---
+    gcs_persist_path: str = ""  # PERSIST_ITEM
+    shm_isolation: bool = False  # AGENTS_ITEM
+
+    # --- scheduler ---
+    # pack onto the busiest feasible node until its utilization crosses
+    # this threshold, then spread (reference: scheduler_spread_threshold)
+    scheduler_spread_threshold: float = 0.5
+    # task retries on a worker's death when the task does not say
+    default_max_retries: int = 3
+
+    # --- worker pool ---
+    # "forkserver": the port's own zygote process forks the workers
+    # (core/node.py); "spawn": a fresh interpreter per worker; "fork": the
+    # driver forks them (refused once the driver holds a CUDA context)
+    worker_start_method: str = "forkserver"
+    prestart_workers: bool = True
+
+    # --- reference counting ---
     # free owned entries once no process holds a ref; the borrow protocol
     # rides it (RT_OBJECT_REF_COUNTING=0 turns the owned plane off)
     object_ref_counting: bool = True
     # period of the housekeeping pass: drain the local ref-count
     # transitions, route them to their owners, free what is due
     ref_counting_interval_s: float = 0.2
-    # the direct plane itself (RT_DIRECT_CALLS=0 turns it off)
+
+    # --- direct call plane (core/direct.py) ---
+    # the direct plane itself (RT_DIRECT_CALLS=0 routes everything through the head)
     direct_calls: bool = True
     # seconds an owned object lingers after its last reference drops
     # (absorbs the async borrow-registration race)
@@ -56,9 +94,28 @@ class Config:
     # for borrowers that died before registering
     owned_object_leak_backstop_s: float = 30.0
 
+    # --- lineage ---
+    # terminal task specs beyond this count are pruned (their outputs can
+    # no longer be rebuilt)
+    max_lineage_tasks: int = 20_000
+
+    extra: dict = field(default_factory=dict)
+
     def __post_init__(self):
         for f in fields(self):
+            if f.name == "extra":
+                continue
             setattr(self, f.name, _env_override(f.name, getattr(self, f.name)))
+
+    def update(self, overrides: dict | None):
+        if not overrides:
+            return
+        known = {f.name for f in fields(self)}
+        for k, v in overrides.items():
+            if k in known:
+                setattr(self, k, v)
+            else:
+                self.extra[k] = v
 
 
 _config: Config | None = None

@@ -40,9 +40,11 @@ False; each site maps a drop onto its native loss signal, e.g. a dropped
 path), or RAISE a supplied exception type. ``max_hits`` bounds a rule,
 ``after`` skips the first N matches, ``methods`` filters multi-method
 sites like ``kvplane.index``. ray_tpu's ``rpc.<msg_type>`` namespace is
-accepted by ``inject`` as there; its transport adapter
-(``core/rpc_chaos.py``, on the direct calls' results) waits for the
-runtime.
+live: ``core/rpc_chaos.py`` is its adapter, applied at the runtime's
+sites (``to_worker`` on every message the head sends a worker, each
+inbound worker message by its type, ``direct_call`` at a direct
+submission and ``direct_result`` on each direct reply; ray_tpu's
+``pong`` probes node agents, which wait for their ROADMAP.md item).
 
 Safety contract, as in ray_tpu:
 

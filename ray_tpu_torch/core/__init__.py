@@ -1,6 +1,6 @@
-"""The owned-object plane (port of the part of ray_tpu/core/ that the
-owned path reaches): ids, ObjectRef and its reference counts,
-serialization with out-of-band host tensors, shared-memory segments,
-payloads, and ``direct.py``'s owned store with its borrow and free
-protocol between processes. The head, scheduler, tasks, actors, leases
-and lineage wait for the runtime (ROADMAP.md, queue 1, the runtime)."""
+"""The runtime's core (port of ray_tpu/core/): ids, ObjectRef and its
+reference counts, serialization (host tensors out of band, code by
+reference), shared-memory segments and the head's store, payloads, the
+direct call plane (owned objects, borrows, direct actor and task calls,
+leases, lineage), the GCS, the scheduler, the task manager, the node and
+its worker zygote, the worker process and the head ``Runtime``."""

@@ -1,6 +1,6 @@
-"""Object identifiers (port of the part of ray_tpu/core/ids.py that the
-owned-object plane reaches): ``BaseID``, ``TaskID`` and ``ObjectID`` with
-ray_tpu's byte layout, and the pooled entropy source ``_rand``.
+"""Identifiers (port of ray_tpu/core/ids.py): ``BaseID``, the job, node,
+worker, actor, placement-group and task ids, and ``ObjectID``, with
+ray_tpu's byte layouts, and the pooled entropy source ``_rand``.
 
 An ObjectID is a task id (16 bytes) and a return index (4 bytes, little
 endian); a put's task id is random and its index 0xFFFFFFFF, the mark of
@@ -79,8 +79,32 @@ class BaseID:
         return (type(self), (self._bytes,))
 
 
+class JobID(BaseID):
+    SIZE = 4
+
+
+class NodeID(BaseID):
+    SIZE = 16
+
+
+class WorkerID(BaseID):
+    SIZE = 16
+
+
+class ActorID(BaseID):
+    SIZE = 16
+
+
+class PlacementGroupID(BaseID):
+    SIZE = 16
+
+
 class TaskID(BaseID):
     SIZE = 16
+
+    @classmethod
+    def for_actor(cls, actor_id: ActorID, seq: int) -> "TaskID":
+        return cls(actor_id.binary()[:12] + seq.to_bytes(4, "little"))
 
 
 class ObjectID(BaseID):

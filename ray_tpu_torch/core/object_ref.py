@@ -16,10 +16,11 @@ hint (``core/direct.py``). A ref pickled out of its owner marks the
 entry as serialized out, so the owner waits for the borrower's explicit
 release instead of the short grace timer.
 
-ray_tpu's ``get``/``wait``/``future``/``__await__`` and
-``ObjectRefGenerator`` go through the head's client; they wait for the
-runtime (ROADMAP.md, queue 1, the runtime). The owned path reads a ref
-with ``direct.get_owned_view``.
+``get``/``wait``/``future``/``__await__`` and ``ObjectRefGenerator`` go
+through the process's client (``core/context.py``: the head in the
+driver, a ``WorkerClient`` in a worker), which tries the owned plane
+first. A process with no runtime reads a ref with
+``direct.get_owned_view``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,12 @@ import threading
 from collections import deque
 
 from ray_tpu_torch.core.ids import ObjectID
+
+
+def _client():
+    from ray_tpu_torch.core.context import get_client
+
+    return get_client()
 
 _rc_lock = threading.Lock()
 _rc_counts: dict[bytes, int] = {}
@@ -138,6 +145,32 @@ class ObjectRef:
     def task_id(self):
         return self.id.task_id()
 
+    def get(self, timeout: float | None = None):
+        return _client().get_object(self.id, timeout=timeout)
+
+    def wait(self, timeout: float | None = None) -> bool:
+        return _client().wait_ready([self.id], num_returns=1, timeout=timeout)[0] != []
+
+    def future(self):
+        """A concurrent.futures.Future of this ref's value."""
+        import concurrent.futures
+
+        fut = concurrent.futures.Future()
+
+        def _done(value, err):
+            if err is not None:
+                fut.set_exception(err)
+            else:
+                fut.set_result(value)
+
+        _client().add_done_callback(self.id, _done)
+        return fut
+
+    def __await__(self):
+        import asyncio
+
+        return asyncio.wrap_future(self.future()).__await__()
+
     def __eq__(self, other):
         return isinstance(other, ObjectRef) and self.id == other.id
 
@@ -171,3 +204,49 @@ class ObjectRef:
             # this process learned for it
             hint = _get_hint(self.id.binary())
         return (ObjectRef, (self.id, hint))
+
+
+class ObjectRefGenerator:
+    """Iterator over the refs a streaming task yields, each produced as the
+    task runs (ray_tpu's ObjectRefGenerator)."""
+
+    def __init__(self, generator_id: ObjectID):
+        self.generator_id = generator_id
+        self._index = 0
+        self._done = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> ObjectRef:
+        return self.next_ref(timeout_s=None)
+
+    def next_ref(self, timeout_s: float | None = None) -> ObjectRef:
+        """next() with a bound on the wait for the producer's next item
+        (GetTimeoutError on expiry; the stream stays consumable)."""
+        if self._done:
+            raise StopIteration
+        ref = _client().next_generator_item(self.generator_id, self._index, timeout=timeout_s)
+        if ref is None:
+            self._done = True
+            raise StopIteration
+        self._index += 1
+        return ref if isinstance(ref, ObjectRef) else ObjectRef(ref)
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> ObjectRef:
+        import asyncio
+
+        loop = asyncio.get_running_loop()
+        try:
+            return await loop.run_in_executor(None, self.__next__)
+        except StopIteration:
+            raise StopAsyncIteration from None
+
+    def completed(self) -> bool:
+        return self._done
+
+    def __reduce__(self):
+        return (ObjectRefGenerator, (self.generator_id,))

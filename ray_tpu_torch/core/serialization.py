@@ -1,13 +1,7 @@
-"""Serialization for the owned-object plane (port of
-ray_tpu/core/serialization.py): stdlib ``pickle`` protocol 5 with
-out-of-band buffers, and tracking of the ObjectRefs pickled inside a
-value.
-
-ray_tpu pickles with a third-party pickler that also serializes closures
-and lambdas, and carries numpy arrays out of band. The port pickles with
-the standard library: the values it moves (KV handoffs, checkpoints,
-prefix blocks: dicts of host tensors, lists and numbers) hold no code, and
-the card's machine has no such package.
+"""Serialization (port of ray_tpu/core/serialization.py): stdlib
+``pickle`` protocol 5 with out-of-band buffers, tracking of the
+ObjectRefs pickled inside a value, and functions and classes sent to
+workers by reference.
 
 A host ``torch.Tensor`` travels out of band: the pickler's
 ``reducer_override`` turns it into (dtype name, shape, one
@@ -17,15 +11,27 @@ A bf16 tensor is viewed as int16 for the buffer (bf16 has no numpy
 dtype). Decoding rebuilds it with ``torch.frombuffer`` over the buffer
 (a view into the mapped segment on the borrow path); a read-only buffer
 (inline ``bytes``) is copied first, so no tensor is ever writable over
-memory that must not change.
+memory that must not change. A tensor on the card is refused with
+TypeError: move it with ``.cpu()`` first.
 
-A tensor on the card is refused with TypeError: move it with ``.cpu()``
-first (the handoff and migration codecs pass host tensors).
+**Code travels by reference.** ray_tpu pickles functions and classes by
+value with a third-party pickler, which the card's machine lacks. The port
+sends a task's function or an actor's class as its module and qualified
+name (``code_ref``); the worker imports the module and looks the name up
+(``resolve_code``), unwrapping a ``@remote`` decorator. The driver's
+``__main__`` is importable in a worker from its file (``core/node.py``
+imports it there as ``__mp_main__``, as multiprocessing does). A lambda,
+a function defined inside another, or a ``__main__`` with no file (a
+heredoc, stdin or ``-c`` driver) has no name a worker can import:
+``code_ref`` raises TypeError at ``.remote()`` and says so. Values passed
+as arguments pickle as the standard library pickles them: a class of a
+file-less ``__main__`` among them fails in the worker.
 """
 
 from __future__ import annotations
 
 import io
+import os
 import pickle
 from dataclasses import dataclass, field
 
@@ -116,6 +122,72 @@ def serialize(obj) -> Serialized:
 
 def deserialize(header: bytes, buffers) -> object:
     return pickle.loads(header, buffers=buffers)
+
+
+def deserialize_s(s: Serialized) -> object:
+    return deserialize(s.header, s.buffers)
+
+
+def dumps_inband(obj) -> bytes:
+    """One pickle of ``obj`` with host tensors in band (a direct call's
+    frame: one blob, no buffers)."""
+    return _dumps(obj, buffer_callback=None)
+
+
+# ---------------------------------------------------------------------------
+# code by reference
+# ---------------------------------------------------------------------------
+_DIFFERENCE = ("ray_tpu_torch sends functions and classes to workers by reference (module and qualified name), "
+               "where ray_tpu sends them by value (ROADMAP.md, Differences kept on purpose: code by reference)")
+
+
+def _unwrap(obj):
+    """The function or class inside a ``@remote`` wrapper, else ``obj``."""
+    return getattr(obj, "_rt_target", obj)
+
+
+def code_ref(obj) -> tuple[str, str]:
+    """(module, qualified name) of a module-level function or class that a
+    worker can import; TypeError naming why when there is none."""
+    import sys
+
+    module = getattr(obj, "__module__", None)
+    qualname = getattr(obj, "__qualname__", None)
+    what = "class" if isinstance(obj, type) else "function"
+    if module is None or qualname is None:
+        raise TypeError(f"{obj!r} has no module and qualified name: {_DIFFERENCE}")
+    if "<lambda>" in qualname:
+        raise TypeError(f"the lambda {module}.{qualname} has no name a worker can import: define it with def at "
+                        f"the top level of a module. {_DIFFERENCE}")
+    if "<locals>" in qualname:
+        raise TypeError(f"the {what} {module}.{qualname} is defined inside a function (a closure), so a worker "
+                        f"cannot import it: move it to the top level of a module. {_DIFFERENCE}")
+    if module == "__main__":
+        main = sys.modules.get("__main__")
+        spec_name = getattr(getattr(main, "__spec__", None), "name", None)
+        path = getattr(main, "__file__", None)
+        if not spec_name and not (path and os.path.isfile(path)):
+            raise TypeError(f"the {what} {qualname} is defined in a __main__ with no file (a heredoc, stdin or -c "
+                            f"driver), which a worker cannot import: put it in a file. {_DIFFERENCE}")
+    try:
+        found = resolve_code(module, qualname)
+    except (ImportError, AttributeError):
+        found = None
+    if found is not obj:
+        raise TypeError(f"{module}.{qualname} does not name this {what} in its module, so a worker cannot import "
+                        f"it. {_DIFFERENCE}")
+    return module, qualname
+
+
+def resolve_code(module: str, qualname: str):
+    """Import ``module`` and look ``qualname`` up in it, unwrapping
+    ``@remote`` wrappers at each step."""
+    import importlib
+
+    obj = importlib.import_module(module)
+    for part in qualname.split("."):
+        obj = _unwrap(getattr(obj, part))
+    return obj
 
 
 def _track_contained_refs(obj, out: list, depth: int = 0):

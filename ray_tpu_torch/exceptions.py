@@ -2,9 +2,11 @@
 ray_tpu/exceptions.py that it raises: the serving-error taxonomy
 (admission and shedding, the KV handoff and live-migration errors, the
 routers' terminal errors, the chaos plane's injected fault) and the
-runtime errors the owned-object plane raises and the ported probes walk
-(``RayTpuError``, ``TaskError`` with its ``.cause`` and ``tb_str``,
-``ObjectLostError``, ``GetTimeoutError``, the worker and actor deaths).
+runtime's errors (``RayTpuError``, ``TaskError`` with its ``.cause`` and
+``tb_str``, pickled as ray_tpu pickles it, ``ObjectLostError``,
+``GetTimeoutError``, the worker, actor and node deaths, an unplaceable
+placement group, the pending-calls limit, out of memory and a failed
+runtime_env).
 
 ``SERVING_ERRORS`` maps each typed error a client or a router may observe
 to its HTTP status code and a retryable flag, keyed by class name, with
@@ -148,4 +150,24 @@ class ObjectReconstructionError(ObjectLostError):
 
 @serving_error
 class GetTimeoutError(RayTpuError, TimeoutError):
+    pass
+
+
+class NodeDiedError(RayTpuError):
+    pass
+
+
+class RuntimeEnvSetupError(RayTpuError):
+    pass
+
+
+class PlacementGroupUnschedulableError(RayTpuError):
+    pass
+
+
+class PendingCallsLimitExceeded(RayTpuError):
+    pass
+
+
+class OutOfMemoryError(RayTpuError):
     pass

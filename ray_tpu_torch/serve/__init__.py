@@ -1,8 +1,8 @@
 """Serving (port of ray_tpu/serve/), the in-process half: the overload
 plane (``overload.py``: typed 429s, admission control, drain, the shared
-retry budget). The controller, replicas, handles and the HTTP proxy wait
-for the runtime (ROADMAP.md, queue 1, the runtime, then the serve wiring
-for GPU replicas).
+retry budget). The controller, replicas, handles and the HTTP proxy are
+ROADMAP.md queue 1's next item (serve wiring for GPU replicas), over the
+port's runtime.
 """
 
 from ray_tpu_torch.serve.overload import (

@@ -12,9 +12,9 @@ Prometheus text exposition of this process's registry.
 
 Not ported: the worker-to-GCS flusher (``_ensure_flusher``,
 ``flush_once``), the cluster fold of ``get_metrics_snapshot`` and
-``update_core_metrics``. They belong to the runtime (tasks, actors, the
-GCS key-value store), which is not ported; ``export_prometheus`` here
-exposes this process's series only.
+``update_core_metrics``: they fold every worker's series through the
+GCS, with the state and monitors item (ROADMAP.md, queue 1, state and
+monitors); ``export_prometheus`` here exposes this process's series only.
 """
 
 from __future__ import annotations

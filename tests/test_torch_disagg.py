@@ -176,7 +176,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     control = ["chaos.py", "exceptions.py", "serve/__init__.py", "serve/overload.py", "llm/kvplane/__init__.py",
                "llm/kvplane/index.py", "llm/kvplane/routing.py", "llm/kvplane/client.py", "llm/disagg/router.py",
                "_config.py", "core/ids.py", "core/task_spec.py", "core/serialization.py", "core/object_ref.py",
-               "core/object_store.py", "core/payloads.py", "core/direct.py", "llm/kvplane/quant.py"]
+               "core/object_store.py", "core/payloads.py", "core/direct.py", "llm/kvplane/quant.py",
+               # the runtime's modules
+               "api.py", "accelerators/gpu.py", "core/context.py", "core/gcs.py", "core/table_store.py",
+               "core/scheduler.py", "core/task_manager.py", "core/node.py", "core/worker_main.py", "core/runtime.py",
+               "core/rpc_chaos.py", "util/placement_group.py", "util/scheduling_strategies.py"]
     assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:

@@ -22,6 +22,7 @@ converted from ray_tpu's; ray_tpu's engines have every program settled."""
 
 import copy
 import itertools
+import time
 
 import numpy as np
 import pytest
@@ -319,9 +320,23 @@ def test_checkpoint_refuses_untransferable_state(params):
         src.checkpoint_request(rid)
     assert src.finish_migrated(rid) is False
     # a reference this process neither owns nor has an owner hint for goes
-    # through ray_tpu's head, which the port has not (the runtime's item)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, the runtime"):
+    # to the head: with no runtime that raises, naming init(); with one up,
+    # the head answers that the object was freed, which the bounded retry
+    # turns into MigrationLostError
+    with pytest.raises(RuntimeError, match=r"call ray_tpu_torch.init\(\) first"):
         src.restore_request(ObjectRef(ObjectID.from_put()))
+    import ray_tpu_torch as rtt
+
+    rt = rtt.init(num_cpus=1, _system_config={"prestart_workers": False})
+    try:
+        gone = rtt.put({"k": torch.ones(50000)}).id  # the head's store; its last reference dies here
+        deadline = time.monotonic() + 10
+        while gone not in rt._freed_set and time.monotonic() < deadline:
+            time.sleep(0.02)
+        with pytest.raises(tmig.MigrationLostError):
+            src.restore_request(ObjectRef(gone))
+    finally:
+        rtt.shutdown()
 
 
 CORRUPTIONS = {

@@ -22,8 +22,9 @@ ray_tpu's (``ray_tpu/core/``), on the CPU.
   (equal bytes, the borrow registered, the owner frees after the
   release), the owner's death (ObjectLostError), the leak backstop.
 - The chaos sites ``direct.put_owned`` and ``direct.get_owned_view``; an id
-  this process neither owns nor has a hint for raises
-  NotImplementedError naming the runtime's ROADMAP.md item.
+  this process neither owns nor has a hint for goes to the head: with no
+  runtime that raises RuntimeError naming ``init()``, with one the head
+  answers.
 
 Every test that attaches a plane detaches it in a ``finally``, which frees
 its objects and unlinks their segments; no ``/dev/shm/rt*`` is left.
@@ -139,11 +140,16 @@ def test_object_id_layout_matches_ray_tpu():
 
 
 def test_config_defaults_and_env_overrides_match_ray_tpu(monkeypatch):
-    names = [f.name for f in tconfig.Config.__dataclass_fields__.values()]
-    assert names == ["max_direct_call_object_size", "object_ref_counting", "ref_counting_interval_s",
-                     "direct_calls", "owned_object_grace_s", "owned_object_leak_backstop_s"]
+    """Every flag keeps ray_tpu's name, default and RT_* override."""
+    names = [f.name for f in tconfig.Config.__dataclass_fields__.values() if f.name != "extra"]
+    jnames = set(jconfig.Config.__dataclass_fields__)
+    assert {"max_direct_call_object_size", "object_ref_counting", "ref_counting_interval_s", "direct_calls",
+            "owned_object_grace_s", "owned_object_leak_backstop_s", "scheduler_spread_threshold",
+            "worker_start_method", "prestart_workers", "default_max_retries"} <= set(names)
+    assert set(names) <= jnames
     for env in ({}, {"RT_MAX_DIRECT_CALL_OBJECT_SIZE": "4096", "RT_OWNED_OBJECT_GRACE_S": "2.5",
-                     "RT_DIRECT_CALLS": "0", "RT_OBJECT_REF_COUNTING": "off"}):
+                     "RT_DIRECT_CALLS": "0", "RT_OBJECT_REF_COUNTING": "off", "RT_DEFAULT_MAX_RETRIES": "7",
+                     "RT_WORKER_START_METHOD": "spawn"}):
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         tconfig.reset_config()
@@ -158,7 +164,9 @@ def test_config_defaults_and_env_overrides_match_ray_tpu(monkeypatch):
 
 def test_runtime_errors_match_ray_tpu():
     for name in ("RayTpuError", "TaskError", "WorkerCrashedError", "ActorDiedError", "ActorUnavailableError",
-                 "ObjectLostError", "ObjectReconstructionError", "GetTimeoutError"):
+                 "ObjectLostError", "ObjectReconstructionError", "GetTimeoutError", "NodeDiedError",
+                 "RuntimeEnvSetupError", "PlacementGroupUnschedulableError", "PendingCallsLimitExceeded",
+                 "OutOfMemoryError"):
         t, j = getattr(texc, name), getattr(jexc, name)
         assert [b.__name__ for b in t.__mro__] == [b.__name__ for b in j.__mro__], name
         ts, js = texc.serving_error_spec(t), jexc.serving_error_spec(j)
@@ -487,14 +495,17 @@ def test_chaos_sites_put_owned_and_get_owned_view(plane):
 
 
 def test_head_paths_raise_naming_the_runtime(plane, monkeypatch):
+    """With no runtime in the process, each path to the head raises
+    RuntimeError saying that ``ray_tpu_torch.init()`` was not called; with
+    a runtime up, the head answers those same calls."""
     stranger = ids.ObjectID.from_put()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, the runtime"):
+    with pytest.raises(RuntimeError, match=r"call ray_tpu_torch.init\(\) first"):
         direct.get_owned_view(stranger)
-    with pytest.raises(NotImplementedError, match="queue 1, the runtime"):
-        direct.promote(stranger.binary())
-    with pytest.raises(NotImplementedError, match="queue 1, the runtime"):
-        direct.try_put({"k": torch.ones(50000)})
     ref, _ = direct.try_put({"n": 5})
+    with pytest.raises(RuntimeError, match=r"call ray_tpu_torch.init\(\) first"):
+        direct.promote(None, ref.id.binary())
+    with pytest.raises(RuntimeError, match=r"call ray_tpu_torch.init\(\) first"):
+        direct.try_put({"k": torch.ones(50000)})
     assert direct.get_owned_view(ref.id) == {"n": 5}
     # a ``call`` frame is answered with ray_tpu's TaskError: this process executes no calls
     import socket
@@ -515,5 +526,27 @@ def test_head_paths_raise_naming_the_runtime(plane, monkeypatch):
     with pytest.raises(RuntimeError, match="direct plane"):
         direct.put_owned({"n": 1})
     # an unhinted id with no plane attached at all: the head's, as well
-    with pytest.raises(NotImplementedError, match="the runtime"):
+    with pytest.raises(RuntimeError, match=r"call ray_tpu_torch.init\(\) first"):
         direct.get_owned_view(stranger)
+    # the same calls with a runtime up (no workers: these need none)
+    monkeypatch.delenv("RT_DIRECT_CALLS")
+    import ray_tpu_torch as rtt
+
+    rt = rtt.init(num_cpus=1, _system_config={"prestart_workers": False})
+    try:
+        with pytest.raises(texc.GetTimeoutError):  # nothing sealed under that id at the head
+            direct.get_owned_view(stranger, timeout=0.3)
+        ref, _ = direct.try_put({"n": 6})
+        assert direct.promote(rt, ref.id.binary()) and rt.store.contains(ref.id)
+        assert direct.get_owned_view(ref.id) == {"n": 6}  # now the head's copy
+        none, s = direct.try_put({"k": torch.ones(50000)})
+        assert none is None and s.total_size() > tconfig.get_config().max_direct_call_object_size
+        big = rtt.put({"k": torch.ones(50000)})
+        assert rt.store.contains(big.id) and torch.equal(direct.get_owned_view(big.id)["k"], torch.ones(50000))
+        gone = big.id
+        del big  # the last reference: the head's ref GC frees it
+        assert _wait(lambda: gone in rt._freed_set)
+        with pytest.raises(texc.ObjectLostError, match="freed"):
+            direct.get_owned_view(gone, timeout=5)
+    finally:
+        rtt.shutdown()
