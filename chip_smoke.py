@@ -213,6 +213,41 @@ Phases, in order; any failed check exits non-zero before the last line:
    trip, a 256 MiB host tensor's put and get, and the workers' boot
    times. After shutdown() no worker process, no /dev/shm/rt segment, and
    the card's memory in use within 64 MiB of its value before 4h.
+4i. Serve over the runtime on the card (ray_tpu_torch.serve), after 4h, on
+   phase 4's config, engine settings (paged, 8 slots, page 64, caching off
+   but in (d)) and prompts; every replica builds phase 4's weights from
+   seed 0 itself (checksum-gated). The deployment classes are module-level
+   subclasses here (CardLLMServer and the rest), so each replica's worker
+   imports this file as __mp_main__; they add weights_checksum,
+   kernel_counts and check_kernels. (a) serve.run(build_llm_deployment(
+   LLMConfig(..., num_tpus_per_replica=1))): the replica's worker sees one
+   card, GPU available 0 while it lives; phase 4's 8 prompts sent at once
+   through handle.generate (32 greedy tokens): 8 of 8 finish (length),
+   first tokens 8 of 8 equal phase 4's, in the worker K1 32 per prefill
+   forward and K4 32 per decode step, the driver's counts 0,
+   overload_stats 8 admitted and 0 shed, K1 and K4 held against their
+   plain versions in the worker (phases 2's and 3's tolerances); prints
+   the tokens equal to phase 4's (not gated). (b) build_openai_app behind
+   the asyncio HTTP proxy (HTTPOptions(port=0)): /v1/models, a unary
+   /v1/completions of phase 4's first prompt (token ids, 32 tokens,
+   temperature 0) and the same request streamed: 32 SSE chunks whose
+   tokens equal the unary's, then [DONE]; the first token equals phase
+   4's; after serve.delete the GPU comes back only once the worker has
+   exited. (c) build_pd_disagg_deployment, one prefill and one decode
+   replica sharing the card (neither asks for it); the 8 prompts at once
+   through the router: first tokens 8 of 8 equal phase 4's, disagg_stats 8
+   prefills and 0 decode retries, K1 in the prefill worker, K4 32 per
+   decode step in the decode worker and no K1 there; the card's free
+   memory before and after. (d) build_kvplane_deployment, 2 replicas,
+   caching on, 64-token blocks: phase 4b's leader, then its 8 followers
+   one at a time through the cache-aware router: first tokens 8 of 8
+   equal phase 4b's hits, 8 hits (local or remote) and 8192 tokens saved.
+   Then serve.shutdown() and ray_tpu_torch.shutdown(): no worker, no
+   /dev/shm/rt segment, the card's memory in use within 64 MiB of before
+   4i. Prints each app's time to RUNNING (and each replica's __init__),
+   the 8 requests' wall beside phase 4's in-process wall, /v1/models's
+   round trip, the stream's first chunk and mean gap, the disagg and
+   kvplane walls, and the shutdown's time.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -276,6 +311,7 @@ import sys
 import time
 
 from ray_tpu_torch import remote
+from ray_tpu_torch.serve.llm import DecodeServer, KVPlaneServer, LLMServer, OpenAIServer, PrefillServer
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -894,6 +930,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("4h")
+    # ---------------------------------------------------------------- 4i
+    # Serve over the runtime: a GPU replica, the OpenAI app behind the asyncio proxy, the disagg and kvplane apps
+    svc = serve_on_card(torch, cfg, prompts, gr, drv_checksum, leader, followers, hit_firsts, card)
+    torch.cuda.empty_cache()
+
+    mark("4i")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1308,6 +1350,47 @@ def main() -> int:
              launches=rtc["task"]["launches"], max_abs_err=max(rtc["task"]["err_o"], rtc["task"]["err_lse"]),
              ms=rtc["task"]["ms"], plain_ms=rtc["task"]["plain_ms"], bound_ms=k1_bound(2, 32, 8, 2048, 128)[0],
              bound_by=k1_bound(2, 32, 8, 2048, 128)[1], library_ms=rtc["task"]["sdpa_ms"]),
+        dict(name=f"K1 flash_attention_fwd serve GPU replica prefill (phase 4i (a), the replica's worker; held and "
+                  f"timed there at its largest prefill {svc['a']['check']['k1']['shape']})", route="cuda",
+             source="ray_tpu_torch/csrc/flash_attention.cu", replaces="ray_tpu/ops/flash_attention.py:104",
+             launches=svc["a"]["counts"]["k1"], max_abs_err=svc["a"]["check"]["k1"]["err_o"],
+             ms=svc["a"]["check"]["k1"]["ms"], plain_ms=svc["a"]["check"]["k1"]["plain_ms"],
+             bound_ms=svc["a"]["check"]["k1"]["bound_ms"], bound_by=svc["a"]["check"]["k1"]["bound_by"],
+             library_ms=svc["a"]["check"]["k1"]["sdpa_ms"]),
+        dict(name=f"K4 paged_attn_partials serve GPU replica decode (phase 4i (a), the replica's worker; held and "
+                  f"timed there at its first decode step {svc['a']['check']['k4']['shape']})", route="cuda",
+             source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
+             launches=svc["a"]["counts"]["k4"], max_abs_err=svc["a"]["check"]["k4"]["err"],
+             ms=svc["a"]["check"]["k4"]["ms"], plain_ms=svc["a"]["check"]["k4"]["plain_ms"],
+             bound_ms=svc["a"]["check"]["k4"]["bound_ms"], bound_by=svc["a"]["check"]["k4"]["bound_by"],
+             library_ms=None),
+        *(dict(name=f"K{k} {fn} serve {what} (phase 4i {leg}; held and timed in (a)'s replica)", route="cuda",
+               source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=launches,
+               max_abs_err=svc["a"]["check"][f"k{k}"]["err_o" if k == 1 else "err"],
+               ms=svc["a"]["check"][f"k{k}"]["ms"], plain_ms=svc["a"]["check"][f"k{k}"]["plain_ms"],
+               bound_ms=svc["a"]["check"][f"k{k}"]["bound_ms"], bound_by=svc["a"]["check"][f"k{k}"]["bound_by"],
+               library_ms=svc["a"]["check"]["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep, what, leg, launches in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104",
+               "OpenAI replica prefill", "(b), the unary and the streamed request", svc["b"]["counts"]["k1"]),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134",
+               "OpenAI replica decode", "(b), the unary and the streamed request", svc["b"]["counts"]["k4"]),
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104",
+               "disagg prefill replica", "(c), the prefill replica's worker", svc["c"]["prefill"]["k1"]),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134",
+               "disagg decode replica", "(c), the decode replica's worker", svc["c"]["decode"]["k4"]),
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104",
+               "kvplane replicas prefill", "(d), both replicas' workers", sum(c["k1"] for c in svc["d"]["counts"])),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134",
+               "kvplane replicas decode", "(d), both replicas' workers",
+               cfg.num_layers * sum(c["decode_steps"] for c in svc["d"]["counts"])))),
+        dict(name=f"K4 paged_attn_partials serve kvplane replicas extends (phase 4i (d), both replicas' workers; held "
+                  f"and timed in the extending replica's worker at its extend {svc['d']['extend_check']['shape']})",
+             route="cuda", source="ray_tpu_torch/csrc/paged_attn.cu", replaces="ray_tpu/llm/pallas/paged_attn.py:134",
+             launches=cfg.num_layers * sum(c["extend_forwards"] for c in svc["d"]["counts"]),
+             max_abs_err=svc["d"]["extend_check"]["err"], ms=svc["d"]["extend_check"]["ms"],
+             plain_ms=svc["d"]["extend_check"]["plain_ms"], bound_ms=svc["d"]["extend_check"]["bound_ms"],
+             bound_by=svc["d"]["extend_check"]["bound_by"], library_ms=None),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -2891,63 +2974,9 @@ class CardServer:
                     prefill_forwards=self.eng.prefill_forwards - p0, decode_steps=self.eng.decode_steps - d0)
 
     def check_kernels(self, lens) -> dict:
-        """K1 at this actor's largest prefill (the prompts in the longest
-        prompt's bucket, one batch, as the engine batches a bucket) and K4 at
-        its first decode step (a lane per prompt over bf16 pages, each
-        lane's bound its prompt's length), each held against its plain
-        version here in the worker, on inputs from seed 0, and timed beside
-        it; the launch counts are put back as they were."""
-        import numpy as np
-        import torch
-        import torch.nn.functional as F
-
-        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
-        from ray_tpu_torch.llm.engine import _bucket
-        from ray_tpu_torch.ops.flash_attention import attention_with_lse_ref, flash_attention_fwd
-
-        counts = flash_attention_fwd.launches, paged_attn_partials.launches
-        cfg, dev, page = self.cfg, self.dev, self.eng._pcfg.page_size
-        H, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-        g = torch.Generator(device=dev).manual_seed(0)
-        buckets = [_bucket(int(n), self.eng.prefill_buckets) for n in lens]
-        T = max(buckets)
-        B = buckets.count(T)
-        q = torch.randn((B, H, T, D), generator=g, device=dev).bfloat16()
-        k, v = (torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16() for _ in range(2))
-        o, lse = flash_attention_fwd(q, k, v, causal=True)
-        o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=True)
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_lse = (lse - lse_ref).abs().max().item()
-        bound_ms, bound_by = k1_bound(B, H, HKV, T, D)
-        k1 = dict(shape=(B, H, HKV, T, D), err_o=err_o, err_lse=err_lse,
-                  ok=err_o <= K1_TOL_O and err_lse <= K1_TOL_LSE,
-                  ms=cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True)),
-                  plain_ms=cuda_ms(torch, lambda: attention_with_lse_ref(q, k, v, causal=True), iters=3, warmup=1),
-                  sdpa_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                                enable_gqa=True)),
-                  bound_ms=bound_ms, bound_by=bound_by)
-        del q, k, v, o, lse, o_ref, lse_ref
-        Bl, max_pg = len(lens), self.eng._pcfg.max_pages_per_seq
-        P = Bl * max_pg + 1
-        rng = np.random.default_rng(0)
-        tables = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(Bl, max_pg).astype(np.int32)).to(dev)
-        bound = torch.tensor([int(n) for n in lens], dtype=torch.int32, device=dev)
-        pk, pv = (torch.randn((P, page, HKV, D), generator=g, device=dev).bfloat16() for _ in range(2))
-        qf = torch.randn((Bl, HKV, H // HKV, 1, D), generator=g, device=dev) * D**-0.5
-        m, l, acc = paged_attn_partials(qf, pk, pv, tables, bound)
-        m_r, l_r, acc_r = paged_attn_partials_ref(qf, pk, pv, tables, bound)
-        err = max((m - m_r).abs().max().item(), (l - l_r).abs().max().item(), (acc - acc_r).abs().max().item())
-        rel = max(((l - l_r).abs() / l_r.abs().clamp(min=1)).max().item(),
-                  ((acc - acc_r).abs() / acc_r.abs().clamp(min=1)).max().item())
-        bound_ms, bound_by = k4_bound(qf, pk, None, tables, bound, m, acc, [int(n) for n in lens])
-        k4 = dict(shape=(Bl, HKV, H // HKV, 1, D), err=err, rel=rel,
-                  ok=(m - m_r).abs().max().item() <= 1e-4 and rel <= K4_TOL,
-                  ms=cuda_ms(torch, lambda: paged_attn_partials(qf, pk, pv, tables, bound)),
-                  plain_ms=cuda_ms(torch, lambda: paged_attn_partials_ref(qf, pk, pv, tables, bound), iters=5,
-                                   warmup=1),
-                  bound_ms=bound_ms, bound_by=bound_by)
-        flash_attention_fwd.launches, paged_attn_partials.launches = counts
-        return dict(k1=k1, k4=k4)
+        """K1 and K4 held against their plain versions in this worker
+        (``hold_kernels``)."""
+        return hold_kernels(self.eng, lens)
 
     def stream(self, prompts):
         """Each request's tokens, yielded as the request finishes: (index, tokens)."""
@@ -2959,6 +2988,96 @@ class CardServer:
             for o in self.eng.step():
                 if o.finished:
                     yield index[o.request_id], list(o.token_ids)
+
+
+def hold_kernels(eng, lens) -> dict:
+    """K1 at an engine's largest prefill (the prompts in the longest
+    prompt's bucket, one batch, as the engine batches a bucket) and K4 at
+    its first decode step (a lane per prompt over bf16 pages, each
+    lane's bound its prompt's length), each held against its plain
+    version here in the worker, on inputs from seed 0, and timed beside
+    it (K4: ``hold_k4``); the launch counts are put back as they were."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.llm.engine import _bucket
+    from ray_tpu_torch.ops.flash_attention import attention_with_lse_ref, flash_attention_fwd
+
+    counts = flash_attention_fwd.launches, paged_attn_partials.launches
+    cfg, dev = eng.config, eng.device
+    H, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(0)
+    buckets = [_bucket(int(n), eng.prefill_buckets) for n in lens]
+    T = max(buckets)
+    B = buckets.count(T)
+    q = torch.randn((B, H, T, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=True)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    bound_ms, bound_by = k1_bound(B, H, HKV, T, D)
+    k1 = dict(shape=(B, H, HKV, T, D), err_o=err_o, err_lse=err_lse,
+              ok=err_o <= K1_TOL_O and err_lse <= K1_TOL_LSE,
+              ms=cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True)),
+              plain_ms=cuda_ms(torch, lambda: attention_with_lse_ref(q, k, v, causal=True), iters=3, warmup=1),
+              sdpa_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                            enable_gqa=True)),
+              bound_ms=bound_ms, bound_by=bound_by)
+    del q, k, v, o, lse, o_ref, lse_ref
+    k4 = hold_k4(eng, g, 1, [int(n) for n in lens])
+    flash_attention_fwd.launches, paged_attn_partials.launches = counts
+    return dict(k1=k1, k4=k4)
+
+
+def hold_k4(eng, g, rows, bounds) -> dict:
+    """K4 on an engine's pages (bf16, its page size, a random table per
+    lane) at ``rows`` query positions a lane (1: a decode step; a suffix's
+    bucket: an extend) over lanes whose cached positions are ``bounds``,
+    held against its plain version and timed beside it."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
+
+    cfg, dev, page = eng.config, eng.device, eng._pcfg.page_size
+    H, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    Bl, max_pg = len(bounds), eng._pcfg.max_pages_per_seq
+    P = Bl * max_pg + 1
+    rng = np.random.default_rng(0)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(Bl, max_pg).astype(np.int32)).to(dev)
+    bound = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    pk, pv = (torch.randn((P, page, HKV, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    qf = torch.randn((Bl, HKV, H // HKV, rows, D), generator=g, device=dev) * D**-0.5
+    m, l, acc = paged_attn_partials(qf, pk, pv, tables, bound)
+    m_r, l_r, acc_r = paged_attn_partials_ref(qf, pk, pv, tables, bound)
+    err = max((m - m_r).abs().max().item(), (l - l_r).abs().max().item(), (acc - acc_r).abs().max().item())
+    rel = max(((l - l_r).abs() / l_r.abs().clamp(min=1)).max().item(),
+              ((acc - acc_r).abs() / acc_r.abs().clamp(min=1)).max().item())
+    bound_ms, bound_by = k4_bound(qf, pk, None, tables, bound, m, acc, bounds)
+    return dict(shape=tuple(qf.shape), err=err, rel=rel, ok=(m - m_r).abs().max().item() <= 1e-4 and rel <= K4_TOL,
+                ms=cuda_ms(torch, lambda: paged_attn_partials(qf, pk, pv, tables, bound)),
+                plain_ms=cuda_ms(torch, lambda: paged_attn_partials_ref(qf, pk, pv, tables, bound), iters=5,
+                                 warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def hold_k4_extend(eng, start, suffix_lens) -> dict:
+    """K4 at an engine's prefix-hit extend: one lane over ``start`` cached
+    positions, its query rows the largest bucket among the suffixes'
+    lengths, held against its plain version here in the worker on inputs
+    from seed 0 (``hold_k4``); the launch count is put back."""
+    import torch
+
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.llm.engine import _bucket
+
+    launches = paged_attn_partials.launches
+    T = max(_bucket(int(n), eng.prefill_buckets) for n in suffix_lens)
+    out = hold_k4(eng, torch.Generator(device=eng.device).manual_seed(0), T, [int(start)])
+    paged_attn_partials.launches = launches
+    return out
 
 
 @remote(num_gpus=1)
@@ -3210,6 +3329,361 @@ def runtime_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> 
     print(f"phase 4h shutdown: {shutdown_s:.3f} s, none of the {len(pids)} workers left, no rt segment, the card's "
           f"memory in use {used1} bytes vs {used0} before phase 4h; phase 4h {time.perf_counter() - t_phase:.1f} s "
           f"{card}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 4i: Serve on the card
+SERVE_TIMEOUT_S = 600  # a replica's start (weights from seed 0, graph capture, prewarm) and each request
+# the replicas' engine: phase 4's (prefix caching on only in (d)), weights from seed 0
+SERVE_ENGINE_KWARGS = dict(max_num_seqs=8, kv_layout="paged", page_size=64, enable_prefix_caching=False, seed=0)
+
+
+class _CardReplica:
+    """Phase 4i's additions to a serve replica, run in its worker: the
+    weights' checksum with the worker's card, the worker's launch counts,
+    and K1 and K4 held against their plain versions there."""
+
+    def __init__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        super().__init__(*args, **kwargs)
+        self.init_s = time.perf_counter() - t0
+        self._base = (0, 0, 0)
+
+    def weights_checksum(self) -> dict:
+        import torch
+
+        return dict(checksum=weights_checksum(self.engine.params), visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    count=torch.cuda.device_count(), pid=os.getpid(), init_s=self.init_s,
+                    device=str(self.engine.device))
+
+    def kernel_counts(self, reset: bool = False) -> dict:
+        """K1's and K4's launches in this worker and the engine's forwards
+        since the last reset; ``reset`` zeroes them first."""
+        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+        from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+        eng = self.engine
+        if reset:
+            flash_attention_fwd.launches = 0
+            paged_attn_partials.launches = 0
+            self._base = (eng.prefill_forwards, eng.decode_steps, eng.extend_forwards)
+        p0, d0, e0 = self._base
+        return dict(k1=flash_attention_fwd.launches, k4=paged_attn_partials.launches,
+                    prefill_forwards=eng.prefill_forwards - p0, decode_steps=eng.decode_steps - d0,
+                    extend_forwards=eng.extend_forwards - e0)
+
+    def check_kernels(self, lens) -> dict:
+        return hold_kernels(self.engine, lens)
+
+    def check_extend(self, start, suffix_lens) -> dict:
+        return hold_k4_extend(self.engine, start, suffix_lens)
+
+
+class CardLLMServer(_CardReplica, LLMServer):
+    pass
+
+
+class CardOpenAIServer(_CardReplica, OpenAIServer):
+    pass
+
+
+class CardPrefillServer(_CardReplica, PrefillServer):
+    pass
+
+
+class CardDecodeServer(_CardReplica, DecodeServer):
+    pass
+
+
+class CardKVPlaneServer(_CardReplica, KVPlaneServer):
+    pass
+
+
+def worker_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+def serve_on_card(torch, cfg, prompts, serve_run, drv_checksum, leader, followers, hit_firsts, card) -> dict:
+    """Phase 4i: Serve over the port's runtime on the card. Legs: (a) a GPU
+    replica of build_llm_deployment; (b) build_openai_app behind the
+    asyncio HTTP proxy; (c) build_pd_disagg_deployment, both engines on the
+    one card; (d) build_kvplane_deployment, two replicas; then shutdown
+    leaves no worker, no rt segment and the card's memory as before.
+    Every leg is gated."""
+    import http.client
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.accelerators.gpu import GPUAcceleratorManager
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.serve.llm import (LLMConfig, build_kvplane_deployment, build_llm_deployment, build_openai_app,
+                                         build_pd_disagg_deployment)
+
+    L, n = cfg.num_layers, len(prompts)
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    want_visible = GPUAcceleratorManager.worker_env_for_chips([0])["CUDA_VISIBLE_DEVICES"]
+    ek = dict(SERVE_ENGINE_KWARGS)
+    ref = serve_run["tokens"]
+    out = {}
+    t_phase = time.perf_counter()
+    rtt.init(num_cpus=8)
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+
+    def card_back(pid, label):
+        """The card's "GPU" back after ``serve.delete``, and only once the
+        replica's worker has exited."""
+        deadline = time.perf_counter() + SERVE_TIMEOUT_S
+        while rtt.available_resources().get("GPU", 0) < 1 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        back = rtt.available_resources().get("GPU", 0)
+        check(back == 1 and not worker_alive(pid), f"phase 4i {label}: GPU available {back} after delete, the "
+                                                   f"replica's worker {pid} alive {worker_alive(pid)}")
+
+    try:
+        # (a) a GPU replica of the LLM deployment
+        t0 = time.perf_counter()
+        h = serve.run(build_llm_deployment(LLMConfig(model_config=cfg, engine_kwargs=ek, num_tpus_per_replica=1),
+                                           _cls={LLMServer: CardLLMServer}),
+                      name="llm", blocking_timeout_s=SERVE_TIMEOUT_S)
+        up_a = time.perf_counter() - t0
+        fa = h.weights_checksum.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        held = rtt.available_resources().get("GPU", 0)
+        check(fa["checksum"] == drv_checksum, f"phase 4i (a): the replica's weights checksum {fa['checksum']} != "
+                                              f"phase 4's {drv_checksum}")
+        check(fa["visible"] == want_visible and fa["count"] == 1 and fa["pid"] != os.getpid(),
+              f"phase 4i (a): the replica's worker sees CUDA_VISIBLE_DEVICES {fa['visible']!r} ({fa['count']} cards) "
+              f"in pid {fa['pid']}, not {want_visible!r}")
+        check(held == 0, f"phase 4i (a): GPU available {held} while the replica lives")
+        h.kernel_counts.remote(True).result(timeout_s=SERVE_TIMEOUT_S)
+        t0 = time.perf_counter()
+        outs = [r.result(timeout_s=SERVE_TIMEOUT_S) for r in [h.generate.remote(p, {"max_tokens": 32}) for p in prompts]]
+        wall_a = time.perf_counter() - t0
+        ka = h.kernel_counts.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        ov = h.overload_stats.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        toks = [o["token_ids"] for o in outs]
+        check(all(len(t) == 32 and o["finish_reason"] == "length" for t, o in zip(toks, outs)),
+              f"phase 4i (a): not every request finished with 32 tokens: "
+              f"{[(len(o['token_ids']), o['finish_reason']) for o in outs]}")
+        firsts = sum(t[0] == r[0] for t, r in zip(toks, ref))
+        check(firsts == n, f"phase 4i (a): first tokens equal phase 4's in {firsts} of {n}")
+        check(ka["k1"] == L * ka["prefill_forwards"] > 0 and ka["k4"] == L * ka["decode_steps"] > 0,
+              f"phase 4i (a): in the replica's worker K1 {ka['k1']} != {L} x {ka['prefill_forwards']} prefill "
+              f"forwards or K4 {ka['k4']} != {L} x {ka['decode_steps']} decode steps")
+        check(flash_attention_fwd.launches == 0 and paged_attn_partials.launches == 0,
+              f"phase 4i (a): the driver's K1/K4 counts moved: {flash_attention_fwd.launches}, "
+              f"{paged_attn_partials.launches}")
+        shed = sum(v for k, v in ov.items() if k.startswith("shed_") and isinstance(v, int))
+        check(ov["admitted"] == n and shed == 0, f"phase 4i (a): overload_stats {ov}")
+        same = sum(x == y for s1, s2 in zip(toks, ref) for x, y in zip(s1, s2))
+        kc = h.check_kernels.remote([len(p) for p in prompts]).result(timeout_s=SERVE_TIMEOUT_S)
+        k1c, k4c = kc["k1"], kc["k4"]
+        check(k1c["ok"], f"phase 4i (a): K1 in the replica's worker at {k1c['shape']}: |do| {k1c['err_o']:.3g} "
+                         f"(tol {K1_TOL_O}) |dlse| {k1c['err_lse']:.3g} (tol {K1_TOL_LSE})")
+        check(k4c["ok"], f"phase 4i (a): K4 in the replica's worker at {k4c['shape']}: max |d| {k4c['err']:.3g}, "
+                         f"relative {k4c['rel']:.3g} (tol {K4_TOL})")
+        print(f"phase 4i (a) the replica's kernels, held against their plain versions in its worker: K1 at "
+              f"{k1c['shape']}: |do| {k1c['err_o']:.3g} |dlse| {k1c['err_lse']:.3g}, kernel {k1c['ms']:.4f} ms, "
+              f"plain {k1c['plain_ms']:.4f} ms, sdpa {k1c['sdpa_ms']:.4f} ms, bound {k1c['bound_ms']:.4f} ms "
+              f"({k1c['bound_by']}); K4 at {k4c['shape']}: max |d| {k4c['err']:.3g} (rel {k4c['rel']:.3g}), "
+              f"kernel {k4c['ms']:.4f} ms, plain {k4c['plain_ms']:.4f} ms, bound {k4c['bound_ms']:.4f} ms "
+              f"({k4c['bound_by']}) {card}")
+        out.update(a=dict(up_s=up_a, init_s=fa["init_s"], wall_s=wall_a, counts=ka, check=kc, same=same))
+        print(f"phase 4i (a) GPU replica (build_llm_deployment, num_tpus_per_replica=1, CUDA_VISIBLE_DEVICES="
+              f"{fa['visible']}, pid {fa['pid']}): RUNNING {up_a:.3f} s after serve.run (its __init__ {fa['init_s']:.3f} "
+              f"s: weights from seed 0, the paged graph engine, prewarm), GPU available 0 while it lives, weights "
+              f"checksum equal to phase 4's; 8 concurrent handle.generate x 32 greedy tokens {wall_a:.3f} s wall vs "
+              f"phase 4's in-process {serve_run['wall_s']:.3f} s; 8 of 8 finished (length), first tokens 8 of 8 equal "
+              f"phase 4's, {same} of 256 tokens equal phase 4's graph streams (not gated: other prefill waves); in "
+              f"the worker K1 {ka['k1']} (= {L} x {ka['prefill_forwards']} prefill forwards), K4 {ka['k4']} (= {L} x "
+              f"{ka['decode_steps']} decode steps), the driver's K1 and K4 0; overload_stats admitted "
+              f"{ov['admitted']}, shed {shed} {card}")
+        serve.delete("llm")
+        card_back(fa["pid"], "(a)")
+        # (b) the OpenAI app behind the asyncio HTTP proxy
+        serve.start(serve.HTTPOptions(port=0), proxy=True)
+        port = serve.api._http_proxy.port
+        t0 = time.perf_counter()
+        ho = serve.run(build_openai_app(LLMConfig(model_config=cfg, engine_kwargs=ek, num_tpus_per_replica=1),
+                                        _cls={OpenAIServer: CardOpenAIServer}),
+                       name="openai", route_prefix="/v1", blocking_timeout_s=SERVE_TIMEOUT_S)
+        up_b = time.perf_counter() - t0
+        fb = ho.weights_checksum.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        check(fb["checksum"] == drv_checksum and fb["visible"] == want_visible, f"phase 4i (b): the replica {fb}")
+        ho.kernel_counts.remote(True).result(timeout_s=SERVE_TIMEOUT_S)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_TIMEOUT_S)
+
+        def call(method, path, body=None):
+            conn.request(method, path, None if body is None else json.dumps(body),
+                         {} if body is None else {"Content-Type": "application/json"})
+            return conn.getresponse()
+
+        t0 = time.perf_counter()
+        r = call("GET", "/v1/models")
+        models = json.loads(r.read())
+        models_ms = (time.perf_counter() - t0) * 1e3
+        check(r.status == 200 and models["data"][0]["id"] == "ray_tpu_torch-llama", f"phase 4i (b): /v1/models {models}")
+        body = {"prompt": prompts[0], "max_tokens": 32, "temperature": 0}
+        t0 = time.perf_counter()
+        r = call("POST", "/v1/completions", body)
+        unary = json.loads(r.read())
+        unary_s = time.perf_counter() - t0
+        check(r.status == 200, f"phase 4i (b): /v1/completions {r.status} {unary}")
+        utoks = unary["choices"][0]["text"]
+        t0 = time.perf_counter()
+        r = call("POST", "/v1/completions", {**body, "stream": True})
+        check(r.status == 200, f"phase 4i (b): the stream's status {r.status}")
+        events, stamps = [], []
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                stamps.append(time.perf_counter())
+                events.append(line[len(b"data: "):].strip())
+        stoks = [t for e in events[:-1] for t in json.loads(e)["choices"][0]["text"]]
+        check(events[-1:] == [b"[DONE]"] and len(events) == 33 and stoks == utoks,
+              f"phase 4i (b): {len(events)} SSE events (want 32 + [DONE]), the chunks' tokens equal the unary "
+              f"response's: {stoks == utoks}")
+        check(len(utoks) == 32 and utoks[0] == ref[0][0], f"phase 4i (b): the unary response's first token "
+                                                          f"{utoks[:1]} vs phase 4's {ref[0][0]}")
+        ttfc_ms = (stamps[0] - t0) * 1e3
+        gap_ms = (stamps[31] - stamps[0]) / 31 * 1e3
+        kb = ho.kernel_counts.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        conn.close()
+        out.update(b=dict(up_s=up_b, init_s=fb["init_s"], models_ms=models_ms, unary_s=unary_s, ttfc_ms=ttfc_ms,
+                          gap_ms=gap_ms, counts=kb))
+        print(f"phase 4i (b) build_openai_app behind the asyncio proxy (route /v1, port {port}): RUNNING {up_b:.3f} s "
+              f"after serve.run (its __init__ {fb['init_s']:.3f} s); /v1/models round trip {models_ms:.3f} ms; unary "
+              f"/v1/completions (phase 4's first prompt, {len(prompts[0])} tokens, 32 greedy) {unary_s:.3f} s, first "
+              f"token equal to phase 4's; the same request with stream: 32 SSE chunks then [DONE], tokens equal the "
+              f"unary's, first chunk {ttfc_ms:.3f} ms after the request, mean gap {gap_ms:.3f} ms between chunks; in "
+              f"the worker K1 {kb['k1']}, K4 {kb['k4']} {card}")
+        serve.delete("openai")
+        card_back(fb["pid"], "(b)")
+        # (c) the disaggregated deployment: a prefill and a decode replica, neither asking for a card
+        free_c0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        hd = serve.run(build_pd_disagg_deployment(LLMConfig(model_config=cfg, engine_kwargs=ek),
+                                                  _cls={PrefillServer: CardPrefillServer,
+                                                        DecodeServer: CardDecodeServer}),
+                       name="pd", blocking_timeout_s=SERVE_TIMEOUT_S)
+        up_c = time.perf_counter() - t0
+        free_c1 = torch.cuda.mem_get_info()[0]
+        pre, dec = (serve.get_deployment_handle(f"LLM-{k}", "pd") for k in ("prefill", "decode"))
+        fp, fd = (x.weights_checksum.remote().result(timeout_s=SERVE_TIMEOUT_S) for x in (pre, dec))
+        check(fp["checksum"] == fd["checksum"] == drv_checksum and fp["pid"] != fd["pid"],
+              f"phase 4i (c): the prefill replica {fp}, the decode replica {fd}")
+        check(rtt.available_resources().get("GPU", 0) == 1, "phase 4i (c): a replica holds the GPU resource")
+        for x in (pre, dec):
+            x.kernel_counts.remote(True).result(timeout_s=SERVE_TIMEOUT_S)
+        t0 = time.perf_counter()
+        outs = [r.result(timeout_s=SERVE_TIMEOUT_S) for r in [hd.generate.remote(p, {"max_tokens": 32}) for p in prompts]]
+        wall_c = time.perf_counter() - t0
+        kp, kd = (x.kernel_counts.remote().result(timeout_s=SERVE_TIMEOUT_S) for x in (pre, dec))
+        st = hd.disagg_stats.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        toks = [o["token_ids"] for o in outs]
+        firsts = sum(t[0] == r[0] for t, r in zip(toks, ref))
+        check(all(len(t) == 32 for t in toks) and firsts == n,
+              f"phase 4i (c): first tokens equal phase 4's in {firsts} of {n}, lengths {[len(t) for t in toks]}")
+        check(st["prefills"] == n and st["decode_retries"] == 0, f"phase 4i (c): disagg_stats {st}")
+        check(kp["k1"] == L * kp["prefill_forwards"] > 0, f"phase 4i (c): the prefill worker's K1 {kp['k1']} != {L} x "
+                                                          f"{kp['prefill_forwards']} forwards")
+        check(kd["k1"] == 0 and kd["k4"] == L * kd["decode_steps"] > 0,
+              f"phase 4i (c): the decode worker's K1 {kd['k1']} (want 0), K4 {kd['k4']} != {L} x {kd['decode_steps']}")
+        same = sum(x == y for s1, s2 in zip(toks, ref) for x, y in zip(s1, s2))
+        out.update(c=dict(up_s=up_c, init_s=(fp["init_s"], fd["init_s"]), wall_s=wall_c, prefill=kp, decode=kd,
+                          stats=st, free=(free_c0, free_c1)))
+        print(f"phase 4i (c) build_pd_disagg_deployment (1 prefill + 1 decode replica on the one card, neither "
+              f"asking for it; phase 4's peak of 22.09 GB an engine: about 44 GB of 80): RUNNING {up_c:.3f} s after "
+              f"serve.run (__init__ prefill {fp['init_s']:.3f} s, decode {fd['init_s']:.3f} s); the card's free "
+              f"memory {free_c0} bytes before, {free_c1} with both replicas up; 8 concurrent requests through the "
+              f"router {wall_c:.3f} s wall; first tokens 8 of 8 equal phase 4's, {same} of 256 tokens (not gated); "
+              f"disagg_stats prefills {st['prefills']}, decode retries {st['decode_retries']}, handoff bytes "
+              f"{st['handoff_bytes']}; the prefill worker K1 {kp['k1']} (= {L} x {kp['prefill_forwards']} forwards), "
+              f"K4 {kp['k4']}; the decode worker K1 {kd['k1']}, K4 {kd['k4']} (= {L} x {kd['decode_steps']} decode "
+              f"steps) {card}")
+        serve.delete("pd")
+        deadline = time.perf_counter() + SERVE_TIMEOUT_S
+        while rtt.available_resources().get("CPU", 0) < 8 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        # (d) the kvplane deployment: two replicas behind the cache-aware router, prefix caching on
+        ekd = dict(ek, enable_prefix_caching=True, prefix_block=64)
+        t0 = time.perf_counter()
+        hk = serve.run(build_kvplane_deployment(LLMConfig(model_config=cfg, engine_kwargs=ekd), num_replicas=2,
+                                                _cls={KVPlaneServer: CardKVPlaneServer}),
+                       name="kv", blocking_timeout_s=SERVE_TIMEOUT_S)
+        up_d = time.perf_counter() - t0
+        reps = [serve.get_deployment_handle(f"LLM-r{i}", "kv") for i in range(2)]
+        fr = [x.weights_checksum.remote().result(timeout_s=SERVE_TIMEOUT_S) for x in reps]
+        check(all(f["checksum"] == drv_checksum for f in fr), f"phase 4i (d): the replicas {fr}")
+        for x in reps:
+            x.kernel_counts.remote(True).result(timeout_s=SERVE_TIMEOUT_S)
+        t0 = time.perf_counter()
+        lead = hk.generate.remote(leader, {"max_tokens": 32}).result(timeout_s=SERVE_TIMEOUT_S)
+        outs = [hk.generate.remote(f, {"max_tokens": 32}).result(timeout_s=SERVE_TIMEOUT_S) for f in followers]
+        wall_d = time.perf_counter() - t0
+        rs = hk.kvplane_stats.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        per = [x.kvplane_stats.remote().result(timeout_s=SERVE_TIMEOUT_S) for x in reps]
+        kk = [x.kernel_counts.remote().result(timeout_s=SERVE_TIMEOUT_S) for x in reps]
+        firsts = sum(o["token_ids"][0] == f for o, f in zip(outs, hit_firsts))
+        hits = sum(p["local"]["hits"] + p["remote"]["hits"] for p in per)
+        saved = sum(p["tokens_saved"] for p in per)
+        check(len(lead["token_ids"]) == 32 and all(len(o["token_ids"]) == 32 for o in outs) and firsts == len(followers),
+              f"phase 4i (d): first tokens equal phase 4b's hits in {firsts} of {len(followers)}")
+        check(hits == len(followers) and saved == len(followers) * PREFIX_LEN and rs["failed"] == 0,
+              f"phase 4i (d): {hits} hits (local + remote), {saved} tokens saved (want {len(followers)} and "
+              f"{len(followers) * PREFIX_LEN}); the router {rs}")
+        for p, k in zip(per, kk):
+            check(k["k1"] == L * k["prefill_forwards"] and k["k4"] == L * (k["decode_steps"] + k["extend_forwards"]),
+                  f"phase 4i (d): a replica's K1 {k['k1']} / K4 {k['k4']} vs its forwards {k}")
+        # K4 at the extend's shape, held in the worker of the replica that extended most
+        ext = max(range(2), key=lambda i: kk[i]["extend_forwards"])
+        kx = reps[ext].check_extend.remote(PREFIX_LEN, [len(f) - PREFIX_LEN for f in followers]).result(
+            timeout_s=SERVE_TIMEOUT_S)
+        check(kx["ok"], f"phase 4i (d): K4 in replica r{ext}'s worker at the extend {kx['shape']}: max |d| "
+                        f"{kx['err']:.3g}, relative {kx['rel']:.3g} (tol {K4_TOL})")
+        print(f"phase 4i (d) K4 held against its plain version in replica r{ext}'s worker at its extend {kx['shape']} "
+              f"over a {PREFIX_LEN}-token prefix: max |d| {kx['err']:.3g} (rel {kx['rel']:.3g}), kernel "
+              f"{kx['ms']:.4f} ms, plain {kx['plain_ms']:.4f} ms, bound {kx['bound_ms']:.4f} ms ({kx['bound_by']}) "
+              f"{card}")
+        out.update(d=dict(up_s=up_d, init_s=[f["init_s"] for f in fr], wall_s=wall_d, router=rs, counts=kk,
+                          hits=hits, saved=saved, extend_check=kx))
+        print(f"phase 4i (d) build_kvplane_deployment (2 replicas, prefix caching on, 64-token blocks): RUNNING "
+              f"{up_d:.3f} s after serve.run (__init__ {[round(f['init_s'], 3) for f in fr]} s); phase 4b's leader, then "
+              f"its 8 followers one at a time through the cache-aware router, {wall_d:.3f} s wall; first tokens 8 of 8 "
+              f"equal phase 4b's hits; {hits} hits (local {sum(p['local']['hits'] for p in per)}, remote "
+              f"{sum(p['remote']['hits'] for p in per)}), {saved} tokens saved; router routed to the holder "
+              f"{rs['routed_to_holder']}, off it {rs['routed_off_holder']}, cold {rs['cold']}, matched tokens "
+              f"{rs['matched_tokens']}; K1 {[k['k1'] for k in kk]}, K4 {[k['k4'] for k in kk]} in the two workers "
+              f"{card}")
+    finally:
+        pids = [p for node in context.get_client().nodes.values() for p in node.worker_pids]
+        t0 = time.perf_counter()
+        serve.shutdown()
+        serve_down_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rtt.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    alive = [p for p in pids if worker_alive(p)]
+    check(not alive, f"phase 4i: worker processes left after shutdown: {alive}")
+    left = rt_segments()
+    check(not left, f"phase 4i: /dev/shm still holds {left}")
+    torch.cuda.synchronize()
+    used1 = card_used(torch)
+    check(abs(used1 - used0) <= RUNTIME_MEM_SLACK, f"phase 4i: the card's memory in use {used1} bytes after shutdown vs "
+                                                   f"{used0} before phase 4i")
+    out.update(serve_down_s=serve_down_s, shutdown_s=shutdown_s)
+    print(f"phase 4i shutdown: serve.shutdown() {serve_down_s:.3f} s, ray_tpu_torch.shutdown() {shutdown_s:.3f} s, none "
+          f"of the {len(pids)} workers left, no rt segment, the card's memory in use {used1} bytes vs {used0} before "
+          f"phase 4i; phase 4i {time.perf_counter() - t_phase:.1f} s {card}")
     return out
 
 

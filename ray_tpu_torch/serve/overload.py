@@ -27,9 +27,9 @@ lowest class sheds first and the highest class only at the full cap.
 kvplane routers both consume; ``router_terminal`` is their shared
 terminal epilogue. A draining replica sheds every new request with
 ``ReplicaDrainingError`` (a 429 subclass: routers fail over exactly as
-for overload). The serve replica that drains (ray_tpu's
-``serve/llm.py LLMServer.drain``) waits for the serve wiring (ROADMAP.md,
-queue 1); ``wait_for_drain`` needs only an object with ``.engine``.
+for overload). The serve replica that drains is ``serve/llm.py``'s
+``LLMServer.drain``; ``wait_for_drain`` needs only an object with
+``.engine``.
 
 The retry-jitter RNG is ray_tpu's, seed included, so the port's hints
 equal ray_tpu's draw for draw.
