@@ -248,6 +248,37 @@ Phases, in order; any failed check exits non-zero before the last line:
    the 8 requests' wall beside phase 4's in-process wall, /v1/models's
    round trip, the stream's first chunk and mean gap, the disagg and
    kvplane walls, and the shutdown's time.
+4j. Data and offline batch inference over the runtime on the card
+   (ray_tpu_torch.data, ray_tpu_torch.llm.batch), after 4i, on phase 4's
+   config, engine settings (paged, 8 slots, page 64, caching off) and
+   prompts. The engine factory (data_engine, a functools.partial of it),
+   its engine (DataCardEngine, an LLMEngine subclass that writes its
+   worker's launch counts and kernel holds to a JSON file per worker) and
+   the UDFs (data_prompt, data_result, feed_half) are module-level here;
+   every engine actor rebuilds phase 4's weights from seed 0
+   (checksum-gated). 32 rows from data.from_items(..., parallelism=4):
+   phase 4's 8 prompts at rows 0, 4, ..., 28 among 24 seeded prompts of
+   64-1024 tokens. (a) build_llm_processor(factory, 32 greedy tokens,
+   batch_size=8, concurrency=1, preprocess, postprocess).take_all(): 32
+   rows in input order, each with 32 tokens (length), phase 4's prompts'
+   first tokens 8 of 8 equal phase 4's, in the actor's worker K1 32 per
+   prefill forward and K4 32 per decode step, the driver's counts 0, K1
+   and K4 held against their plain versions in that worker (phases 2's
+   and 3's tolerances); the streams' tokens equal to phase 4's printed.
+   (b) The same with concurrency=2: two engine actors share the card,
+   neither asking for it; the same gates; the first tokens and streams
+   equal to (a)'s printed, and the card's free memory before, at its least
+   with both up, and after. (c) A seeded 1 GiB .npy (2^20 x 256 f32) in a
+   temporary directory through data.read_numpy -> map_batches(feed_half)
+   -> iter_torch_batches(batch_size=8192) -> each batch to the card: the
+   per-column sums on the card equal numpy's on the host within 1e-6 of
+   each column's sum of |x|, and _split_oversized splits the 1 GiB read
+   block at target_max_block_size (the count printed). The runtime runs
+   with an 8 GiB store. After shutdown() no worker, no /dev/shm/rt
+   segment, the card's memory in use within 64 MiB of before 4j. Prints
+   each leg's wall, rows/s and generated tok/s beside phase 4's
+   in-process wall, the actors' time to ready, the feed's rows/s and GB/s
+   and whether the native hashing (g++) was built.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -310,7 +341,10 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 from ray_tpu_torch import remote
+from ray_tpu_torch.llm import LLMEngine
 from ray_tpu_torch.serve.llm import DecodeServer, KVPlaneServer, LLMServer, OpenAIServer, PrefillServer
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
@@ -936,6 +970,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("4i")
+    # ---------------------------------------------------------------- 4j
+    # Data and offline batch inference: engine actors serving 32 dataset rows, then a 1 GiB feed to the card
+    dat = data_on_card(torch, cfg, prompts, gr, drv_checksum, card, dev)
+    torch.cuda.empty_cache()
+
+    mark("4j")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1391,6 +1431,23 @@ def main() -> int:
              max_abs_err=svc["d"]["extend_check"]["err"], ms=svc["d"]["extend_check"]["ms"],
              plain_ms=svc["d"]["extend_check"]["plain_ms"], bound_ms=svc["d"]["extend_check"]["bound_ms"],
              bound_by=svc["d"]["extend_check"]["bound_by"], library_ms=None),
+        *(dict(name=f"K{k} {fn} data actor {what} (phase 4j {leg}; held and timed in (a)'s worker at "
+                    f"{dat['a']['reports'][0]['check'][f'k{k}']['shape']})", route="cuda",
+               source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=dat[leg][f"k{k}"],
+               max_abs_err=dat["a"]["reports"][0]["check"][f"k{k}"]["err_o" if k == 1 else "err"],
+               ms=dat["a"]["reports"][0]["check"][f"k{k}"]["ms"],
+               plain_ms=dat["a"]["reports"][0]["check"][f"k{k}"]["plain_ms"],
+               bound_ms=dat["a"]["reports"][0]["check"][f"k{k}"]["bound_ms"],
+               bound_by=dat["a"]["reports"][0]["check"][f"k{k}"]["bound_by"],
+               library_ms=dat["a"]["reports"][0]["check"]["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep, what, leg in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "prefill",
+               "a"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134", "decode", "a"),
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104",
+               "prefill, two actors", "b"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134",
+               "decode, two actors", "b"))),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -3684,6 +3741,376 @@ def serve_on_card(torch, cfg, prompts, serve_run, drv_checksum, leader, follower
     print(f"phase 4i shutdown: serve.shutdown() {serve_down_s:.3f} s, ray_tpu_torch.shutdown() {shutdown_s:.3f} s, none "
           f"of the {len(pids)} workers left, no rt segment, the card's memory in use {used1} bytes vs {used0} before "
           f"phase 4i; phase 4i {time.perf_counter() - t_phase:.1f} s {card}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 4j: Data and batch inference on the card
+DATA_ROWS = 32  # phase 4's 8 prompts at rows 0, 4, ..., 28 among 24 seeded ones
+DATA_PROMPT_LENS = (64, 1024)  # the seeded prompts' lengths
+DATA_FEED_SHAPE = (1 << 20, 256)  # the feed's .npy: 2^20 rows of 256 f32, 1 GiB
+DATA_FEED_BATCH = 8192
+DATA_FEED_TOL = 1e-6  # per column: |card sum - host sum| <= this x the column's sum of |x| (f64 sums of f32 rows)
+DATA_STORE_BYTES = 8 << 30  # the store's budget in 4j: the feed's 1 GiB block, its chunks and the map's outputs
+DATA_RELEASE_S = 120  # a leg's engine actors' workers gone and the card's memory back, after the stream ends
+
+
+class DataCardEngine(LLMEngine):
+    """Phase 4j's engine, built in a Data actor's worker by ``data_engine``
+    (``build_llm_processor``'s factory): K1's and K4's launch counters are
+    zeroed once the engine is built; after each ``generate`` (one Data
+    batch) the worker's counts, the engine's forwards since then and, after
+    the first, K1 and K4 held against their plain versions here
+    (``hold_kernels``) go to ``<report_dir>/engine_<pid>.json``, which the
+    driver reads after the run."""
+
+    def __init__(self, cfg, params, report_dir: str, **kwargs):
+        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+        from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+        super().__init__(cfg, params, **kwargs)
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        self._base = (self.prefill_forwards, self.decode_steps)
+        self.report_path = os.path.join(report_dir, f"engine_{os.getpid()}.json")
+        self.report = dict(pid=os.getpid(), visible=os.environ.get("CUDA_VISIBLE_DEVICES"), batches=0, rows=0,
+                           generate_s=0.0, check=None, mem=[], apps=None)
+
+    def generate(self, prompts, params=None):
+        import torch
+
+        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+        from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+        t0 = time.perf_counter()
+        outs = super().generate(prompts, params)
+        torch.cuda.synchronize()
+        rep = self.report
+        rep["generate_s"] += time.perf_counter() - t0
+        rep["batches"] += 1
+        rep["rows"] += len(prompts)
+        rep.update(k1=flash_attention_fwd.launches, k4=paged_attn_partials.launches,
+                   prefill_forwards=self.prefill_forwards - self._base[0],
+                   decode_steps=self.decode_steps - self._base[1])
+        if rep["check"] is None:
+            rep["mem"].append(data_mem(torch, "batch 1"))
+            rep["check"] = hold_kernels(self, [len(p) for p in prompts])
+            rep["mem"].append(data_mem(torch, "held"))
+            rep["apps"] = card_apps()
+        else:
+            last = data_mem(torch, "later batches")
+            if rep["mem"][-1]["stage"] == last["stage"]:
+                prev = rep["mem"].pop()
+                last.update(peak_reserved=max(last["peak_reserved"], prev["peak_reserved"]),
+                            peak_allocated=max(last["peak_allocated"], prev["peak_allocated"]))
+            rep["mem"].append(last)
+        rep.update(peak=max(m["peak_allocated"] for m in rep["mem"]), reserved=rep["mem"][-1]["reserved"])
+        self.write_report()
+        return outs
+
+    def write_report(self):
+        tmp = f"{self.report_path}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.report, f)
+        os.replace(tmp, self.report_path)
+
+
+def data_engine(spec: dict):
+    """The engine factory of phase 4j's processors (a ``functools.partial``
+    of it travels to each actor): phase 4's weights rebuilt from seed 0 on
+    the card, their checksum, and phase 4i's engine settings."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    t0 = time.perf_counter()
+    mem = [data_mem(torch, "context")]  # the first CUDA call in this worker: its context is made here
+    cfg = LlamaConfig(**spec["config"])
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    mem.append(data_mem(torch, "weights"))
+    eng = DataCardEngine(cfg, params, spec["report_dir"], telemetry_tags={"model": f"phase 4j actor {os.getpid()}"},
+                         **SERVE_ENGINE_KWARGS)
+    torch.cuda.synchronize()
+    mem.append(data_mem(torch, "engine"))
+    eng.report["mem"] = mem
+    eng.report.update(checksum=weights_checksum(params), init_s=time.perf_counter() - t0,
+                      device=str(eng.device), free=mem[-1]["free"])
+    eng.write_report()
+    return eng
+
+
+def data_mem(torch, stage: str) -> dict:
+    """The card's free bytes (every process) beside this process's
+    caching allocator at the end of a stage: what it reserves from the
+    card and what is allocated in that, now and at their peaks in the
+    stage (the peaks are reset for the next)."""
+    out = dict(stage=stage, free=torch.cuda.mem_get_info()[0], reserved=torch.cuda.memory_reserved(),
+               allocated=torch.cuda.memory_allocated(), peak_reserved=torch.cuda.max_memory_reserved(),
+               peak_allocated=torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def card_apps() -> list:
+    """nvidia-smi's processes on the card, with the device memory each uses."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,process_name,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()] or [f"rc {out.returncode}: "
+                                                                                 f"{out.stderr.strip()}"]
+
+
+def data_prompt(row):
+    """preprocess: a row's token ids become the processor's prompt column."""
+    return {"row": row["row"], "prompt": row["ids"]}
+
+
+def data_result(row):
+    """postprocess: the row, its stream and its finish reason (the prompt dropped)."""
+    return {"row": row["row"], "tokens": row["generated"], "reason": row["generated_finish_reason"]}
+
+
+def feed_half(batch):
+    """The feed's map_batches UDF: every value halved (exact in f32)."""
+    return {"data": batch["data"] * np.float32(0.5)}
+
+
+def data_reports(report_dir: str) -> list:
+    out = []
+    for name in sorted(os.listdir(report_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(report_dir, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+def data_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> dict:
+    """Phase 4j: Data and offline batch inference over the port's runtime on
+    the card. (a) build_llm_processor with one engine actor over 32 rows;
+    (b) the same with two engine actors sharing the card, neither asking
+    for it; (c) a 1 GiB .npy fed through read_numpy -> map_batches ->
+    iter_torch_batches to the card; then shutdown leaves no worker, no rt
+    segment and the card's memory as before. Every leg is gated."""
+    import dataclasses
+    import tempfile
+    import threading
+    from functools import partial
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import _native, data
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.data.executor import split_stats
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.batch import build_llm_processor
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    L, ref = cfg.num_layers, serve_run["tokens"]
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    rng = np.random.default_rng(4)
+    seeded = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+              for n in rng.integers(DATA_PROMPT_LENS[0], DATA_PROMPT_LENS[1] + 1, size=DATA_ROWS - len(prompts))]
+    it = iter(seeded)
+    rows_in = [prompts[i // 4] if i % 4 == 0 else next(it) for i in range(DATA_ROWS)]
+    phase4_rows = list(range(0, DATA_ROWS, 4))
+    sampling = SamplingParams(max_tokens=32, temperature=0.0)
+    out = dict(native=_native.native_available())
+    check(out["native"], "phase 4j: the native hashing kernels (g++ -O3) did not build")
+    t_phase = time.perf_counter()
+    rtt.init(num_cpus=8, _system_config={"object_store_memory": DATA_STORE_BYTES})
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+
+    def leg(name, concurrency):
+        report_dir = tempfile.mkdtemp(prefix=f"rt4j_{name}_")
+        factory = partial(data_engine, dict(config=dataclasses.asdict(cfg), report_dir=report_dir))
+        proc = build_llm_processor(factory, sampling=sampling, batch_size=8, concurrency=concurrency,
+                                   preprocess=data_prompt, postprocess=data_result)
+        ds = data.from_items([{"row": i, "ids": p} for i, p in enumerate(rows_in)], parallelism=4)
+        free = [torch.cuda.mem_get_info()[0]]
+        done = threading.Event()
+
+        def sample():
+            while not done.wait(0.1):
+                free.append(torch.cuda.mem_get_info()[0])
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t0 = time.perf_counter()
+        try:
+            rows = proc(ds).take_all()
+        finally:
+            done.set()
+            sampler.join()
+        wall = time.perf_counter() - t0
+        reps = data_reports(report_dir)
+        toks = [list(r["tokens"]) for r in rows]
+        check([r["row"] for r in rows] == list(range(DATA_ROWS)),
+              f"phase 4j ({name}): rows back {[r['row'] for r in rows]}, not {DATA_ROWS} in input order")
+        check(all(len(t) == 32 and r["reason"] == "length" for t, r in zip(toks, rows)),
+              f"phase 4j ({name}): not every row finished with 32 tokens: "
+              f"{[(len(t), r['reason']) for t, r in zip(toks, rows)]}")
+        firsts = sum(toks[i][0] == ref[k][0] for k, i in enumerate(phase4_rows))
+        check(firsts == len(prompts), f"phase 4j ({name}): phase 4's prompts' first tokens equal phase 4's in "
+                                      f"{firsts} of {len(prompts)}")
+        check(len(reps) == concurrency and all(r["checksum"] == drv_checksum for r in reps),
+              f"phase 4j ({name}): {len(reps)} engine reports (want {concurrency}), checksums "
+              f"{[r['checksum'] for r in reps]} vs phase 4's {drv_checksum}")
+        check(all(r["pid"] != os.getpid() and r["device"].startswith("cuda") for r in reps),
+              f"phase 4j ({name}): an engine ran in the driver or off the card: {reps}")
+        for r in reps:
+            check(r["k1"] == L * r["prefill_forwards"] > 0 and r["k4"] == L * r["decode_steps"] > 0,
+                  f"phase 4j ({name}): in worker {r['pid']} K1 {r['k1']} != {L} x {r['prefill_forwards']} prefill "
+                  f"forwards or K4 {r['k4']} != {L} x {r['decode_steps']} decode steps")
+        check(sum(r["rows"] for r in reps) == DATA_ROWS, f"phase 4j ({name}): the engines generated "
+                                                         f"{[r['rows'] for r in reps]} rows")
+        check(flash_attention_fwd.launches == 0 and paged_attn_partials.launches == 0,
+              f"phase 4j ({name}): the driver's K1/K4 counts moved: {flash_attention_fwd.launches}, "
+              f"{paged_attn_partials.launches}")
+        # the pool kills its actors when the stream ends: their workers exit and hand the card's memory back
+        t_end = time.perf_counter()
+
+        def held():
+            return any(worker_alive(r["pid"]) for r in reps) or card_used(torch) > used0 + RUNTIME_MEM_SLACK
+
+        while held() and time.perf_counter() - t_end < DATA_RELEASE_S:
+            time.sleep(0.05)
+        release_s = time.perf_counter() - t_end
+        check(not held(), f"phase 4j ({name}): {DATA_RELEASE_S} s after the stream the engine workers alive "
+                          f"{[worker_alive(r['pid']) for r in reps]}, the card's memory in use {card_used(torch)} vs "
+                          f"{used0} before 4j")
+        same = sum(x == y for k, i in enumerate(phase4_rows) for x, y in zip(toks[i], ref[k]))
+        gen = sum(len(t) for t in toks)
+        res = dict(rows=toks, wall_s=wall, reports=reps, same=same, release_s=release_s,
+                   free=(free[0], min(free), torch.cuda.mem_get_info()[0]),
+                   tok_s=gen / wall, rows_s=DATA_ROWS / wall, generate_s=max(r["generate_s"] for r in reps),
+                   k1=sum(r["k1"] for r in reps), k4=sum(r["k4"] for r in reps))
+        for r in reps:
+            c = r["check"]
+            check(c["k1"]["ok"], f"phase 4j ({name}): K1 in worker {r['pid']} at {c['k1']['shape']}: |do| "
+                                 f"{c['k1']['err_o']:.3g} (tol {K1_TOL_O}) |dlse| {c['k1']['err_lse']:.3g} "
+                                 f"(tol {K1_TOL_LSE})")
+            check(c["k4"]["ok"], f"phase 4j ({name}): K4 in worker {r['pid']} at {c['k4']['shape']}: max |d| "
+                                 f"{c['k4']['err']:.3g}, relative {c['k4']['rel']:.3g} (tol {K4_TOL})")
+        print(f"phase 4j ({name}) build_llm_processor, concurrency={concurrency} (engine actors asking only for CPUs, "
+              f"pids {[r['pid'] for r in reps]}, CUDA_VISIBLE_DEVICES {[r['visible'] for r in reps]}): {DATA_ROWS} rows "
+              f"(from_items, parallelism 4, batch_size 8, preprocess + postprocess) x 32 greedy tokens in {wall:.3f} s "
+              f"wall ({res['rows_s']:.2f} rows/s, {res['tok_s']:.2f} generated tok/s; the engines' generate "
+              f"{[round(r['generate_s'], 3) for r in reps]} s) vs phase 4's in-process {serve_run['wall_s']:.3f} s for "
+              f"its 8 prompts; the actors' time to ready (weights from seed 0, the paged graph engine) "
+              f"{[round(r['init_s'], 3) for r in reps]} s; rows in input order, 32 of 32 with 32 tokens (length); "
+              f"phase 4's prompts' first tokens {firsts} of {len(prompts)} equal phase 4's, {same} of 256 tokens equal "
+              f"phase 4's streams (not gated); in the workers K1 {[r['k1'] for r in reps]} (= {L} x "
+              f"{[r['prefill_forwards'] for r in reps]} prefill forwards), K4 {[r['k4'] for r in reps]} (= {L} x "
+              f"{[r['decode_steps'] for r in reps]} decode steps), the driver's K1 and K4 0; weights checksums equal "
+              f"phase 4's; each worker's peak allocated {[r['peak'] for r in reps]} and reserved "
+              f"{[r['reserved'] for r in reps]} bytes; the card's free memory {res['free'][0]} bytes before, "
+              f"{res['free'][1]} at its least, "
+              f"{res['free'][2]} once the workers had exited, {release_s:.3f} s after the stream ended {card}")
+        for r in reps:
+            stages = "; ".join(f"{m['stage']}: free {m['free']}, reserved {m['reserved']} (peak {m['peak_reserved']}), "
+                               f"allocated {m['allocated']} (peak {m['peak_allocated']}), the card's drop since the "
+                               f"leg began less this reserve {res['free'][0] - m['free'] - m['reserved']}"
+                               for m in r["mem"])
+            print(f"phase 4j ({name}) worker {r['pid']}'s memory (bytes; the card's free {res['free'][0]} before the "
+                  f"leg): {stages}; nvidia-smi's processes after 'held': {r['apps']} {card}")
+        for r in reps:
+            k1c, k4c = r["check"]["k1"], r["check"]["k4"]
+            print(f"phase 4j ({name}) worker {r['pid']}'s kernels, held against their plain versions there: K1 at "
+                  f"{k1c['shape']}: |do| {k1c['err_o']:.3g} |dlse| {k1c['err_lse']:.3g}, kernel {k1c['ms']:.4f} ms, "
+                  f"plain {k1c['plain_ms']:.4f} ms, sdpa {k1c['sdpa_ms']:.4f} ms, bound {k1c['bound_ms']:.4f} ms "
+                  f"({k1c['bound_by']}); K4 at {k4c['shape']}: max |d| {k4c['err']:.3g} (rel {k4c['rel']:.3g}), kernel "
+                  f"{k4c['ms']:.4f} ms, plain {k4c['plain_ms']:.4f} ms, bound {k4c['bound_ms']:.4f} ms "
+                  f"({k4c['bound_by']}) {card}")
+        return res
+
+    try:
+        out["a"] = leg("a", 1)
+        out["b"] = leg("b", 2)
+        a, b = out["a"], out["b"]
+        b_firsts = sum(x[0] == y[0] for x, y in zip(b["rows"], a["rows"]))
+        b_same = sum(u == v for x, y in zip(b["rows"], a["rows"]) for u, v in zip(x, y))
+        print(f"phase 4j (b) vs (a): first tokens {b_firsts} of {DATA_ROWS} equal, {b_same} of {DATA_ROWS * 32} "
+              f"tokens equal (not gated: the two pools batch the rows differently) {card}")
+        # (c) the feed: a seeded 1 GiB .npy through read_numpy -> map_batches -> iter_torch_batches to the card
+        with tempfile.TemporaryDirectory(prefix="rt4j_feed_") as tmp:
+            path = os.path.join(tmp, "feed.npy")
+            arr = np.random.default_rng(5).standard_normal(DATA_FEED_SHAPE, dtype=np.float32)
+            np.save(path, arr)
+            host = arr.sum(axis=0, dtype=np.float64) * 0.5
+            mag = np.abs(arr).sum(axis=0, dtype=np.float64) * 0.5
+            nbytes = arr.nbytes
+            del arr
+            s_blocks, s_chunks = split_stats.blocks, split_stats.chunks
+            acc = torch.zeros(DATA_FEED_SHAPE[1], dtype=torch.float64, device=dev)
+            n_rows = n_batches = 0
+            wait_s = to_s = 0.0  # host seconds: waiting on the iterator; inside .to(dev) and the sum's launch
+            events = []  # per batch, on the card: before the upload, after it, after the sum
+            t0 = time.perf_counter()
+            batches = iter(data.read_numpy(path).map_batches(feed_half).iter_torch_batches(batch_size=DATA_FEED_BATCH))
+            while True:
+                t1 = time.perf_counter()
+                batch = next(batches, None)
+                t2 = time.perf_counter()
+                wait_s += t2 - t1
+                if batch is None:
+                    break
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+                x = batch["data"].to(dev)
+                ev[1].record()
+                acc += x.sum(dim=0, dtype=torch.float64)
+                ev[2].record()
+                to_s += time.perf_counter() - t2
+                events.append(ev)
+                n_rows += x.shape[0]
+                n_batches += 1
+            torch.cuda.synchronize()
+            feed_s = time.perf_counter() - t0
+            up_s = sum(e[0].elapsed_time(e[1]) for e in events) / 1e3
+            sum_s = sum(e[1].elapsed_time(e[2]) for e in events) / 1e3
+        err = np.abs(acc.cpu().numpy() - host)
+        worst = float((err / mag).max())
+        splits, chunks = split_stats.blocks - s_blocks, split_stats.chunks - s_chunks
+        check(n_rows == DATA_FEED_SHAPE[0] and n_batches == DATA_FEED_SHAPE[0] // DATA_FEED_BATCH,
+              f"phase 4j (c): {n_rows} rows in {n_batches} batches reached the card")
+        check(worst <= DATA_FEED_TOL, f"phase 4j (c): the per-column sums on the card differ from numpy's by "
+                                      f"{worst:.3g} of the column's sum of |x| (tol {DATA_FEED_TOL})")
+        target = context.get_client().cfg.target_max_block_size
+        check(splits >= 1 and chunks >= nbytes // target,
+              f"phase 4j (c): _split_oversized split {splits} blocks into {chunks} chunks; the 1 GiB read block must "
+              f"split into at least {nbytes // target} at target_max_block_size {target}")
+        out["c"] = dict(wall_s=feed_s, rows_s=n_rows / feed_s, gb_s=nbytes / feed_s / 1e9, splits=splits,
+                        chunks=chunks, err=worst, wait_s=wait_s, to_s=to_s, upload_s=up_s, sum_s=sum_s,
+                        card_share=(up_s + sum_s) / feed_s)
+        print(f"phase 4j (c) the feed: a seeded {nbytes}-byte .npy ({DATA_FEED_SHAPE[0]} x {DATA_FEED_SHAPE[1]} f32) "
+              f"through read_numpy -> map_batches(feed_half) -> iter_torch_batches(batch_size={DATA_FEED_BATCH}) -> "
+              f".to(cuda): {n_batches} batches in {feed_s:.3f} s ({out['c']['rows_s']:.1f} rows/s, "
+              f"{out['c']['gb_s']:.3f} GB/s); _split_oversized split {splits} block(s) into {chunks} chunks at "
+              f"target_max_block_size {target}; per-column sums on the card within {worst:.3g} of the column's "
+              f"sum of |x| of numpy's (tol {DATA_FEED_TOL}); native hashing built {out['native']} {card}")
+        print(f"phase 4j (c) where the feed's {feed_s:.3f} s go: on the host {wait_s:.3f} s waiting on the iterator "
+              f"(read, split, map, fetch, rebatch), {to_s:.3f} s in .to(cuda) and the sum's launch; on the card (CUDA "
+              f"events) the uploads {up_s:.4f} s ({nbytes / up_s / 1e9:.2f} GB/s, pageable) and the sums {sum_s:.4f} s: "
+              f"the card's share of the wall {out['c']['card_share']:.4f} {card}")
+    finally:
+        pids = [p for node in context.get_client().nodes.values() for p in node.worker_pids]
+        t0 = time.perf_counter()
+        rtt.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    alive = [p for p in pids if worker_alive(p)]
+    check(not alive, f"phase 4j: worker processes left after shutdown: {alive}")
+    left = rt_segments()
+    check(not left, f"phase 4j: /dev/shm still holds {left}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used1 = card_used(torch)
+    check(abs(used1 - used0) <= RUNTIME_MEM_SLACK, f"phase 4j: the card's memory in use {used1} bytes after shutdown vs "
+                                                   f"{used0} before phase 4j")
+    out["shutdown_s"] = shutdown_s
+    print(f"phase 4j shutdown: ray_tpu_torch.shutdown() {shutdown_s:.3f} s, none of the {len(pids)} workers left, no "
+          f"rt segment, the card's memory in use {used1} bytes vs {used0} before phase 4j; phase 4j "
+          f"{time.perf_counter() - t_phase:.1f} s {card}")
     return out
 
 

@@ -8,8 +8,8 @@ same ``RT_<NAME>`` environment variable, read when the config is first
 built (``get_config``), and through ``init(_system_config={...})``
 (``update``); ``reset_config`` drops it so the next read sees the
 environment again. The serving engine's flags live on ``LLMEngine``'s
-arguments, as in the port's engine; the data library's flag waits for its
-port.
+arguments, as in the port's engine. The data library's flag,
+``target_max_block_size``, is read by ``data/executor.py``.
 """
 
 from __future__ import annotations
@@ -98,6 +98,12 @@ class Config:
     # terminal task specs beyond this count are pruned (their outputs can
     # no longer be rebuilt)
     max_lineage_tasks: int = 20_000
+
+    # --- data ---
+    # blocks observed above this size are split into ~this-sized chunks
+    # between pipeline stages (reference: DataContext.target_max_block_size
+    # and the executor's dynamic block splitting); 0 disables
+    target_max_block_size: int = 128 * 1024 * 1024
 
     extra: dict = field(default_factory=dict)
 

@@ -1752,11 +1752,13 @@ def wait_mixed(client, obj_ids, num_returns: int, timeout: float | None, fallbac
     split = [is_owned_or_hinted(o.binary() if hasattr(o, "binary") else o) or None for o in ids]
     if all(s is None for s in split):
         return fallback(ids, num_returns, timeout)
-    head_ids = [o for o, s in zip(ids, split) if s is None]
     known_ready: set = set()  # readiness is sticky: poll each id once
     delay = 0.002
     while True:
-        ready, not_ready = [], []
+        # ids no owner answers for go to the head's store: those the head
+        # tracks, and owned ones whose large result the worker sealed in
+        # the head's store while this wait ran (REDIRECT)
+        ready, not_ready, head_ids = [], [], []
         for o in ids:
             if o in known_ready:
                 ready.append(o)
@@ -1770,7 +1772,7 @@ def wait_mixed(client, obj_ids, num_returns: int, timeout: float | None, fallbac
             s = _owned_ready_local(k)
             if s is None:
                 if deadline is not None and time.monotonic() >= deadline:
-                    not_ready.append(o)
+                    head_ids.append(o)  # no owner poll past the deadline; the head's store answers at once
                     continue
                 s = owned_ready(k, poll_timeout=_poll_t())
             if s is True:
@@ -1778,6 +1780,8 @@ def wait_mixed(client, obj_ids, num_returns: int, timeout: float | None, fallbac
                 ready.append(o)
             elif s is False:
                 not_ready.append(o)
+            else:
+                head_ids.append(o)
         head_ready = []
         if head_ids:
             t = 0.05 if deadline is None else max(0.0, min(0.05, deadline - time.monotonic()))

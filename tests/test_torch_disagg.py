@@ -30,6 +30,8 @@ have every program settled (``_synced``, ROADMAP.md queue 3)."""
 import ast
 import itertools
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -169,7 +171,11 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_ray_tpu():
     """Every module of ray_tpu_torch/ and chip_smoke.py, parsed: no import
     of jax (or jaxlib), none of ray_tpu (ray_tpu_torch is the port) and
-    none of cloudpickle (the card's machine has none)."""
+    none of cloudpickle (the card's machine has none). Importing
+    ray_tpu_torch.data and ray_tpu_torch.llm.batch in a fresh interpreter
+    loads none of jax, ray_tpu, pyarrow, pandas or PIL (the data library
+    imports those three only in the conversions and readers that need
+    them)."""
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
     # the serving control plane's modules and the object plane's are among them
@@ -180,7 +186,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                # the runtime's modules
                "api.py", "accelerators/gpu.py", "core/context.py", "core/gcs.py", "core/table_store.py",
                "core/scheduler.py", "core/task_manager.py", "core/node.py", "core/worker_main.py", "core/runtime.py",
-               "core/rpc_chaos.py", "util/placement_group.py", "util/scheduling_strategies.py"]
+               "core/rpc_chaos.py", "util/placement_group.py", "util/scheduling_strategies.py",
+               # the data library and batch inference
+               "_native/__init__.py", "data/__init__.py", "data/block.py", "data/datasource.py", "data/executor.py",
+               "data/iterator.py", "data/dataset.py", "llm/batch.py"]
     assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:
@@ -189,6 +198,12 @@ def test_port_imports_neither_jax_nor_ray_tpu():
             if root in ("jax", "jaxlib", "ray_tpu", "cloudpickle"):
                 bad.append((str(path.relative_to(REPO)), mod))
     assert bad == []
+    probe = ("import sys, ray_tpu_torch.data, ray_tpu_torch.llm.batch; "
+             "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas', "
+             "'PIL'}))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 # ------------------------------------------------- extract and scatter-in
