@@ -318,6 +318,32 @@ Phases, in order; any failed check exits non-zero before the last line:
    device's idle share, with the full table in
    build/train_step_profile.txt; the wgmma K1 kernel must appear in it
    36 times, the wgmma K2 and K3 kernels 18 times each.
+7b. A user's training job on the port's runtime (ray_tpu_torch.train),
+   after 7: ray_tpu_torch.init(num_cpus=4), then two fits of JaxTrainer
+   with ScalingConfig(num_workers=1, resources_per_worker={"CPU": 1,
+   "GPU": 1}): one train worker bound to the card runs phase 7's model,
+   batch, optimizer and seed-0 initialisation (the module-level
+   train_worker_loop, sent by reference) on 12 batches of 8 x 2048 from a
+   dataset (from_items; batch 1 is phase 7's, the rest seeded draws)
+   through get_dataset_shard("train").iter_torch_batches(batch_size=8,
+   drop_last=True). Fit A (JaxConfig(distributed="always"): a one-rank
+   nccl group) gates the card binding (one card, CUDA_VISIBLE_DEVICES,
+   get_device() cuda:0, backend nccl), K1/K2/K3 at 36/18/18 every step in
+   the worker, step 1's loss equal to phase 7's within 0.05, finite falling
+   losses, and the worker's median ms/step (CUDA events around step_fn)
+   at most 1.10 x phase 7's in-process ms/step; K1 and K2/K3 are held
+   against their plain versions in the worker at the sft shape and timed
+   there. Fit B (FailureConfig(max_failures=1)) saves parameters, AdamW
+   state and step with jax_checkpoint.save_pytree at step 4 and reports
+   it, raises after step 6 once (a marker file), and the restarted worker
+   restores the checkpoint onto the card, skips 4 batches and trains
+   steps 5-12: one restart, each attempt's steps committed once and in
+   order, the resumed losses equal fit A's within 2e-3. After each fit no
+   train worker and the card's memory as before; after the phase's
+   shutdown no rt segment and every checkpoint byte removed. Prints the worker's time to ready,
+   ms/step, tok/s and MFU against phase 7's, the feed's wait and share,
+   restart to first resumed step, checkpoint bytes, save and commit
+   seconds, and the worker's peak memory.
 8. The training path, card against host: the same widths at 2 layers in
    f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
    gradients must agree.
@@ -382,6 +408,10 @@ MIGRATE_STEPS = 11  # decode steps before phases 4e and 4f checkpoint a lane
 SPEC_K = 4  # phase 4d's proposals a round: the verify block is SPEC_K + 1 tokens, K4 at R = 4 (SPEC_K + 1)
 TRAIN_LOSS_TOL = 0.05  # first step's loss vs loss_fn on the initial params (bench.py's check)
 TRAIN_WHOLE_TOL = 1e-3  # card vs host, f32: loss and grad norm relative; gradients relative to each leaf's max
+TRAIN_WORKER_STEPS = 12  # phase 7b: batches in the dataset, steps of each fit
+TRAIN_WORKER_GATE = 1.10  # phase 7b: the worker's median ms/step over phase 7's in-process ms/step
+TRAIN_CKPT_STEP, TRAIN_FAIL_STEP = 4, 6  # phase 7b fit B: checkpoint after step 4, injected failure after step 6
+TRAIN_RESUME_TOL = 2e-3  # phase 7b: |resumed loss - fit A's| at steps 5-12 (bf16 loss ~10.4; the same kernels)
 
 
 class SmokeFailure(RuntimeError):
@@ -456,6 +486,22 @@ def k1_bound(B, H, HKV, T, D) -> tuple[float, str]:
     nbytes = 2.0 * (2 * B * H * T * D + 2 * B * HKV * T * D) + 4.0 * B * H * T  # q, o, k, v bf16; lse f32
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k23_bound(B, H, HKV, T, D, causal: bool = True, es: int = 2) -> dict:
+    """K2's and K3's least times in ms for dO over q [B, H, T, D] and k/v
+    [B, HKV, T, D] of ``es``-byte elements (f32 lse and delta), what
+    bounds each, and its operations: {"dq": (ms, by, flops), "dkv": ...}."""
+    pairs = (T * (T + 1) / 2 if causal else T * T) * B * H
+    rows_bytes = 2 * 4.0 * B * H * T  # lse and delta, f32
+    out = {}
+    for kern, flops, nbytes in (
+        ("dq", 6.0 * D * pairs, es * (3.0 * B * H * T * D + 2.0 * B * HKV * T * D) + rows_bytes),
+        ("dkv", 8.0 * D * pairs, es * (2.0 * B * H * T * D + 4.0 * B * HKV * T * D) + rows_bytes),
+    ):
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[kern] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops)
+    return out
 
 
 def k4_bound(qf, pk, sk, tables, bound, m, acc, bounds) -> tuple[float, str]:
@@ -1159,16 +1205,8 @@ def main() -> int:
             fwd_ms = cuda_ms(torch, sdpa_fwd, iters=10)
             fb_ms = cuda_ms(torch, lambda: sdpa_fwd().backward(dout), iters=10)
             row["sdpa_bwd_ms"] = fb_ms - fwd_ms
-            pairs = (T * (T + 1) / 2 if causal else T * T) * B * H_
-            es = q.element_size()
-            rows_bytes = 2 * 4.0 * B * H_ * T  # lse and delta, f32
-            for kern, flops, nbytes in (
-                ("dq", 6.0 * D_ * pairs, es * (3.0 * B * H_ * T * D_ + 2.0 * B * HKV_ * T * D_) + rows_bytes),
-                ("dkv", 8.0 * D_ * pairs, es * (2.0 * B * H_ * T * D_ + 4.0 * B * HKV_ * T * D_) + rows_bytes),
-            ):
-                t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-                row[f"{kern}_bound_ms"] = max(t_ops, t_bytes)
-                row[f"{kern}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            for kern, (bound_ms, bound_by, flops) in k23_bound(B, H_, HKV_, T, D_, causal, q.element_size()).items():
+                row[f"{kern}_bound_ms"], row[f"{kern}_bound_by"] = bound_ms, bound_by
                 row[f"{kern}_tflops"] = flops / (row[f"{kern}_ms"] * 1e-3) / 1e12
             print(f"phase 6 K2/K3 {row['shape']}: rel err dq {errs['dq'][1]:.3g} dk {errs['dk'][1]:.3g} dv "
                   f"{errs['dv'][1]:.3g}; K2 {row['dq_ms']:.4f} ms ({row['dq_tflops']:.2f} TFLOP/s, "
@@ -1266,6 +1304,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("7")
+    # ---------------------------------------------------------------- 7b
+    # a user's training job: JaxTrainer -> a GPU train worker running phase 7's step from a dataset
+    trn = train_on_card(torch, cfg7, data, first_loss, step_s, card)
+    torch.cuda.empty_cache()
+
+    mark("7b")
     # ---------------------------------------------------------------- 8
     cfg8 = dataclasses.replace(cfg7, num_layers=2, dtype="float32")
     p0 = init_params(cfg8, torch.Generator(device=dev).manual_seed(2))
@@ -1448,6 +1492,20 @@ def main() -> int:
                "prefill, two actors", "b"),
               (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134",
                "decode, two actors", "b"))),
+        *(dict(name=f"K{k} {fn} train worker (phase 7b, fits A and B in the GPU train worker; held and timed there "
+                    f"at {trn['A']['hold'][hk]['shape']} bf16 causal)", route="cuda",
+               source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=trn["launches"][k - 1], max_abs_err=err,
+               ms=trn["A"]["hold"][hk][ms], plain_ms=trn["A"]["hold"][hk]["plain_ms"],
+               bound_ms=trn["A"]["hold"][hk][f"{b}bound_ms"], bound_by=trn["A"]["hold"][hk][f"{b}bound_by"],
+               library_ms=trn["A"]["hold"][hk][lib])
+          for k, fn, src, rep, hk, ms, b, lib, err in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "k1", "ms", "",
+               "sdpa_ms", trn["A"]["hold"]["k1"]["err_o"]),
+              (2, "flash_attention_bwd_dq", "flash_attention_bwd.cu", "ray_tpu/ops/flash_attention.py:154", "k23",
+               "dq_ms", "dq_", "sdpa_bwd_ms", trn["A"]["hold"]["k23"]["errs"]["dq"][0]),
+              (3, "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "ray_tpu/ops/flash_attention.py:192", "k23",
+               "dkv_ms", "dkv_", "sdpa_bwd_ms", max(trn["A"]["hold"]["k23"]["errs"]["dk"][0],
+                                                  trn["A"]["hold"]["k23"]["errs"]["dv"][0])))),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -4111,6 +4169,339 @@ def data_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> dic
     print(f"phase 4j shutdown: ray_tpu_torch.shutdown() {shutdown_s:.3f} s, none of the {len(pids)} workers left, no "
           f"rt segment, the card's memory in use {used1} bytes vs {used0} before phase 4j; phase 4j "
           f"{time.perf_counter() - t_phase:.1f} s {card}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 7b: a training job on the runtime
+def hold_train_kernels(B: int, H: int, HKV: int, T: int, D: int) -> dict:
+    """K1 at the sft step's shape (bf16, causal) held against its plain
+    version, and K2/K3 against the plain backward, here in the train
+    worker on inputs from seed 0, each timed beside them (phase 6's
+    method); the launch counts are put back."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.flash_attention import (attention_bwd_ref, attention_with_lse_ref, flash_attention_bwd_dkv,
+                                                   flash_attention_bwd_dq, flash_attention_fwd)
+
+    kernels = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    counts = [k.launches for k in kernels]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, dout = (torch.randn((B, H, T, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, HKV, T, D), generator=g, device=dev).bfloat16() for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = attention_with_lse_ref(q, k, v, causal=True)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref
+    bound_ms, bound_by = k1_bound(B, H, HKV, T, D)
+    k1 = dict(shape=(B, H, HKV, T, D), err_o=err_o, err_lse=err_lse, ok=err_o <= K1_TOL_O and err_lse <= K1_TOL_LSE,
+              ms=cuda_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True)),
+              plain_ms=cuda_ms(torch, lambda: attention_with_lse_ref(q, k, v, causal=True), iters=3, warmup=1),
+              sdpa_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)),
+              bound_ms=bound_ms, bound_by=bound_by)
+    delta = (dout.float() * o.float()).sum(-1)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=True)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
+
+    def plain():
+        dq_r, dk_r, dv_r = attention_bwd_ref(q, k, v, o, lse, dout, causal=True)
+        return dq_r.bfloat16(), fa._sum_rep(dk_r, HKV).bfloat16(), fa._sum_rep(dv_r, HKV).bfloat16()
+
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain()):
+        diff = (got.float() - ref.float()).abs().max().item()
+        errs[name] = (diff, diff / ref.float().abs().max().item())
+    del ref
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    fwd_ms = cuda_ms(torch, sdpa_fwd, iters=10)
+    k23 = dict(shape=(B, H, HKV, T, D), errs=errs, ok=all(e[1] <= K23_TOL["bf16"] for e in errs.values()),
+               dq_ms=cuda_ms(torch, lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=True)),
+               dkv_ms=cuda_ms(torch, lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True)),
+               plain_ms=cuda_ms(torch, plain, iters=2, warmup=1),
+               sdpa_bwd_ms=cuda_ms(torch, lambda: sdpa_fwd().backward(dout), iters=10) - fwd_ms)
+    for kern, (b_ms, b_by, _) in k23_bound(B, H, HKV, T, D).items():
+        k23[f"{kern}_bound_ms"], k23[f"{kern}_bound_by"] = b_ms, b_by
+    for kern, c in zip(kernels, counts):
+        kern.launches = c
+    return dict(k1=k1, k23=k23)
+
+
+def train_worker_loop(config: dict):
+    """Phase 7b's train loop, run by the train worker: phase 7's model and
+    optimizer on the worker's card (make_train_step's device=None), fed by
+    the worker's dataset shard. Resumes from the committed checkpoint when
+    there is one (skipping the batches it consumed); each step reports its
+    loss, the step's CUDA-event time, the wait on the iterator and its
+    K1/K2/K3 launches. ``config``: the model config, steps, the step to
+    checkpoint at and the step to fail after (0: never), the phase's
+    scratch directory and failure marker, and whether to hold the kernels
+    after the last step."""
+    from functools import partial
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.ops.flash_attention import flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step, to_device
+    from ray_tpu_torch.train import jax_checkpoint
+
+    t_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    cfg = LlamaConfig(**config["cfg"])
+    first = dict(visible=os.environ.get("CUDA_VISIBLE_DEVICES"), count=torch.cuda.device_count(),
+                 device=str(train.torch.get_device()), backend=dist.get_backend() if dist.is_initialized() else None,
+                 t_start=t_start)
+    init_fn, step_fn = make_train_step(partial(loss_fn, config=cfg), adamw(3e-4, weight_decay=0.01))
+    t0 = time.perf_counter()
+    ckpt = train.get_checkpoint()
+    if ckpt is None:
+        state = init_fn(0, partial(init_params, cfg))
+    else:
+        tree = jax_checkpoint.restore_pytree(ckpt.path)  # onto the card
+        state = init_fn(0, lambda _: tree["params"])
+        state.opt_state.load_state_dict(tree["opt"])
+        state.step = int(tree["step"])
+        del tree
+    torch.cuda.synchronize()
+    first.update(init_s=time.perf_counter() - t0, resumed_at=state.step)
+    torch.cuda.reset_peak_memory_stats()
+    batches = iter(train.get_dataset_shard("train").iter_torch_batches(batch_size=8, drop_last=True))
+    for _ in range(state.step):
+        next(batches)  # consumed before the checkpoint
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    while state.step < config["steps"]:
+        t_iter = time.perf_counter()
+        host = next(batches)
+        wait_s = time.perf_counter() - t_iter
+        batch = to_device(host)
+        before = [k.launches for k in kernels]
+        ev[0].record()
+        state, m = step_fn(state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        metrics = dict(step=state.step, loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                       step_ms=ev[0].elapsed_time(ev[1]), wait_s=wait_s, pid=os.getpid(),
+                       launches=[k.launches - b for k, b in zip(kernels, before)],
+                       key=int(host["tokens"][:, :8].long().sum()), peak=torch.cuda.max_memory_allocated(), **first)
+        first = {}
+        checkpoint = None
+        if state.step == config["save_at"]:
+            d = os.path.join(config["tmp"], f"worker_step{state.step}_{os.getpid()}")
+            t0 = time.perf_counter()
+            jax_checkpoint.save_pytree(d, {"params": state.params, "opt": state.opt_state.state_dict(),
+                                           "step": state.step})
+            metrics.update(save_s=time.perf_counter() - t0, ckpt_bytes=os.path.getsize(os.path.join(d, "state")))
+            checkpoint = train.Checkpoint.from_directory(d)
+        if state.step == config["steps"] and config["hold"]:
+            del batch, m
+            metrics["hold"] = hold_train_kernels(*host["tokens"].shape[:1], cfg.num_heads, cfg.num_kv_heads,
+                                                 host["tokens"].shape[1], cfg.hd)
+        metrics.update(iter_s=time.perf_counter() - t_iter, t_report=time.time())
+        train.report(metrics, checkpoint=checkpoint)
+        if state.step == config["fail_at"] and not os.path.exists(config["marker"]):
+            with open(config["marker"], "w") as f:
+                f.write(repr(time.time()))
+            raise RuntimeError(f"phase 7b: the injected failure after step {state.step}")
+
+
+def train_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, card) -> dict:
+    """Phase 7b: a user's training job on the port's runtime. JaxTrainer
+    with one GPU train worker runs phase 7's step on 12 dataset batches:
+    fit A uninterrupted (a one-rank nccl group), fit B with a checkpoint at
+    step 4, a failure after step 6 and a restart that resumes from it.
+    Every leg is gated (module docstring)."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.models.llama import flops_per_token
+    from ray_tpu_torch.ops.flash_attention import flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd
+
+    L, steps = cfg7.num_layers, TRAIN_WORKER_STEPS
+    Bt, Tt = data7["tokens"].shape
+    want_launches = [2 * L, L, L]
+    batches = [data7]
+    for seed in range(1, steps):
+        r = np.random.default_rng(seed)
+        batches.append({"tokens": r.integers(0, cfg7.vocab_size, (Bt, Tt)).astype(np.int32),
+                        "targets": r.integers(0, cfg7.vocab_size, (Bt, Tt)).astype(np.int32)})
+    keys = [int(b["tokens"][:, :8].astype(np.int64).sum()) for b in batches]
+    rows = [{"tokens": b["tokens"][i], "targets": b["targets"][i]} for b in batches for i in range(Bt)]
+    del batches
+    kernels = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    drv_counts = [k.launches for k in kernels]
+    tmp = tempfile.mkdtemp(prefix="rt7b_")
+    marker = os.path.join(tmp, "failed_once")
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    t_phase = time.perf_counter()
+    rtt.init(num_cpus=4)
+    out = {}
+
+    def fit(name, backend, max_failures, save_at, fail_at, hold):
+        t0 = time.time()
+        result = train.JaxTrainer(
+            train_worker_loop,
+            train_loop_config=dict(cfg=dataclasses.asdict(cfg7), steps=steps, save_at=save_at, fail_at=fail_at,
+                                   tmp=tmp, marker=marker, hold=hold),
+            scaling_config=train.ScalingConfig(num_workers=1, resources_per_worker={"CPU": 1, "GPU": 1}),
+            run_config=train.RunConfig(name=f"fit_{name}", storage_path=tmp,
+                                       failure_config=train.FailureConfig(max_failures=max_failures)),
+            backend_config=train.backend.JaxConfig(distributed=backend),
+            datasets={"train": data.from_items(rows)},
+        ).fit(raise_on_error=False)
+        wall = time.time() - t0
+        check(result.error is None, f"phase 7b fit {name}: {result.error!r}, in the worker: "
+                                    f"{getattr(result.error, 'training_error', None)}")
+        hist = result.metrics_history
+        pids = sorted({m["pid"] for m in hist})
+        # the group's workers exit once the fit returns: their processes and the card's memory go back
+        t_end = time.perf_counter()
+
+        def held():
+            return any(worker_alive(p) for p in pids) or card_used(torch) > used0 + RUNTIME_MEM_SLACK
+
+        while held() and time.perf_counter() - t_end < DATA_RELEASE_S:
+            time.sleep(0.05)
+        release_s = time.perf_counter() - t_end
+        check(not held(), f"phase 7b fit {name}: {DATA_RELEASE_S} s after fit() the train workers alive "
+                          f"{[worker_alive(p) for p in pids]}, the card's memory in use {card_used(torch)} vs {used0} "
+                          f"before 7b")
+        for m in hist:
+            check(m["launches"] == want_launches, f"phase 7b fit {name} step {m['step']}: K1/K2/K3 launches "
+                                                  f"{m['launches']} in the worker, not {want_launches}")
+            check(m["key"] == keys[m["step"] - 1], f"phase 7b fit {name} step {m['step']}: the worker's batch is not "
+                                                   f"the dataset's batch {m['step']}")
+        check([k.launches for k in kernels] == drv_counts, f"phase 7b fit {name}: the driver's K1/K2/K3 counts moved")
+        # the segments left are the dataset's read tasks' by-value arguments, kept with their lineage while
+        # the runtime lives (ray_tpu's design); shutdown unlinks them (gated below)
+        return dict(result=result, hist=hist, pids=pids, wall=wall, t0=t0, release_s=release_s,
+                    segments=len(rt_segments()))
+
+    try:
+        # ---- fit A: uninterrupted, a one-rank nccl group
+        a = fit("A", "always", 0, 0, 0, True)
+        hist = a["hist"]
+        h0 = hist[0]
+        check([m["step"] for m in hist] == list(range(1, steps + 1)),
+              f"phase 7b fit A: steps committed {[m['step'] for m in hist]}")
+        check(h0["count"] == 1 and h0["visible"] not in (None, ""), f"phase 7b fit A: the worker sees {h0['count']} "
+                                                                    f"cards, CUDA_VISIBLE_DEVICES {h0['visible']!r}")
+        check(h0["backend"] == "nccl" and h0["device"] == "cuda:0",
+              f"phase 7b fit A: backend {h0['backend']!r}, get_device() {h0['device']!r}")
+        losses = [m["loss"] for m in hist]
+        check(abs(losses[0] - ref_first_loss) < TRAIN_LOSS_TOL,
+              f"phase 7b fit A: step 1's loss {losses[0]} != phase 7's step 1 {ref_first_loss} (tol {TRAIN_LOSS_TOL})")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"phase 7b fit A: losses {losses}")
+        step_ms = statistics.median(m["step_ms"] for m in hist[1:])
+        ratio = step_ms / (ref_step_s * 1e3)
+        check(ratio <= TRAIN_WORKER_GATE, f"phase 7b fit A: the worker's median {step_ms:.2f} ms/step is {ratio:.4f} x "
+                                          f"phase 7's {ref_step_s * 1e3:.2f} ms (gate {TRAIN_WORKER_GATE})")
+        hold = hist[-1]["hold"]
+        check(hold["k1"]["ok"], f"phase 7b: K1 in the worker at {hold['k1']['shape']}: |do| {hold['k1']['err_o']:.3g} "
+                                f"|dlse| {hold['k1']['err_lse']:.3g} (tol {K1_TOL_O}, {K1_TOL_LSE})")
+        check(hold["k23"]["ok"], f"phase 7b: K2/K3 in the worker at {hold['k23']['shape']}: relative errors "
+                                 f"{hold['k23']['errs']} (tol {K23_TOL['bf16']})")
+        tok_s = Bt * Tt / (step_ms / 1e3)
+        mfu = flops_per_token(cfg7, Tt) * tok_s / BF16_FLOPS
+        ref_tok_s = Bt * Tt / ref_step_s
+        waits = [m["wait_s"] for m in hist[1:]]
+        share = sum(waits) / sum(m["iter_s"] for m in hist[1:])
+        out["A"] = dict(step_ms=step_ms, ratio=ratio, tok_s=tok_s, mfu=mfu, losses=losses,
+                        ready_s=h0["t_start"] - a["t0"], init_s=h0["init_s"], wait_s=statistics.median(waits),
+                        wait_share=share, peak=max(m["peak"] for m in hist), wall=a["wall"], hold=hold,
+                        launches=[sum(m["launches"][i] for m in hist) for i in range(3)], release_s=a["release_s"])
+        print(f"phase 7b fit A (JaxTrainer, 1 GPU train worker pid {a['pids'][0]}, CUDA_VISIBLE_DEVICES "
+              f"{h0['visible']!r}, {h0['count']} card seen, get_device() {h0['device']}, torch.distributed backend "
+              f"{h0['backend']}): {steps} steps of phase 7's sft step on dataset batches {Bt} x {Tt}; time to ready "
+              f"(fit() to the loop's start) {out['A']['ready_s']:.3f} s, init {h0['init_s']:.3f} s; loss step 1 "
+              f"{losses[0]:.4f} (phase 7's {ref_first_loss:.4f}) -> {losses[-1]:.4f} (step {steps}); median "
+              f"{step_ms:.2f} ms/step (CUDA events around step_fn, steps 2-{steps}) vs phase 7's in-process "
+              f"{ref_step_s * 1e3:.2f} ms/step: {ratio:.4f}x (gate {TRAIN_WORKER_GATE}); {tok_s:.1f} tok/s vs "
+              f"{ref_tok_s:.1f}, MFU {mfu:.4f} vs {flops_per_token(cfg7, Tt) * ref_tok_s / BF16_FLOPS:.4f}; the feed's "
+              f"wait a step (median) {out['A']['wait_s'] * 1e3:.3f} ms, {share:.4f} of the loop's wall; launches per "
+              f"step K1/K2/K3 {want_launches} in every step; peak allocated {out['A']['peak']} bytes in the worker; "
+              f"fit wall {a['wall']:.2f} s; workers gone and the card's memory back {a['release_s']:.3f} s after "
+              f"fit(), {a['segments']} rt segments (the dataset's read arguments, with their lineage) {card}")
+        k1c, k23c = hold["k1"], hold["k23"]
+        print(f"phase 7b fit A worker's kernels, held against their plain versions there at {k1c['shape']} bf16 "
+              f"causal: K1 |do| {k1c['err_o']:.3g} |dlse| {k1c['err_lse']:.3g}, kernel {k1c['ms']:.4f} ms, plain "
+              f"{k1c['plain_ms']:.4f} ms, sdpa {k1c['sdpa_ms']:.4f} ms, bound {k1c['bound_ms']:.4f} ms "
+              f"({k1c['bound_by']}); K2/K3 relative errors dq {k23c['errs']['dq'][1]:.3g} dk {k23c['errs']['dk'][1]:.3g}"
+              f" dv {k23c['errs']['dv'][1]:.3g}, K2 {k23c['dq_ms']:.4f} ms (bound {k23c['dq_bound_ms']:.4f} ms "
+              f"{k23c['dq_bound_by']}), K3 {k23c['dkv_ms']:.4f} ms (bound {k23c['dkv_bound_ms']:.4f} ms "
+              f"{k23c['dkv_bound_by']}), plain backward {k23c['plain_ms']:.4f} ms, sdpa backward "
+              f"{k23c['sdpa_bwd_ms']:.4f} ms {card}")
+
+        # ---- fit B: a checkpoint at step 4, a failure after step 6, a restart that resumes from it
+        b = fit("B", "auto", 1, TRAIN_CKPT_STEP, TRAIN_FAIL_STEP, False)
+        hist = b["hist"]
+        check(os.path.exists(marker) and len(b["pids"]) == 2, f"phase 7b fit B: {len(b['pids'])} worker processes "
+                                                              f"(want 2: one restart), marker {os.path.exists(marker)}")
+        by_pid = {p: [m for m in hist if m["pid"] == p] for p in b["pids"]}
+        first_attempt, second = sorted(by_pid.values(), key=lambda ms: ms[0]["t_report"])
+        check([m["step"] for m in first_attempt] == list(range(1, TRAIN_FAIL_STEP + 1))
+              and [m["step"] for m in second] == list(range(TRAIN_CKPT_STEP + 1, steps + 1))
+              and hist == first_attempt + second,
+              f"phase 7b fit B: steps committed {[m['step'] for m in hist]}: want 1-{TRAIN_FAIL_STEP} once, then "
+              f"{TRAIN_CKPT_STEP + 1}-{steps} once from the restart, in order")
+        check(second[0]["resumed_at"] == TRAIN_CKPT_STEP, f"phase 7b fit B: resumed at {second[0]['resumed_at']}")
+        diffs = [abs(m["loss"] - out["A"]["losses"][m["step"] - 1]) for m in hist]
+        resumed = max(abs(m["loss"] - out["A"]["losses"][m["step"] - 1]) for m in second)
+        check(max(diffs) <= TRAIN_RESUME_TOL, f"phase 7b fit B: losses differ from fit A's by up to {max(diffs):.3g} "
+                                              f"(tol {TRAIN_RESUME_TOL}): {[m['loss'] for m in hist]}")
+        saved = next(m for m in first_attempt if m["step"] == TRAIN_CKPT_STEP)
+        commit_s = next(m for m in b["result"].metrics_history if m["step"] == TRAIN_CKPT_STEP)["timestamp"] \
+            - saved["t_report"]
+        with open(marker) as f:
+            failed_at = float(f.read())
+        restart_s = second[0]["t_report"] - failed_at
+        out["B"] = dict(restart_s=restart_s, resumed_diff=resumed, diff=max(diffs), ckpt_bytes=saved["ckpt_bytes"],
+                        save_s=saved["save_s"], commit_s=commit_s, restore_s=second[0]["init_s"],
+                        ready_s=second[0]["t_start"] - failed_at, peak=max(m["peak"] for m in hist), wall=b["wall"],
+                        launches=[sum(m["launches"][i] for m in hist) for i in range(3)], release_s=b["release_s"])
+        print(f"phase 7b fit B (FailureConfig(max_failures=1), JaxConfig('auto'): no process group for one worker): "
+              f"checkpoint after step {TRAIN_CKPT_STEP} ({saved['ckpt_bytes']} bytes: parameters, AdamW state, step; "
+              f"save_pytree {saved['save_s']:.3f} s in the worker, report to commit {commit_s:.3f} s with the "
+              f"controller's copy), the injected failure after step {TRAIN_FAIL_STEP}, one restart (worker pids "
+              f"{b['pids']}): the new worker ready {out['B']['ready_s']:.3f} s after the failure, restored the "
+              f"checkpoint onto the card in {second[0]['init_s']:.3f} s, skipped {TRAIN_CKPT_STEP} batches; restart "
+              f"to the first resumed step's report {restart_s:.3f} s; steps committed {[m['step'] for m in hist]}; "
+              f"resumed losses (steps {TRAIN_CKPT_STEP + 1}-{steps}) vs fit A's: max |d| {resumed:.3g}, every step "
+              f"{max(diffs):.3g} (tol {TRAIN_RESUME_TOL}); peak allocated {out['B']['peak']} bytes; fit wall "
+              f"{b['wall']:.2f} s; workers gone and the card's memory back {b['release_s']:.3f} s after fit(), "
+              f"{b['segments']} rt segments {card}")
+    finally:
+        pids = [p for node in context.get_client().nodes.values() for p in node.worker_pids]
+        rtt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    alive = [p for p in pids if worker_alive(p)]
+    check(not alive, f"phase 7b: worker processes left after shutdown: {alive}")
+    left = rt_segments()
+    check(not left, f"phase 7b: /dev/shm still holds {left}")
+    check(not os.path.exists(tmp), f"phase 7b: the checkpoints' directory {tmp} is still there")
+    torch.cuda.synchronize()
+    used1 = card_used(torch)
+    check(abs(used1 - used0) <= RUNTIME_MEM_SLACK, f"phase 7b: the card's memory in use {used1} bytes after shutdown vs "
+                                                   f"{used0} before phase 7b")
+    out["launches"] = [x + y for x, y in zip(out["A"]["launches"], out["B"]["launches"])]
+    print(f"phase 7b end: no worker, no rt segment, the checkpoints' directory removed, the card's memory in use "
+          f"{used1} bytes vs {used0} before; phase 7b {time.perf_counter() - t_phase:.1f} s {card}")
     return out
 
 

@@ -105,6 +105,10 @@ class Config:
     # and the executor's dynamic block splitting); 0 disables
     target_max_block_size: int = 128 * 1024 * 1024
 
+    # --- collective ---
+    # how long a rank waits in a collective round for the other ranks
+    collective_timeout_s: float = 120.0
+
     extra: dict = field(default_factory=dict)
 
     def __post_init__(self):

@@ -14,6 +14,7 @@ from __future__ import annotations
 AGENTS_ITEM = "queue 1, multi-host agents"  # node agents, RemoteNode/JoinedNode, the transfer server
 DRIVER_ITEM = "queue 1, attached drivers"  # init(address=...), driver_client.py, _on_driver_join
 GRPC_ITEM = "queue 1, serve gRPC ingress"  # serve.start(grpc_port=...), serve/_grpc_proxy.py
+MESH_ITEM = "queue 1, multi-device axes"  # meshes, shardings, device collectives (collective/ici.py)
 PERSIST_ITEM = "queue 1, persistent GCS"  # FileTableStore, gcs_persist_path, detached actors across heads
 RUNTIME_ENV_ITEM = "queue 1, runtime_env"  # runtime_env/ packing and setup in the worker
 STATE_ITEM = "queue 1, state and monitors"  # util/state, timeline, dump_cluster_info, log and memory monitors

@@ -427,15 +427,24 @@ def get_hint(k: bytes) -> str | None:
         return _hints.get(k)
 
 
-def mark_serialized_out(k: bytes):
+def mark_serialized_out(k: bytes) -> bool:
     """``ObjectRef.__reduce__``'s hook: if this process owns the id, the
     owned store now waits for the borrow-release instead of the grace
     timer (see OwnedStore). A pickle that never leaves the process (a
     deepcopy) costs at most the backstop window before the free, never a
-    leak."""
+    leak. False when this process handed the object to the head
+    (REDIRECT): the ref must then travel without this process's owner
+    hint, so that its receiver registers the borrow with the head, the
+    object's owner now. (With the hint the receiver's borrow went to this
+    process, which has no count to keep for it, and the head freed the
+    object while the receiver still held it.)"""
     st = _state
-    if st is not None and st.owned.owns(k):
+    if st is None:
+        return True
+    if st.owned.owns(k):
         st.owned.mark_serialized(k)
+        return True
+    return k not in st.owned  # present but not owned: REDIRECT
 
 
 def drop_hint(k: bytes):

@@ -194,10 +194,12 @@ class ObjectRef:
 
                 _mark_serialized = _ms
             except ImportError:  # partial teardown
-                _mark_serialized = lambda _k: None  # noqa: E731
+                _mark_serialized = lambda _k: True  # noqa: E731
         # if this process owns the object, its store now waits for the
-        # borrow-release instead of the short grace timer
-        _mark_serialized(self.id.binary())
+        # borrow-release instead of the short grace timer; if it handed the
+        # object to the head, the receiver registers with the head (no hint)
+        if not _mark_serialized(self.id.binary()):
+            return (ObjectRef, (self.id, None))
         hint = self._owner_hint
         if hint is None and _get_hint is not None:
             # a ref rebuilt without its hint still travels with the owner

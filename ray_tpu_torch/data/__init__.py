@@ -7,6 +7,10 @@ travel by reference (``dataset.py``). Nothing here imports pyarrow,
 pandas or PIL until a conversion or reader that needs one runs.
 """
 
+from ray_tpu_torch.util.usage import record_library_usage as _rlu
+
+_rlu("data")
+
 from ray_tpu_torch.data.block import Block, BlockAccessor
 from ray_tpu_torch.data.dataset import (
     Dataset,

@@ -18,6 +18,10 @@ importable module or of a driver script with a file. The gRPC ingress is
 not ported (ROADMAP.md, queue 1, Serve gRPC ingress).
 """
 
+from ray_tpu_torch.util.usage import record_library_usage as _rlu
+
+_rlu("serve")
+
 from ray_tpu_torch.serve._proxy import Request
 from ray_tpu_torch.serve.api import (
     delete,

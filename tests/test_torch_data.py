@@ -17,15 +17,17 @@ node with its own shared-memory namespace, which the port's
 ``add_node(shm_isolation=True)`` refuses (ROADMAP.md, multi-host agents);
 that raise is tested, and the routing and soft-affinity dispatch are
 tested on the port's head node and an ``add_node(remote=False)`` node.
-``test_train_integration_dataset_shard`` waits for the port's trainers
-(ROADMAP.md); its data half (``streaming_split`` iterators drained in
-actors) runs here on both packages.
+``test_train_integration_dataset_shard`` runs its data half
+(``streaming_split`` iterators drained in actors) and its train half (a
+two-worker trainer over ``get_dataset_shard``) on both packages.
 
 One runtime of each package for the module (4 CPUs each); the cases that
 need their own configuration start their own. UDFs live in
 ``tests/torch_data_defs.py`` (UDFs travel by reference on the port)."""
 
 import functools
+import importlib
+import json
 import sys
 import threading
 
@@ -33,6 +35,8 @@ import numpy as np
 import pyarrow as pa
 import pytest
 import torch_data_defs as defs
+import torch_train_defs as tdefs
+from test_torch_trainer import fit as bounded_fit
 
 import ray_tpu
 import ray_tpu_torch
@@ -240,10 +244,11 @@ def test_zip_union(pkg):
     assert rows[2]["x"] == 2 and rows[2]["y"] == 20 and n == 10 and clash[1] == {"x": 1, "x_1": 1}
 
 
-def test_train_integration_dataset_shard(pkg):
-    """The data half of get_dataset_shard: two streaming_split iterators,
-    each drained by its own actor in batches of 8 (the trainers that call
-    get_dataset_shard wait for their port, ROADMAP.md)."""
+def test_train_integration_dataset_shard(pkg, tmp_path):
+    """get_dataset_shard: the data half (two streaming_split iterators,
+    each drained by its own actor in batches of 8), then the train half,
+    test_data.py's own: a two-worker DataParallelTrainer whose loop sums
+    its shard's ids (``tests/torch_train_defs.py``)."""
 
     def case(rt, rd):
         its = rd.range(40).streaming_split(2)
@@ -254,6 +259,69 @@ def test_train_integration_dataset_shard(pkg):
         return sum(t for t, _ in out), sum(r for _, r in out)
 
     assert same(pkg, case) == (sum(range(40)), 40)
+
+    def train_case(rt, rd):
+        name = rd.__name__.split(".")[0]
+        train = importlib.import_module(name + ".train")
+        out = tmp_path / name
+        out.mkdir(exist_ok=True)
+        result = bounded_fit(train.DataParallelTrainer(
+            tdefs.dataset_id_sum,
+            train_loop_config={"pkg": name, "out": str(out)},
+            scaling_config=train.ScalingConfig(num_workers=2),
+            run_config=train.RunConfig(name="d", storage_path=str(tmp_path)),
+            datasets={"train": rd.range(40)},
+        ), timeout=T)
+        assert result.error is None
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in (0, 1)]
+        return sum(r["total"] for r in ranks), sum(r["rows"] for r in ranks), result.metrics["rank"]
+
+    assert same(pkg, train_case) == (sum(range(40)), 40, 0)
+
+
+_HOLD_DRIVER = """
+import sys
+sys.path[:0] = [{tests!r}, {repo!r}]
+import numpy as np
+import ray_tpu_torch
+from ray_tpu_torch import data
+import torch_data_defs as defs
+
+if __name__ == "__main__":
+    ray_tpu_torch.init(num_cpus=4)
+    rng = np.random.default_rng(0)
+    rows = [{{"tokens": rng.integers(0, 32000, 2048).astype(np.int32),
+              "targets": rng.integers(0, 32000, 2048).astype(np.int32)}} for _ in range(48)]
+    it = data.from_items(rows, parallelism=4).streaming_split(1)[0]
+    actor = ray_tpu_torch.remote(defs.ShardSum).remote()
+    got = ray_tpu_torch.get(actor.slow_total.remote(it, 8, 1.2), timeout=120)
+    want = (sum(int(r["tokens"].astype(np.int64).sum()) for r in rows), 48)
+    print("HELD", got == want, got, want)
+    ray_tpu_torch.shutdown()
+"""
+
+
+def test_split_iterator_keeps_blocks_its_consumer_holds(tmp_path):
+    """A consumer in another process holds shm-sized blocks (4 blocks of
+    12 rows of 2 x 2048 int32, sealed in the head's store) in its prefetch
+    window for ~3.6 s (1.2 s a batch of 8: a training step), longer than
+    the split coordinator keeps the refs it handed out alive (3 s). The
+    coordinator sent each ref with its own owner hint, so the consumer's
+    borrow went to the coordinator and not to the head, which freed the
+    blocks once the coordinator let go: the consumer's get raised
+    ObjectLostError. A ref the head owns now travels without that hint
+    (``core/direct.py::mark_serialized_out``). A driver script of its own
+    (the fault shows there, not under pytest's driver)."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    path = tmp_path / "hold_driver.py"
+    path.write_text(_HOLD_DRIVER.format(tests=str(tests), repo=str(tests.parent)))
+    out = subprocess.run([sys.executable, str(path)], capture_output=True, text=True, timeout=T,
+                         cwd=str(tmp_path), env={**os.environ, "PYTHONPATH": str(tests.parent)})
+    assert out.returncode == 0 and "HELD True" in out.stdout, (out.stdout[-2000:], out.stderr[-4000:])
 
 
 def test_tensor_columns(pkg):

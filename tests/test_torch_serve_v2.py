@@ -124,8 +124,13 @@ def test_shutdown_hook_runs_on_drain(serve_both, tmp_path):
         marker = str(tmp_path / f"shutdown_{pkg.__name__}.marker")
         h = serve.run(dep(pkg, defs.WithHook).bind(marker), name="hook_app")
         first = h.remote(1).result(timeout_s=T)
+        t0 = time.time()
         serve.delete("hook_app")
+        t1 = time.time()
         ran = wait_until(lambda: os.path.exists(marker), timeout_s=15)
+        # shown with a failure: which package's leg missed the marker, and where its time went
+        print(f"{pkg.__name__}: serve.delete {t1 - t0:.3f} s, then the marker {'after' if ran else 'not within'} "
+              f"{time.time() - t1:.3f} s")
         return first, ran, open(marker).read() if ran else None
 
     assert same(case) == (1, True, "clean")

@@ -89,6 +89,19 @@ class ShardSum:
             rows += len(batch["id"])
         return total, rows
 
+    def slow_total(self, it, batch_size: int, pause_s: float):
+        """As ``total`` over a "tokens" column, pausing after each batch (a
+        training step): the refs in the iterator's prefetch window wait
+        that long before their get."""
+        import time
+
+        total, rows = 0, 0
+        for batch in it.iter_batches(batch_size=batch_size, drop_last=True):
+            total += int(batch["tokens"].astype(np.int64).sum())
+            rows += len(batch["tokens"])
+            time.sleep(pause_s)
+        return total, rows
+
 
 # ---------------------------------------------------------------- batch inference
 TINY = dict(dtype="float32", remat=False, max_seq_len=64)
