@@ -344,6 +344,50 @@ Phases, in order; any failed check exits non-zero before the last line:
    ms/step, tok/s and MFU against phase 7's, the feed's wait and share,
    restart to first resumed step, checkpoint bytes, save and commit
    seconds, and the worker's peak memory.
+7c. Tune over the trainers and the actor utilities (ray_tpu_torch.tune,
+   ray_tpu_torch.util.actor_pool), each leg on a fresh
+   ray_tpu_torch.init(num_cpus=4). (a) A Tuner over phase 7b's JaxTrainer
+   (one GPU train worker, JaxConfig(distributed="always"), 7b's batches
+   1-6, 6 steps) with param_space {"lr": grid_search([3e-4, 1e-3, 3e-3,
+   1e-2])} under ASHAScheduler(metric="loss", mode="min",
+   time_attr="step", max_t=6, grace_period=2, reduction_factor=2): four
+   trials, none in ERROR; one train worker on the card at a time (each
+   trial gang-reserves [{"CPU": 0.5}, {"CPU": 1, "GPU": 1}]; the workers'
+   windows do not overlap); each worker bound to the card (one card,
+   CUDA_VISIBLE_DEVICES '0', nccl, cuda:0) with K1/K2/K3 36/18/18 in every
+   step it ran (each worker logs its steps to a file: a trainer's reports
+   are committed only after its fit, so a trial ASHA stopped committed 2
+   or 4 steps of the 6 its worker ran, and the windows run from the first
+   step's start to the last step's report); the committed reports the
+   worker's first steps; each trial's reported lr its config's; every trial's
+   step 1 loss equal to phase 7's exactly and the 3e-4 trial's losses
+   equal to 7b fit A's exactly; a trial ASHA stopped ends at a rung (2 or
+   4); get_best_result("loss", "min") the least last loss; each worker's
+   median ms/step at most 1.10 x phase 7's. (b) A module-level function
+   trainable (card_trial) with tune.with_resources(fn, {"CPU": 1, "GPU":
+   1}) runs phase 7's step in its trial actor bound to the card,
+   checkpoints with jax_checkpoint after step 3, raises after step 4; the
+   first fit ends in ERROR, then Tuner.restore(path, fn,
+   resume_errored=True) resumes at step 4 from the step-3 checkpoint
+   restored onto the card and ends TERMINATED after step 6, its losses at
+   steps 1-6 equal (a)'s 3e-4 trial's and 7b fit A's exactly. (c) An
+   ActorPool of two engine actors (PoolEngine: phase 4's engine from seed
+   0, num_cpus=1) serves phase 4's 8 prompts through map (results in
+   submission order) and map_unordered: greedy tokens 256 of 256 equal
+   phase 4's in each; in each actor K1 = 32 per prefill forward and K4 =
+   32 per decode step, both non-zero (phase 4's counts per forward); K1
+   and K4 held against their plain versions in the first actor at the
+   shapes a call runs (each prompt alone: a B=1 prefill at its bucket, one
+   decode lane bounded by its length). After
+   each leg no actor alive, the workers gone and the card's memory back;
+   after each leg's shutdown no worker, no rt segment, no trial staging
+   root; at the end every checkpoint byte removed. Prints each leg's wall,
+   per trial ms/step, tok/s, MFU, the time from fit() to its first step
+   and its peak memory, ASHA's early stops, the wall outside the
+   workers' init and steps per report (split into the trials' starts, the
+   last steps to the last commits, and the rest), the checkpoint's save,
+   staging and commit seconds, the restore
+   and the restart to the first resumed step.
 8. The training path, card against host: the same widths at 2 layers in
    f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
    gradients must agree.
@@ -372,6 +416,7 @@ import numpy as np
 from ray_tpu_torch import remote
 from ray_tpu_torch.llm import LLMEngine
 from ray_tpu_torch.serve.llm import DecodeServer, KVPlaneServer, LLMServer, OpenAIServer, PrefillServer
+from ray_tpu_torch.tune.callbacks import Callback
 
 # the card's published peaks (H100 SXM data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -412,6 +457,10 @@ TRAIN_WORKER_STEPS = 12  # phase 7b: batches in the dataset, steps of each fit
 TRAIN_WORKER_GATE = 1.10  # phase 7b: the worker's median ms/step over phase 7's in-process ms/step
 TRAIN_CKPT_STEP, TRAIN_FAIL_STEP = 4, 6  # phase 7b fit B: checkpoint after step 4, injected failure after step 6
 TRAIN_RESUME_TOL = 2e-3  # phase 7b: |resumed loss - fit A's| at steps 5-12 (bf16 loss ~10.4; the same kernels)
+TUNE_STEPS = 6  # phase 7c: steps of each trial (phase 7b's batches 1-6)
+TUNE_LRS = (3e-4, 1e-3, 3e-3, 1e-2)  # phase 7c (a): the grid; 3e-4 is phase 7's learning rate
+TUNE_RUNGS = (2, 4)  # phase 7c (a): ASHA's rungs (grace period 2, reduction factor 2, max_t 6)
+TUNE_SAVE_STEP, TUNE_FAIL_STEP = 3, 4  # phase 7c (b): checkpoint after step 3, injected failure after step 4
 
 
 class SmokeFailure(RuntimeError):
@@ -1310,6 +1359,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("7b")
+    # ---------------------------------------------------------------- 7c
+    # Tune over the trainers (a Tuner over JaxTrainer under ASHA, a GPU trial actor and Tuner.restore), an ActorPool
+    tun = tune_on_card(torch, cfg7, data, first_loss, step_s, trn["A"]["losses"], cfg, prompts, gr, drv_checksum, card)
+    torch.cuda.empty_cache()
+
+    mark("7c")
     # ---------------------------------------------------------------- 8
     cfg8 = dataclasses.replace(cfg7, num_layers=2, dtype="float32")
     p0 = init_params(cfg8, torch.Generator(device=dev).manual_seed(2))
@@ -1506,6 +1561,31 @@ def main() -> int:
               (3, "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "ray_tpu/ops/flash_attention.py:192", "k23",
                "dkv_ms", "dkv_", "sdpa_bwd_ms", max(trn["A"]["hold"]["k23"]["errs"]["dk"][0],
                                                   trn["A"]["hold"]["k23"]["errs"]["dv"][0])))),
+        *(dict(name=f"K{k} {fn} tune trials (phase 7c (a)'s GPU train workers and (b)'s GPU trial actor, every "
+                    f"step they ran; held and timed in phase 7b's train worker at {trn['A']['hold'][hk]['shape']} bf16 causal)",
+               route="cuda", source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=tun["launches"][k - 1],
+               max_abs_err=err, ms=trn["A"]["hold"][hk][ms], plain_ms=trn["A"]["hold"][hk]["plain_ms"],
+               bound_ms=trn["A"]["hold"][hk][f"{b}bound_ms"], bound_by=trn["A"]["hold"][hk][f"{b}bound_by"],
+               library_ms=trn["A"]["hold"][hk][lib])
+          for k, fn, src, rep, hk, ms, b, lib, err in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "k1", "ms", "",
+               "sdpa_ms", trn["A"]["hold"]["k1"]["err_o"]),
+              (2, "flash_attention_bwd_dq", "flash_attention_bwd.cu", "ray_tpu/ops/flash_attention.py:154", "k23",
+               "dq_ms", "dq_", "sdpa_bwd_ms", trn["A"]["hold"]["k23"]["errs"]["dq"][0]),
+              (3, "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "ray_tpu/ops/flash_attention.py:192", "k23",
+               "dkv_ms", "dkv_", "sdpa_bwd_ms", max(trn["A"]["hold"]["k23"]["errs"]["dk"][0],
+                                                  trn["A"]["hold"]["k23"]["errs"]["dv"][0])))),
+        *(dict(name=f"K{k} {fn} ActorPool engine actors {what} (phase 7c (c), both actors' workers, one prompt a "
+                    f"call; held in the first at each prompt's shape {tun['c']['held'][f'k{k}']['shapes']}, timed at "
+                    f"the longest prompt's {tun['c']['held'][f'k{k}']['shape']})", route="cuda",
+               source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=tun["c"][f"k{k}"],
+               max_abs_err=tun["c"]["held"][f"k{k}"]["err_o" if k == 1 else "err"],
+               ms=tun["c"]["held"][f"k{k}"]["ms"], plain_ms=tun["c"]["held"][f"k{k}"]["plain_ms"],
+               bound_ms=tun["c"]["held"][f"k{k}"]["bound_ms"], bound_by=tun["c"]["held"][f"k{k}"]["bound_by"],
+               library_ms=tun["c"]["held"]["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep, what in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "prefill"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134", "decode"))),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -4233,38 +4313,42 @@ def hold_train_kernels(B: int, H: int, HKV: int, T: int, D: int) -> dict:
     return dict(k1=k1, k23=k23)
 
 
-def train_worker_loop(config: dict):
-    """Phase 7b's train loop, run by the train worker: phase 7's model and
-    optimizer on the worker's card (make_train_step's device=None), fed by
-    the worker's dataset shard. Resumes from the committed checkpoint when
-    there is one (skipping the batches it consumed); each step reports its
-    loss, the step's CUDA-event time, the wait on the iterator and its
-    K1/K2/K3 launches. ``config``: the model config, steps, the step to
-    checkpoint at and the step to fail after (0: never), the phase's
-    scratch directory and failure marker, and whether to hold the kernels
-    after the last step."""
+def card_steps(config: dict, ckpt, batches, report, first: dict):
+    """The body that phase 7b's train loop and phase 7c (b)'s trainable
+    share: phase 7's model and optimizer at ``config["lr"]`` (phase 7's
+    3e-4 by default) on this process's card, restored from ``ckpt`` when
+    there is one (skipping the batches of ``batches``, an iterator of host
+    batches from batch 0, that it consumed), stepped to ``config["steps"]``.
+    Each step's metrics: loss, grad norm, the optimizer's learning rate,
+    the CUDA-event step time, the wait on the iterator, K1/K2/K3 launches,
+    the batch's key, the peak allocation, and on the first step ``first``,
+    the loop's start and the init (or restore) time. A checkpoint of
+    parameters, AdamW state and step (``jax_checkpoint.save_pytree``) after
+    step ``save_at``; the kernels held after the last step when ``hold``.
+    ``report(metrics, checkpoint)`` returns metrics for the next step's
+    report. With ``config["log"]`` each step's metrics also go, before the
+    report, to a JSON line in ``steps_<pid>.jsonl`` there: a Tune trial
+    commits a trainer's reports only after its fit, and a stopped trial's
+    last steps only there. After step ``fail_at`` (0: never), while the
+    marker file is missing, it writes the marker and raises."""
     from functools import partial
 
     import torch
-    import torch.distributed as dist
 
-    from ray_tpu_torch import train
     from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
     from ray_tpu_torch.ops.flash_attention import flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd
     from ray_tpu_torch.parallel.train_step import adamw, make_train_step, to_device
-    from ray_tpu_torch.train import jax_checkpoint
+    from ray_tpu_torch.train import Checkpoint, jax_checkpoint
 
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
     cfg = LlamaConfig(**config["cfg"])
-    first = dict(visible=os.environ.get("CUDA_VISIBLE_DEVICES"), count=torch.cuda.device_count(),
-                 device=str(train.torch.get_device()), backend=dist.get_backend() if dist.is_initialized() else None,
+    first = dict(first, visible=os.environ.get("CUDA_VISIBLE_DEVICES"), count=torch.cuda.device_count(),
                  t_start=t_start)
-    init_fn, step_fn = make_train_step(partial(loss_fn, config=cfg), adamw(3e-4, weight_decay=0.01))
+    init_fn, step_fn = make_train_step(partial(loss_fn, config=cfg), adamw(config.get("lr", 3e-4), weight_decay=0.01))
     t0 = time.perf_counter()
-    ckpt = train.get_checkpoint()
     if ckpt is None:
         state = init_fn(0, partial(init_params, cfg))
     else:
@@ -4276,10 +4360,11 @@ def train_worker_loop(config: dict):
     torch.cuda.synchronize()
     first.update(init_s=time.perf_counter() - t0, resumed_at=state.step)
     torch.cuda.reset_peak_memory_stats()
-    batches = iter(train.get_dataset_shard("train").iter_torch_batches(batch_size=8, drop_last=True))
     for _ in range(state.step):
         next(batches)  # consumed before the checkpoint
+    log = config.get("log") and os.path.join(config["log"], f"steps_{os.getpid()}.jsonl")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    carried = {}
     while state.step < config["steps"]:
         t_iter = time.perf_counter()
         host = next(batches)
@@ -4291,28 +4376,53 @@ def train_worker_loop(config: dict):
         ev[1].record()
         torch.cuda.synchronize()
         metrics = dict(step=state.step, loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
-                       step_ms=ev[0].elapsed_time(ev[1]), wait_s=wait_s, pid=os.getpid(),
-                       launches=[k.launches - b for k, b in zip(kernels, before)],
-                       key=int(host["tokens"][:, :8].long().sum()), peak=torch.cuda.max_memory_allocated(), **first)
+                       lr=state.opt_state.param_groups[0]["lr"], step_ms=ev[0].elapsed_time(ev[1]), wait_s=wait_s,
+                       pid=os.getpid(), launches=[k.launches - b for k, b in zip(kernels, before)],
+                       key=int(torch.as_tensor(host["tokens"])[:, :8].long().sum()),
+                       peak=torch.cuda.max_memory_allocated(), **first, **carried)
         first = {}
         checkpoint = None
-        if state.step == config["save_at"]:
-            d = os.path.join(config["tmp"], f"worker_step{state.step}_{os.getpid()}")
+        if state.step == config.get("save_at"):
+            d = os.path.join(config["tmp"], f"step{state.step}_{os.getpid()}")
             t0 = time.perf_counter()
             jax_checkpoint.save_pytree(d, {"params": state.params, "opt": state.opt_state.state_dict(),
                                            "step": state.step})
             metrics.update(save_s=time.perf_counter() - t0, ckpt_bytes=os.path.getsize(os.path.join(d, "state")))
-            checkpoint = train.Checkpoint.from_directory(d)
-        if state.step == config["steps"] and config["hold"]:
+            checkpoint = Checkpoint.from_directory(d)
+        if state.step == config["steps"] and config.get("hold"):
             del batch, m
             metrics["hold"] = hold_train_kernels(*host["tokens"].shape[:1], cfg.num_heads, cfg.num_kv_heads,
                                                  host["tokens"].shape[1], cfg.hd)
         metrics.update(iter_s=time.perf_counter() - t_iter, t_report=time.time())
-        train.report(metrics, checkpoint=checkpoint)
-        if state.step == config["fail_at"] and not os.path.exists(config["marker"]):
+        if log:
+            with open(log, "a") as f:
+                f.write(json.dumps(metrics) + "\n")
+        carried = report(metrics, checkpoint)
+        if state.step == config.get("fail_at") and not os.path.exists(config["marker"]):
             with open(config["marker"], "w") as f:
                 f.write(repr(time.time()))
-            raise RuntimeError(f"phase 7b: the injected failure after step {state.step}")
+            raise RuntimeError(f"the injected failure after step {state.step}")
+
+
+def train_worker_loop(config: dict):
+    """Phase 7b's train loop, run by the train worker: ``card_steps`` on
+    the worker's dataset shard, reporting through ``train.report``.
+    ``config``: the model config, steps, the learning rate (a Tune trial's,
+    phase 7c), the step to checkpoint at and the step to fail after (0:
+    never), the phase's scratch directory and failure marker, whether to
+    hold the kernels after the last step, and where to log each step."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+
+    first = dict(device=str(train.torch.get_device()), backend=dist.get_backend() if dist.is_initialized() else None)
+    batches = iter(train.get_dataset_shard("train").iter_torch_batches(batch_size=8, drop_last=True))
+
+    def report(metrics, checkpoint):
+        train.report(metrics, checkpoint=checkpoint)
+        return {}
+
+    card_steps(config, train.get_checkpoint(), batches, report, first)
 
 
 def train_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, card) -> dict:
@@ -4335,11 +4445,7 @@ def train_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, card) -> dict:
     L, steps = cfg7.num_layers, TRAIN_WORKER_STEPS
     Bt, Tt = data7["tokens"].shape
     want_launches = [2 * L, L, L]
-    batches = [data7]
-    for seed in range(1, steps):
-        r = np.random.default_rng(seed)
-        batches.append({"tokens": r.integers(0, cfg7.vocab_size, (Bt, Tt)).astype(np.int32),
-                        "targets": r.integers(0, cfg7.vocab_size, (Bt, Tt)).astype(np.int32)})
+    batches = [data7] + [seeded_batch(cfg7.vocab_size, Bt, Tt, i) for i in range(1, steps)]
     keys = [int(b["tokens"][:, :8].astype(np.int64).sum()) for b in batches]
     rows = [{"tokens": b["tokens"][i], "targets": b["targets"][i]} for b in batches for i in range(Bt)]
     del batches
@@ -4502,6 +4608,439 @@ def train_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, card) -> dict:
     out["launches"] = [x + y for x, y in zip(out["A"]["launches"], out["B"]["launches"])]
     print(f"phase 7b end: no worker, no rt segment, the checkpoints' directory removed, the card's memory in use "
           f"{used1} bytes vs {used0} before; phase 7b {time.perf_counter() - t_phase:.1f} s {card}")
+    return out
+
+
+
+# ---------------------------------------------------------------- phase 7c: Tune over the trainers, the actor utilities
+def seeded_batch(vocab: int, B: int, T: int, i: int) -> dict:
+    """Batch ``i`` (from 0) of phases 7b and 7c: tokens, then targets, drawn
+    from ``default_rng(i)``; batch 0 is phase 7's."""
+    r = np.random.default_rng(i)
+    return {"tokens": r.integers(0, vocab, (B, T)).astype(np.int32),
+            "targets": r.integers(0, vocab, (B, T)).astype(np.int32)}
+
+
+class CommitTimes(Callback):
+    """A Tune callback in the driver: when the controller committed each
+    result (after its checkpoint's copy into the run directory)."""
+
+    def __init__(self):
+        self.rows: list = []
+
+    def log_trial_result(self, trial, result: dict):
+        self.rows.append((trial.trial_id, result.get("step"), time.time()))
+
+
+def card_trial(config: dict):
+    """Phase 7c (b)'s trainable, run in a trial actor bound to the card:
+    ``card_steps`` on batches 1-6 (``seeded_batch``), reporting through
+    ``tune.report``. The report stages a copy of the step's checkpoint
+    before it returns; the trainable then removes its own and reports the
+    staging time with the next step."""
+    import itertools
+    import shutil
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    vocab = LlamaConfig(**config["cfg"]).vocab_size
+    B, T = config["batch"]
+
+    def report(metrics, checkpoint):
+        t0 = time.perf_counter()
+        tune.report(metrics, checkpoint=checkpoint)
+        if checkpoint is None:
+            return {}
+        stage_s = time.perf_counter() - t0
+        shutil.rmtree(checkpoint.path)  # the staged copy is the trial's now
+        return dict(stage_s=stage_s)
+
+    card_steps(config, tune.get_checkpoint(), (seeded_batch(vocab, B, T, i) for i in itertools.count()), report, {})
+
+
+@remote(num_cpus=1)
+class PoolEngine:
+    """Phase 7c (c)'s actor: phase 4's engine (phase 4's weights rebuilt from
+    seed 0 on the card, phase 4i's engine settings) in this worker, its K1
+    and K4 counters zeroed once it is built. ``generate`` serves one
+    (index, prompt) item of an ActorPool's map, 32 greedy tokens."""
+
+    def __init__(self, spec: dict):
+        import torch
+
+        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+        from ray_tpu_torch.models.llama import LlamaConfig, init_params
+        from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+        t0 = time.perf_counter()
+        cfg = LlamaConfig(**spec["config"])
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        self.checksum = weights_checksum(params)
+        self.eng = LLMEngine(cfg, params, telemetry_tags={"model": f"phase 7c actor {os.getpid()}"},
+                             **SERVE_ENGINE_KWARGS)
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+        self.base = (self.eng.prefill_forwards, self.eng.decode_steps)
+
+    def generate(self, item) -> dict:
+        from ray_tpu_torch.llm import SamplingParams
+
+        i, prompt = item
+        (out,) = self.eng.generate([prompt], SamplingParams(max_tokens=32))
+        return dict(i=i, pid=os.getpid(), tokens=list(out.token_ids), reason=out.finish_reason)
+
+    def counts(self) -> dict:
+        import torch
+
+        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+        from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+        return dict(pid=os.getpid(), visible=os.environ.get("CUDA_VISIBLE_DEVICES"), checksum=self.checksum,
+                    init_s=self.init_s, device=str(self.eng.device), k1=flash_attention_fwd.launches,
+                    k4=paged_attn_partials.launches, prefill_forwards=self.eng.prefill_forwards - self.base[0],
+                    decode_steps=self.eng.decode_steps - self.base[1], peak=torch.cuda.max_memory_allocated())
+
+    def check_kernels(self, lens) -> dict:
+        """K1 and K4 held at the shapes ``generate`` runs them: each prompt
+        alone, a B=1 prefill at its bucket and one decode lane bounded by
+        its length (``hold_kernels``). Each kernel's row is the longest
+        prompt's, with the largest errors of all, ``ok`` if every hold
+        passed, and every shape held."""
+        holds = [hold_kernels(self.eng, [n]) for n in lens]
+        longest = holds[int(np.argmax(lens))]
+        out = {}
+        for k, errs in (("k1", ("err_o", "err_lse")), ("k4", ("err", "rel"))):
+            rows = [h[k] for h in holds]
+            out[k] = dict(longest[k], ok=all(r["ok"] for r in rows), shapes=sorted({r["shape"] for r in rows}),
+                          **{e: max(r[e] for r in rows) for e in errs})
+        return out
+
+
+def tune_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, fit_a_losses, cfg, prompts, serve_run, drv_checksum,
+                 card) -> dict:
+    """Phase 7c: Tune over the port's trainers on the card, then the actor
+    utilities. (a) A Tuner over JaxTrainer (one GPU train worker, phase 7's
+    step on 7b's batches 1-6) with a grid of four learning rates under
+    ASHA; (b) a function trainable in a trial actor bound to the card that
+    checkpoints, fails, and resumes through ``Tuner.restore``; (c) an
+    ActorPool of two engine actors serving phase 4's prompts. Each leg runs
+    on a fresh runtime and ends with no actor alive, no worker, no rt
+    segment, the staging root gone and the card's memory as before; every
+    checkpoint byte is removed at the end. Every leg is gated (module
+    docstring)."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import data, train, tune
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.models.llama import flops_per_token
+    from ray_tpu_torch.ops.flash_attention import flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd
+    from ray_tpu_torch.tune.tune_controller import _stage_root
+    from ray_tpu_torch.util.actor_pool import ActorPool
+
+    L, steps = cfg7.num_layers, TUNE_STEPS
+    Bt, Tt = data7["tokens"].shape
+    want_launches = [2 * L, L, L]
+    batches = [seeded_batch(cfg7.vocab_size, Bt, Tt, i) for i in range(steps)]
+    check(all(np.array_equal(batches[0][k], data7[k]) for k in data7), "phase 7c: batch 1 is not phase 7's batch")
+    keys = [int(b["tokens"][:, :8].astype(np.int64).sum()) for b in batches]
+    rows = [{"tokens": b["tokens"][i], "targets": b["targets"][i]} for b in batches for i in range(Bt)]
+    del batches
+    drv_kernels = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv, paged_attn_partials)
+    drv_counts = [k.launches for k in drv_kernels]
+    tmp = tempfile.mkdtemp(prefix="rt7c_")
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    t_phase = time.perf_counter()
+    out = {}
+    tok_step = Bt * Tt
+
+    def settle(label, pids):
+        """After a leg's work: every actor of the runtime dead, ``pids``
+        gone and the card's memory back, within DATA_RELEASE_S."""
+        client = context.get_client()
+        t_end = time.perf_counter()
+
+        def held():
+            live = [a for a in list(client.actors.values()) if a.info.state != "DEAD"]
+            return live or any(worker_alive(p) for p in pids) or card_used(torch) > used0 + RUNTIME_MEM_SLACK
+
+        while held() and time.perf_counter() - t_end < DATA_RELEASE_S:
+            time.sleep(0.05)
+        check(not held(), f"phase 7c {label}: {DATA_RELEASE_S} s after the leg actors alive "
+                          f"{[a.info.creation_spec.desc() for a in client.actors.values() if a.info.state != 'DEAD']}, "
+                          f"workers "
+                          f"{[p for p in pids if worker_alive(p)]}, the card's memory in use {card_used(torch)} vs "
+                          f"{used0} before 7c")
+        return time.perf_counter() - t_end
+
+    def end_leg(label):
+        """Shut the leg's runtime down: no worker, no rt segment, no staging root."""
+        client = context.get_client()
+        pids = [p for node in client.nodes.values() for p in node.worker_pids]
+        stage = _stage_root()
+        rtt.shutdown()
+        alive = [p for p in pids if worker_alive(p)]
+        check(not alive, f"phase 7c {label}: worker processes left after shutdown: {alive}")
+        left = rt_segments()
+        check(not left, f"phase 7c {label}: /dev/shm still holds {left}")
+        check(not os.path.exists(stage), f"phase 7c {label}: the trial staging root {stage} is still there")
+        check([k.launches for k in drv_kernels] == drv_counts, f"phase 7c {label}: the driver's K1-K4 counts moved")
+
+    try:
+        # ---- (a): a Tuner over JaxTrainer, one GPU train worker per trial, ASHA over four learning rates
+        rtt.init(num_cpus=4)
+        logs = os.path.join(tmp, "steps_a")
+        os.makedirs(logs)
+        trainer = train.JaxTrainer(
+            train_worker_loop,
+            train_loop_config=dict(cfg=dataclasses.asdict(cfg7), steps=steps, save_at=0, fail_at=0, tmp=tmp,
+                                   marker=os.path.join(tmp, "unused"), hold=False, log=logs),
+            scaling_config=train.ScalingConfig(num_workers=1, resources_per_worker={"CPU": 1, "GPU": 1}),
+            run_config=train.RunConfig(name="inner_a", storage_path=tmp),
+            backend_config=train.backend.JaxConfig(distributed="always"),
+            datasets={"train": data.from_items(rows)})
+        sched = tune.ASHAScheduler(metric="loss", mode="min", time_attr="step", max_t=steps, grace_period=2,
+                                   reduction_factor=2)
+        commits_a = CommitTimes()
+        t0 = time.time()
+        grid = tune.Tuner(trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+                          tune_config=tune.TuneConfig(metric="loss", mode="min", scheduler=sched),
+                          run_config=train.RunConfig(name="tune_a", storage_path=tmp, callbacks=[commits_a])).fit()
+        wall = time.time() - t0
+        trials = grid._trials
+        check(len(trials) == len(TUNE_LRS) and not any(t.status == "ERROR" for t in trials),
+              f"phase 7c (a): trials {[(t.config.get('lr'), t.status, t.error) for t in trials]}")
+        ran = {}  # every step each train worker ran, committed or not: lr -> its log
+        for name in sorted(os.listdir(logs)):
+            with open(os.path.join(logs, name)) as f:
+                lines = [json.loads(x) for x in f]
+            check(len({m["lr"] for m in lines}) == 1 and lines[0]["lr"] not in ran,
+                  f"phase 7c (a): {name} holds steps of lrs {[m['lr'] for m in lines]}, or a second worker's")
+            ran[lines[0]["lr"]] = lines
+        check(sorted(ran) == sorted(TUNE_LRS), f"phase 7c (a): train workers ran lrs {sorted(ran)}, not {TUNE_LRS}")
+        pids = sorted({m["pid"] for h in ran.values() for m in h})
+        release_s = settle("(a)", pids)
+        per = {}
+        for t in trials:
+            lr, h, log = t.config["lr"], t.metrics_history, ran[t.config["lr"]]
+            h0 = log[0]
+            st = [m["step"] for m in h]
+            check([m["step"] for m in log] == list(range(1, steps + 1)),
+                  f"phase 7c (a) lr {lr}: the train worker ran steps {[m['step'] for m in log]}")
+            check(st == list(range(1, len(st) + 1)), f"phase 7c (a) lr {lr}: steps committed {st}")
+            check(all(m[k] == w[k] for m, w in zip(h, log) for k in ("step", "loss", "pid", "key", "t_report")),
+                  f"phase 7c (a) lr {lr}: the committed reports are not the worker's first {len(h)} steps")
+            check(len({m["pid"] for m in log}) == 1, f"phase 7c (a) lr {lr}: more than one train worker: {log}")
+            check(h0["count"] == 1 and h0["visible"] == "0" and h0["backend"] == "nccl" and h0["device"] == "cuda:0",
+                  f"phase 7c (a) lr {lr}: the worker sees {h0['count']} cards, CUDA_VISIBLE_DEVICES "
+                  f"{h0['visible']!r}, backend {h0['backend']!r}, get_device() {h0['device']!r}")
+            for m in log:
+                check(m["launches"] == want_launches, f"phase 7c (a) lr {lr} step {m['step']}: K1/K2/K3 launches "
+                                                      f"{m['launches']}, not {want_launches}")
+                check(m["key"] == keys[m["step"] - 1], f"phase 7c (a) lr {lr} step {m['step']}: not batch "
+                                                       f"{m['step']}")
+                check(m["lr"] == lr, f"phase 7c (a): the trial of lr {lr} reported lr {m['lr']} at step {m['step']}")
+            check(h0["loss"] == ref_first_loss, f"phase 7c (a) lr {lr}: step 1's loss {h0['loss']!r} != phase 7's "
+                                                f"{ref_first_loss!r}")
+            if st[-1] < steps:
+                check(st[-1] in TUNE_RUNGS, f"phase 7c (a) lr {lr}: ASHA stopped it after step {st[-1]}, not at a "
+                                            f"rung {TUNE_RUNGS}")
+            step_ms = statistics.median(m["step_ms"] for m in log[1:])
+            check(step_ms / (ref_step_s * 1e3) <= TRAIN_WORKER_GATE,
+                  f"phase 7c (a) lr {lr}: the worker's median {step_ms:.2f} ms/step is "
+                  f"{step_ms / (ref_step_s * 1e3):.4f} x phase 7's {ref_step_s * 1e3:.2f} (gate {TRAIN_WORKER_GATE})")
+            tok_s = tok_step / (step_ms / 1e3)
+            last_commit = max(c for tid, _, c in commits_a.rows if tid == t.trial_id)
+            per[lr] = dict(steps=st[-1], step_ms=step_ms, tok_s=tok_s, mfu=flops_per_token(cfg7, Tt) * tok_s / BF16_FLOPS,
+                           pending_s=h0["t_report"] - t0, init_s=h0["init_s"], peak=max(m["peak"] for m in log),
+                           window=(h0["t_start"], log[-1]["t_report"]), losses=[m["loss"] for m in h], pid=h0["pid"],
+                           steps_s=sum(m["iter_s"] for m in log), first_iter_s=h0["iter_s"],
+                           end_s=last_commit - log[-1]["t_report"],
+                           last_commit=last_commit)
+        want_a = [m["loss"] for m in ran[TUNE_LRS[0]]]
+        check(want_a == fit_a_losses[:steps], f"phase 7c (a): the 3e-4 trial's losses {want_a} != phase 7b fit "
+                                              f"A's {fit_a_losses[:steps]}")
+        order = sorted(per, key=lambda lr: per[lr]["window"])
+        windows = [per[lr]["window"] for lr in order]
+        check(all(a[1] <= b[0] for a, b in zip(windows, windows[1:])), f"phase 7c (a): the train workers' windows "
+                                                                        f"(first step's start, last step's report) "
+                                                                        f"overlap: {windows}")
+        # each trial's start: from fit() or the previous trial's last commit to its loop's start (the trial's
+        # gang admitted, its trial actor started, the inner fit's worker group, train worker fork, nccl group
+        # and dataset split)
+        for prev, lr in zip([None, *order], order):
+            per[lr]["start_s"] = per[lr]["window"][0] - (t0 if prev is None else per[prev]["last_commit"])
+        best = grid.get_best_result("loss", "min")
+        lasts = {t.config["lr"]: t.last_result["loss"] for t in trials}
+        check(best.metrics["loss"] == min(lasts.values()) and best.config["lr"] == min(lasts, key=lasts.get),
+              f"phase 7c (a): get_best_result gave lr {best.config['lr']} loss {best.metrics['loss']}, last losses "
+              f"{lasts}")
+        reports = sum(len(t.metrics_history) for t in trials)
+        split = {k: sum(p[k] for p in per.values()) for k in ("start_s", "init_s", "steps_s", "end_s")}
+        outside = wall - split["init_s"] - split["steps_s"]
+        stopped = {lr: p["steps"] for lr, p in per.items() if p["steps"] < steps}
+        out["a"] = dict(per=per, wall=wall, outside_s=outside, per_report_s=outside / reports, split=split,
+                        rest_s=outside - split["start_s"] - split["end_s"], release_s=release_s, stopped=stopped,
+                        launches=[sum(m["launches"][i] for h in ran.values() for m in h) for i in range(3)],
+                        best=best.config["lr"], order=order)
+        for lr in order:
+            p = per[lr]
+            print(f"phase 7c (a) trial lr {lr} (train worker pid {p['pid']}, CUDA_VISIBLE_DEVICES '0', nccl, "
+                  f"cuda:0): ran {steps} steps, committed {p['steps']}, losses committed "
+                  f"{[round(x, 4) for x in p['losses']]}, median {p['step_ms']:.2f} ms/step "
+                  f"({p['step_ms'] / (ref_step_s * 1e3):.4f} x phase 7's), {p['tok_s']:.1f} tok/s, MFU {p['mfu']:.4f}, "
+                  f"start {p['start_s']:.3f} s, init {p['init_s']:.3f} s, steps {p['steps_s']:.3f} s (step 1 "
+                  f"{p['first_iter_s']:.3f} s), last step to "
+                  f"last commit {p['end_s']:.3f} s, fit() to first step reported {p['pending_s']:.3f} s, peak "
+                  f"allocated {p['peak']} bytes {card}")
+        print(f"phase 7c (a) Tuner(JaxTrainer) over lr {list(TUNE_LRS)} with ASHA(grace 2, rf 2, max_t {steps}): "
+              f"4 trials, none in ERROR, one train worker at a time on the card (order {order}); stopped early "
+              f"{len(stopped)} ({stopped}: their committed reports; each worker ran all {steps} steps, since the "
+              f"trainer reports once its fit returns); the 3e-4 trial's losses equal phase 7b fit A's; best lr "
+              f"{best.config['lr']}; K1/K2/K3 36/18/18 in every step; wall {wall:.3f} s: workers' init "
+              f"{split['init_s']:.3f} s, steps {split['steps_s']:.3f} s, the rest {outside:.3f} s "
+              f"({outside / reports:.3f} s a report over {reports} reports): trial starts {split['start_s']:.3f} s, "
+              f"last steps to last commits {split['end_s']:.3f} s, other {out['a']['rest_s']:.3f} s; actors gone "
+              f"and the card's memory back {release_s:.3f} s after fit() {card}")
+        end_leg("(a)")
+
+        # ---- (b): a GPU trial actor checkpoints, fails, and resumes through Tuner.restore
+        rtt.init(num_cpus=4)
+        marker = os.path.join(tmp, "b_fixed")
+        commits = CommitTimes()
+        fn = tune.with_resources(card_trial, {"CPU": 1, "GPU": 1})
+        space = dict(lr=TUNE_LRS[0], cfg=dataclasses.asdict(cfg7), batch=(Bt, Tt), steps=steps,
+                     save_at=TUNE_SAVE_STEP, fail_at=TUNE_FAIL_STEP, tmp=tmp, marker=marker)
+        t0 = time.time()
+        g1 = tune.Tuner(fn, param_space=space, tune_config=tune.TuneConfig(metric="loss", mode="min"),
+                        run_config=train.RunConfig(name="tune_b", storage_path=tmp, callbacks=[commits])).fit()
+        wall1 = time.time() - t0
+        (t1,) = g1._trials
+        h1 = t1.metrics_history
+        check(t1.status == "ERROR" and [m["step"] for m in h1] == list(range(1, TUNE_FAIL_STEP + 1)),
+              f"phase 7c (b): the first fit's trial {t1.status}, steps {[m['step'] for m in h1]}, error {t1.error}")
+        settle("(b) first fit", [h1[0]["pid"]])
+        path = os.path.join(tmp, "tune_b")
+        check(tune.Tuner.can_restore(path), f"phase 7c (b): Tuner.can_restore({path!r}) is false")
+        with open(marker, "w") as f:
+            f.write("fixed")
+        t_restore = time.time()
+        g2 = tune.Tuner.restore(path, fn, resume_errored=True,
+                                run_config=train.RunConfig(callbacks=[commits])).fit()
+        wall2 = time.time() - t_restore
+        (t2,) = g2._trials
+        h2 = t2.metrics_history[len(h1):]
+        resumed = [m["step"] for m in h2]
+        check(t2.status == "TERMINATED" and resumed == list(range(TUNE_SAVE_STEP + 1, steps + 1)),
+              f"phase 7c (b): the restored trial {t2.status}, steps after the restore {resumed}, error {t2.error}")
+        check(h2[0]["resumed_at"] == TUNE_SAVE_STEP, f"phase 7c (b): resumed at {h2[0]['resumed_at']}")
+        release_b = settle("(b)", [h1[0]["pid"], h2[0]["pid"]])
+        for m0 in (h1[0], h2[0]):
+            check(m0["count"] == 1 and m0["visible"] == "0", f"phase 7c (b): the trial actor sees {m0['count']} "
+                                                             f"cards, CUDA_VISIBLE_DEVICES {m0['visible']!r}")
+        for m in h1 + h2:
+            check(m["launches"] == want_launches and m["lr"] == TUNE_LRS[0],
+                  f"phase 7c (b) step {m['step']}: launches {m['launches']}, lr {m['lr']}")
+        got = [m["loss"] for m in h1[:TUNE_SAVE_STEP] + h2]
+        check(got == fit_a_losses[:steps], f"phase 7c (b): losses {got} (steps 1-{TUNE_SAVE_STEP}, then the resumed "
+                                           f"{TUNE_SAVE_STEP + 1}-{steps}) != (a)'s 3e-4 trial's and 7b fit A's "
+                                           f"{fit_a_losses[:steps]}")
+        saved = h1[TUNE_SAVE_STEP - 1]
+        commit_t = next(t for _, s_, t in commits.rows if s_ == TUNE_SAVE_STEP)
+        stage_s = h1[TUNE_SAVE_STEP]["stage_s"]
+        out["b"] = dict(save_s=saved["save_s"], stage_s=stage_s, commit_s=commit_t - saved["t_report"] - stage_s,
+                        ckpt_bytes=saved["ckpt_bytes"], restore_s=h2[0]["init_s"], restart_s=h2[0]["t_report"] - t_restore,
+                        wall=(wall1, wall2), release_s=release_b, peak=max(m["peak"] for m in h1 + h2),
+                        launches=[sum(m["launches"][i] for m in h1 + h2) for i in range(3)])
+        print(f"phase 7c (b) a function trainable in a trial actor bound to the card (with_resources {{'CPU': 1, "
+              f"'GPU': 1}}, pids {h1[0]['pid']} then {h2[0]['pid']}, CUDA_VISIBLE_DEVICES '0'): checkpoint after step "
+              f"{TUNE_SAVE_STEP} ({saved['ckpt_bytes']} bytes: save_pytree {saved['save_s']:.3f} s, the trial actor's "
+              f"staging copy {stage_s:.3f} s, report to the controller's commit {out['b']['commit_s']:.3f} s more), the "
+              f"injected failure after step {TUNE_FAIL_STEP}: the first fit ERROR in {wall1:.2f} s; Tuner.restore("
+              f"resume_errored=True): the restored trial restored the checkpoint onto the card in "
+              f"{h2[0]['init_s']:.3f} s, resumed at step {TUNE_SAVE_STEP + 1}, TERMINATED after step {steps} in "
+              f"{wall2:.2f} s; restore() to the first resumed step's report {out['b']['restart_s']:.3f} s; losses "
+              f"at steps 1-{steps} equal (a)'s 3e-4 trial's and 7b fit A's exactly; peak allocated {out['b']['peak']} "
+              f"bytes; the card's memory back {release_b:.3f} s after fit() {card}")
+        end_leg("(b)")
+        shutil.rmtree(tmp)
+        check(not os.path.exists(tmp), f"phase 7c: the checkpoints' directory {tmp} is still there")
+
+        # ---- (c): an ActorPool of two engine actors serving phase 4's prompts
+        rtt.init(num_cpus=4)
+        ref = serve_run["tokens"]
+        spec = dict(config=dataclasses.asdict(cfg))
+        t0 = time.perf_counter()
+        actors = [PoolEngine.remote(spec) for _ in range(2)]
+        pool = ActorPool(actors)
+        items = list(enumerate(prompts))
+        ordered = list(pool.map(lambda a, v: a.generate.remote(v), items))
+        t1 = time.perf_counter()
+        unordered = list(pool.map_unordered(lambda a, v: a.generate.remote(v), items))
+        t2 = time.perf_counter()
+        counts = rtt.get([a.counts.remote() for a in actors])
+        held = rtt.get(actors[0].check_kernels.remote([len(p) for p in prompts]))
+        check([r["i"] for r in ordered] == list(range(len(prompts))),
+              f"phase 7c (c): map returned items {[r['i'] for r in ordered]}, not in submission order")
+        by_i = {r["i"]: r for r in unordered}
+        check(sorted(by_i) == list(range(len(prompts))), f"phase 7c (c): map_unordered returned {sorted(by_i)}")
+        same_m = sum(x == y for r in ordered for x, y in zip(r["tokens"], ref[r["i"]]))
+        same_u = sum(x == y for r in unordered for x, y in zip(r["tokens"], ref[r["i"]]))
+        check([r["tokens"] for r in ordered] == ref and [by_i[i]["tokens"] for i in range(len(prompts))] == ref,
+              f"phase 7c (c): greedy tokens equal phase 4's in {same_m} (map) and {same_u} (map_unordered) of 256")
+        check(len({c["pid"] for c in counts} | {os.getpid()}) == 3 and {r["pid"] for r in ordered + unordered}
+              == {c["pid"] for c in counts}, f"phase 7c (c): served by {sorted({r['pid'] for r in ordered})} of the "
+                                             f"actors' workers {[c['pid'] for c in counts]}")
+        for c in counts:
+            check(c["checksum"] == drv_checksum and c["device"].startswith("cuda"),
+                  f"phase 7c (c): actor {c['pid']} weights checksum {c['checksum']} vs phase 4's {drv_checksum}, "
+                  f"device {c['device']}")
+            check(c["k1"] == cfg.num_layers * c["prefill_forwards"] > 0
+                  and c["k4"] == cfg.num_layers * c["decode_steps"] > 0,
+                  f"phase 7c (c): in worker {c['pid']} K1 {c['k1']} != {cfg.num_layers} x {c['prefill_forwards']} "
+                  f"prefill forwards or K4 {c['k4']} != {cfg.num_layers} x {c['decode_steps']} decode steps")
+        check(held["k1"]["ok"] and held["k4"]["ok"], f"phase 7c (c): K1/K4 held in actor {counts[0]['pid']}: {held}")
+        for a in actors:
+            rtt.kill(a)
+        release_c = settle("(c)", [c["pid"] for c in counts])
+        out["c"] = dict(counts=counts, held=held, map_s=t1 - t0, unordered_s=t2 - t1, release_s=release_c,
+                        k1=sum(c["k1"] for c in counts), k4=sum(c["k4"] for c in counts))
+        print(f"phase 7c (c) ActorPool of 2 engine actors (phase 4's engine from seed 0 in each, num_cpus=1; pids "
+              f"{[c['pid'] for c in counts]}, ready in {[round(c['init_s'], 3) for c in counts]} s): map over phase "
+              f"4's 8 prompts {t1 - t0:.3f} s from the pool's creation (results in submission order), map_unordered "
+              f"{t2 - t1:.3f} s; greedy tokens 256 of 256 equal phase 4's in each; K1 {[c['k1'] for c in counts]} "
+              f"(= 32 x prefill forwards {[c['prefill_forwards'] for c in counts]}), K4 {[c['k4'] for c in counts]} "
+              f"(= 32 x decode steps {[c['decode_steps'] for c in counts]}), phase 4's engine: 32 per prefill forward "
+              f"and 32 per decode step; K1 and K4 held in the first actor at each prompt's own shapes (K1 "
+              f"{held['k1']['shapes']}, K4 {held['k4']['shapes']}: one prompt a call), max errors K1 o "
+              f"{held['k1']['err_o']:.3g} lse {held['k1']['err_lse']:.3g}, K4 {held['k4']['err']:.3g}; timed at the "
+              f"longest prompt's: K1 {held['k1']['shape']} {held['k1']['ms']:.4f} ms (plain "
+              f"{held['k1']['plain_ms']:.4f}, SDPA {held['k1']['sdpa_ms']:.4f}, bound {held['k1']['bound_ms']:.4f}), "
+              f"K4 {held['k4']['shape']} {held['k4']['ms']:.4f} ms (plain {held['k4']['plain_ms']:.4f}, bound "
+              f"{held['k4']['bound_ms']:.4f}); peak allocated "
+              f"{[c['peak'] for c in counts]} bytes; workers gone and the card's memory back {release_c:.3f} s after "
+              f"the kill {card}")
+        end_leg("(c)")
+    finally:
+        if context.maybe_client() is not None:
+            rtt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    used1 = card_used(torch)
+    check(abs(used1 - used0) <= RUNTIME_MEM_SLACK, f"phase 7c: the card's memory in use {used1} bytes after the "
+                                                   f"phase vs {used0} before")
+    out["launches"] = [x + y for x, y in zip(out["a"]["launches"], out["b"]["launches"])]
+    print(f"phase 7c end: no actor, no worker, no rt segment, the staging root and every checkpoint byte removed, the "
+          f"card's memory in use {used1} bytes vs {used0} before; phase 7c {time.perf_counter() - t_phase:.1f} s "
+          f"{card}")
     return out
 
 

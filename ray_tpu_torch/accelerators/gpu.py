@@ -27,6 +27,15 @@ RESOURCE_NAME = "GPU"
 VALID_CHIP_COUNTS = (1, 2, 4, 8)
 
 
+def fold_card(res: dict) -> dict:
+    """A copy of the resource dict ``res`` with ``"TPU"`` (ray_tpu's name)
+    folded into ``"GPU"``, as ``num_tpus`` folds into ``num_gpus``."""
+    out = dict(res)
+    if "TPU" in out:
+        out[RESOURCE_NAME] = out.get(RESOURCE_NAME, 0) + out.pop("TPU")
+    return out
+
+
 def _visible_cards() -> int:
     import torch
 

@@ -42,9 +42,9 @@ class ScalingConfig:
 
     @property
     def _worker_resources(self) -> dict:
-        res = dict(self.resources_per_worker or {})
-        if "TPU" in res:
-            res["GPU"] = res.get("GPU", 0) + res.pop("TPU")
+        from ray_tpu_torch.accelerators.gpu import fold_card
+
+        res = fold_card(self.resources_per_worker or {})
         res.setdefault("CPU", 1.0)
         return res
 

@@ -63,6 +63,7 @@ class TrainController:
         self.metrics_history: list[dict] = []
         self.resume_checkpoint = None  # user-provided seed; never evicted
         self._restarts = 0
+        self._coordinators: list = []  # this attempt's streaming_split coordinator actors
         # RunConfig.callbacks (the tune.callbacks API): the whole run logs
         # as one pseudo-trial keyed by the experiment name
         self._callbacks = list(getattr(run_config, "callbacks", None) or [])
@@ -101,6 +102,7 @@ class TrainController:
                 except Exception:
                     pass
                 group.shutdown()
+                self._reap_coordinators()
                 if group.attempt_uid is not None:
                     # reap this attempt's detached train-collective actor
                     from ray_tpu_torch.collective.collective import cleanup_group_actor
@@ -226,6 +228,18 @@ class TrainController:
             except Exception:
                 pass
 
+    def _reap_coordinators(self):
+        """Kill the attempt's split coordinators once its workers are gone:
+        each is an actor with a worker of its own, which would otherwise
+        live until the runtime's shutdown (a fit inside a Tune trial makes
+        one per trial)."""
+        for coord in self._coordinators:
+            try:
+                ray_tpu_torch.kill(coord)
+            except Exception:
+                pass
+        self._coordinators = []
+
     def _finish_callbacks(self):
         for cb in self._callbacks:
             try:
@@ -240,7 +254,10 @@ class TrainController:
         shards = [dict() for _ in range(n)]
         for name, ds in self.datasets.items():
             if hasattr(ds, "streaming_split"):
-                for i, piece in enumerate(ds.streaming_split(n)):
+                pieces = ds.streaming_split(n)
+                coords = (getattr(p, "_coord", None) for p in pieces)
+                self._coordinators.extend({id(c): c for c in coords if c is not None}.values())
+                for i, piece in enumerate(pieces):
                     shards[i][name] = piece
             else:
                 for i in range(n):
