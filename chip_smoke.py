@@ -388,7 +388,47 @@ Phases, in order; any failed check exits non-zero before the last line:
    last steps to the last commits, and the rest), the checkpoint's save,
    staging and commit seconds, the restore
    and the restart to the first resumed step.
-8. The training path, card against host: the same widths at 2 layers in
+7d. Compiled graphs and device objects (ray_tpu_torch.dag,
+   ray_tpu_torch.experimental) on phase 4's engine. (a) A num_gpus=1 actor
+   E (PoolEngine: phase 4's engine from seed 0) and a CPU actor P in
+   `P.summarise.bind(E.generate.bind(inp))`, compiled with
+   experimental_compile(channels=True): phase 4's 8 prompts, one per
+   execute(), all 8 in flight, then one at a time beside the same calls
+   through .remote(): 256 of 256 greedy tokens equal phase 4's; in E's
+   worker K1 = 32 per prefill forward and K4 = 32 per decode step, both
+   held against their plain versions there at each prompt's shapes; none
+   launch in the driver. (b) A three-actor chain of add over 300
+   executes: a hop under a quarter of the direct task round trip
+   (ray_tpu's gate). (c) teardown(kill_actors=True): no ring of either
+   graph left in /dev/shm, every actor DEAD, E's worker gone, the card's
+   memory back. (d) A num_gpus=1 owner actor draws phase 4's weights on
+   the card and registers the tree (device_put_tree(owner_actor=itself);
+   in process each ref resolves to the tensor itself); a second actor
+   asking for no card fetches the tree through the owner's export (host
+   tensors of the same dtype over the object plane, the store sized to
+   twice the largest leaf) onto the card, every leaf's dtype and shape
+   kept, a second device_get_tree the cached objects; its engine's 256
+   greedy tokens equal the owner's engine's and phase 4's, K1/K4 counted
+   and held there; after free_device_object the owner's export raises
+   KeyError naming the id. Prints the per-execute walls, the hop and the
+   round trip in µs, /dev/shm's free bytes, each leaf's bytes and GB/s,
+   the fetch's seconds and the card's free memory with both engines.
+8. RLlib on the card (ray_tpu_torch.rllib). Prints whether gymnasium is
+   installed. Always: one PPO update (ray_tpu's _ppo_config: 2048 rows,
+   minibatch 256, one epoch), one IMPALA and one APPO update (40 x 100
+   fragments) of CartPole-v1's shapes from seeded batches, each learner
+   on the card gated against the same update on the host in process
+   (metrics within rtol 1e-4 + atol 1e-5, parameters within 1e-4), timed
+   beside it; then IMPALA's LearnerGroup with two learner actors on the
+   card (asking for no card): 5 updates, one gradient allreduce each
+   through the collective API, both learners' weights equal, the
+   allreduce's ms printed. With gymnasium: (a) PPO on CartPole-v1 with
+   ray_tpu's _ppo_config and the learner on the card, best
+   episode_return_mean >= 120 within 15 iterations, each iteration's
+   sampling and learning split and env steps/s; (b) IMPALA with 2 env
+   runners and 2 learner actors (last return > 21); (c) APPO (best >= 40
+   within 22 iterations).
+9. The training path, card against host: the same widths at 2 layers in
    f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
    gradients must agree.
 
@@ -1365,7 +1405,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("7c")
+    # ---------------------------------------------------------------- 7d
+    # compiled graphs over a GPU engine actor, hop latency, teardown; device objects across processes
+    dag = dag_on_card(torch, cfg, prompts, gr, drv_checksum, card)
+    torch.cuda.empty_cache()
+
+    mark("7d")
     # ---------------------------------------------------------------- 8
+    # RLlib: the learners' updates card vs host, two learner actors' allreduce (and the env legs with gymnasium)
+    rllib_on_card(torch, card)
+    torch.cuda.empty_cache()
+
+    mark("8")
+    # ---------------------------------------------------------------- 9
     cfg8 = dataclasses.replace(cfg7, num_layers=2, dtype="float32")
     p0 = init_params(cfg8, torch.Generator(device=dev).manual_seed(2))
     data8 = {"tokens": trng.integers(0, cfg8.vocab_size, (1, 128)).astype(np.int32),
@@ -1394,7 +1446,7 @@ def main() -> int:
     check(max(step_errs) <= TRAIN_WHOLE_TOL and grad_err <= TRAIN_WHOLE_TOL,
           f"training whole path: loss/grad-norm relative errors {step_errs}, gradients {grad_err:.3g} "
           f"(tol {TRAIN_WHOLE_TOL})")
-    print(f"phase 8 training whole path (2 layers, f32, 1 x 128, card vs host): losses {[c[0] for c in on_card]} vs "
+    print(f"phase 9 training whole path (2 layers, f32, 1 x 128, card vs host): losses {[c[0] for c in on_card]} vs "
           f"{[h[0] for h in on_host]}, loss/grad-norm relative error {max(step_errs):.3g}, first-step gradients "
           f"{grad_err:.3g} of each leaf's max (tol {TRAIN_WHOLE_TOL})")
 
@@ -1591,8 +1643,21 @@ def main() -> int:
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
              bound_ms=rep5["bound_ms"], bound_by=rep5["bound_by"], library_ms=rep5["lib_ms"],
              device_ms=rep5["device_ms"], host_us=rep5["host_us"]),
+        *(dict(name=f"K{k} {fn} {who} {what} (phase 7d {leg}; held in its worker at "
+                    f"{held[f'k{k}'].get('shapes', [held[f'k{k}']['shape']])}, timed at {held[f'k{k}']['shape']})",
+               route="cuda",
+               source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=launches,
+               max_abs_err=held[f"k{k}"]["err_o" if k == 1 else "err"], ms=held[f"k{k}"]["ms"],
+               plain_ms=held[f"k{k}"]["plain_ms"], bound_ms=held[f"k{k}"]["bound_ms"],
+               bound_by=held[f"k{k}"]["bound_by"], library_ms=held["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep, what in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "prefill"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134", "decode"))
+          for who, leg, held, launches in (
+              ("compiled graph's engine actor", "(a)", dag["a"]["held"], dag["a"]["counts"][f"k{k}"]),
+              ("device-object consumer's engine", "(d)", dag["d"]["held"], dag["d"]["c_run"][f"k{k}"]))),
     ]
-    mark("8")
+    mark("9")
     print(f"telemetry overhead (phase 4, paged graph engine): {tel_ratio:.4f}x (gate {TEL_GATE}) {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s (each phase's end: {marks})")
     print(json.dumps({"kernels": kernels}))
@@ -3148,25 +3213,7 @@ class CardServer:
     def generate(self, prompts) -> dict:
         """Phase 4's 8 prompts, 32 greedy tokens each, with K1's and K4's
         launch counters zeroed just before and read just after, here."""
-        import torch
-
-        from ray_tpu_torch.llm import SamplingParams
-        from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
-        from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
-
-        flash_attention_fwd.launches = 0
-        paged_attn_partials.launches = 0
-        p0, d0 = self.eng.prefill_forwards, self.eng.decode_steps
-        t0 = time.perf_counter()
-        ids = [self.eng.add_request(p, SamplingParams(max_tokens=32)) for p in prompts]
-        finals = {}
-        while self.eng.has_unfinished():
-            finals.update((o.request_id, o) for o in self.eng.step() if o.finished)
-        torch.cuda.synchronize()
-        outs = [finals[i] for i in ids]
-        return dict(tokens=[list(o.token_ids) for o in outs], k1=flash_attention_fwd.launches,
-                    k4=paged_attn_partials.launches, wall_s=time.perf_counter() - t0,
-                    prefill_forwards=self.eng.prefill_forwards - p0, decode_steps=self.eng.decode_steps - d0)
+        return _generate(self.eng, prompts)
 
     def check_kernels(self, lens) -> dict:
         """K1 and K4 held against their plain versions in this worker
@@ -5041,6 +5088,622 @@ def tune_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, fit_a_losses, c
     print(f"phase 7c end: no actor, no worker, no rt segment, the staging root and every checkpoint byte removed, the "
           f"card's memory in use {used1} bytes vs {used0} before; phase 7c {time.perf_counter() - t_phase:.1f} s "
           f"{card}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 7d: compiled graphs and device objects
+DAG_TIMEOUT_S = 600  # each get of phase 7d (an engine actor's start, weights from seed 0, a tree's fetch)
+DAG_HOP_EXECS = 300  # (b): executes of the three-actor chain timed, after one warm-up
+DAG_RTT_WARM, DAG_RTT_CALLS = 10, 30  # (b): the direct round trip, as ray_tpu's gate times it
+
+
+@remote(num_cpus=1)
+class Summarise:
+    """Phase 7d (a)'s CPU actor P: what the engine actor returned, with
+    its own pid."""
+
+    def summarise(self, out: dict) -> dict:
+        return dict(out, n=len(out["tokens"]), summarised_by=os.getpid())
+
+
+@remote(num_cpus=1)
+class ChainAdd:
+    """Phase 7d (b)'s chain stage."""
+
+    def add(self, x):
+        return x + 1
+
+
+def _leaves(tree, is_leaf=None) -> list:
+    from ray_tpu_torch.experimental.device_objects import tree_map
+
+    out = []
+    tree_map(out.append, tree, is_leaf)
+    return out
+
+
+@remote(num_cpus=1)
+class TreeEngine:
+    """Phase 7d (d)'s actors. The owner (``own=True``, bound to the card
+    with ``num_gpus=1``) draws phase 4's weights from seed 0 on the card
+    and registers them (``publish``); the consumer asks for no card, runs
+    on it all the same and fetches the tree through the owner's export
+    (``fetch``). Each serves phase 4's prompts from an engine over its
+    tree, with K1's and K4's counters zeroed just before."""
+
+    def __init__(self, spec: dict, own: bool):
+        import torch
+
+        from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+        self.cfg = LlamaConfig(**spec["config"])
+        self.params = init_params(self.cfg, torch.Generator(device="cuda").manual_seed(0)) if own else None
+        self.eng = None
+
+    def publish(self, me) -> dict:
+        """Register every leaf (``device_put_tree``); in this process each
+        ref resolves to the registered tensor itself."""
+        from ray_tpu_torch.experimental import DeviceRef, device_get, device_put_tree
+
+        refs = device_put_tree(self.params, owner_actor=me)
+        flat = _leaves(refs, lambda x: isinstance(x, DeviceRef))
+        same = all(device_get(r) is t for r, t in zip(flat, _leaves(self.params)))
+        return dict(refs=refs, same=same and len(flat) == len(_leaves(self.params)), n=len(flat),
+                    bytes=[t.numel() * t.element_size() for t in _leaves(self.params)])
+
+    def fetch(self, refs) -> dict:
+        """The tree from the owner, leaf by leaf (``device_get_tree``'s walk,
+        each leaf timed to the card), then ``device_get_tree`` again: the
+        cached objects."""
+        import torch
+
+        from ray_tpu_torch.experimental import DeviceRef, device_get, device_get_tree
+        from ray_tpu_torch.experimental.device_objects import tree_map
+
+        free0 = torch.cuda.mem_get_info()[0]
+        leaves = []
+
+        def timed(r):
+            t0 = time.perf_counter()
+            t = device_get(r)
+            torch.cuda.synchronize()
+            leaves.append(dict(dtype=r.dtype, shape=list(r.shape), bytes=t.numel() * t.element_size(),
+                               s=time.perf_counter() - t0, got=(str(t.dtype).removeprefix("torch."), list(t.shape)),
+                               device=str(t.device)))
+            return t
+
+        t0 = time.perf_counter()
+        self.params = tree_map(timed, refs, lambda x: isinstance(x, DeviceRef))
+        total_s = time.perf_counter() - t0
+        again = device_get_tree(refs)
+        cached = all(a is b for a, b in zip(_leaves(again), _leaves(self.params)))
+        return dict(leaves=leaves, total_s=total_s, cached=cached, free0=free0, pid=os.getpid(),
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    def build(self) -> dict:
+        import torch
+
+        t0 = time.perf_counter()
+        self.eng = LLMEngine(self.cfg, self.params, telemetry_tags={"model": f"phase 7d actor {os.getpid()}"},
+                             **SERVE_ENGINE_KWARGS)
+        torch.cuda.synchronize()
+        return dict(checksum=weights_checksum(self.params), build_s=time.perf_counter() - t0,
+                    device=str(self.eng.device), pid=os.getpid())
+
+    def generate(self, prompts) -> dict:
+        return _generate(self.eng, prompts)
+
+    def check_kernels(self, lens) -> dict:
+        return hold_kernels(self.eng, lens)
+
+    def free_and_export(self, ref) -> str | None:
+        """Free one ref here, then ask for its export: the KeyError's text."""
+        from ray_tpu_torch.experimental import export_for_transfer, free_device_object
+
+        free_device_object(ref)
+        try:
+            export_for_transfer(ref.object_id)
+        except KeyError as e:
+            return str(e)
+        return None
+
+    def memory(self) -> dict:
+        import torch
+
+        free, total = torch.cuda.mem_get_info()
+        return dict(free=free, total=total, allocated=torch.cuda.memory_allocated(),
+                    reserved=torch.cuda.memory_reserved())
+
+
+def _generate(eng, prompts) -> dict:
+    """Phase 4's prompts on ``eng`` (in this process), 32 greedy tokens
+    each, K1's and K4's counters zeroed just before and read just after."""
+    import torch
+
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    flash_attention_fwd.launches = 0
+    paged_attn_partials.launches = 0
+    p0, d0 = eng.prefill_forwards, eng.decode_steps
+    t0 = time.perf_counter()
+    ids = [eng.add_request(p, SamplingParams(max_tokens=32)) for p in prompts]
+    finals = {}
+    while eng.has_unfinished():
+        finals.update((o.request_id, o) for o in eng.step() if o.finished)
+    torch.cuda.synchronize()
+    outs = [finals[i] for i in ids]
+    return dict(tokens=[list(o.token_ids) for o in outs], k1=flash_attention_fwd.launches,
+                k4=paged_attn_partials.launches, wall_s=time.perf_counter() - t0,
+                prefill_forwards=eng.prefill_forwards - p0, decode_steps=eng.decode_steps - d0, pid=os.getpid())
+
+
+def dag_rings(dag) -> list:
+    return sorted(n for n in os.listdir("/dev/shm") if f"_ch{dag._dag_id}_" in n)
+
+
+def dag_on_card(torch, cfg, prompts, serve_run, drv_checksum, card) -> dict:
+    """Phase 7d: compiled graphs and device objects on phase 4's engine
+    (module docstring). (a)-(c) on one runtime with the default store; (d)
+    on a fresh one whose store holds twice the tree's largest leaf."""
+    import dataclasses
+    import statistics
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.models.llama import torch_dtype
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    t_phase = time.perf_counter()
+    ref = serve_run["tokens"]
+    L = cfg.num_layers
+    spec = dict(config=dataclasses.asdict(cfg))
+    lens = [len(p) for p in prompts]
+    drv_counts = (flash_attention_fwd.launches, paged_attn_partials.launches)
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    out = {}
+
+    def gone(handles, pids, label):
+        """Every handle's actor DEAD, ``pids`` gone, the card's memory back."""
+        client = context.get_client()
+        t_end = time.perf_counter()
+
+        def held():
+            live = [h for h in handles if client.actors[h._actor_id].info.state != "DEAD"]
+            return live or any(worker_alive(p) for p in pids) or card_used(torch) > used0 + RUNTIME_MEM_SLACK
+
+        while held() and time.perf_counter() - t_end < DATA_RELEASE_S:
+            time.sleep(0.05)
+        check(not held(), f"phase 7d {label}: {DATA_RELEASE_S} s after the kill, actors alive "
+                          f"{[h for h in handles if client.actors[h._actor_id].info.state != 'DEAD']}, workers "
+                          f"{[p for p in pids if worker_alive(p)]}, the card's memory in use {card_used(torch)} vs "
+                          f"{used0} before 7d")
+        return time.perf_counter() - t_end
+
+    def end_runtime(label):
+        client = context.get_client()
+        pids = [p for node in client.nodes.values() for p in node.worker_pids]
+        rtt.shutdown()
+        check(not [p for p in pids if worker_alive(p)], f"phase 7d {label}: workers left after shutdown")
+        check(not rt_segments(), f"phase 7d {label}: /dev/shm still holds {rt_segments()}")
+        check((flash_attention_fwd.launches, paged_attn_partials.launches) == drv_counts,
+              f"phase 7d {label}: K1/K4 launched in the driver")
+
+    try:
+        # ---- (a): a channel-compiled graph over a GPU engine actor E and a CPU actor P
+        rtt.init(num_cpus=8)  # E, P and (b)'s three stages hold a CPU each
+        t0 = time.perf_counter()
+        E = PoolEngine.options(num_gpus=1).remote(spec)  # phase 4's engine; its counters zeroed once built
+        P = Summarise.remote()
+        facts = rtt.get(E.counts.remote(), timeout=DAG_TIMEOUT_S)
+        ready_s = time.perf_counter() - t0
+        with InputNode() as inp:
+            dag = P.summarise.bind(E.generate.bind(inp))
+        t0 = time.perf_counter()
+        comp = dag.experimental_compile(channels=True)
+        compile_s = time.perf_counter() - t0
+        items = list(enumerate(prompts))
+        t0 = time.perf_counter()
+        refs = [comp.execute(it) for it in items]  # all 8 in flight (nslots 8)
+        inflight = [r.get(timeout=DAG_TIMEOUT_S) for r in refs]
+        inflight_s = time.perf_counter() - t0
+        per_exec, per_remote = [], []
+        for it in items:  # one at a time: each execute beside the same calls through .remote()
+            t0 = time.perf_counter()
+            r1 = comp.execute(it).get(timeout=DAG_TIMEOUT_S)
+            per_exec.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            r2 = rtt.get(P.summarise.remote(E.generate.remote(it)), timeout=DAG_TIMEOUT_S)
+            per_remote.append(time.perf_counter() - t0)
+            check(r1["tokens"] == r2["tokens"] == ref[it[0]], f"phase 7d (a): prompt {it[0]}'s tokens through the "
+                                                              f"graph and through .remote() differ from phase 4's")
+        counts = rtt.get(E.counts.remote(), timeout=DAG_TIMEOUT_S)
+        held = rtt.get(E.check_kernels.remote(lens), timeout=DAG_TIMEOUT_S)
+        same = sum(x == y for r in inflight for x, y in zip(r["tokens"], ref[r["i"]]))
+        check([r["i"] for r in inflight] == list(range(len(prompts))) and [r["tokens"] for r in inflight] == ref,
+              f"phase 7d (a): {same} of 256 greedy tokens through the compiled graph equal phase 4's")
+        p_pids = {r["summarised_by"] for r in inflight}
+        check({r["pid"] for r in inflight} == {counts["pid"]} and len(p_pids) == 1 and counts["pid"] not in p_pids
+              and os.getpid() not in p_pids | {counts["pid"]}, f"phase 7d (a): served by {[r['pid'] for r in inflight]}"
+                                                               f", summarised by {p_pids}, E is {counts['pid']}")
+        check(counts["checksum"] == drv_checksum and counts["device"].startswith("cuda") and counts["visible"] == "0",
+              f"phase 7d (a): E's checksum {counts['checksum']} vs {drv_checksum}, device {counts['device']}, "
+              f"CUDA_VISIBLE_DEVICES {counts['visible']!r}")
+        check(counts["k1"] == L * counts["prefill_forwards"] > 0 and counts["k4"] == L * counts["decode_steps"] > 0,
+              f"phase 7d (a): in E's worker K1 {counts['k1']} != {L} x {counts['prefill_forwards']} prefill forwards "
+              f"or K4 {counts['k4']} != {L} x {counts['decode_steps']} decode steps")
+        check(held["k1"]["ok"] and held["k4"]["ok"], f"phase 7d (a): K1/K4 held in E's worker: {held}")
+        check((flash_attention_fwd.launches, paged_attn_partials.launches) == drv_counts,
+              "phase 7d (a): K1/K4 launched in the driver")
+        out["a"] = dict(counts=counts, held=held, ready_s=ready_s, compile_s=compile_s, inflight_s=inflight_s,
+                        per_exec=per_exec, per_remote=per_remote)
+        print(f"phase 7d (a) a channel-compiled graph P.summarise(E.generate(input)) (E: num_gpus=1, pid "
+              f"{counts['pid']}, phase 4's engine from seed 0, ready {ready_s:.3f} s; P: a CPU actor, pid "
+              f"{p_pids.pop()}): compiled in {compile_s:.3f} s; phase 4's 8 prompts, one per execute(), all 8 in "
+              f"flight: {inflight_s:.3f} s, 256 of 256 greedy tokens equal phase 4's; one at a time: "
+              f"{statistics.median(per_exec) * 1e3:.2f} ms per execute (median; min {min(per_exec) * 1e3:.2f}, max "
+              f"{max(per_exec) * 1e3:.2f}) vs {statistics.median(per_remote) * 1e3:.2f} ms for the same calls through "
+              f".remote() (min {min(per_remote) * 1e3:.2f}, max {max(per_remote) * 1e3:.2f}), ratio "
+              f"{statistics.median(per_exec) / statistics.median(per_remote):.4f}; in E's worker K1 {counts['k1']} "
+              f"(= {L} x {counts['prefill_forwards']} prefill forwards), K4 {counts['k4']} (= {L} x "
+              f"{counts['decode_steps']} decode steps), none in the driver; held in E's worker at each prompt's "
+              f"shapes (K1 {held['k1']['shapes']}, K4 {held['k4']['shapes']}), max errors K1 o "
+              f"{held['k1']['err_o']:.3g} lse {held['k1']['err_lse']:.3g}, K4 {held['k4']['err']:.3g}; K1 "
+              f"{held['k1']['shape']} {held['k1']['ms']:.4f} ms (plain {held['k1']['plain_ms']:.4f}, SDPA "
+              f"{held['k1']['sdpa_ms']:.4f}, bound {held['k1']['bound_ms']:.4f}), K4 {held['k4']['shape']} "
+              f"{held['k4']['ms']:.4f} ms (plain {held['k4']['plain_ms']:.4f}, bound {held['k4']['bound_ms']:.4f}) "
+              f"{card}")
+
+        # ---- (b): hop latency, a three-actor chain against the direct round trip (ray_tpu's gate)
+        rtt.get([noop.remote() for _ in range(DAG_RTT_WARM)], timeout=DAG_TIMEOUT_S)
+        t0 = time.perf_counter()
+        for _ in range(DAG_RTT_CALLS):
+            rtt.get(noop.remote(), timeout=DAG_TIMEOUT_S)
+        task_rt = (time.perf_counter() - t0) / DAG_RTT_CALLS
+        stages = [ChainAdd.remote() for _ in range(3)]
+        with InputNode() as inp:
+            chain = stages[2].add.bind(stages[1].add.bind(stages[0].add.bind(inp)))
+        comp2 = chain.experimental_compile(channels=True)
+        check(comp2.execute(0).get(timeout=DAG_TIMEOUT_S) == 3, "phase 7d (b): the chain's warm-up result")
+        t0 = time.perf_counter()
+        for i in range(DAG_HOP_EXECS):
+            check(comp2.execute(i).get(timeout=DAG_TIMEOUT_S) == i + 3, f"phase 7d (b): execute {i}")
+        per_exec2 = (time.perf_counter() - t0) / DAG_HOP_EXECS
+        hop = per_exec2 / 4  # driver -> a -> b -> c -> driver
+        check(hop < task_rt / 4, f"phase 7d (b): a hop {hop * 1e6:.1f} us is not under a quarter of the direct round "
+                                 f"trip {task_rt * 1e6:.1f} us")
+        out["b"] = dict(hop_us=hop * 1e6, rtt_us=task_rt * 1e6, exec_us=per_exec2 * 1e6)
+        print(f"phase 7d (b) hop latency: a three-actor chain of add over {DAG_HOP_EXECS} executes, "
+              f"{per_exec2 * 1e6:.1f} us per execute, {hop * 1e6:.1f} us per hop (4 hops) vs the direct call's round "
+              f"trip {task_rt * 1e6:.1f} us (mean of {DAG_RTT_CALLS} after {DAG_RTT_WARM}); gate: a hop under a "
+              f"quarter of the round trip ({task_rt / 4 * 1e6:.1f} us), {task_rt / hop:.1f}x {card}")
+
+        # ---- (c): teardown kills the graphs' actors and leaves no ring
+        rings = {id(comp): dag_rings(comp), id(comp2): dag_rings(comp2)}
+        check(all(rings.values()), f"phase 7d (c): the graphs' rings before teardown {rings}")
+        t0 = time.perf_counter()
+        comp.teardown(kill_actors=True)
+        comp2.teardown(kill_actors=True)
+        teardown_s = time.perf_counter() - t0
+        release = gone([E, P, *stages], [counts["pid"]], "(c)")
+        left = dag_rings(comp) + dag_rings(comp2)
+        check(not left, f"phase 7d (c): rings left after teardown: {left}")
+        out["c"] = dict(teardown_s=teardown_s, release_s=release, rings=sum(len(r) for r in rings.values()))
+        print(f"phase 7d (c) teardown(kill_actors=True) of both graphs: {teardown_s:.3f} s; their "
+              f"{out['c']['rings']} rings gone from /dev/shm, all 5 actors DEAD, E's worker gone and the card's "
+              f"memory back {release:.3f} s after {card}")
+        end_runtime("(a)-(c)")
+
+        # ---- (d): device objects across processes
+        es = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+        largest = es * max(L * cfg.hidden_size * cfg.intermediate_size, cfg.vocab_size * cfg.hidden_size)  # w_gate
+        store = 2 * largest  # one leaf in flight while the previous one is released
+        rtt.init(num_cpus=4, _system_config={"object_store_memory": store})
+        owner = TreeEngine.options(num_gpus=1).remote(spec, True)
+        pub = rtt.get(owner.publish.remote(owner), timeout=DAG_TIMEOUT_S)
+        check(pub["same"], "phase 7d (d): in the owner's process a DeviceRef did not resolve to the tensor itself")
+        check(max(pub["bytes"]) == largest, f"phase 7d (d): the largest leaf {max(pub['bytes'])} bytes, "
+                                            f"the store sized for {largest}")
+        o_built = rtt.get(owner.build.remote(), timeout=DAG_TIMEOUT_S)
+        o_run = rtt.get(owner.generate.remote(prompts), timeout=DAG_TIMEOUT_S)
+        shm = os.statvfs("/dev/shm")
+        shm_free = shm.f_bavail * shm.f_frsize
+        consumer = TreeEngine.options(num_cpus=1).remote(spec, False)
+        fetched = rtt.get(consumer.fetch.remote(pub["refs"]), timeout=DAG_TIMEOUT_S)
+        c_built = rtt.get(consumer.build.remote(), timeout=DAG_TIMEOUT_S)
+        c_run = rtt.get(consumer.generate.remote(prompts), timeout=DAG_TIMEOUT_S)
+        c_held = rtt.get(consumer.check_kernels.remote(lens), timeout=DAG_TIMEOUT_S)
+        mem = rtt.get(consumer.memory.remote(), timeout=DAG_TIMEOUT_S)
+        first = _leaves(pub["refs"], lambda x: hasattr(x, "object_id"))[0]
+        freed = rtt.get(owner.free_and_export.remote(first), timeout=DAG_TIMEOUT_S)
+        check(o_built["checksum"] == c_built["checksum"] == drv_checksum,
+              f"phase 7d (d): checksums owner {o_built['checksum']}, consumer {c_built['checksum']}, phase 4's "
+              f"{drv_checksum}")
+        same_c = sum(x == y for a, b in zip(c_run["tokens"], o_run["tokens"]) for x, y in zip(a, b))
+        check(c_run["tokens"] == o_run["tokens"] == ref, f"phase 7d (d): the consumer's greedy tokens equal the "
+                                                         f"owner's in {same_c} of 256 (and phase 4's: "
+                                                         f"{o_run['tokens'] == ref})")
+        check(fetched["cached"], "phase 7d (d): a second device_get_tree did not return the cached objects")
+        kept = all(lf["got"] == (lf["dtype"], lf["shape"]) and lf["device"].startswith("cuda")
+                   for lf in fetched["leaves"])
+        check(kept and len(fetched["leaves"]) == pub["n"], f"phase 7d (d): leaves' dtypes, shapes or devices "
+                                                           f"changed: {fetched['leaves']}")
+        check(fetched["visible"] is None and c_built["device"].startswith("cuda") and fetched["pid"] != o_run["pid"],
+              f"phase 7d (d): the consumer (pid {fetched['pid']}) CUDA_VISIBLE_DEVICES {fetched['visible']!r}, "
+              f"device {c_built['device']}")
+        for run, who in ((o_run, "owner"), (c_run, "consumer")):
+            check(run["k1"] == L * run["prefill_forwards"] > 0 and run["k4"] == L * run["decode_steps"] > 0,
+                  f"phase 7d (d): in the {who}'s worker K1 {run['k1']}, K4 {run['k4']} for "
+                  f"{run['prefill_forwards']} prefill forwards and {run['decode_steps']} decode steps")
+        check(c_held["k1"]["ok"] and c_held["k4"]["ok"], f"phase 7d (d): K1/K4 held in the consumer: {c_held}")
+        check(freed is not None and first.object_id in freed, f"phase 7d (d): the owner's export after "
+                                                               f"free_device_object: {freed!r}")
+        check((flash_attention_fwd.launches, paged_attn_partials.launches) == drv_counts,
+              "phase 7d (d): K1/K4 launched in the driver")
+        total_b = sum(lf["bytes"] for lf in fetched["leaves"])
+        out["d"] = dict(fetch_s=fetched["total_s"], bytes=total_b, leaves=fetched["leaves"], o_run=o_run,
+                        c_run=c_run, held=c_held, mem=mem, shm_free=shm_free, store=store)
+        per_leaf = ", ".join(f"{'x'.join(map(str, lf['shape']))} {lf['bytes']} B {lf['bytes'] / lf['s'] / 1e9:.2f} "
+                             f"GB/s" for lf in fetched["leaves"])
+        print(f"phase 7d (d) device objects: the owner (num_gpus=1, pid {o_run['pid']}) registered phase 4's "
+              f"{pub['n']} leaves ({sum(pub['bytes'])} bytes, bf16, from seed 0) with device_put_tree(owner_actor="
+              f"itself), each resolving in process to the tensor itself; /dev/shm {shm_free} bytes free before the "
+              f"fetch, the store sized {store} bytes (twice the largest leaf, {largest}); the consumer (asking for no "
+              f"card, CUDA_VISIBLE_DEVICES unset, pid {fetched['pid']}) fetched the tree in "
+              f"{fetched['total_s']:.3f} s ({total_b / fetched['total_s'] / 1e9:.3f} GB/s): {per_leaf}; a second "
+              f"device_get_tree returned the cached objects; every leaf's dtype and shape kept; the consumer's engine "
+              f"over the fetched tree: 256 of 256 greedy tokens equal the owner's engine's and phase 4's, K1 "
+              f"{c_run['k1']} / K4 {c_run['k4']} in its worker ({o_run['k1']} / {o_run['k4']} in the owner's), held "
+              f"there: K1 {c_held['k1']['shape']} {c_held['k1']['ms']:.4f} ms (err o {c_held['k1']['err_o']:.3g}), "
+              f"K4 {c_held['k4']['shape']} {c_held['k4']['ms']:.4f} ms (err {c_held['k4']['err']:.3g}); the card's "
+              f"free memory with both engines {mem['free']} bytes (the consumer's reserve {mem['reserved']}); after "
+              f"free_device_object the owner's export raised KeyError {freed!r} {card}")
+        for h in (owner, consumer):
+            rtt.kill(h)
+        release_d = gone([owner, consumer], [o_run["pid"], fetched["pid"]], "(d)")
+        out["d"]["release_s"] = release_d
+        end_runtime("(d)")
+    finally:
+        if context.maybe_client() is not None:
+            rtt.shutdown()
+    torch.cuda.synchronize()
+    print(f"phase 7d end: no actor, no worker, no rt segment, the card's memory in use {card_used(torch)} bytes vs "
+          f"{used0} before; phase 7d {time.perf_counter() - t_phase:.1f} s {card}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 8: RLlib on the card
+RL_UPDATE_TOL = dict(loss_rtol=1e-4, loss_atol=1e-5, param_atol=1e-4)  # card vs host, f32 (TF32 off): one update
+RL_TIMED_UPDATES = 5  # each learner's update timed this many times after the compared one
+RL_ALLREDUCE_UPDATES = 5  # (b)'s learner actors: updates, one allreduce each
+
+
+class Box:
+    """CartPole-v1's observation space without gymnasium: 4 floats."""
+
+    shape = (4,)
+
+
+class Discrete:
+    """CartPole-v1's action space without gymnasium: 2 actions."""
+
+    n = 2
+
+
+def cartpole_batches(rng) -> dict:
+    """Seeded batches of CartPole-v1's shapes for one update of each
+    algorithm: PPO's 2048 rows (ray_tpu's _ppo_config), IMPALA's and
+    APPO's 40 fragments of 100 steps (train batch 4000)."""
+    n, N, T = 2048, 40, 100
+    ppo = {"obs": rng.normal(size=(n, 4)).astype(np.float32), "actions": rng.integers(0, 2, n),
+           "logp": (np.log(0.5) + 0.1 * rng.normal(size=n)).astype(np.float32),
+           "advantages": rng.normal(size=n).astype(np.float32),
+           "value_targets": (5.0 * rng.normal(size=n)).astype(np.float32),
+           "vf_preds": rng.normal(size=n).astype(np.float32)}
+    mask = np.ones((N, T), np.float32)
+    mask[::7, 60:] = 0.0  # some fragments end early
+    nonterminal = np.ones((N, T), np.float32)
+    nonterminal[::7, 59] = 0.0
+    seq = {"obs": rng.normal(size=(N, T + 1, 4)).astype(np.float32), "actions": rng.integers(0, 2, (N, T)),
+           "rewards": np.ones((N, T), np.float32), "logp": (np.log(0.5) + 0.1 * rng.normal(size=(N, T))).astype(
+               np.float32), "mask": mask, "nonterminal": nonterminal}
+    return {"ppo": ppo, "seq": seq}
+
+
+def rl_setup(name: str):
+    """(learner class, CartPole-v1's module spec, config) of ray_tpu's
+    learning cases' settings for ``name``."""
+    from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOConfig
+    from ray_tpu_torch.rllib.algorithms.appo.appo import APPOLearner
+    from ray_tpu_torch.rllib.algorithms.impala.impala import IMPALALearner
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule, RLModuleSpec
+
+    cls, cfg = {"ppo": (PPOLearner, PPOConfig().training(lr=1e-3, gamma=0.98, lambda_=0.8, minibatch_size=256)),
+                "impala": (IMPALALearner, IMPALAConfig().training(lr=1e-3, entropy_coeff=0.005, vf_loss_coeff=0.25)),
+                "appo": (APPOLearner, APPOConfig().training(lr=1e-3, entropy_coeff=0.005, vf_loss_coeff=0.25))}[name]
+    return cls, RLModuleSpec(MLPModule, Box(), Discrete(), {"fcnet_hiddens": (256, 256)}), cfg
+
+
+def rl_learner_pair(name: str) -> list:
+    """The algorithm's learner on the card and on the host, both from seed 0."""
+    cls, spec, cfg = rl_setup(name)
+    out = []
+    for device in (None, "cpu"):
+        c = cfg.copy()
+        c.device = device
+        ln = cls(spec, c)
+        ln.build(seed=0)
+        out.append(ln)
+    return out
+
+
+def rl_update(torch, ln, name, batch) -> tuple[dict, float]:
+    t0 = time.perf_counter()
+    if name == "ppo":
+        m = ln.update(batch, minibatch_size=256, num_epochs=1, seed=0)
+    else:
+        m = ln.update(batch, num_epochs=1, shuffle=False)
+    if ln.device.type == "cuda":
+        torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def rllib_on_card(torch, card) -> dict:
+    """Phase 8: RLlib on the card (module docstring). The learner legs run
+    always; the env legs only where gymnasium is installed."""
+    import importlib.util
+    import statistics
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.rllib.algorithms.impala.impala import IMPALALearner
+    from ray_tpu_torch.rllib.core.learner import LearnerGroup
+
+    t_phase = time.perf_counter()
+    has_gym = importlib.util.find_spec("gymnasium") is not None
+    if has_gym:
+        import gymnasium
+
+        print(f"phase 8 gymnasium probe: gymnasium {gymnasium.__version__} present: the env legs run {card}")
+    else:
+        print(f"phase 8 gymnasium probe: gymnasium absent: the learner legs run, the env legs wait for gymnasium on "
+              f"this machine {card}")
+    out = {"gymnasium": has_gym}
+    batches = cartpole_batches(np.random.default_rng(0))
+    for name in ("ppo", "impala", "appo"):
+        on_card, on_host = rl_learner_pair(name)
+        check({p.device.type for p in on_card.module.parameters()} == {"cuda"},
+              f"phase 8 {name}: the learner's parameters are not on the card")
+        batch = batches["ppo" if name == "ppo" else "seq"]
+        mc, _ = rl_update(torch, on_card, name, batch)
+        mh, _ = rl_update(torch, on_host, name, batch)
+        loss_err = max(abs(mc[k] - mh[k]) - RL_UPDATE_TOL["loss_rtol"] * abs(mh[k]) for k in mh)
+        sc, sh = on_card.module.state_dict(), on_host.module.state_dict()
+        param_err = max((sc[k].cpu() - sh[k]).abs().max().item() for k in sh)
+        check(mc.keys() == mh.keys() and all(np.isfinite(v) for v in mc.values())
+              and loss_err <= RL_UPDATE_TOL["loss_atol"] and param_err <= RL_UPDATE_TOL["param_atol"],
+              f"phase 8 {name}: one update on the card vs the host: metrics {mc} vs {mh}, parameters differ by "
+              f"{param_err:.3g} (tolerances {RL_UPDATE_TOL})")
+        t_card = [rl_update(torch, on_card, name, batch)[1] for _ in range(RL_TIMED_UPDATES)]
+        t_host = [rl_update(torch, on_host, name, batch)[1] for _ in range(RL_TIMED_UPDATES)]
+        steps = 8 if name == "ppo" else 1  # minibatch steps in one update
+        out[name] = dict(card_ms=min(t_card) * 1e3, host_ms=min(t_host) * 1e3, steps=steps, param_err=param_err,
+                         metrics=mc)
+        print(f"phase 8 {name} learner update on the card (MLP 4 -> 256 -> 256 -> 2 and -> 1, f32, Adam, clip "
+              f"{on_card.config.grad_clip}): one update of CartPole-v1's shapes ({steps} minibatch step(s)) "
+              f"{min(t_card) * 1e3:.3f} ms (least of {RL_TIMED_UPDATES}; {min(t_card) * 1e3 / steps:.3f} ms a step) "
+              f"vs the same update on the host in process {min(t_host) * 1e3:.3f} ms; first update's metrics card "
+              f"{ {k: round(v, 6) for k, v in mc.items()} } vs host { {k: round(v, 6) for k, v in mh.items()} }, "
+              f"parameters within {param_err:.3g} {card}")
+        del on_card, on_host
+    torch.cuda.empty_cache()
+
+    # ---- (b)'s allreduce: two learner actors on the card (asking for no card) averaging gradients
+    try:
+        rtt.init(num_cpus=4)
+        _, spec, cfg = rl_setup("impala")
+        group = LearnerGroup(IMPALALearner, spec, cfg, num_learners=2)
+        rng = np.random.default_rng(1)
+        t0 = time.perf_counter()
+        for _ in range(RL_ALLREDUCE_UPDATES):
+            ms = group.update(cartpole_batches(rng)["seq"], num_epochs=1, shuffle=False)
+        upd_s = (time.perf_counter() - t0) / RL_ALLREDUCE_UPDATES
+        actors = group._actors
+        weights = rtt.get([a.get_weights.remote() for a in actors], timeout=DAG_TIMEOUT_S)
+        devices = rtt.get([a.devices.remote() for a in actors], timeout=DAG_TIMEOUT_S)
+        syncs = rtt.get([a.sync_ms.remote() for a in actors], timeout=DAG_TIMEOUT_S)
+        check(all(d == ["cuda:0"] for d in devices), f"phase 8 (b): the learner actors' parameters on {devices}")
+        check(all(torch.equal(weights[0][k], weights[1][k]) for k in weights[0]),
+              "phase 8 (b): the two learners' weights differ after the allreduced updates")
+        check([len(s) for s in syncs] == [RL_ALLREDUCE_UPDATES] * 2 and all(np.isfinite(m["total_loss"]) for m in ms),
+              f"phase 8 (b): allreduces {[len(s) for s in syncs]}, metrics {ms}")
+        group.stop()
+        out["allreduce"] = dict(ms=[x for s in syncs for x in s], update_s=upd_s)
+        flat = sorted(out["allreduce"]["ms"])
+        print(f"phase 8 (b) IMPALA's learner group: 2 learner actors on the card (asking for no card), "
+              f"{RL_ALLREDUCE_UPDATES} updates of 40 x 100 CartPole-shaped rows (20 fragments each), one allreduce "
+              f"of {sum(w.numel() for w in weights[0].values())} f32 gradients a minibatch through the collective's "
+              f"object-store backend: {statistics.median(flat):.3f} ms median (min {flat[0]:.3f}, max {flat[-1]:.3f}); "
+              f"{upd_s * 1e3:.1f} ms an update through the group; both learners' weights equal {card}")
+        if has_gym:
+            out.update(rllib_env_legs(torch, card))
+    finally:
+        if context.maybe_client() is not None:
+            rtt.shutdown()
+    print(f"phase 8 end: phase 8 {time.perf_counter() - t_phase:.1f} s {card}")
+    return out
+
+
+def rllib_env_legs(torch, card) -> dict:
+    """Phase 8 (a)-(c) where gymnasium is installed: ray_tpu's PPO,
+    multi-learner IMPALA and APPO learning configurations with the
+    learners on the card (the runtime is up, 4 CPUs)."""
+    import statistics
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOConfig
+
+    out = {}
+    ppo = (PPOConfig().environment("CartPole-v1").env_runners(num_env_runners=0, num_envs_per_env_runner=8)
+           .training(lr=1e-3, gamma=0.98, lambda_=0.8, train_batch_size=2048, minibatch_size=256, num_epochs=20)
+           .debugging(seed=0))
+    algo = ppo.build_algo()
+    try:
+        devs = {p.device.type for p in algo.learner_group._local.module.parameters()}
+        check(devs == {"cuda"}, f"phase 8 (a): the PPO learner's parameters on {devs}")
+        best, iters = 0.0, []
+        for _ in range(15):
+            r = algo.train()
+            best = max(best, r["env_runners"]["episode_return_mean"])
+            iters.append((r["time_this_iter_s"], r["timers"]["sample_s"], r["timers"]["learn_s"]))
+            if best >= 150:
+                break
+    finally:
+        algo.stop()
+    check(best >= 120, f"phase 8 (a): PPO's best episode_return_mean {best} < 120")
+    steps = algo._total_env_steps
+    wall = sum(i[0] for i in iters)
+    out["ppo_env"] = dict(best=best, iters=iters, steps_per_s=steps / wall)
+    print(f"phase 8 (a) PPO on CartPole-v1 (ray_tpu's _ppo_config, learner on the card): best episode_return_mean "
+          f"{best:.1f} (gate 120) in {len(iters)} iterations; each iteration's wall / sampling / learning s "
+          f"{[tuple(round(x, 3) for x in i) for i in iters]}; {steps / wall:.1f} env steps/s {card}")
+    imp = (IMPALAConfig().environment("CartPole-v1").env_runners(num_env_runners=2, num_envs_per_env_runner=4)
+           .training(lr=1e-3, train_batch_size=4000, entropy_coeff=0.005, rollout_fragment_length=100,
+                     vf_loss_coeff=0.25).learners(num_learners=2).debugging(seed=0))
+    algo = imp.build_algo()
+    try:
+        rets = [algo.train()["env_runners"]["episode_return_mean"] for _ in range(6)]
+        w = rtt.get([a.get_weights.remote() for a in algo.learner_group._actors], timeout=DAG_TIMEOUT_S)
+        syncs = rtt.get([a.sync_ms.remote() for a in algo.learner_group._actors], timeout=DAG_TIMEOUT_S)
+    finally:
+        algo.stop()
+    check(np.isfinite(rets[-1]) and rets[-1] > 21, f"phase 8 (b): IMPALA's returns {rets}")
+    check(all(torch.equal(w[0][k], w[1][k]) for k in w[0]), "phase 8 (b): the learners' weights differ")
+    flat = sorted(x for s in syncs for x in s)
+    print(f"phase 8 (b) IMPALA, 2 env runners and 2 learner actors on the card: returns {[round(r, 1) for r in rets]} "
+          f"(gate: the last > 21, finite), both learners' weights equal; allreduce {statistics.median(flat):.3f} ms "
+          f"a minibatch (median of {len(flat)}) {card}")
+    appo = (APPOConfig().environment("CartPole-v1").env_runners(num_env_runners=0, num_envs_per_env_runner=8)
+            .training(lr=1e-3, train_batch_size=4000, entropy_coeff=0.005, rollout_fragment_length=100,
+                      vf_loss_coeff=0.25).debugging(seed=0))
+    algo = appo.build_algo()
+    try:
+        best_a = 0.0
+        for _ in range(22):
+            best_a = max(best_a, algo.train()["env_runners"]["episode_return_mean"])
+            if best_a >= 60:
+                break
+    finally:
+        algo.stop()
+    check(best_a >= 40, f"phase 8 (c): APPO's best {best_a} < 40")
+    print(f"phase 8 (c) APPO on CartPole-v1 (learner on the card): best episode_return_mean {best_a:.1f} (gate 40) "
+          f"{card}")
+    out.update(impala_env=dict(rets=rets, allreduce_ms=flat), appo_env=dict(best=best_a))
     return out
 
 

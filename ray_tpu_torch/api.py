@@ -333,6 +333,11 @@ class RemoteFunction:
         refs = [ObjectRef(i) for i in ids]
         return refs[0] if num_returns == 1 else refs
 
+    def bind(self, *args, **kwargs):
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
+
     def __call__(self, *args, **kwargs):
         raise TypeError(f"remote function {self.__name__}() cannot be called directly; use .remote()")
 
@@ -383,6 +388,11 @@ class ActorMethod:
             return ObjectRefGenerator(ids[0])
         refs = [ObjectRef(i) for i in ids]
         return refs[0] if num_returns == 1 else refs
+
+    def bind(self, *args, **kwargs):
+        from ray_tpu_torch.dag import ActorMethodNode
+
+        return ActorMethodNode(self._handle, self._name, args, kwargs)
 
 
 class ActorHandle:
@@ -472,6 +482,11 @@ class ActorClass:
         if hasattr(client, "mark_function_sent"):
             client.mark_function_sent(self._class_id)
         return ActorHandle(info["actor_id"], method_options)
+
+    def bind(self, *args, **kwargs):
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(f"actor class {self.__name__} cannot be instantiated directly; use .remote()")

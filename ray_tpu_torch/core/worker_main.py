@@ -654,6 +654,16 @@ class WorkerClient:
             return self._terminate_actor
         if name == "__ray_ready__":
             return lambda: True
+        if name == "__rt_device_get__":
+            # device objects: any actor serves its own registered tensors
+            # to a consumer in another process (experimental/device_objects.py)
+            from ray_tpu_torch.experimental.device_objects import export_for_transfer
+
+            return export_for_transfer
+        if name == "__rt_chan_setup__":
+            return self._chan_setup
+        if name == "__rt_chan_teardown__":
+            return self._chan_teardown
         fn = getattr(self._actor_instance, name, None)
         if fn is None:
             raise AttributeError(f"actor has no method {name!r}")
@@ -661,6 +671,23 @@ class WorkerClient:
 
     def _terminate_actor(self):
         self._shutdown = True
+        return True
+
+    def _chan_setup(self, plan):
+        """A channel-compiled DAG's builtin: bring up this actor's ring
+        endpoints and start its execution loop (experimental/channels.py)."""
+        from ray_tpu_torch.experimental.channels import ChannelLoopRunner
+
+        self._chan_teardown()
+        runner = ChannelLoopRunner(self._actor_instance, plan)
+        runner.setup()
+        self._chan_runner = runner
+        return True
+
+    def _chan_teardown(self):
+        runner, self._chan_runner = getattr(self, "_chan_runner", None), None
+        if runner is not None:
+            runner.teardown()
         return True
 
     def _get_actor_loop(self):

@@ -189,7 +189,14 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                "core/rpc_chaos.py", "util/placement_group.py", "util/scheduling_strategies.py",
                # the data library and batch inference
                "_native/__init__.py", "data/__init__.py", "data/block.py", "data/datasource.py", "data/executor.py",
-               "data/iterator.py", "data/dataset.py", "llm/batch.py"]
+               "data/iterator.py", "data/dataset.py", "llm/batch.py",
+               # compiled graphs, device objects and RLlib's on-policy half
+               "dag.py", "experimental/__init__.py", "experimental/channels.py", "experimental/compiled_dag.py",
+               "experimental/device_objects.py", "rllib/__init__.py", "rllib/core/distributions.py",
+               "rllib/core/rl_module.py", "rllib/core/learner.py", "rllib/env/env_runner.py", "rllib/env/episode.py",
+               "rllib/env/multi_agent.py", "rllib/connectors/connector.py", "rllib/offline/json_io.py",
+               "rllib/algorithms/algorithm.py", "rllib/algorithms/algorithm_config.py", "rllib/algorithms/ppo/ppo.py",
+               "rllib/algorithms/impala/impala.py", "rllib/algorithms/appo/appo.py"]
     assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:
@@ -198,7 +205,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
             if root in ("jax", "jaxlib", "ray_tpu", "cloudpickle"):
                 bad.append((str(path.relative_to(REPO)), mod))
     assert bad == []
-    probe = ("import sys, ray_tpu_torch.data, ray_tpu_torch.llm.batch; "
+    probe = ("import sys, ray_tpu_torch.data, ray_tpu_torch.llm.batch, ray_tpu_torch.dag, ray_tpu_torch.experimental, "
+             "ray_tpu_torch.experimental.compiled_dag, ray_tpu_torch.rllib; "
              "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas', "
              "'PIL'}))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
