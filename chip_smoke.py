@@ -427,7 +427,24 @@ Phases, in order; any failed check exits non-zero before the last line:
    episode_return_mean >= 120 within 15 iterations, each iteration's
    sampling and learning split and env steps/s; (b) IMPALA with 2 env
    runners and 2 learner actors (last return > 21); (c) APPO (best >= 40
-   within 22 iterations).
+   within 22 iterations). The off-policy and offline half, always, at
+   ray_tpu's default widths (256, 256), f32, each algorithm's default
+   batch, from seeded synthetic episodes of CartPole-v1's and
+   Pendulum-v1's shapes: (d) DQN (double Q, a prioritized buffer, batch
+   64): one update card vs host (metrics, |td| and parameters), the
+   priorities updated from each side's |td| equal, the target synced on
+   the card; (e) SAC (batch 256): one update card vs host on the same
+   noise (losses, alpha, parameters, log_alpha and the polyak targets),
+   alpha moved off 0.1; (f) a JSONL dataset written with the port's
+   JsonWriter, read back through JsonReader into a replay buffer and into
+   MARWIL's returns-to-go; CQL's, BC's and MARWIL's updates card vs host;
+   DQN's capacity refusal on a buffer one row too small. Each prints the
+   card's and the host's ms per update (the least of 5), DQN and SAC also
+   the card's with an .item() a metric in place of the one copy. With
+   gymnasium: (g) DQN learns CartPole-v1 (best >= 100 within 80
+   iterations) recording its episodes, SAC learns Pendulum-v1 (best >
+   -900 within 130 iterations), then an offline DQN and a BC train from
+   the recorded dataset and evaluate greedily.
 9. The training path, card against host: the same widths at 2 layers in
    f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
    gradients must agree.
@@ -5531,7 +5548,11 @@ def rl_setup(name: str):
 
 def rl_learner_pair(name: str) -> list:
     """The algorithm's learner on the card and on the host, both from seed 0."""
-    cls, spec, cfg = rl_setup(name)
+    return rl_pair(*rl_setup(name))
+
+
+def rl_pair(cls, spec, cfg) -> list:
+    """``cls`` on the card and on the host, both from seed 0."""
     out = []
     for device in (None, "cpu"):
         c = cfg.copy()
@@ -5540,6 +5561,23 @@ def rl_learner_pair(name: str) -> list:
         ln.build(seed=0)
         out.append(ln)
     return out
+
+
+def rl_gate(name: str, mc: dict, mh: dict, on_card, on_host, extra=()) -> float:
+    """One update card vs host: the metrics within RL_UPDATE_TOL's loss
+    tolerances, every parameter (and each (card tensor, host tensor) pair
+    of ``extra``) within its param_atol; the largest parameter error."""
+    check({p.device.type for p in on_card.module.parameters()} == {"cuda"},
+          f"phase 8 {name}: the learner's parameters are not on the card")
+    loss_err = max(abs(mc[k] - mh[k]) - RL_UPDATE_TOL["loss_rtol"] * abs(mh[k]) for k in mh)
+    sc, sh = on_card.module.state_dict(), on_host.module.state_dict()
+    pairs = [(sc[k], sh[k]) for k in sh] + list(extra)
+    param_err = max((c.cpu().float() - h.float()).abs().max().item() for c, h in pairs)
+    check(mc.keys() == mh.keys() and all(np.isfinite(v) for v in mc.values())
+          and loss_err <= RL_UPDATE_TOL["loss_atol"] and param_err <= RL_UPDATE_TOL["param_atol"],
+          f"phase 8 {name}: one update on the card vs the host: metrics {mc} vs {mh}, parameters differ by "
+          f"{param_err:.3g} (tolerances {RL_UPDATE_TOL})")
+    return param_err
 
 
 def rl_update(torch, ln, name, batch) -> tuple[dict, float]:
@@ -5577,18 +5615,10 @@ def rllib_on_card(torch, card) -> dict:
     batches = cartpole_batches(np.random.default_rng(0))
     for name in ("ppo", "impala", "appo"):
         on_card, on_host = rl_learner_pair(name)
-        check({p.device.type for p in on_card.module.parameters()} == {"cuda"},
-              f"phase 8 {name}: the learner's parameters are not on the card")
         batch = batches["ppo" if name == "ppo" else "seq"]
         mc, _ = rl_update(torch, on_card, name, batch)
         mh, _ = rl_update(torch, on_host, name, batch)
-        loss_err = max(abs(mc[k] - mh[k]) - RL_UPDATE_TOL["loss_rtol"] * abs(mh[k]) for k in mh)
-        sc, sh = on_card.module.state_dict(), on_host.module.state_dict()
-        param_err = max((sc[k].cpu() - sh[k]).abs().max().item() for k in sh)
-        check(mc.keys() == mh.keys() and all(np.isfinite(v) for v in mc.values())
-              and loss_err <= RL_UPDATE_TOL["loss_atol"] and param_err <= RL_UPDATE_TOL["param_atol"],
-              f"phase 8 {name}: one update on the card vs the host: metrics {mc} vs {mh}, parameters differ by "
-              f"{param_err:.3g} (tolerances {RL_UPDATE_TOL})")
+        param_err = rl_gate(name, mc, mh, on_card, on_host)
         t_card = [rl_update(torch, on_card, name, batch)[1] for _ in range(RL_TIMED_UPDATES)]
         t_host = [rl_update(torch, on_host, name, batch)[1] for _ in range(RL_TIMED_UPDATES)]
         steps = 8 if name == "ppo" else 1  # minibatch steps in one update
@@ -5630,8 +5660,10 @@ def rllib_on_card(torch, card) -> dict:
               f"of {sum(w.numel() for w in weights[0].values())} f32 gradients a minibatch through the collective's "
               f"object-store backend: {statistics.median(flat):.3f} ms median (min {flat[0]:.3f}, max {flat[-1]:.3f}); "
               f"{upd_s * 1e3:.1f} ms an update through the group; both learners' weights equal {card}")
+        out.update(rllib_offpolicy_legs(torch, card))
         if has_gym:
             out.update(rllib_env_legs(torch, card))
+            out.update(rllib_offpolicy_env_legs(torch, card))
     finally:
         if context.maybe_client() is not None:
             rtt.shutdown()
@@ -5704,6 +5736,330 @@ def rllib_env_legs(torch, card) -> dict:
     print(f"phase 8 (c) APPO on CartPole-v1 (learner on the card): best episode_return_mean {best_a:.1f} (gate 40) "
           f"{card}")
     out.update(impala_env=dict(rets=rets, allreduce_ms=flat), appo_env=dict(best=best_a))
+    return out
+
+
+# ---------------------------------------------------------------- phase 8 (d)-(g): off-policy and offline
+class PendulumObs:
+    """Pendulum-v1's observation space without gymnasium: 3 floats."""
+
+    shape = (3,)
+
+
+class PendulumAct:
+    """Pendulum-v1's action space without gymnasium: 1 float in [-2, 2]."""
+
+    shape = (1,)
+    low = np.array([-2.0], np.float32)
+    high = np.array([2.0], np.float32)
+
+
+RL_EPISODES = (40, 50)  # synthetic episodes (count, steps each): 2000 transitions per buffer
+
+
+def synthetic_episodes(rng, obs_dim: int, continuous: bool) -> list[dict]:
+    """Seeded episodes of CartPole-v1's (2 actions) or Pendulum-v1's (one
+    action in [-2, 2]) shapes; every other one terminated."""
+    n, T = RL_EPISODES
+    out = []
+    for i in range(n):
+        actions = rng.uniform(-2, 2, (T, 1)).astype(np.float32) if continuous else rng.integers(0, 2, T)
+        out.append({"obs": rng.normal(size=(T + 1, obs_dim)).astype(np.float32), "actions": actions,
+                    "rewards": rng.normal(size=T).astype(np.float32), "logp": np.zeros(T, np.float32),
+                    "terminated": i % 2 == 0})
+    return out
+
+
+def rl_least_ms(torch, fn, on_card: bool) -> float:
+    """The least wall of RL_TIMED_UPDATES calls of ``fn``, in ms (the card
+    synchronized after each)."""
+    return rl_least_ms_turns(torch, [fn], on_card)[0]
+
+
+def rl_least_ms_turns(torch, fns, on_card: bool) -> list[float]:
+    """Each of ``fns``' least wall over RL_TIMED_UPDATES rounds that call
+    them in turns, in ms (the card synchronized after each call)."""
+    times = [[] for _ in fns]
+    for _ in range(RL_TIMED_UPDATES):
+        for fn, acc in zip(fns, times):
+            t0 = time.perf_counter()
+            fn()
+            if on_card:
+                torch.cuda.synchronize()
+            acc.append(time.perf_counter() - t0)
+    return [min(t) * 1e3 for t in times]
+
+
+def rl_update_profile(torch, fn, iters: int = 5) -> dict:
+    """One learner update's device side from torch.profiler over ``iters``
+    calls after a warm-up: the wall a call (under the profiler), the
+    device-busy ms, the device operations (kernels and copies) a call,
+    and the idle share 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
+    dev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    busy = sum(self_device_us(e) for e in dev) / 1e3 / iters
+    return dict(wall_ms=wall, busy_ms=busy, ops=sum(e.count for e in dev) / iters, idle=1.0 - busy / wall)
+
+
+def rl_profile_text(prof: dict) -> str:
+    return (f"under torch.profiler {prof['wall_ms']:.3f} ms a call, the card busy {prof['busy_ms']:.3f} ms of it "
+            f"(idle share {prof['idle']:.3f}), {prof['ops']:.0f} device operations a call")
+
+
+def rl_item_readback(aux: dict) -> dict:
+    """The metrics read one ``.item()`` at a time (a sync each): the way
+    the single copy of ``read_once`` is timed against."""
+    return {k: (v.detach().cpu().numpy() if v.dim() else v.item()) for k, v in aux.items()}
+
+
+def rllib_offpolicy_legs(torch, card) -> dict:
+    """Phase 8 (d)-(f): DQN, SAC, CQL, BC and MARWIL learners on the card
+    against the host at ray_tpu's default widths, from seeded synthetic
+    episodes and a JSONL dataset written and read back with the port's
+    writer and reader."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.rllib import EpisodeReplayBuffer, PrioritizedEpisodeReplayBuffer
+    from ray_tpu_torch.rllib.algorithms.bc import BCConfig, BCLearner
+    from ray_tpu_torch.rllib.algorithms.cql import CQLConfig, CQLLearner
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNConfig, DQNLearner, QModule
+    from ray_tpu_torch.rllib.algorithms.marwil import MARWILConfig, MARWILLearner, returns_to_go
+    from ray_tpu_torch.rllib.algorithms.sac import SACConfig, SACLearner, SACModule
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule, RLModuleSpec
+    from ray_tpu_torch.rllib.offline import JsonWriter, fill_replay
+
+    out = {}
+    rng = np.random.default_rng(3)
+    wide = {"fcnet_hiddens": (256, 256)}
+
+    # ---- (d) DQN: prioritized replay, double Q, batch 64
+    cart = synthetic_episodes(rng, 4, continuous=False)
+    bufs = [PrioritizedEpisodeReplayBuffer(seed=0) for _ in range(2)]  # the card's and the host's: equal
+    for buf in bufs:
+        for ep in cart:
+            buf.add(ep)
+    cfg = DQNConfig()
+    on_card, on_host = rl_pair(DQNLearner, RLModuleSpec(QModule, Box(), Discrete(), wide), cfg)
+    batches = [buf.sample(cfg.train_batch_size) for buf in bufs]
+    check(all(np.array_equal(batches[0][k], batches[1][k]) for k in batches[0]), "phase 8 (d): the buffers' draws")
+    mc, td_c = on_card.update_dqn(batches[0])
+    mh, td_h = on_host.update_dqn(batches[1])
+    param_err = rl_gate("(d) DQN", mc, mh, on_card, on_host)
+    td_err = float(np.max(np.abs(td_c - td_h)))
+    check(td_c.shape == (cfg.train_batch_size,) and np.allclose(td_c, td_h, rtol=RL_UPDATE_TOL["loss_rtol"],
+                                                                atol=RL_UPDATE_TOL["loss_atol"]),
+          f"phase 8 (d) DQN: |td| card vs host differ by {td_err:.3g}")
+    bufs[0].update_priorities(batches[0]["batch_indices"], td_c)
+    bufs[1].update_priorities(batches[1]["batch_indices"], td_h)
+    pri_c, pri_h = bufs[0]._tree._tree, bufs[1]._tree._tree
+    check(np.allclose(pri_c, pri_h, rtol=RL_UPDATE_TOL["loss_rtol"], atol=RL_UPDATE_TOL["loss_atol"])
+          and not np.allclose(pri_c[bufs[0]._tree._size:][: len(bufs[0])], 1.0),
+          "phase 8 (d) DQN: the priorities updated from the card's |td| differ from the host's")
+    on_card.sync_target()
+    tgt = on_card.target.state_dict()
+    check(all(v.device.type == "cuda" and torch.equal(v, on_card.module.state_dict()[k]) for k, v in tgt.items()),
+          "phase 8 (d) DQN: sync_target did not copy the online network on the card")
+    b = batches[0]
+
+    def items_update():
+        rl_item_readback(on_card.apply_gradients_step(on_card._device_batch(b)))
+
+    ms_card, ms_items = rl_least_ms_turns(torch, [lambda: on_card.update_dqn(b), items_update], True)
+    ms_host = rl_least_ms(torch, lambda: on_host.update_dqn(b), False)
+    prof = rl_update_profile(torch, lambda: on_card.update_dqn(b))
+    out["dqn"] = dict(card_ms=ms_card, host_ms=ms_host, card_items_ms=ms_items, param_err=param_err, td_err=td_err,
+                      metrics=mc, profile=prof)
+    print(f"phase 8 (d) DQN learner (QModule 4 -> 256 -> 256 -> 2, f32, Adam, double Q, prioritized replay of "
+          f"{len(bufs[0])} synthetic CartPole-shaped transitions, batch {cfg.train_batch_size} with IS weights): one "
+          f"update on the card {ms_card:.3f} ms (least of {RL_TIMED_UPDATES}; metrics and |td| read in one copy) vs "
+          f"{ms_items:.3f} ms with an .item() a metric (in turns), vs the same update on the host in process "
+          f"{ms_host:.3f} ms; {rl_profile_text(prof)}; "
+          f"first update's metrics card { {k: round(v, 6) for k, v in mc.items()} } vs host "
+          f"{ {k: round(v, 6) for k, v in mh.items()} }, |td| within {td_err:.3g}, parameters within "
+          f"{param_err:.3g}; the priorities from the card's |td| equal the host's; the target synced on the card "
+          f"{card}")
+    del on_card, on_host
+
+    # ---- (e) SAC: Pendulum-shaped, batch 256, the same noise on both
+    pend = synthetic_episodes(rng, 3, continuous=True)
+    buf = EpisodeReplayBuffer(seed=0)
+    for ep in pend:
+        buf.add(ep)
+    cfg = SACConfig()
+    on_card, on_host = rl_pair(SACLearner, RLModuleSpec(SACModule, PendulumObs(), PendulumAct(), wide), cfg)
+    b = buf.sample(cfg.train_batch_size)
+    noise = on_host.draw_noise(cfg.train_batch_size)
+    mc, mh = on_card.update_sac(b, noise=noise), on_host.update_sac(b, noise=noise)
+    tq_c, tq_h = on_card.target_q.state_dict(), on_host.target_q.state_dict()
+    param_err = rl_gate("(e) SAC", mc, mh, on_card, on_host, [(tq_c[k], tq_h[k]) for k in tq_h])
+    alpha_after = on_card.module.log_alpha.detach().exp().item()
+    check(abs(mc["alpha"] - mh["alpha"]) <= 1e-7 and abs(alpha_after - cfg.initial_alpha) > 1e-7,
+          f"phase 8 (e) SAC: alpha before {mc['alpha']} / {mh['alpha']}, after the update {alpha_after}")
+    ms_card, ms_items = rl_least_ms_turns(
+        torch, [lambda: on_card.update_sac(b), lambda: rl_item_readback(on_card.step(b))], True)
+    ms_host = rl_least_ms(torch, lambda: on_host.update_sac(b), False)
+    prof = rl_update_profile(torch, lambda: on_card.update_sac(b))
+    out["sac"] = dict(card_ms=ms_card, host_ms=ms_host, card_items_ms=ms_items, param_err=param_err, metrics=mc,
+                      alpha_after=alpha_after, profile=prof)
+    print(f"phase 8 (e) SAC learner (pi 3 -> 256 -> 256 -> 2, critics 4 -> 256 -> 256 -> 1 twice, log_alpha, one "
+          f"Adam, polyak tau {cfg.tau}; {len(buf)} synthetic Pendulum-shaped transitions, batch "
+          f"{cfg.train_batch_size}): one update on the card {ms_card:.3f} ms (least of {RL_TIMED_UPDATES}; metrics "
+          f"in one copy) vs {ms_items:.3f} ms with an .item() a metric (in turns), vs the host in process "
+          f"{ms_host:.3f} ms; {rl_profile_text(prof)}; "
+          f"first update on the same noise: metrics card { {k: round(v, 6) for k, v in mc.items()} } vs host "
+          f"{ {k: round(v, 6) for k, v in mh.items()} }, parameters and polyak targets within {param_err:.3g}; "
+          f"alpha {mc['alpha']:.6f} -> {alpha_after:.6f} {card}")
+    del on_card, on_host
+
+    # ---- (f) offline: a JSONL dataset through the port's writer and reader
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rl_")
+    try:
+        w = JsonWriter(tmp)
+        for ep in synthetic_episodes(rng, 4, continuous=False):
+            w.write(ep)
+        w.close()
+        buf = EpisodeReplayBuffer(seed=0)
+        n = fill_replay(buf, tmp)
+        obs, actions, returns = returns_to_go(tmp, MARWILConfig().gamma)
+        check(n == len(returns) == RL_EPISODES[0] * RL_EPISODES[1] and np.isfinite(returns).all(),
+              f"phase 8 (f): the dataset read back {n} transitions, {len(returns)} returns")
+        try:
+            fill_replay(EpisodeReplayBuffer(capacity=n - 1), tmp, refuse_overflow=True)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "exceeds replay_buffer_capacity" in refused,
+              f"phase 8 (f): DQN's capacity refusal on an oversized dataset: {refused!r}")
+        mrng = np.random.default_rng(MARWILConfig().seed)
+        legs = {
+            "CQL": (CQLLearner, QModule, CQLConfig(), lambda ln, bt: ln.update_dqn(bt)[0],
+                    buf.sample(CQLConfig().train_batch_size)),
+            "BC": (BCLearner, MLPModule, BCConfig(), lambda ln, bt: ln.update(bt),
+                   buf.sample(BCConfig().train_batch_size)),
+            "MARWIL": (MARWILLearner, MLPModule, MARWILConfig(), lambda ln, bt: ln.update_marwil(bt),
+                       (lambda i: {"obs": obs[i], "actions": actions[i], "returns": returns[i]})(
+                           mrng.integers(0, len(returns), MARWILConfig().train_batch_size))),
+        }
+        for name, (cls, module, cfg, upd, bt) in legs.items():
+            on_card, on_host = rl_pair(cls, RLModuleSpec(module, Box(), Discrete(), wide), cfg)
+            mc, mh = upd(on_card, bt), upd(on_host, bt)
+            param_err = rl_gate(f"(f) {name}", mc, mh, on_card, on_host)
+            if name == "MARWIL":
+                check(abs(on_card.ma_adv_norm - on_host.ma_adv_norm) <= 1e-4 * abs(on_host.ma_adv_norm),
+                      f"phase 8 (f) MARWIL: ma_adv_norm {on_card.ma_adv_norm} vs {on_host.ma_adv_norm}")
+            ms_card = rl_least_ms(torch, lambda: upd(on_card, bt), True)
+            ms_host = rl_least_ms(torch, lambda: upd(on_host, bt), False)
+            prof = rl_update_profile(torch, lambda: upd(on_card, bt))
+            out[name.lower()] = dict(card_ms=ms_card, host_ms=ms_host, param_err=param_err, metrics=mc, profile=prof)
+            print(f"phase 8 (f) {name} learner ({module.__name__} 4 -> 256 -> 256 -> 2, f32, Adam; batch "
+                  f"{len(bt['obs'])} from the {n}-transition JSONL dataset read back through JsonReader): one update "
+                  f"on the card {ms_card:.3f} ms (least of {RL_TIMED_UPDATES}) vs the host in process "
+                  f"{ms_host:.3f} ms; {rl_profile_text(prof)}; first update's metrics card "
+                  f"{ {k: round(v, 6) for k, v in mc.items()} } vs host { {k: round(v, 6) for k, v in mh.items()} }, "
+                  f"parameters within {param_err:.3g} {card}")
+            del on_card, on_host
+        print(f"phase 8 (f) offline dataset: {RL_EPISODES[0]} episodes written with JsonWriter, {n} transitions read "
+              f"back into a replay buffer and into MARWIL's returns-to-go; DQN's capacity refusal raised ValueError "
+              f"on a buffer of {n - 1} {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def rllib_offpolicy_env_legs(torch, card) -> dict:
+    """Phase 8 (g), where gymnasium is installed: ray_tpu's DQN (recording
+    its episodes) and SAC learning configurations with the learners on the
+    card; then an offline DQN and a BC train from the DQN run's dataset and
+    evaluate greedily."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.rllib import BCConfig, DQNConfig, SACConfig
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rl_g_")
+    ds = os.path.join(tmp, "cartpole")
+    try:
+        dqn = (DQNConfig().environment("CartPole-v1")
+               .env_runners(num_envs_per_env_runner=4, rollout_fragment_length=256).debugging(seed=0)
+               .offline_data(output=ds))
+        dqn.training(lr=1e-3, train_batch_size=64, num_steps_sampled_before_learning_starts=1000,
+                     target_network_update_freq=250, initial_epsilon=1.0, final_epsilon=0.05, epsilon_timesteps=5000,
+                     train_intensity=8.0, model={"fcnet_hiddens": (64, 64)})
+        algo = dqn.build_algo()
+        t0 = time.perf_counter()
+        try:
+            devs = {p.device.type for p in algo._learner.module.parameters()}
+            check(devs == {"cuda"}, f"phase 8 (g): the DQN learner's parameters on {devs}")
+            best, iters = 0.0, 0
+            for iters in range(1, 81):
+                best = max(best, algo.train()["env_runners"]["episode_return_mean"])
+                if best >= 120:
+                    break
+        finally:
+            algo.stop()
+        check(best >= 100, f"phase 8 (g): DQN's best episode_return_mean {best} < 100")
+        out["dqn_env"] = dict(best=best, iterations=iters, s=time.perf_counter() - t0)
+        print(f"phase 8 (g) DQN on CartPole-v1 (ray_tpu's _dqn_config, learner on the card, recording its episodes): "
+              f"best episode_return_mean {best:.1f} (gate 100) in {iters} iterations, "
+              f"{out['dqn_env']['s']:.1f} s {card}")
+        sac = (SACConfig().environment("Pendulum-v1")
+               .env_runners(num_envs_per_env_runner=4, rollout_fragment_length=256)
+               .training(lr=3e-4, train_batch_size=256, num_steps_sampled_before_learning_starts=1000,
+                         train_intensity=128.0, model={"fcnet_hiddens": (64, 64)}).debugging(seed=0))
+        algo = sac.build()
+        t0 = time.perf_counter()
+        try:
+            best_s, r = -1e9, None
+            for iters in range(1, 131):
+                r = algo.train()
+                ret = r["env_runners"]["episode_return_mean"]
+                best_s = max(best_s, ret) if np.isfinite(ret) else best_s
+                if best_s > -900.0:
+                    break
+        finally:
+            algo.stop()
+        check(best_s > -900.0 and abs(r["learner"]["alpha"] - 0.1) > 1e-4,
+              f"phase 8 (g): SAC's best {best_s} (gate -900), alpha {r['learner'].get('alpha')}")
+        out["sac_env"] = dict(best=best_s, iterations=iters, s=time.perf_counter() - t0)
+        print(f"phase 8 (g) SAC on Pendulum-v1 (ray_tpu's test config, learner on the card): best episode_return_mean "
+              f"{best_s:.1f} (gate -900) in {iters} iterations, {out['sac_env']['s']:.1f} s {card}")
+        off = DQNConfig().environment("CartPole-v1").debugging(seed=1).offline_data(input_=ds)
+        off.training(lr=1e-3, offline_updates_per_iter=30, train_batch_size=64)
+        algo = off.build_algo()
+        try:
+            n0 = len(algo.replay)
+            r = [algo.train() for _ in range(3)][-1]
+        finally:
+            algo.stop()
+        check(r["learner"]["num_updates"] == 30 and len(algo.replay) == n0 == r["offline_transitions"]
+              and "episode_return_mean" in r["env_runners"], f"phase 8 (g): offline DQN's result {r}")
+        bc = BCConfig().environment("CartPole-v1").offline_data(input_=ds).training(updates_per_iter=20)
+        algo = bc.build()
+        try:
+            rb = [algo.train() for _ in range(2)][-1]
+        finally:
+            algo.stop()
+        check(np.isfinite(rb["learner"]["bc_logp_mean"]) and rb["dataset_transitions"] == n0,
+              f"phase 8 (g): BC's result {rb}")
+        out["offline_env"] = dict(transitions=n0, dqn_return=r["env_runners"]["episode_return_mean"],
+                                  bc_logp=rb["learner"]["bc_logp_mean"])
+        print(f"phase 8 (g) offline DQN and BC from the DQN run's {n0} recorded transitions (learners on the card, "
+              f"greedy evaluation): DQN's greedy episode_return_mean {r['env_runners']['episode_return_mean']}, BC's "
+              f"logp mean {rb['learner']['bc_logp_mean']:.4f} {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

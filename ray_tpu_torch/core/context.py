@@ -16,7 +16,6 @@ DRIVER_ITEM = "queue 1, attached drivers"  # init(address=...), driver_client.py
 GRPC_ITEM = "queue 1, serve gRPC ingress"  # serve.start(grpc_port=...), serve/_grpc_proxy.py
 MESH_ITEM = "queue 1, multi-device axes"  # meshes, shardings, device collectives (collective/ici.py)
 PERSIST_ITEM = "queue 1, persistent GCS"  # FileTableStore, gcs_persist_path, detached actors across heads
-RLLIB_ITEM = "queue 1, RLlib, off-policy and offline"  # DQN, SAC, CQL, BC, MARWIL, replay buffers, offline training
 RUNTIME_ENV_ITEM = "queue 1, runtime_env"  # runtime_env/ packing and setup in the worker
 STATE_ITEM = "queue 1, state and monitors"  # util/state, timeline, dump_cluster_info, log and memory monitors
 XLANG_ITEM = "queue 1, cross-language"  # xlang.py

@@ -1,7 +1,9 @@
 """Algorithm: the RL training driver (port of
 ray_tpu/rllib/algorithms/algorithm.py): an EnvRunnerGroup and a
 LearnerGroup; subclasses implement ``training_step()`` and name their
-Learner class.
+Learner class. Offline training (``offline_data(input_=...)``) is for
+the algorithms that say ``supports_offline_input`` (DQN, CQL, BC,
+MARWIL); their env runners only evaluate, greedily.
 
 The checkpoint is the port's own: ``torch.save`` of host tensors and
 plain values (``algorithm_state.pt``), read back with
@@ -24,6 +26,7 @@ CHECKPOINT_FILE = "algorithm_state.pt"
 
 class Algorithm:
     learner_cls: type = None  # set by subclasses
+    supports_offline_input = False  # DQN-family overrides
 
     def __init__(self, config):
         self.config = config
@@ -36,10 +39,17 @@ class Algorithm:
         cfg = self.config
         if cfg.env is None:
             raise ValueError("config.environment(env=...) is required")
-        if cfg.input_:
-            from ray_tpu_torch.core.context import RLLIB_ITEM, not_ported
-
-            not_ported(f"{type(self).__name__} with offline_data(input_=...) (offline training)", RLLIB_ITEM)
+        if cfg.input_ and not type(self).supports_offline_input:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support offline_data(input_=...); "
+                "use an off-policy algorithm (DQN)"
+            )
+        if cfg.input_ and cfg.output:
+            raise ValueError(
+                "offline_data(input_=..., output=...) conflict: offline mode "
+                "evaluates greedily and recording those episodes would pollute "
+                "the dataset — drop output for offline training"
+            )
         # spaces come from a throwaway env (cheap for gym registry ids)
         gym = import_gymnasium()
         probe = gym.make(cfg.env, **cfg.env_config)
@@ -87,6 +97,28 @@ class Algorithm:
         self._total_env_steps = state["total_env_steps"]
         self.learner_group.set_state(state["learner"])
         self.env_runner_group.sync_weights(self.learner_group.get_weights())
+
+    # -- shared helpers --
+    def _require_offline_only(self):
+        """Guard of the offline-only algorithms (BC, MARWIL)."""
+        cfg = self.config
+        if not cfg.input_:
+            raise ValueError(
+                f"{type(self).__name__} is offline-only: configure "
+                "offline_data(input_=<episode dataset path>)"
+            )
+        if cfg.num_learners > 0:
+            raise NotImplementedError(f"{type(self).__name__} runs a single (local) learner")
+
+    def _offline_eval_result(self, learner_metrics: dict, num_updates: int) -> dict:
+        """Tail of an offline training_step: push the weights, evaluate the
+        policy greedily (no exploration data enters offline training) and
+        package the result."""
+        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        _, runner_metrics = self.env_runner_group.sample(self.config.rollout_fragment_length, explore=False)
+        result = self._merge_runner_metrics(runner_metrics)
+        result["learner"] = {"num_updates": num_updates, **learner_metrics}
+        return result
 
     @staticmethod
     def _merge_runner_metrics(metrics: list[dict]) -> dict:

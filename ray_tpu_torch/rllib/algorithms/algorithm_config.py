@@ -109,7 +109,7 @@ class AlgorithmConfig:
 
     def build_algo(self):
         if self.algo_class is None:
-            raise ValueError("use a concrete config (PPOConfig, IMPALAConfig, APPOConfig)")
+            raise ValueError("use a concrete config (PPOConfig, IMPALAConfig, APPOConfig, DQNConfig, SACConfig, ...)")
         return self.algo_class(self.copy())
 
     build = build_algo  # the reference's spelling

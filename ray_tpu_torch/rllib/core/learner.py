@@ -33,6 +33,21 @@ def host_state(module) -> dict:
     return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
 
 
+def read_once(scalars: dict, *vectors) -> tuple[dict, list]:
+    """Scalar metrics (0-d tensors) and vectors from the learner's device
+    in one copy, so an update syncs the card once: ({name: float}, [numpy
+    float32 vector, ...])."""
+    names = list(scalars)
+    parts = [torch.stack([scalars[k].detach().float().reshape(()) for k in names])]
+    parts += [v.detach().float().reshape(-1) for v in vectors]
+    host = torch.cat(parts).cpu().numpy()
+    out, off = [], len(names)
+    for v in vectors:
+        out.append(host[off : off + v.numel()])
+        off += v.numel()
+    return {k: float(x) for k, x in zip(names, host)}, out
+
+
 def _to_device(state, device):
     if isinstance(state, torch.Tensor):
         return state.to(device)
@@ -100,6 +115,11 @@ class Learner:
         self._clip(grads)
         self.optimizer.step()
         return aux
+
+    def _device_batch(self, batch: dict) -> dict:
+        """A sampled batch's columns on the learner's device (the replay
+        buffer's ``batch_indices`` stay on the host)."""
+        return self._minibatch({k: v for k, v in batch.items() if k != "batch_indices"}, slice(None))
 
     def _minibatch(self, batch: dict, rows) -> dict:
         return {k: torch.as_tensor(np.ascontiguousarray(v[rows])).to(self.device, non_blocking=True)

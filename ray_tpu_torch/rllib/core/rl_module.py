@@ -81,6 +81,20 @@ class Dense(nn.Module):
         return x @ self.w + self.b
 
 
+class Tower(nn.ModuleList):
+    """An MLP as a list of ``Dense`` layers, tanh between them (its state
+    dict keys are the list's, ``0.w``); a module of its own, so
+    ``torch.func.functional_call`` can run it on other parameters."""
+
+    @classmethod
+    def of(cls, sizes) -> "Tower":
+        """Layers of ``sizes[0] -> sizes[1] -> ...``."""
+        return cls(Dense(i, o) for i, o in zip(sizes[:-1], sizes[1:]))
+
+    def forward(self, x):
+        return MLPModule._mlp_apply(self, x)
+
+
 def orthogonal(gen: torch.Generator, n: int) -> torch.Tensor:
     """A random n x n orthogonal matrix (QR of a gaussian, signs fixed by
     R's diagonal), as ``jax.random.orthogonal`` draws it."""
@@ -92,20 +106,20 @@ class MLPModule(RLModule):
     """Separate policy and value MLP towers with tanh activations, the
     reference catalog's fcnet (``fcnet_hiddens`` defaults to (256, 256));
     orthogonal init, the towers' last layers scaled 0.01 (pi) and 1.0
-    (vf)."""
+    (vf). Subclasses with other towers override ``_make_towers`` and
+    ``init``."""
 
     def __init__(self, observation_space, action_space, model_config=None):
         super().__init__(observation_space, action_space, model_config)
         self.hiddens = tuple(self.model_config.get("fcnet_hiddens", (256, 256)))
         self.obs_dim = _space_size(observation_space)
         self.out_dim = int(action_space.n) if hasattr(action_space, "n") else 2 * int(np.prod(action_space.shape))
-        self.pi = self._tower((self.obs_dim, *self.hiddens, self.out_dim))
-        self.vf = self._tower((self.obs_dim, *self.hiddens, 1))
+        self._make_towers()
         self.init(0)
 
-    @staticmethod
-    def _tower(sizes):
-        return nn.ModuleList(Dense(i, o) for i, o in zip(sizes[:-1], sizes[1:]))
+    def _make_towers(self):
+        self.pi = Tower.of((self.obs_dim, *self.hiddens, self.out_dim))
+        self.vf = Tower.of((self.obs_dim, *self.hiddens, 1))
 
     @staticmethod
     @torch.no_grad()
@@ -151,5 +165,9 @@ def flatten_params(tree, prefix: str = "") -> dict:
 def params_from_jax(tree, device="cpu") -> dict:
     """A module's state dict from ray_tpu's RLlib params (nested dicts and
     lists of arrays, as numpy): float32 tensors on ``device`` under the
-    pytree's paths. ``module.load_state_dict(params_from_jax(p))``."""
+    pytree's paths. ``module.load_state_dict(params_from_jax(p))``. It
+    serves every module of the port: ``MLPModule``'s ``{"pi", "vf"}``,
+    ``QModule``'s ``{"q"}``, ``SACModule``'s ``{"pi", "q1", "q2",
+    "log_alpha"}`` (a scalar leaf: a 0-d tensor) and SAC's ``target_q``
+    ``{"q1", "q2"}``, and a gradient tree as well as a parameter tree."""
     return {k: torch.as_tensor(np.array(v, dtype=np.float32), device=device) for k, v in flatten_params(tree).items()}

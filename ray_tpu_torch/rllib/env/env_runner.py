@@ -90,11 +90,16 @@ class SingleAgentEnvRunner:
         self._weights_set = True
 
     def set_exploration(self, **kw):
-        """Push exploration knobs onto the module's distribution class."""
-        cls = self.module.action_dist_cls
+        """Push exploration knobs (DQN's ``eps``) onto the module's
+        distribution; a knob it lacks is ignored."""
+        dist = self.module.action_dist_cls
         for k, v in kw.items():
-            if hasattr(cls, k):
-                setattr(cls, k, v)
+            if hasattr(dist, k):
+                setattr(dist, k, v)
+
+    def get_exploration(self, name: str):
+        """An exploration knob's value on this runner (None if absent)."""
+        return getattr(self.module.action_dist_cls, name, None)
 
     def get_spaces(self):
         return self.envs.single_observation_space, self.envs.single_action_space
@@ -219,6 +224,12 @@ class EnvRunnerGroup:
             self._local.set_exploration(**kw)
         else:
             ray_tpu_torch.get([a.set_exploration.remote(**kw) for a in self._actors])
+
+    def get_exploration(self, name: str) -> list:
+        """The knob's value on every runner."""
+        if self._local is not None:
+            return [self._local.get_exploration(name)]
+        return ray_tpu_torch.get([a.get_exploration.remote(name) for a in self._actors])
 
     def sample(self, num_steps: int, explore: bool = True):
         """Returns (all segment batches, per-runner metrics list)."""

@@ -1,3 +1,3 @@
-from ray_tpu_torch.rllib.offline.json_io import JsonReader, JsonWriter, read_episodes, write_episodes
+from ray_tpu_torch.rllib.offline.json_io import JsonReader, JsonWriter, fill_replay, read_episodes, write_episodes
 
-__all__ = ["JsonReader", "JsonWriter", "read_episodes", "write_episodes"]
+__all__ = ["JsonReader", "JsonWriter", "fill_replay", "read_episodes", "write_episodes"]

@@ -98,3 +98,22 @@ def write_episodes(path: str, episode_batches: list):
 
 def read_episodes(path: str) -> list:
     return list(JsonReader(path))
+
+
+def fill_replay(replay, path: str, refuse_overflow: bool = False) -> int:
+    """Every transition of the episode dataset at ``path`` into ``replay``
+    (a replay buffer); their number. An empty dataset raises, and with
+    ``refuse_overflow`` (DQN) so does one larger than the buffer: its ring
+    would drop the first transitions."""
+    n = 0
+    for episode in JsonReader(path):
+        n += len(replay.add(episode))
+        if refuse_overflow and n > replay.capacity:
+            raise ValueError(
+                f"offline dataset {path!r} exceeds replay_buffer_capacity "
+                f"({replay.capacity}): the ring would silently drop early "
+                "transitions — raise replay_buffer_capacity to at least the dataset size"
+            )
+    if n == 0:
+        raise ValueError(f"offline input {path!r} contained no transitions")
+    return n

@@ -196,7 +196,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                "rllib/core/rl_module.py", "rllib/core/learner.py", "rllib/env/env_runner.py", "rllib/env/episode.py",
                "rllib/env/multi_agent.py", "rllib/connectors/connector.py", "rllib/offline/json_io.py",
                "rllib/algorithms/algorithm.py", "rllib/algorithms/algorithm_config.py", "rllib/algorithms/ppo/ppo.py",
-               "rllib/algorithms/impala/impala.py", "rllib/algorithms/appo/appo.py"]
+               "rllib/algorithms/impala/impala.py", "rllib/algorithms/appo/appo.py",
+               # RLlib's off-policy and offline half
+               "rllib/utils/replay_buffers.py", "rllib/algorithms/dqn/dqn.py", "rllib/algorithms/cql/cql.py",
+               "rllib/algorithms/sac/sac.py", "rllib/algorithms/bc/bc.py", "rllib/algorithms/marwil/marwil.py"]
     assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:

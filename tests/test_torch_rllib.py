@@ -10,9 +10,11 @@ draws come from ``torch.Generator``s, not jax keys, so where a case
 samples, it holds ray_tpu's threshold and not its trajectory (ROADMAP.md,
 Differences kept on purpose). The learning cases are in
 ``tests/test_torch_rllib_learn.py``; the numbers against ray_tpu's in
-``tests/test_torch_rllib_parity.py``. Then the port's rules: the
-off-policy names raise naming their ROADMAP item, a missing gymnasium is
-named, and (on the card) the learner's parameters live on ``cuda``.
+``tests/test_torch_rllib_parity.py``; the off-policy and offline half's
+in ``tests/test_torch_rllib_offpolicy*.py`` and
+``tests/test_torch_rllib_learn_{dqn,sac}.py``. Then the port's rules: a
+missing gymnasium is named, and (on the card) the learner's parameters
+live on ``cuda``.
 Learners run with ``device="cpu"``: the card is their default."""
 
 import sys
@@ -353,23 +355,6 @@ def test_connectors_in_env_runner():
 
 
 # ------------------------------------------------------- the port's rules
-@pytest.mark.parametrize("name", ["DQN", "DQNConfig", "SAC", "SACConfig", "CQL", "CQLConfig", "BC", "BCConfig",
-                                  "MARWIL", "MARWILConfig", "EpisodeReplayBuffer", "PrioritizedEpisodeReplayBuffer"])
-def test_off_policy_names_raise_naming_their_item(name):
-    import ray_tpu_torch.rllib as rl
-    from ray_tpu_torch.core.context import RLLIB_ITEM
-
-    with pytest.raises(NotImplementedError, match=RLLIB_ITEM):
-        getattr(rl, name)()
-
-
-def test_offline_input_raises_naming_the_item(tmp_path):
-    from ray_tpu_torch.core.context import RLLIB_ITEM
-
-    with pytest.raises(NotImplementedError, match=RLLIB_ITEM):
-        _ppo_config().offline_data(input_=str(tmp_path)).build_algo()
-
-
 def test_missing_gymnasium_is_named(monkeypatch):
     monkeypatch.setitem(sys.modules, "gymnasium", None)
     with pytest.raises(ImportError, match="gymnasium"):

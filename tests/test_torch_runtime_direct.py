@@ -409,15 +409,12 @@ def test_paths_not_ported_name_their_roadmap_items(both):
     for call, item in calls[1:]:
         with pytest.raises(NotImplementedError, match=item):
             call()
-    from ray_tpu_torch import rllib as trllib
     from ray_tpu_torch import serve as tserve
 
     with pytest.raises(NotImplementedError, match=tcontext.GRPC_ITEM):
         tserve.start(grpc_port=0)
-    with pytest.raises(NotImplementedError, match=tcontext.RLLIB_ITEM):
-        trllib.DQNConfig()
     for item in (tcontext.DRIVER_ITEM, tcontext.AGENTS_ITEM, tcontext.RUNTIME_ENV_ITEM, tcontext.STATE_ITEM,
-                 tcontext.PERSIST_ITEM, tcontext.XLANG_ITEM, tcontext.GRPC_ITEM, tcontext.RLLIB_ITEM):
+                 tcontext.PERSIST_ITEM, tcontext.XLANG_ITEM, tcontext.GRPC_ITEM):
         assert "**" + item.split(", ", 1)[1].lower() in roadmap.lower(), item  # a bold item of ROADMAP.md's queue 1
 
 
