@@ -279,6 +279,45 @@ Phases, in order; any failed check exits non-zero before the last line:
    each leg's wall, rows/s and generated tok/s beside phase 4's
    in-process wall, the actors' time to ready, the feed's rows/s and GB/s
    and whether the native hashing (g++) was built.
+4k. The runtime across processes (core/node.py's agents, node_agent.py,
+   transport.py, driver_client.py, the persistent GCS, job/), after 4j,
+   on phase 4's engine. (a) A head with num_gpus=0 and a node added with
+   add_node(remote=True, resources={"CPU": 2, "GPU": 1}):
+   cluster_resources GPU 1; a num_gpus=1 detached named actor
+   (CardServer) lands there, its worker forked by the agent's zygote with
+   CUDA_VISIBLE_DEVICES set, serves phase 4's 8 prompts: 256 of 256
+   tokens and its K1/K4 counts equal phase 4's, the driver's counts do
+   not move; K1 and K4 held against their plain versions in that worker;
+   the card's memory in use after add_node is as before it (the agent
+   holds no CUDA context).
+   (b) A second process (this script, --phase4k-driver) attaches with
+   init(address="auto"), gets the actor by name and generates: its
+   tokens equal phase 4's; a job (this script, --phase4k-job) submitted
+   through JobSubmissionClient attaches through RT_HEAD_ADDRESS, does the
+   same and ends SUCCEEDED with the equal tokens in its log; each one's
+   K1/K4 counts equal phase 4's. (c) A task on an shm_isolation=True node
+   returns a 256 MiB host tensor; the driver pulls it over the transfer
+   server and uploads it to the card, the bytes equal; GB/s for each.
+   Then that node's agent is stopped (SIGSTOP: its socket stays open) and
+   the health loop alone marks the node dead, between period x
+   (threshold - 2) and period x threshold + PHASE4K_DETECT_SLACK_S.
+   (d) A head subprocess (--phase4k-head1) on a gcs_persist_path log
+   creates a detached named num_gpus=1 engine actor, checks its tokens,
+   puts a KV key, runs a job and kills itself with SIGKILL: the card's
+   memory in use returns to its level before that head within
+   PHASE4K_MEM_S; a second head (--phase4k-head2) on the same log shows
+   the key and the job, re-creates the actor under its name, its tokens
+   and K1/K4 counts equal phase 4's; the killed head's /dev/shm segments
+   are printed and removed. (e) SIGKILL of the agent that holds (a)'s
+   actor: the node is marked dead from its socket's end of file within
+   period x threshold + PHASE4K_DETECT_SLACK_S, calls to the actor fail
+   with ActorDiedError within PHASE4K_DIED_S, the card's memory comes
+   back. (f) shutdown()
+   leaves no agent, no worker, no rt segment, and the card's memory as
+   before the phase. Prints the agent's boot, the attach, the job's
+   start to SUCCEEDED, the re-created actor's time to its first tokens,
+   the dead nodes' detection (health loop and end of file), and the
+   phase's total, in seconds.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -634,6 +673,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if len(sys.argv) > 1 and sys.argv[1] in PHASE4K_MODES:
+        return PHASE4K_MODES[sys.argv[1]](*sys.argv[2:])
     import dataclasses
     from functools import partial
 
@@ -1128,6 +1169,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("4j")
+    # ---------------------------------------------------------------- 4k
+    # the runtime across processes: a GPU actor on an agent's node, an attached driver and a job, a cross-namespace
+    # pull, a head killed and its detached actor re-created from the persistent GCS, an agent's death
+    agt = agents_on_card(torch, cfg, prompts, gr, drv_checksum, card, dev)
+    torch.cuda.empty_cache()
+
+    mark("4k")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1616,6 +1664,19 @@ def main() -> int:
                "prefill, two actors", "b"),
               (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134",
                "decode, two actors", "b"))),
+        *(dict(name=f"K{k} {fn} {who} (phase 4k {leg}; held and timed in (a)'s worker on the agent's node at "
+                    f"{agt['a']['check'][f'k{k}']['shape']})", route="cuda", source=f"ray_tpu_torch/csrc/{src}",
+               replaces=rep, launches=launches, max_abs_err=agt["a"]["check"][f"k{k}"]["err_o" if k == 1 else "err"],
+               ms=agt["a"]["check"][f"k{k}"]["ms"], plain_ms=agt["a"]["check"][f"k{k}"]["plain_ms"],
+               bound_ms=agt["a"]["check"][f"k{k}"]["bound_ms"], bound_by=agt["a"]["check"][f"k{k}"]["bound_by"],
+               library_ms=agt["a"]["check"]["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134"))
+          for who, leg, launches in (
+              ("GPU actor on an agent's node, the driver's, the attached driver's and the job's generate", "(a), (b)",
+               sum(agt[x][f"k{k}"] for x in ("a", "driver", "job"))),
+              ("detached actor re-created by a restarted head", "(d)", agt["d"][f"k{k}"]))),
         *(dict(name=f"K{k} {fn} train worker (phase 7b, fits A and B in the GPU train worker; held and timed there "
                     f"at {trn['A']['hold'][hk]['shape']} bf16 causal)", route="cuda",
                source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=trn["launches"][k - 1], max_abs_err=err,
@@ -3591,6 +3652,412 @@ def runtime_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> 
     return out
 
 
+# ---------------------------------------------------------------- phase 4k: the runtime across processes
+PHASE4K_HEALTH = (0.5, 4)  # the phase's head: health_check_period_s, health_check_failure_threshold
+PHASE4K_DETECT_SLACK_S = 5.0  # a dead agent's node marked dead within period x threshold + this
+PHASE4K_DIED_S = 60.0  # calls to the dead agent's actor fail with ActorDiedError within this
+PHASE4K_MEM_S = 120.0  # the card's memory back within this after a head or an agent is killed
+PHASE4K_XFER_BYTES = 256 << 20  # (c): the host tensor a task on an shm-isolated node returns
+PHASE4K_CHILD_S = 900  # a child process (an attached driver, a job, a head) ends within this
+PHASE4K_SCRIPT = os.path.abspath(__file__)  # the script the children run in a sub-mode
+
+
+@remote(num_cpus=0)
+def host_block(nbytes: int, seed: int):
+    """(c): ``nbytes`` seeded random bytes as a host tensor, made on the
+    node the task runs on (its own shm namespace)."""
+    import torch
+
+    return torch.randint(0, 256, (nbytes,), dtype=torch.uint8, generator=torch.Generator().manual_seed(seed))
+
+
+def proc_state(pid: int) -> str:
+    """``pid``'s state letter from /proc (R, S, D, Z, ...), "-" when it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0]
+    except (FileNotFoundError, ProcessLookupError):
+        return "-"
+
+
+def process_runs(pid: int) -> bool:
+    """``pid`` runs: a zombie has exited (phase 4k's orphans, whose parent
+    died first, may wait for a reaper that never comes in a container
+    whose first process reaps none)."""
+    return proc_state(pid) not in ("Z", "-")
+
+
+def _ppid(pid: int) -> int:
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[1])
+
+
+def _phase4k_ref(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _emit(tag: str, obj: dict):
+    print(f"{tag} {json.dumps(obj)}", flush=True)
+
+
+def _child_lines(text: str, tag: str) -> dict:
+    """The JSON a child printed after ``tag`` (its last such line)."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(tag + " ")]
+    check(bool(lines), f"phase 4k: no {tag} line in the child's output:\n{text[-4000:]}")
+    return json.loads(lines[-1][len(tag) + 1:])
+
+
+def phase4k_attached(ref_path: str, tag: str) -> int:
+    """--phase4k-driver and --phase4k-job: attach to the running head
+    (``init(address="auto")``, or the job's ``RT_HEAD_ADDRESS`` through a
+    plain ``init()``), get (a)'s actor by name, generate phase 4's prompts
+    and print the result after ``tag``."""
+    import ray_tpu_torch as rtt
+
+    ref = _phase4k_ref(ref_path)
+    t0 = time.perf_counter()
+    client = rtt.init(address="auto") if tag == "PHASE4K_DRIVER" else rtt.init()
+    attach_s = time.perf_counter() - t0
+    try:
+        a = rtt.get_actor("phase4k_engine")
+        run = rtt.get(a.generate.remote(ref["prompts"]), timeout=600)
+        _emit(tag, dict(attach_s=attach_s, attached=type(client).__name__, tokens=run["tokens"], k1=run["k1"],
+                        k4=run["k4"], wall_s=run["wall_s"], head_address=os.environ.get("RT_HEAD_ADDRESS")))
+    finally:
+        rtt.shutdown()
+    return 0
+
+
+def phase4k_driver(ref_path: str) -> int:
+    return phase4k_attached(ref_path, "PHASE4K_DRIVER")
+
+
+def phase4k_job(ref_path: str) -> int:
+    return phase4k_attached(ref_path, "PHASE4K_JOB")
+
+
+def phase4k_head1(ref_path: str, log_path: str) -> int:
+    """--phase4k-head1: a head on the persistent GCS at ``log_path``: a
+    detached named num_gpus=1 engine actor, its tokens, a KV key and a job;
+    then SIGKILL of this process (no shutdown)."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core import context
+    from ray_tpu_torch.job import JobManager, JobStatus
+
+    ref = _phase4k_ref(ref_path)
+    rtt.init(num_cpus=2, _system_config={"gcs_persist_path": log_path})
+    client = context.get_client()
+    a = CardServer.options(name="phase4k_ft", lifetime="detached").remote(ref["spec"])
+    fa = rtt.get(a.facts.remote(), timeout=600)
+    run = rtt.get(a.generate.remote(ref["prompts"]), timeout=600)
+    client.gcs.kv.put(b"phase4k", b"survives the head")
+    jm = JobManager(client)
+    jid = jm.submit_job(entrypoint="echo phase4k-job", submission_id="phase4k_job")
+    status = jm.wait_until_finished(jid, timeout=120)
+    _emit("PHASE4K_HEAD1", dict(tokens_equal=run["tokens"] == ref["tokens"], checksum=fa["checksum"],
+                                actor_pid=fa["pid"], job=status == JobStatus.SUCCEEDED, pid=os.getpid(),
+                                k1=run["k1"], k4=run["k4"]))
+    os.kill(os.getpid(), signal.SIGKILL)
+    return 1
+
+
+def phase4k_head2(ref_path: str, log_path: str) -> int:
+    """--phase4k-head2: a head on the killed head's log: the KV key, the
+    job, and the detached actor re-created under its name; its tokens."""
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core import context
+
+    ref = _phase4k_ref(ref_path)
+    t0 = time.perf_counter()
+    rtt.init(num_cpus=2, _system_config={"gcs_persist_path": log_path})
+    init_s = time.perf_counter() - t0
+    client = context.get_client()
+    try:
+        kv = client.gcs.kv.get(b"phase4k")
+        jobs = {str(k): v for k, v in ((k, client.gcs.kv.get(k, namespace="_jobs"))
+                                       for k in client.gcs.kv.keys(namespace="_jobs"))}
+        job = next((v for k, v in jobs.items() if "phase4k_job" in k), None)
+        a = rtt.get_actor("phase4k_ft")
+        fa = rtt.get(a.facts.remote(), timeout=600)
+        ready_s = time.perf_counter() - t0
+        run = rtt.get(a.generate.remote(ref["prompts"]), timeout=600)
+        first_s = time.perf_counter() - t0
+        rehydrated = client.gcs.events.query(kind="actor_rehydrated")
+        _emit("PHASE4K_HEAD2", dict(kv=kv.decode() if kv else None, job_status=(job or {}).get("status"),
+                                    tokens=run["tokens"], k1=run["k1"], k4=run["k4"], checksum=fa["checksum"],
+                                    actor_id=a._actor_id.hex(), init_s=init_s, ready_s=ready_s, first_s=first_s,
+                                    rehydrated=len(rehydrated), actor_pid=fa["pid"]))
+        rtt.kill(a)
+    finally:
+        rtt.shutdown()
+    return 0
+
+
+PHASE4K_MODES = {"--phase4k-driver": phase4k_driver, "--phase4k-job": phase4k_job,
+                 "--phase4k-head1": phase4k_head1, "--phase4k-head2": phase4k_head2}
+
+
+def _run_child(args: list, label: str, env: dict | None = None):
+    """This script in a sub-mode, in a process of its own, within
+    PHASE4K_CHILD_S; (return code, output)."""
+    p = subprocess.run([sys.executable, PHASE4K_SCRIPT, *args], capture_output=True, text=True,
+                       timeout=PHASE4K_CHILD_S, env={**os.environ, **(env or {})})
+    if p.returncode not in (0, -signal.SIGKILL):
+        print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+    return p.returncode, p.stdout + p.stderr
+
+
+def _wait_mem(torch, level: int, within: float) -> float | None:
+    """Seconds until the card's memory in use is back to ``level`` (plus
+    RUNTIME_MEM_SLACK), None past ``within``."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < within:
+        if card_used(torch) <= level + RUNTIME_MEM_SLACK:
+            return time.perf_counter() - t0
+        time.sleep(0.1)
+    return None
+
+
+def agents_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> dict:
+    """Phase 4k: the runtime across processes on the card (the module
+    docstring's (a)-(f)). Every leg is gated."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.accelerators.gpu import GPUAcceleratorManager
+    from ray_tpu_torch.core import context, transport
+    from ray_tpu_torch.job import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    t_phase = time.perf_counter()
+    ref = serve_run["tokens"]
+    spec = {"config": dataclasses.asdict(cfg)}
+    want_visible = GPUAcceleratorManager.worker_env_for_chips([0])["CUDA_VISIBLE_DEVICES"]
+    tmp = tempfile.mkdtemp(prefix="phase4k_")
+    ref_path = os.path.join(tmp, "ref.json")
+    with open(ref_path, "w") as f:
+        json.dump(dict(prompts=[[int(t) for t in p] for p in prompts], tokens=ref, spec=spec), f)
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    out = {}
+    period, threshold = PHASE4K_HEALTH
+    agents, pids = [], []
+    try:
+        # (a) a GPU actor on an agent's node
+        rt = rtt.init(num_cpus=4, num_gpus=0, _system_config={"health_check_period_s": period,
+                                                              "health_check_failure_threshold": threshold})
+        check("GPU" not in rtt.cluster_resources(), f"phase 4k: the head counts a card: {rtt.cluster_resources()}")
+        t0 = time.perf_counter()
+        node = rt.add_node({"CPU": 2, "GPU": 1})
+        boot_s = time.perf_counter() - t0
+        agents.append(node.agent_proc)
+        total = rtt.cluster_resources()
+        check(total.get("GPU") == 1, f"phase 4k (a): cluster_resources GPU {total.get('GPU')} != 1")
+        used_agent = card_used(torch)
+        check(used_agent <= used0 + RUNTIME_MEM_SLACK, f"phase 4k (a): the card's memory in use {used_agent} after "
+                                                      f"add_node vs {used0} before: the agent holds a CUDA context")
+        drv_counts = (flash_attention_fwd.launches, paged_attn_partials.launches)
+        t0 = time.perf_counter()
+        a = CardServer.options(name="phase4k_engine", lifetime="detached").remote(spec)
+        fa = rtt.get(a.facts.remote(), timeout=600)
+        ready_s = time.perf_counter() - t0
+        pids += node.worker_pids
+        zygote = _ppid(fa["pid"])
+        check(fa["pid"] in node.worker_pids and _ppid(zygote) == node.agent_proc.pid,
+              f"phase 4k (a): the actor's worker {fa['pid']} (parent {zygote}) is not the agent's "
+              f"({node.agent_proc.pid}, workers {node.worker_pids})")
+        check(fa["visible"] == want_visible and fa["count"] == 1 and fa["checksum"] == drv_checksum,
+              f"phase 4k (a): the actor's CUDA_VISIBLE_DEVICES {fa['visible']!r}, {fa['count']} cards, checksum "
+              f"{fa['checksum']} vs {drv_checksum}")
+        run = rtt.get(a.generate.remote(prompts), timeout=600)
+        same = sum(x == y for s1, s2 in zip(run["tokens"], ref) for x, y in zip(s1, s2))
+        check(run["tokens"] == ref, f"phase 4k (a): the agent-node actor's tokens equal phase 4's in {same} of 256")
+        check((run["k1"], run["k4"]) == (serve_run["k1"], serve_run["k4"]),
+              f"phase 4k (a): the actor's K1/K4 {run['k1']}/{run['k4']} != phase 4's "
+              f"{serve_run['k1']}/{serve_run['k4']}")
+        check((flash_attention_fwd.launches, paged_attn_partials.launches) == drv_counts,
+              "phase 4k (a): the driver's K1/K4 counts moved")
+        kc = rtt.get(a.check_kernels.remote([len(p) for p in prompts]), timeout=600)
+        check(kc["k1"]["ok"], f"phase 4k (a): K1 in the agent-node worker at {kc['k1']['shape']}: |do| "
+                              f"{kc['k1']['err_o']:.3g} |dlse| {kc['k1']['err_lse']:.3g}")
+        check(kc["k4"]["ok"], f"phase 4k (a): K4 in the agent-node worker at {kc['k4']['shape']}: max |d| "
+                              f"{kc['k4']['err']:.3g} (rel {kc['k4']['rel']:.3g})")
+        out["a"] = dict(k1=run["k1"], k4=run["k4"], check=kc, boot_s=boot_s, ready_s=ready_s)
+        print(f"phase 4k (a) GPU actor on an agent's node: the head with no card, add_node(remote=True, GPU 1) "
+              f"{boot_s:.3f} s (the agent's boot; cluster_resources GPU {total.get('GPU')}; the card's memory in use "
+              f"{used_agent} bytes after it vs {used0} before: no CUDA context in the agent); the detached named "
+              f"num_gpus=1 actor's worker pid {fa['pid']} forked by the agent's zygote {zygote} (agent pid "
+              f"{node.agent_proc.pid}), CUDA_VISIBLE_DEVICES={fa['visible']}, ready {ready_s:.3f} s; 256 of 256 "
+              f"tokens equal phase 4's, K1 {run['k1']} K4 {run['k4']} in the worker (= phase 4's), the driver's "
+              f"unmoved; held there: K1 at {kc['k1']['shape']} |do| {kc['k1']['err_o']:.3g} |dlse| "
+              f"{kc['k1']['err_lse']:.3g} kernel {kc['k1']['ms']:.4f} ms plain {kc['k1']['plain_ms']:.4f} ms sdpa "
+              f"{kc['k1']['sdpa_ms']:.4f} ms bound {kc['k1']['bound_ms']:.4f} ms; K4 at {kc['k4']['shape']} max |d| "
+              f"{kc['k4']['err']:.3g} kernel {kc['k4']['ms']:.4f} ms plain {kc['k4']['plain_ms']:.4f} ms bound "
+              f"{kc['k4']['bound_ms']:.4f} ms {card}")
+        # (b) an attached driver, then a submitted job
+        rc, text = _run_child(["--phase4k-driver", ref_path], "driver")
+        drv = _child_lines(text, "PHASE4K_DRIVER")
+        check(rc == 0 and drv["tokens"] == ref and drv["attached"] == "DriverClient",
+              f"phase 4k (b): the attached driver (rc {rc}, {drv['attached']}): its tokens differ from phase 4's")
+        check((drv["k1"], drv["k4"]) == (serve_run["k1"], serve_run["k4"]),
+              f"phase 4k (b): the attached driver's generate ran K1/K4 {drv['k1']}/{drv['k4']} in the actor's worker, "
+              f"not phase 4's {serve_run['k1']}/{serve_run['k4']}")
+        out["driver"] = dict(k1=drv["k1"], k4=drv["k4"], attach_s=drv["attach_s"])
+        jc = JobSubmissionClient()
+        t0 = time.perf_counter()
+        jid = jc.submit_job(entrypoint=f"{sys.executable} {PHASE4K_SCRIPT} --phase4k-job {ref_path}")
+        status = jc._mgr.wait_until_finished(jid, timeout=PHASE4K_CHILD_S)
+        job_s = time.perf_counter() - t0
+        logs = jc.get_job_logs(jid)
+        check(status == JobStatus.SUCCEEDED, f"phase 4k (b): the job ended {status}:\n{logs[-4000:]}")
+        job = _child_lines(logs, "PHASE4K_JOB")
+        check(job["tokens"] == ref and job["attached"] == "DriverClient" and job["head_address"],
+              f"phase 4k (b): the job ({job['attached']}, RT_HEAD_ADDRESS {job['head_address']}): its tokens differ "
+              "from phase 4's")
+        check((job["k1"], job["k4"]) == (serve_run["k1"], serve_run["k4"]),
+              f"phase 4k (b): the job's generate ran K1/K4 {job['k1']}/{job['k4']} in the actor's worker, not phase "
+              f"4's {serve_run['k1']}/{serve_run['k4']}")
+        out["job"] = dict(k1=job["k1"], k4=job["k4"], job_s=job_s)
+        print(f"phase 4k (b) attached driver: init(address='auto') {drv['attach_s']:.3f} s, get_actor by name, 256 of "
+              f"256 tokens equal phase 4's ({drv['wall_s']:.3f} s), K1 {drv['k1']} K4 {drv['k4']}; job through "
+              f"JobSubmissionClient: plain init() attached through RT_HEAD_ADDRESS={job['head_address']} in "
+              f"{job['attach_s']:.3f} s, SUCCEEDED {job_s:.3f} s after submit_job, its log holds 256 of 256 tokens "
+              f"equal phase 4's, K1 {job['k1']} K4 {job['k4']} (= phase 4's) {card}")
+        # (c) a 256 MiB host tensor across shm namespaces, then onto the card
+        iso = rt.add_node({"CPU": 2, "iso": 1}, shm_isolation=True)
+        agents.append(iso.agent_proc)
+        transport.reset_stats()
+        r = host_block.options(resources={"iso": 1}).remote(PHASE4K_XFER_BYTES, 4)
+        rtt.wait([r], timeout=600)
+        t0 = time.perf_counter()
+        x = rtt.get(r, timeout=600)
+        pull_s = time.perf_counter() - t0
+        stats = dict(transport.STATS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xc = x.to(dev)
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t0
+        want = torch.randint(0, 256, (PHASE4K_XFER_BYTES,), dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(4))
+        check(stats["pulls"] >= 1 and stats["pull_bytes"] >= PHASE4K_XFER_BYTES,
+              f"phase 4k (c): the tensor did not cross the transfer server: {stats}")
+        check(torch.equal(xc.cpu(), want), "phase 4k (c): the bytes on the card differ from the task's")
+        pull_gbs, up_gbs = PHASE4K_XFER_BYTES / pull_s / 1e9, PHASE4K_XFER_BYTES / up_s / 1e9
+        out["c"] = dict(pull_s=pull_s, up_s=up_s, pull_gbs=pull_gbs, up_gbs=up_gbs, stats=stats)
+        print(f"phase 4k (c) cross-namespace transfer: a task on the shm_isolation node (ns {iso.shm_ns}) returned "
+              f"{PHASE4K_XFER_BYTES >> 20} MiB; the driver's get pulled it over the transfer server in {pull_s:.3f} s "
+              f"({pull_gbs:.3f} GB/s; {stats['pulls']} pull, {stats['pull_bytes']} bytes, warm page cache), the "
+              f"upload to the card {up_s:.3f} s ({up_gbs:.3f} GB/s, pageable), the bytes equal {card}")
+        del x, xc, want, r
+        torch.cuda.empty_cache()  # the upload's block: (d) and (e) compare the card's memory in use with before
+        # the iso node's agent stops: its socket stays open, so only the health loop can declare the node dead
+        t0 = time.perf_counter()
+        os.kill(iso.agent_proc.pid, signal.SIGSTOP)
+        while iso.alive and time.perf_counter() - t0 < period * threshold + PHASE4K_DETECT_SLACK_S:
+            time.sleep(0.01)
+        health_s = time.perf_counter() - t0
+        os.kill(iso.agent_proc.pid, signal.SIGKILL)  # the removal waits for the stopped agent
+        # threshold - 1 periods pass after the last pong at least; one period less for the loop's own timing
+        check(not iso.alive and period * (threshold - 2) <= health_s,
+              f"phase 4k (c): the stopped agent's node {'dead' if not iso.alive else 'alive'} {health_s:.3f} s after "
+              f"its SIGSTOP (the health loop: between {period} x {threshold - 2} s and {period} x {threshold} + "
+              f"{PHASE4K_DETECT_SLACK_S} s)")
+        check(node.alive, "phase 4k (c): (a)'s node was declared dead with the stopped one")
+        out["c"]["health_s"] = health_s
+        print(f"phase 4k (c) the shm_isolation node's agent stopped (SIGSTOP): the health loop marked its node dead "
+              f"{health_s:.3f} s later (period {period} s x threshold {threshold}; bound {period} x {threshold - 2} to "
+              f"{period} x {threshold} + {PHASE4K_DETECT_SLACK_S} s), (a)'s node alive {card}")
+        # (d) the persistent GCS: a head killed with SIGKILL, a second head on its log
+        log_path = os.path.join(tmp, "gcs.log")
+        torch.cuda.synchronize()
+        used_d = card_used(torch)
+        rc1, text1 = _run_child(["--phase4k-head1", ref_path, log_path], "head1")
+        h1 = _child_lines(text1, "PHASE4K_HEAD1")
+        check(rc1 == -signal.SIGKILL and h1["tokens_equal"] and h1["job"] and h1["checksum"] == drv_checksum,
+              f"phase 4k (d): the first head (rc {rc1}): {h1}")
+        back_s = _wait_mem(torch, used_d, PHASE4K_MEM_S)
+        check(back_s is not None and not process_runs(h1["actor_pid"]),
+              f"phase 4k (d): {PHASE4K_MEM_S} s after the head's SIGKILL, the card's memory in use "
+              f"{card_used(torch)} vs {used_d} before it, its actor's worker alive {process_runs(h1['actor_pid'])}")
+        left = [n for n in rt_segments() if n.startswith(f"rt{h1['pid']}")]
+        print(f"phase 4k (d) first head (pid {h1['pid']}, gcs_persist_path): a detached named num_gpus=1 engine "
+              f"actor, 256 of 256 tokens equal phase 4's, a KV key, a job SUCCEEDED, then SIGKILL; the card's memory "
+              f"back {back_s:.3f} s later (its actor's worker {h1['actor_pid']} gone); the killed head's /dev/shm "
+              f"segments: {left} {card}")
+        rc2, text2 = _run_child(["--phase4k-head2", ref_path, log_path], "head2")
+        h2 = _child_lines(text2, "PHASE4K_HEAD2")
+        check(rc2 == 0 and h2["kv"] == "survives the head" and h2["job_status"] == JobStatus.SUCCEEDED,
+              f"phase 4k (d): the second head (rc {rc2}) shows the KV key {h2['kv']!r}, the job {h2['job_status']}")
+        check(h2["tokens"] == ref and h2["checksum"] == drv_checksum and h2["rehydrated"] == 1,
+              f"phase 4k (d): the re-created actor ({h2['rehydrated']} rehydrated): its tokens differ from phase 4's")
+        check((h2["k1"], h2["k4"]) == (serve_run["k1"], serve_run["k4"]),
+              f"phase 4k (d): the re-created actor's K1/K4 {h2['k1']}/{h2['k4']} != phase 4's "
+              f"{serve_run['k1']}/{serve_run['k4']}")
+        for n in left:
+            os.unlink(os.path.join("/dev/shm", n))
+        out["d"] = dict(k1=h2["k1"], k4=h2["k4"], back_s=back_s, ready_s=h2["ready_s"], first_s=h2["first_s"])
+        print(f"phase 4k (d) second head on the same log: the KV key and the job (SUCCEEDED) are there; the "
+              f"detached actor re-created under its name (init {h2['init_s']:.3f} s, ready {h2['ready_s']:.3f} s, "
+              f"generate done {h2['first_s']:.3f} s after init began), 256 of 256 tokens equal phase 4's, K1 "
+              f"{h2['k1']} K4 {h2['k4']} (= phase 4's); the killed head's {len(left)} segments removed {card}")
+        # (e) the agent that holds (a)'s actor dies
+        t0 = time.perf_counter()
+        os.kill(node.agent_proc.pid, signal.SIGKILL)
+        while node.alive and time.perf_counter() - t0 < period * threshold + PHASE4K_DETECT_SLACK_S:
+            time.sleep(0.01)
+        detect_s = time.perf_counter() - t0
+        check(not node.alive, f"phase 4k (e): the node not marked dead from its agent's end of file {detect_s:.3f} s "
+                              f"after the SIGKILL (bound {period} x {threshold} + {PHASE4K_DETECT_SLACK_S} s)")
+        died = None
+        while died is None and time.perf_counter() - t0 < PHASE4K_DIED_S:
+            try:
+                rtt.get(a.ping.remote(), timeout=PHASE4K_DIED_S)
+            except rtt.exceptions.ActorDiedError:
+                died = time.perf_counter() - t0
+            except rtt.exceptions.GetTimeoutError:
+                break
+        check(died is not None, f"phase 4k (e): calls to the dead agent's actor did not fail with ActorDiedError "
+                                f"within {PHASE4K_DIED_S} s")
+        mem_s = _wait_mem(torch, used0, PHASE4K_MEM_S)
+        check(mem_s is not None and not process_runs(fa["pid"]),
+              f"phase 4k (e): the card's memory in use {card_used(torch)} vs {used0} {PHASE4K_MEM_S} s after the "
+              f"agent's SIGKILL, its worker alive {process_runs(fa['pid'])}")
+        out["e"] = dict(detect_s=detect_s, died_s=died, mem_s=mem_s)
+        print(f"phase 4k (e) agent SIGKILL: the node marked dead from its socket's end of file {detect_s:.3f} s later "
+              f"(bound {period} x {threshold} + {PHASE4K_DETECT_SLACK_S} s), a call to its actor raised ActorDiedError {died:.3f} s after the kill, "
+              f"the card's memory back {mem_s:.3f} s after it (its worker gone) {card}")
+    finally:
+        client = context.maybe_client()
+        if client is not None:
+            pids += [p for n in client.nodes.values() for p in n.worker_pids]
+        t0 = time.perf_counter()
+        rtt.shutdown()
+        shutdown_s = time.perf_counter() - t0
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (f) nothing left
+    alive = [p for p in set(pids) if process_runs(p)]
+    live_agents = [p.pid for p in agents if p.poll() is None]
+    check(not alive and not live_agents, f"phase 4k (f): after shutdown() workers {alive}, agents {live_agents}")
+    left = rt_segments()
+    check(not left, f"phase 4k (f): /dev/shm still holds {left}")
+    mem_s = _wait_mem(torch, used0, PHASE4K_MEM_S)
+    check(mem_s is not None, f"phase 4k (f): the card's memory in use {card_used(torch)} after shutdown() vs {used0}")
+    total_s = time.perf_counter() - t_phase
+    out["total_s"] = total_s
+    print(f"phase 4k (f) shutdown {shutdown_s:.3f} s: no agent, none of the {len(set(pids))} workers, no rt segment "
+          f"left, the card's memory in use back to {used0} bytes; costs: agent boot {out['a']['boot_s']:.3f} s, "
+          f"attach {out['driver']['attach_s']:.3f} s, job start to SUCCEEDED {out['job']['job_s']:.3f} s, "
+          f"re-created actor to its tokens {out['d']['first_s']:.3f} s, dead node detected by the health loop "
+          f"{out['c']['health_s']:.3f} s and from end of file {out['e']['detect_s']:.3f} s; phase 4k {total_s:.1f} s "
+          f"{card}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 4i: Serve on the card
 SERVE_TIMEOUT_S = 600  # a replica's start (weights from seed 0, graph capture, prewarm) and each request
 # the replicas' engine: phase 4's (prefix caching on only in (d)), weights from seed 0
@@ -4550,8 +5017,8 @@ def train_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, card) -> dict:
             time.sleep(0.05)
         release_s = time.perf_counter() - t_end
         check(not held(), f"phase 7b fit {name}: {DATA_RELEASE_S} s after fit() the train workers alive "
-                          f"{[worker_alive(p) for p in pids]}, the card's memory in use {card_used(torch)} vs {used0} "
-                          f"before 7b")
+                          f"{[worker_alive(p) for p in pids]} (states {[proc_state(p) for p in pids]}), the card's "
+                          f"memory in use {card_used(torch)} vs {used0} before 7b ({release_s:.3f} s waited)")
         for m in hist:
             check(m["launches"] == want_launches, f"phase 7b fit {name} step {m['step']}: K1/K2/K3 launches "
                                                   f"{m['launches']} in the worker, not {want_launches}")
@@ -4841,8 +5308,9 @@ def tune_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, fit_a_losses, c
         check(not held(), f"phase 7c {label}: {DATA_RELEASE_S} s after the leg actors alive "
                           f"{[a.info.creation_spec.desc() for a in client.actors.values() if a.info.state != 'DEAD']}, "
                           f"workers "
-                          f"{[p for p in pids if worker_alive(p)]}, the card's memory in use {card_used(torch)} vs "
-                          f"{used0} before 7c")
+                          f"{[p for p in pids if worker_alive(p)]} (states {[proc_state(p) for p in pids]}), the card's "
+                          f"memory in use {card_used(torch)} vs {used0} before 7c "
+                          f"({time.perf_counter() - t_end:.3f} s waited)")
         return time.perf_counter() - t_end
 
     def end_leg(label):

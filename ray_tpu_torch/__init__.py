@@ -38,6 +38,7 @@ from ray_tpu_torch.api import (  # noqa: F401
     put,
     remote,
     shutdown,
+    timeline,
     wait,
 )
 from ray_tpu_torch.core.object_ref import ObjectRef, ObjectRefGenerator  # noqa: F401
@@ -45,4 +46,4 @@ from ray_tpu_torch.core.object_ref import ObjectRef, ObjectRefGenerator  # noqa:
 __all__ = ["ActorClass", "ActorHandle", "ObjectRef", "ObjectRefGenerator", "RemoteFunction", "available_resources",
            "cancel", "cluster_resources", "exceptions", "get", "get_actor", "get_runtime_context", "init",
            "internal_free", "is_initialized", "kill", "llm", "method", "models", "nodes", "ops", "parallel", "put",
-           "remote", "shutdown", "wait"]
+           "remote", "shutdown", "timeline", "wait"]

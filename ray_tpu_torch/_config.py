@@ -1,7 +1,6 @@
 """Runtime flags (port of ray_tpu/_config.py's runtime part: the object
-plane, the head's store, the scheduler, the worker pool, retries and
-lineage; ray_tpu's health-check flags come with the node agents they
-probe).
+plane, the head's store, the node agents and their health checks, the
+GCS's persistence, the scheduler, the worker pool, retries and lineage).
 
 Each flag keeps ray_tpu's name and default and is overridable through the
 same ``RT_<NAME>`` environment variable, read when the config is first
@@ -56,9 +55,24 @@ class Config:
     object_spill_max_bytes: int = 50 * 1024 * 1024 * 1024
 
 
-    # --- not ported: a set value raises naming its item (core/context.py) ---
-    gcs_persist_path: str = ""  # PERSIST_ITEM
-    shm_isolation: bool = False  # AGENTS_ITEM
+    # --- across processes: node agents and the transfer servers ---
+    # the bind host of the head's agent listener and its transfer server
+    # (0.0.0.0 admits `rt agent` joins from other hosts)
+    node_manager_host: str = "127.0.0.1"
+    # give every added node a shm namespace of its own, so each object that
+    # crosses a node's boundary moves through the transfer servers
+    shm_isolation: bool = False
+    # the agent listener's port (0: any free one); a fixed port lets agents
+    # redial a restarted head
+    node_manager_port: int = 0
+    # seconds an agent redials a lost head (0: it goes with the head)
+    agent_reconnect_s: float = 0.0
+
+    # --- the GCS's persistence ---
+    # the append-only log of the GCS's tables (empty: in memory only): the
+    # KV, the job table and the detached actors outlive a kill -9 of the
+    # head, and the next head on the log re-creates the actors
+    gcs_persist_path: str = ""
 
     # --- scheduler ---
     # pack onto the busiest feasible node until its utilization crosses
@@ -73,6 +87,14 @@ class Config:
     # driver forks them (refused once the driver holds a CUDA context)
     worker_start_method: str = "forkserver"
     prestart_workers: bool = True
+
+    # --- health ---
+    # the head pings node agents every period; a node whose agent answered
+    # none in threshold periods is dead
+    health_check_period_s: float = 1.0
+    health_check_failure_threshold: int = 5
+    # period of the session's state.json for the CLI (util/state.py); 0: off
+    state_dump_interval_s: float = 2.0
 
     # --- reference counting ---
     # free owned entries once no process holds a ref; the borrow protocol

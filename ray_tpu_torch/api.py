@@ -2,11 +2,14 @@
 ``@remote`` functions and actors, ``put``/``get``/``wait``/``cancel``,
 named actors, ``kill`` and the cluster's resources.
 
-``init`` starts the single-host runtime (``core/runtime.py``) with the
-host's cards as its ``"GPU"`` resource: ``num_gpus`` (or ``num_tpus``,
-ray_tpu's name) overrides the count, ``RT_NUM_GPUS`` too. ``address=``
-(attaching to a running head) is not ported and raises naming its
-ROADMAP.md item.
+``init`` starts a head runtime (``core/runtime.py``) with the host's
+cards as its ``"GPU"`` resource: ``num_gpus`` (or ``num_tpus``, ray_tpu's
+name) overrides the count, ``RT_NUM_GPUS`` too. ``init(address="auto" |
+"host:port")`` attaches this process to a running head as a driver
+(``core/driver_client.py``), and so does a plain ``init()`` where
+``RT_HEAD_ADDRESS`` is set (a submitted job's entrypoint) unless sizing
+arguments ask for a runtime of its own; ``address`` with sizing
+arguments is refused.
 
 A remote function or actor class travels to its worker by reference
 (module and qualified name, ``core/serialization.py::code_ref``): it must
@@ -62,10 +65,21 @@ def init(
             raise RuntimeError("ray_tpu_torch.init() called twice; pass ignore_reinit_error=True to allow")
         wants_own_runtime = (local_mode or num_cpus is not None or num_gpus is not None or num_tpus is not None
                              or resources)
+        if address is not None and wants_own_runtime:
+            # an attached driver can neither size nor localize the cluster
+            raise ValueError("init(address=...) attaches to an existing cluster; num_cpus/num_gpus/num_tpus/"
+                             "resources/local_mode cannot apply there")
         if address is None and not wants_own_runtime:
+            # a job's entrypoint joins the running cluster; explicit sizing wins
             address = _os.environ.get("RT_HEAD_ADDRESS") or None
         if address is not None:
-            context.not_ported(f"attaching this driver to a running head ({address})", context.DRIVER_ITEM)
+            from ray_tpu_torch.core.driver_client import connect_driver
+
+            client = connect_driver(address)
+            if namespace != "default":
+                client.namespace = namespace
+            context.set_client(client)
+            return client
         res = dict(resources or {})
         if num_cpus is not None:
             res["CPU"] = float(num_cpus)
@@ -81,6 +95,11 @@ def init(
         )
         context.set_client(rt)
         return rt
+
+
+def timeline(filename: str | None = None):
+    """ray_tpu's Chrome-trace dump of task events: not ported yet."""
+    context.not_ported("the task timeline (util/timeline.py)", context.STATE_ITEM)
 
 
 def shutdown():

@@ -11,13 +11,12 @@ yet wait for; each such path raises ``NotImplementedError`` through
 from __future__ import annotations
 
 # ROADMAP.md queue 1 items that the runtime's remaining paths name
-AGENTS_ITEM = "queue 1, multi-host agents"  # node agents, RemoteNode/JoinedNode, the transfer server
-DRIVER_ITEM = "queue 1, attached drivers"  # init(address=...), driver_client.py, _on_driver_join
+CLUSTER_ITEM = "queue 1, cluster tooling"  # rt up / rt down, the autoscaler and launcher, dashboard, cluster_utils
 GRPC_ITEM = "queue 1, serve gRPC ingress"  # serve.start(grpc_port=...), serve/_grpc_proxy.py
+LINT_ITEM = "queue 1, lint"  # rt lint, ray_tpu/lint/
 MESH_ITEM = "queue 1, multi-device axes"  # meshes, shardings, device collectives (collective/ici.py)
-PERSIST_ITEM = "queue 1, persistent GCS"  # FileTableStore, gcs_persist_path, detached actors across heads
 RUNTIME_ENV_ITEM = "queue 1, runtime_env"  # runtime_env/ packing and setup in the worker
-STATE_ITEM = "queue 1, state and monitors"  # util/state, timeline, dump_cluster_info, log and memory monitors
+STATE_ITEM = "queue 1, state and monitors"  # the timeline, the log and memory monitors
 XLANG_ITEM = "queue 1, cross-language"  # xlang.py
 
 _client = None

@@ -1,8 +1,8 @@
 """Control-plane state (port of ray_tpu/core/gcs.py): the namespaced KV
-store, the named-actor registry, pubsub and the lifecycle event buffer,
-over the in-memory table store (``core/table_store.py``). ray_tpu's
-record of detached actors for a restarted head waits for the persistent
-store (``core/context.py`` PERSIST_ITEM)."""
+store, the named-actor registry, pubsub, the lifecycle event buffer and
+the record of detached actors a restarted head re-creates, over a table
+store (``core/table_store.py``: in memory, or the file log of
+``gcs_persist_path``)."""
 
 from __future__ import annotations
 
@@ -183,3 +183,13 @@ class Gcs:
                 for (ns, n) in self.named_actors
                 if namespace is None or ns == namespace
             ]
+
+    # -- detached actors, recorded for a restarted head --
+    def persist_detached_actor(self, actor_id, blob: bytes):
+        self.store.put("detached_actors", actor_id.hex(), blob)
+
+    def drop_detached_actor(self, actor_id):
+        self.store.delete("detached_actors", actor_id.hex())
+
+    def load_detached_actors(self) -> dict[str, bytes]:
+        return self.store.all("detached_actors")

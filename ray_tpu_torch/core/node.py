@@ -29,9 +29,21 @@ top level of its script resolves by reference (``core/serialization.py``).
 multiprocessing's own import of it at the child's start is left out for
 that reason.
 
-Multi-host nodes (``AgentListener``, ``AgentBackedNode``, ``RemoteNode``,
-``JoinedNode``, ``node_agent.py``) are not ported: ``Runtime.add_node``
-with ``remote=True`` raises naming their ROADMAP.md item.
+**A node run by an agent.** ``AgentBackedNode`` is a node whose worker
+pool lives in a separate agent process (``core/node_agent.py``) that
+dials the head's ``AgentListener`` over authenticated TCP: ``RemoteNode``
+when the head started the agent (``add_node(remote=True)``, ray_tpu's
+default), ``JoinedNode`` when an ``rt agent`` joined by itself (another
+host). The head reaches such a node's workers through proxies
+(``_RemoteWorkerProc``, ``_RemoteWorkerConn``) whose frames ride the
+agent's socket as pickled bytes the agent relays without reading. The
+head starts an agent as a fresh interpreter (``python -m
+ray_tpu_torch.core.node_agent``), never a fork of the driver: the agent
+imports neither the driver's script nor jax nor ray_tpu, and never
+initialises CUDA; it forks its workers from a zygote of its own, each
+card-bound one with ``CUDA_VISIBLE_DEVICES`` set before it starts, and
+a worker's death reaches the head only once its process has exited (a
+card's memory is free by then).
 """
 
 from __future__ import annotations
@@ -40,7 +52,9 @@ import contextlib
 import io
 import multiprocessing as mp
 import os
+import pickle
 import signal
+import subprocess
 import sys
 import threading
 import time
@@ -200,6 +214,40 @@ def _suppress_child_main_import():
             setattr(main, attr, val)
 
 
+def gpu_binding(gpus: list[int] | None) -> dict:
+    """The environment that binds a worker to ``gpus`` (empty for none)."""
+    if not gpus:
+        return {}
+    from ray_tpu_torch.accelerators.gpu import GPUAcceleratorManager
+
+    return GPUAcceleratorManager.worker_env_for_chips(gpus)
+
+
+def fork_worker(wid_hex: str, node_id_hex: str, env: dict, main, session_tag: str | None):
+    """Start one worker process (the zygote's fork, or the configured
+    start method's); returns (process, the parent's end of its pipe).
+    ``main``: how it imports the driver's __main__ (``_driver_main``);
+    ``session_tag``: the tag of its segments (None: its namespace's)."""
+    from ray_tpu_torch.core.worker_main import worker_entry
+
+    ctx = _ctx()
+    parent_conn, child_conn = ctx.Pipe(duplex=True)
+    with _start_lock:
+        proc = ctx.Process(
+            target=worker_entry,
+            args=(child_conn, wid_hex, node_id_hex, env, main, session_tag),
+            daemon=True,
+            name=f"rt-worker-{wid_hex[:8]}",
+        )
+        if ctx is _ZygoteContext:
+            proc.start()  # _ZygotePopen leaves the driver's __main__ out
+        else:
+            with _suppress_child_main_import():
+                proc.start()
+    child_conn.close()
+    return proc, parent_conn
+
+
 @dataclass
 class WorkerHandle:
     worker_id: WorkerID
@@ -339,34 +387,15 @@ class Node:
     # ---- workers ----
     def start_worker(self, gpus: list[int] | None = None) -> WorkerHandle:
         """Fork a worker; with ``gpus`` it sees only those cards."""
-        from ray_tpu_torch.accelerators.gpu import GPUAcceleratorManager
         from ray_tpu_torch.core.object_store import worker_session_tag
-        from ray_tpu_torch.core.worker_main import worker_entry
 
         if not self.alive:
             raise NodeShutDown("node is shut down")
-        ctx = _ctx()
-        env = dict(self.env)
-        binding = {}
-        if gpus:
-            binding = GPUAcceleratorManager.worker_env_for_chips(gpus)
-            env.update(binding)
-        parent_conn, child_conn = ctx.Pipe(duplex=True)
+        binding = gpu_binding(gpus)
         wid = WorkerID.from_random()
         t0 = time.monotonic()
-        with _start_lock:
-            proc = ctx.Process(
-                target=worker_entry,
-                args=(child_conn, wid.hex(), self.node_id.hex(), env, _driver_main(), worker_session_tag()),
-                daemon=True,
-                name=f"rt-worker-{wid.hex()[:8]}",
-            )
-            if ctx is _ZygoteContext:
-                proc.start()  # _ZygotePopen leaves the driver's __main__ out
-            else:
-                with _suppress_child_main_import():
-                    proc.start()
-        child_conn.close()
+        proc, parent_conn = fork_worker(wid.hex(), self.node_id.hex(), {**self.env, **binding}, _driver_main(),
+                                        worker_session_tag())
         handle = WorkerHandle(worker_id=wid, proc=proc, conn=parent_conn, node_id=self.node_id,
                               env_binding=binding, gpus=list(gpus or []), started_at=t0)
         with self._lock:
@@ -410,3 +439,267 @@ class Node:
                 w.proc.kill()
                 w.proc.join(timeout=5.0)
             w.conn.close()
+
+
+# ----------------------------------------------------------------------
+# a node run by an agent process
+# ----------------------------------------------------------------------
+# seconds a started agent has to dial back (a fresh interpreter importing torch)
+_AGENT_CONNECT_S = 60.0
+
+class AgentListener:
+    """The head's TCP rendezvous, gated by an authkey (multiprocessing's
+    challenge): agents the head started are matched to their waiting
+    ``RemoteNode`` by node id; an agent_ready hello with an unknown node id
+    goes to ``on_join`` (an ``rt agent`` from another host), a
+    driver_ready hello to ``on_driver`` (``init(address=...)``)."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, authkey: bytes | None = None, on_join=None,
+                 on_driver=None):
+        from multiprocessing import connection as mp_connection
+
+        self.authkey = authkey or os.urandom(16)
+        self._listener = mp_connection.Listener((host, port), "AF_INET", authkey=self.authkey)
+        self.address = self._listener.address  # (host, port)
+        self.on_join = on_join
+        self.on_driver = on_driver
+        self._pending: dict[str, list] = {}  # node id hex -> [Event, conn, hello]
+        self._lock = threading.Lock()
+        self._stopped = False
+        self._thread = threading.Thread(target=self._accept_loop, daemon=True, name="rt-agent-listener")
+        self._thread.start()
+
+    def expect(self, node_id_hex: str) -> list:
+        slot = [threading.Event(), None, None]
+        with self._lock:
+            self._pending[node_id_hex] = slot
+        return slot
+
+    def abandon(self, node_id_hex: str):
+        with self._lock:
+            self._pending.pop(node_id_hex, None)
+
+    def _accept_loop(self):
+        while not self._stopped:
+            try:
+                conn = self._listener.accept()
+            except Exception:  # noqa: BLE001 — a failed handshake (a wrong authkey) ends that dial only
+                if self._stopped:
+                    return
+                continue
+            threading.Thread(target=self._handshake, args=(conn,), daemon=True, name="rt-agent-hello").start()
+
+    def _handshake(self, conn):
+        try:
+            hello = conn.recv()
+        except (EOFError, OSError):
+            conn.close()
+            return
+        kind = hello.get("type") if isinstance(hello, dict) else None
+        if kind == "driver_ready" and self.on_driver is not None:
+            self._hand_over(self.on_driver, conn, hello)
+            return
+        if kind != "agent_ready":
+            conn.close()
+            return
+        with self._lock:
+            slot = self._pending.pop(hello.get("node_id"), None)
+        if slot is not None:
+            slot[1], slot[2] = conn, hello
+            slot[0].set()
+        elif self.on_join is not None:
+            self._hand_over(self.on_join, conn, hello)
+        else:
+            conn.close()
+
+    @staticmethod
+    def _hand_over(fn, conn, hello):
+        try:
+            fn(conn, hello)
+        except Exception:  # noqa: BLE001 — a refused join closes its connection; the listener goes on
+            import logging
+
+            logging.getLogger(__name__).exception("refused a %s", hello.get("type"))
+            conn.close()
+
+    def shutdown(self):
+        self._stopped = True
+        # close() does not wake a blocked accept() on Linux: a throwaway dial
+        # does (its failed handshake makes accept raise, and the loop exits)
+        import socket
+
+        try:
+            with socket.create_connection(self.address, timeout=1.0):
+                pass
+        except OSError:
+            pass
+        self._listener.close()
+        self._thread.join(timeout=2.0)
+
+
+class _RemoteWorkerProc:
+    """The head's handle of a worker that an agent owns. ``is_alive`` holds
+    until the agent reports the process gone (it reports a death only
+    after the process exited) or the node dies; ``terminate`` asks the
+    agent to kill it."""
+
+    def __init__(self, node: "AgentBackedNode", wid_hex: str):
+        self._node = node
+        self._wid_hex = wid_hex
+        self.pid = None
+        self._exited = threading.Event()
+
+    @property
+    def dead(self) -> bool:
+        return self._exited.is_set()
+
+    def mark_exited(self):
+        self._exited.set()
+
+    def is_alive(self) -> bool:
+        return not self._exited.is_set() and self._node.alive
+
+    def terminate(self):
+        # report=True: the agent's worker_death drives _on_worker_death, as
+        # a local worker's pipe EOF does
+        self._node.agent_send({"type": "kill_worker", "wid": self._wid_hex, "report": True})
+
+    def join(self, timeout: float | None = None):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self.is_alive():
+            wait = 0.2 if deadline is None else min(0.2, deadline - time.monotonic())
+            if wait <= 0:
+                return
+            self._exited.wait(wait)
+
+
+class _RemoteWorkerConn:
+    """The head's end of a remote worker's pipe: a frame is pickled here
+    and rides the agent's socket as bytes the agent relays unread."""
+
+    def __init__(self, node: "AgentBackedNode", wid_hex: str):
+        self._node = node
+        self._wid_hex = wid_hex
+
+    def send(self, msg):
+        from multiprocessing.reduction import ForkingPickler
+
+        self._node.agent_send({"type": "to_worker", "wid": self._wid_hex, "data": bytes(ForkingPickler.dumps(msg))})
+
+    def close(self):
+        pass
+
+
+class AgentBackedNode(Node):
+    """A node whose worker pool runs in an agent process, reached over the
+    agent's authenticated TCP socket and health-checked by the head's
+    ping loop."""
+
+    remote = True
+    agent_proc = None
+
+    def _attach(self, conn, hello: dict):
+        self.agent_conn = conn
+        self.agent_pid = hello["pid"]
+        self.transfer_addr = tuple(hello["transfer_addr"]) if hello.get("transfer_addr") else None
+        self.shm_ns = hello.get("ns", "")
+        self._agent_send_lock = threading.Lock()
+        self.last_pong = time.monotonic()
+        self.ping_seq = 0
+
+    def agent_send(self, msg):
+        with self._agent_send_lock:
+            try:
+                self.agent_conn.send(msg)
+            except (OSError, EOFError, ValueError):
+                pass  # the agent is gone: the IO loop's end of file or the health loop removes the node
+
+    def start_worker(self, gpus: list[int] | None = None) -> WorkerHandle:
+        if not self.alive:
+            raise NodeShutDown("node is shut down")
+        wid = WorkerID.from_random()
+        binding = gpu_binding(gpus)
+        handle = WorkerHandle(worker_id=wid, proc=_RemoteWorkerProc(self, wid.hex()),
+                              conn=_RemoteWorkerConn(self, wid.hex()), node_id=self.node_id, env_binding=binding,
+                              gpus=list(gpus or []))
+        with self._lock:
+            self.workers[wid] = handle
+        self.agent_send({"type": "start_worker", "wid": wid.hex(), "env": binding})
+        return handle
+
+    def on_worker_started(self, wid: WorkerID, pid: int):
+        w = self.workers.get(wid)
+        if w is not None:
+            w.proc.pid = pid
+            self.worker_pids.append(pid)
+
+    def shutdown(self):
+        """Stop the agent; a head-started agent is waited for, so its
+        workers (and their cards' memory) are gone when this returns."""
+        self.alive = False
+        with self._lock:
+            workers = list(self.workers.values())
+            self.workers.clear()
+        for w in workers:
+            w.proc.mark_exited()
+        self.agent_send({"type": "shutdown"})
+        if self.agent_proc is not None:
+            try:
+                self.agent_proc.wait(timeout=15.0)
+            except subprocess.TimeoutExpired:
+                self.agent_proc.kill()
+                self.agent_proc.wait(timeout=5.0)
+        self.agent_conn.close()
+
+
+class RemoteNode(AgentBackedNode):
+    """A node whose agent the head started on this host; the agent dials
+    back into the head's listener, the path an agent of another host
+    takes too."""
+
+    def __init__(self, node_id, resources: dict, labels: dict | None = None, env: dict | None = None,
+                 listener: AgentListener | None = None, transfer_authkey: bytes = b"", worker_tag: str | None = None,
+                 reconnect_s: float = 0.0):
+        super().__init__(node_id, resources, labels=labels, env=env)
+        slot = listener.expect(self.node_id.hex())
+        args = dict(address=listener.address, authkey=listener.authkey, node_id_hex=self.node_id.hex(),
+                    env=self.env, transfer_authkey=transfer_authkey, resources=dict(self.total_resources),
+                    reconnect_s=reconnect_s, main=_driver_main(), worker_tag=worker_tag,
+                    sys_path=[p for p in sys.path if p])
+        proc_env = {**os.environ, **{k: str(v) for k, v in self.env.items()}}
+        proc_env["PYTHONPATH"] = os.pathsep.join(args["sys_path"])
+        # the agent must not take the head's session as its own shm namespace
+        # unless its node shares it (RT_SHM_NS comes with shm_isolation)
+        if "RT_SHM_NS" not in self.env:
+            proc_env.pop("RT_SHM_NS", None)
+        self.agent_proc = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch.core.node_agent"],
+                                           stdin=subprocess.PIPE, env=proc_env, cwd=os.getcwd())
+        self.agent_proc.stdin.write(pickle.dumps(args))
+        self.agent_proc.stdin.close()
+        # a bounded wait: an agent that dies before it connects (an import
+        # failure, an OOM kill) makes add_node raise, not hang
+        deadline = time.monotonic() + _AGENT_CONNECT_S
+        while not slot[0].wait(timeout=0.2):
+            if self.agent_proc.poll() is not None:
+                listener.abandon(self.node_id.hex())
+                raise RuntimeError(f"the node agent for {self.node_id.hex()[:8]} exited before it connected "
+                                   f"(code {self.agent_proc.returncode})")
+            if time.monotonic() > deadline:
+                listener.abandon(self.node_id.hex())
+                self.agent_proc.kill()
+                self.agent_proc.wait(timeout=5.0)
+                raise RuntimeError(f"the node agent never connected within {_AGENT_CONNECT_S:.0f} s")
+        self._attach(slot[1], slot[2])
+
+
+class JoinedNode(AgentBackedNode):
+    """A node whose agent started by itself (``rt agent --address
+    head:port``, another host's) and joined through the listener: the
+    head holds only its socket."""
+
+    def __init__(self, node_id, conn, hello: dict):
+        resources = dict(hello.get("resources") or {"CPU": 1.0})
+        labels = dict(hello.get("labels") or {})
+        labels.setdefault("ray_tpu.io/node-type", "joined")
+        super().__init__(node_id, resources, labels=labels, env=dict(hello.get("env") or {}))
+        self._attach(conn, hello)

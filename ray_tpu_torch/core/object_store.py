@@ -29,10 +29,14 @@ nothing, a write copies only the page it touches into the writer's own
 memory, and the owner's bytes never change.
 
 A descriptor names the shm namespace that holds its bytes (``ns``:
-``RT_SHM_NS``, empty for the host's own ``/dev/shm``). A foreign
-namespace needs ray_tpu's object transfer service (``transport.py``,
-``ensure_local_segment``), which is not ported: reading one raises
-NotImplementedError naming its ROADMAP.md item.
+``RT_SHM_NS``, empty for the host's own ``/dev/shm``). A node with a
+namespace of its own (``add_node(shm_isolation=True)``, or an agent that
+joined from another host) stands for another host: a process reads a
+foreign namespace's segment only after ``ensure_local_segment`` pulled
+the bytes through the object transfer service (``core/transport.py``)
+into a same-id segment of its own namespace (``local_shm_name``), through
+the fetch hook its process installed (the head pulls itself; a worker
+asks its node's agent).
 """
 
 from __future__ import annotations
@@ -51,8 +55,6 @@ import _posixshmem
 from ray_tpu_torch.core.ids import ObjectID
 from ray_tpu_torch.core.serialization import Serialized
 
-# the ROADMAP.md item that transfers between shm namespaces wait for
-TRANSFER_ITEM = "queue 1, multi-device axes"
 SHM_DIR = "/dev/shm"
 # the segments this process wrote and has not unlinked: the runtime's
 # shutdown unlinks what is left (ray_tpu sweeps its session's name prefix,
@@ -121,6 +123,36 @@ def _session_tag() -> str:
 def _namespace() -> str:
     """The shm namespace this process reads and writes ("" = this host's)."""
     return os.environ.get("RT_SHM_NS", "")
+
+
+# installed by the head and by each worker: pulls a foreign namespace's
+# segment into this process's namespace and returns the local name
+_fetch_hook = None
+
+
+def set_fetch_hook(fn):
+    global _fetch_hook
+    _fetch_hook = fn
+
+
+def local_shm_name(desc: ShmDescriptor) -> str:
+    """The name of this process's copy of a (foreign) descriptor's segment."""
+    return f"rt{_session_tag()}_" + desc.shm_name.split("_", 1)[1]
+
+
+def ensure_local_segment(desc: ShmDescriptor) -> str:
+    """The name of a segment this process can map for ``desc``: its own
+    when the descriptor lives in this namespace, else a local copy,
+    pulled from the owning node when there is none yet."""
+    if desc.ns == _namespace():
+        return desc.shm_name
+    local = local_shm_name(desc)
+    if os.path.exists(os.path.join(SHM_DIR, local)):
+        return local
+    if _fetch_hook is None:
+        raise FileNotFoundError(f"object segment {desc.shm_name} lives in foreign shm namespace {desc.ns!r} and "
+                                "this process has no transfer fetch hook")
+    return _fetch_hook(desc)
 
 
 def cleanup_orphan_segments():
@@ -216,13 +248,9 @@ def _mmap_private(name: str) -> mmap.mmap:
 def read_from_shm(desc: ShmDescriptor, zero_copy: bool = False):
     """(Serialized, mapping). With ``zero_copy`` the buffers are writable
     views into the private mapping (no byte copied); otherwise copies
-    (``bytearray``) and the mapping is closed (None)."""
-    if desc.ns and desc.ns != _namespace():
-        raise NotImplementedError(
-            f"object segment {desc.shm_name} lives in shm namespace {desc.ns!r}, not this process's "
-            f"({_namespace()!r}); transfers between namespaces are not ported to ray_tpu_torch yet "
-            f"(ROADMAP.md, {TRANSFER_ITEM})")
-    m = _mmap_private(desc.shm_name)
+    (``bytearray``) and the mapping is closed (None). A foreign
+    namespace's segment is pulled here first (``ensure_local_segment``)."""
+    m = _mmap_private(ensure_local_segment(desc))
     view = memoryview(m)
     off = desc.header_len
     header = bytes(view[:off])
@@ -278,6 +306,9 @@ class ObjectStore:
         self.cfg = get_config()
         # called (outside the lock) with the ObjectID on every seal
         self.listeners: list = []
+        # installed by the runtime: free a segment of a foreign namespace
+        # (the owning node's agent unlinks it)
+        self.remote_free = None
         self._spilled_bytes = 0
         self._spill_count = 0
         self._restore_count = 0
@@ -293,6 +324,16 @@ class ObjectStore:
             os.makedirs(d, exist_ok=True)
             self._spill_dir = d
         return self._spill_dir
+
+    def _free_shm(self, desc: ShmDescriptor):
+        """Unlink a segment where it lives: here for this namespace's, else
+        this process's copy and, through the owning node, the original."""
+        if desc.ns == _namespace():
+            unlink_shm(desc.shm_name)
+            return
+        unlink_shm(local_shm_name(desc))
+        if self.remote_free is not None:
+            self.remote_free(desc)
 
     # -- write path --------------------------------------------------------
     def put_serialized(self, obj_id: ObjectID, s: Serialized, inline_threshold: int | None = None) -> StoredObject:
@@ -330,7 +371,7 @@ class ObjectStore:
             self._drop_spill_file(entry)
         else:
             self._shm_bytes -= entry.shm.total_size
-            unlink_shm(entry.shm.shm_name)
+            self._free_shm(entry.shm)
 
     # -- read path ---------------------------------------------------------
     def contains(self, obj_id: ObjectID) -> bool:
@@ -415,6 +456,9 @@ class ObjectStore:
             return True
         if entry.spill_path is not None:
             return False  # the bytes are on disk: the reader restores first
+        if entry.shm.ns != _namespace():
+            # another node's segment: a pull finds out (a failed one marks it lost)
+            return True
         return os.path.exists(os.path.join(SHM_DIR, entry.shm.shm_name))
 
     def evict(self, obj_id: ObjectID) -> bool:
@@ -530,8 +574,10 @@ class ObjectStore:
         with self._lock:
             if self._shm_bytes <= limit:
                 return
+            # another node's segments hold no bytes of this store: never spilled here
             candidates = sorted((e.sealed_at, oid) for oid, e in self._objects.items()
-                                if e.shm is not None and e.spill_path is None and oid not in self._pinned)
+                                if e.shm is not None and e.spill_path is None and oid not in self._pinned
+                                and e.shm.ns == _namespace())
         for _, oid in candidates:
             spilled = False
             if cfg.object_spilling_enabled:
@@ -566,7 +612,8 @@ class ObjectStore:
                     except OSError:
                         pass
                 elif entry.shm is not None:
-                    unlink_shm(entry.shm.shm_name)
+                    # a foreign segment goes with its node: only this copy here
+                    unlink_shm(entry.shm.shm_name if entry.shm.ns == _namespace() else local_shm_name(entry.shm))
             self._objects.clear()
             self._shm_bytes = 0
             self._spilled_bytes = 0

@@ -8,9 +8,12 @@ Sites in the port's runtime: ``to_worker`` (every message the head sends
 a worker; a drop loses it), each inbound worker message by its type
 (``ready``, ``done``, ``seal``, ``stream_item``, ...; a drop loses it),
 ``direct_call`` (a direct submission; a drop sends it down the head path)
-and ``direct_result`` (a direct reply; a drop fails the connection, so
-its calls fail over). ray_tpu's ``ping`` and ``pong`` sites are its
-health loop's probes of node agents, which are not ported.
+``direct_result`` (a direct reply; a drop fails the connection, so
+its calls fail over), ``transfer_chunk`` (a chunk of an object pull; a
+drop aborts the stream), and the health loop's probes of node agents:
+``ping`` (the head's probe; a drop loses it) and ``pong`` (an agent's
+answer, by its type like every agent message; dropping them all starves
+the node into being declared dead).
 
     from ray_tpu_torch.core import rpc_chaos
     rpc_chaos.inject("done", delay_s=0.1)          # slow completions

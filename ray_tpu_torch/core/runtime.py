@@ -5,10 +5,23 @@ It owns the head's objects (``ObjectStore``), runs the scheduler over the
 nodes, keeps the actor table with its restart state machine and the
 placement groups, serves the workers' client RPCs over their pipes, and
 answers the direct plane's endpoint lookups and worker leases
-(``core/direct.py``). Threads: the IO loop over the worker pipes, the
-scheduler loop and the ref GC loop (this process's reference counts). A
-worker's death is its pipe's end of file; ray_tpu's health loop pings only
-node agents, which are not ported, so there is none here.
+(``core/direct.py``). Threads: the IO loop over the worker pipes and the
+agents' sockets, the scheduler loop, the ref GC loop (this process's
+reference counts), the health loop and the state dump. A local worker's
+death is its pipe's end of file; the health loop pings node agents only.
+
+**Across processes.** ``add_node()`` (``remote=True``, ray_tpu's default)
+starts a node agent (``core/node_agent.py``) that dials the head's
+``AgentListener``; ``shm_isolation`` gives the node a shared-memory
+namespace of its own, so every object that crosses to or from it moves
+through the transfer servers (``core/transport.py``) as it would between
+hosts, with the head as the directory from namespace to server. ``rt
+agent`` joins a node from another host the same way. An attached driver
+(``init(address=...)``, ``core/driver_client.py``) dials the same
+listener and speaks a worker's client protocol. ``gcs_persist_path``
+keeps the GCS's tables in an fsync'd log (``FileTableStore``): the KV
+(with the job table), the cluster's authkeys and the detached actors,
+which the next head on that log re-creates under their ids and names.
 
 **The card is a resource.** ``init`` counts the cards
 (``accelerators/gpu.py``) into ``"GPU"``; ``num_gpus`` and ``num_tpus``
@@ -20,10 +33,8 @@ the next holder is placed. A request no node can hold is infeasible and
 stays queued; it never runs on the CPU.
 
 Not ported, each raising naming its ROADMAP.md item (``core/context.py``):
-node agents and other hosts (``add_node(remote=True)``, the transfer
-server), attached drivers, a persistent GCS and detached actors across
-heads, ``runtime_env`` packing (``env_vars`` are applied), and the state
-dump, log and memory monitors.
+``runtime_env`` packing (``env_vars`` are applied), and the timeline, log
+and memory monitors.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from multiprocessing import connection as mp_connection
 
 from ray_tpu_torch._config import get_config, reset_config
 from ray_tpu_torch.core import context
-from ray_tpu_torch.core.context import AGENTS_ITEM, DRIVER_ITEM, PERSIST_ITEM, RUNTIME_ENV_ITEM, STATE_ITEM, not_ported
+from ray_tpu_torch.core.context import RUNTIME_ENV_ITEM, not_ported
 from ray_tpu_torch.core.gcs import Gcs
 from ray_tpu_torch.core.ids import ActorID, JobID, NodeID, ObjectID, PlacementGroupID, TaskID, WorkerID
 from ray_tpu_torch.core.node import Node, NodeShutDown, WorkerHandle
@@ -116,8 +127,6 @@ class Runtime:
         reset_config()
         self.cfg = get_config()
         self.cfg.update(system_config)
-        if self.cfg.gcs_persist_path and not local_mode:
-            not_ported(f"a persistent GCS (gcs_persist_path={self.cfg.gcs_persist_path!r})", PERSIST_ITEM)
         os.environ["RT_SESSION_PID"] = str(os.getpid())
         # one exit hook stops the zygote before interpreter teardown (a
         # live zygote is reused by the next init() and saves its boot)
@@ -142,14 +151,46 @@ class Runtime:
         self.assigned_resources = {}
 
         self.store = ObjectStore()
-        self.gcs = Gcs()
+        # the GCS's tables: an fsync'd log when configured, so the KV, the
+        # jobs and the detached actors survive a kill -9 of the head
+        if self.cfg.gcs_persist_path and not local_mode:
+            from ray_tpu_torch.core.table_store import FileTableStore
+
+            self.gcs = Gcs(FileTableStore(self.cfg.gcs_persist_path))
+        else:
+            self.gcs = Gcs()
         self.task_manager = TaskManager(self)
         self.scheduler = Scheduler(self)
+        # the cluster's keys, the same across heads on one persistent GCS:
+        # agents that redial a restarted head still hold them
+        self._transfer_authkey = self._persistent_secret("transfer_authkey")
+        self._listener_authkey = self._persistent_secret("listener_authkey")
         self._direct_authkey = self._persistent_secret("direct_authkey")
         # worker leases of the direct plane: wid -> (node, resources, owner_hex)
         self._leases: dict = {}
         self._leases_lock = threading.Lock()
         self._nodes_lock = threading.RLock()
+        self._drivers: dict = {}  # attached drivers: worker id hex -> _DriverHandle
+        self._drivers_lock = threading.Lock()
+        # the object directory across shm namespaces: namespace -> the
+        # transfer server that serves it, and the node that holds it
+        from ray_tpu_torch.core import object_store as _os_mod
+
+        self._head_ns = _os_mod._namespace()
+        self._ns_addrs: dict[str, tuple] = {}
+        self._ns_nodes: dict[str, NodeID] = {}
+        self._shm_ns_counter = 0
+        self._transfer_server = None
+        self._agent_listener = None
+        if not local_mode:
+            from ray_tpu_torch.core import transport
+
+            self._transfer_server = transport.ObjectTransferServer(
+                self._transfer_authkey, advertise_host=self.cfg.node_manager_host,
+                allowed_prefixes=(f"rt{_os_mod._session_tag()}_", f"rt{_os_mod.worker_session_tag()}_"))
+            self._ns_addrs[self._head_ns] = self._transfer_server.address
+            _os_mod.set_fetch_hook(self._fetch_foreign_segment)
+            self.store.remote_free = self._free_foreign_segment
         # dead-worker pipes waiting for the IO loop to close them (_retire_conn)
         self._conn_graveyard: list = []
         self._conn_graveyard_lock = threading.Lock()
@@ -197,8 +238,17 @@ class Runtime:
         self.node_id = head.node_id
         self.nodes[head.node_id] = head
         self.gcs.events.record("node_added", node_id=head.node_id.hex(), resources=base_res)
+        if not local_mode:
+            from ray_tpu_torch.core.node import AgentListener
+
+            # the rendezvous of node agents (started here, or joined by `rt
+            # agent` from another host) and of attached drivers; up once the
+            # node table is, since an agent redialing a fixed port joins at once
+            self._agent_listener = AgentListener(host=self.cfg.node_manager_host, port=self.cfg.node_manager_port,
+                                                 authkey=self._listener_authkey, on_join=self._on_agent_join,
+                                                 on_driver=self._on_driver_join)
         for _ in range(max(0, num_nodes - 1)):
-            self.add_node(dict(base_res), remote=False)
+            self.add_node(dict(base_res))
 
         self.store.listeners.append(self._on_sealed)
         # the driver's direct plane: it owns small objects and serves them
@@ -215,6 +265,13 @@ class Runtime:
             self._sched_thread.start()
             if self.cfg.object_ref_counting:
                 threading.Thread(target=self._ref_gc_loop, daemon=True, name="rt-ref-gc").start()
+            self._health_thread = threading.Thread(target=self._health_loop, daemon=True, name="rt-health")
+            self._health_thread.start()
+            from ray_tpu_torch.util import state as _state
+
+            _state.dump_cluster_info(self)
+            if self.cfg.state_dump_interval_s > 0:
+                threading.Thread(target=self._state_dump_loop, daemon=True, name="rt-state-dump").start()
             if self.cfg.prestart_workers:
                 # warm the pool in the background: overlaps the zygote's
                 # one-time boot with the caller's own setup
@@ -231,6 +288,8 @@ class Runtime:
 
                 self._prestart_thread = threading.Thread(target=_prestart, daemon=True)
                 self._prestart_thread.start()
+        if self.cfg.gcs_persist_path and not local_mode:
+            self._rehydrate_detached_actors()
 
     # ------------------------------------------------------------------
     # cluster membership
@@ -243,16 +302,33 @@ class Runtime:
         remote: bool = True,
         shm_isolation: bool | None = None,
     ) -> Node:
-        """Add a node. ray_tpu's default, ``remote=True``, runs the node's
-        manager as a separate agent process: not ported (AGENTS_ITEM).
-        ``remote=False`` adds an in-process node whose workers are this
-        host's processes, as ray_tpu's ``remote=False`` does."""
+        """Add a node. ``remote=True`` (the default) runs the node's worker
+        pool in an agent process of its own, over the agent's socket and
+        health-checked; ``remote=False`` adds an in-process node whose
+        workers this process forks. ``shm_isolation=True`` (an agent's node)
+        gives the node its own shm namespace: every object that crosses
+        the node's boundary moves through the transfer servers, as between
+        hosts. A node counts cards only as ``resources`` says ("GPU")."""
         if shm_isolation is None:
             shm_isolation = self.cfg.shm_isolation
-        if (remote and not self.local_mode) or shm_isolation:
-            not_ported("a node run by a separate agent process (add_node(remote=True) or shm_isolation)",
-                       AGENTS_ITEM)
-        node = Node(None, resources, labels=labels, env={**self._base_worker_env(), **(env or {})})
+        env = {**self._base_worker_env(), **(env or {})}
+        if remote and not self.local_mode:
+            from ray_tpu_torch.core.node import RemoteNode
+            from ray_tpu_torch.core.object_store import worker_session_tag
+
+            if shm_isolation:
+                self._shm_ns_counter += 1
+                env["RT_SHM_NS"] = f"{os.getpid()}n{self._shm_ns_counter}"
+            node = RemoteNode(None, resources, labels=labels, env=env, listener=self._agent_listener,
+                              transfer_authkey=self._transfer_authkey,
+                              worker_tag=None if shm_isolation else worker_session_tag(),
+                              reconnect_s=self.cfg.agent_reconnect_s)
+            self._register_node_transfer(node)
+        elif shm_isolation:
+            raise ValueError("shm_isolation needs a node run by an agent (remote=True): an in-process node's "
+                             "workers share this process's namespace")
+        else:
+            node = Node(None, resources, labels=labels, env=env)
         with self._nodes_lock:
             self.nodes[node.node_id] = node
         self.gcs.events.record("node_added", node_id=node.node_id.hex(), resources=resources)
@@ -280,21 +356,263 @@ class Runtime:
             env["RT_DIRECT_AUTHKEY"] = self._direct_authkey.hex()
         return env
 
+    def _register_node_transfer(self, node):
+        ns = getattr(node, "shm_ns", "")
+        if ns and getattr(node, "transfer_addr", None):
+            self._ns_addrs.setdefault(ns, node.transfer_addr)
+            self._ns_nodes[ns] = node.node_id
+
+    def _state_dump_loop(self):
+        """The session's state.json for the CLI, every ``state_dump_interval_s``."""
+        from ray_tpu_torch.util import state as _state
+
+        while not self._stopped:
+            time.sleep(self.cfg.state_dump_interval_s)
+            if self._stopped:
+                return
+            try:
+                _state.dump_state(self)
+            except Exception:  # noqa: BLE001 — a snapshot that fails is skipped; the next one is tried
+                logger.debug("state dump failed", exc_info=True)
+
+    # ---- attached drivers ----
     def _on_driver_join(self, conn, hello: dict):
-        not_ported("an external driver attaching to this head", DRIVER_ITEM)
+        """A driver process attached through the listener
+        (``init(address=...)``): it speaks a worker's client protocol over
+        its socket, with a pump thread of its own; its references and
+        leases are dropped when it goes, as a dead worker's."""
+        import socket
 
+        wid = WorkerID.from_random()
+        handle = _DriverHandle(conn, wid)
+        handle.send({
+            "type": "driver_welcome",
+            "worker_id": wid.hex(),
+            "node_id": self.node_id.hex(),
+            "session_pid": os.getpid(),
+            "namespace": self.namespace,
+            "hostname": socket.gethostname(),
+            "direct_authkey": self._direct_authkey.hex() if self._direct is not None else None,
+        })
+        # registered only after the welcome went through: a dialer that died
+        # mid-handshake leaves nothing behind
+        with self._drivers_lock:
+            self._drivers[wid.hex()] = handle
+        threading.Thread(target=self._driver_pump, args=(handle,), daemon=True,
+                         name=f"rt-driver-{wid.hex()[:8]}").start()
+        self.gcs.events.record("driver_attached", worker_id=wid.hex(), pid=hello.get("pid"))
+
+    def _driver_pump(self, handle: "_DriverHandle"):
+        wid_hex = handle.worker_id.hex()
+        try:
+            while not self._stopped:
+                try:
+                    msg = handle.conn.recv()
+                except (EOFError, OSError):
+                    break
+                if msg.get("type") == "driver_bye":
+                    break
+                self._dispatch_client_msg(handle, msg)
+        finally:
+            with self._drivers_lock:
+                self._drivers.pop(wid_hex, None)
+            self._drop_holder(wid_hex)
+            self._release_leases_of_owner(wid_hex)
+            handle.conn.close()
+            self.gcs.events.record("driver_detached", worker_id=wid_hex)
+
+    # ---- node agents ----
     def _on_agent_join(self, conn, hello: dict):
-        not_ported("a node agent joining this head", AGENTS_ITEM)
+        """An agent that started by itself (``rt agent``, another host's)
+        joined through the listener: adopt it as a node."""
+        from ray_tpu_torch.core.node import JoinedNode
 
+        node_id = NodeID.from_hex(hello["node_id"])
+        with self._nodes_lock:
+            stale = self.nodes.get(node_id)
+        if stale is not None:
+            # a re-join after a dropped connection: the old record's socket is dead
+            self.remove_node(node_id, graceful=False)
+        node = JoinedNode(node_id, conn, hello)
+        self._register_node_transfer(node)
+        with self._nodes_lock:
+            self.nodes[node.node_id] = node
+        self.gcs.events.record("node_added", node_id=node.node_id.hex(), resources=node.total_resources, joined=True)
+        self.gcs.pubsub.publish("node", {"event": "added", "node_id": node.node_id.hex()})
+        logger.info("node %s joined through the agent listener (ns %r)", node.node_id.hex()[:8], node.shm_ns)
+        self.scheduler.bump_capacity()
+
+    def _on_agent_death(self, node: Node):
+        """A node agent is gone: its whole node is dead."""
+        if not node.alive:
+            return
+        logger.warning("node agent %s died; removing its node", node.node_id.hex()[:8])
+        self.remove_node(node.node_id, graceful=False)
+
+    def _health_loop(self):
+        """Ping the node agents every ``health_check_period_s``; a node whose
+        agent answered none for ``health_check_failure_threshold`` periods
+        is dead."""
+        from ray_tpu_torch.core import rpc_chaos
+
+        period = self.cfg.health_check_period_s
+        threshold = self.cfg.health_check_failure_threshold
+        while not self._stopped:
+            time.sleep(period)
+            for node in self.node_list():
+                if not getattr(node, "remote", False) or not node.alive:
+                    continue
+                if time.monotonic() - node.last_pong > period * threshold:
+                    logger.warning("node %s missed %d health checks; declaring it dead", node.node_id.hex()[:8],
+                                   threshold)
+                    # off the loop: the removal waits for a hung agent (up to
+                    # 15 s) while the other nodes' pings must go on
+                    threading.Thread(target=self._on_agent_death, args=(node,), daemon=True,
+                                     name="rt-node-death").start()
+                    continue
+                node.ping_seq += 1
+                if rpc_chaos.apply("ping"):
+                    node.agent_send({"type": "ping", "seq": node.ping_seq})
+
+    def _handle_agent_msg(self, node: Node, msg: dict):
+        """One message from a node agent's socket."""
+        from multiprocessing.reduction import ForkingPickler
+
+        from ray_tpu_torch.core import rpc_chaos
+
+        t = msg.get("type")
+        if not rpc_chaos.apply(t):
+            return  # chaos: the message is lost
+        if t == "from_worker":
+            w = node.workers.get(WorkerID.from_hex(msg["wid"]))
+            if w is not None and w.state != "dead":
+                self._handle_worker_msg(node, w, ForkingPickler.loads(msg["data"]))
+        elif t == "worker_death":
+            w = node.workers.get(WorkerID.from_hex(msg["wid"]))
+            if w is not None:
+                w.proc.mark_exited()
+                self._on_worker_death(node, w, msg.get("reason", "worker died"))
+        elif t == "worker_started":
+            node.on_worker_started(WorkerID.from_hex(msg["wid"]), msg.get("pid"))
+        elif t == "pong":
+            node.last_pong = time.monotonic()
+        elif t == "resolve_ns":
+            ns = msg.get("ns", "")
+            node.agent_send({"type": "ns_addr", "ns": ns, "addr": self._ns_addrs.get(ns)})
+
+    # ---- segments of other namespaces (the head's side) ----
     def _fetch_foreign_segment(self, desc) -> str:
-        not_ported(f"pulling segment {desc.shm_name} from shm namespace {desc.ns!r} (the transfer server)",
-                   AGENTS_ITEM)
+        """The object store's fetch hook: pull a foreign namespace's segment
+        into the head's; returns the local name."""
+        from ray_tpu_torch.core import object_store as _os_mod
+        from ray_tpu_torch.core import transport
+
+        addr = self._ns_addrs.get(desc.ns)
+        if addr is None:
+            raise FileNotFoundError(f"no transfer address for shm namespace {desc.ns!r} (its node is gone)")
+        local = _os_mod.local_shm_name(desc)
+        transport.pull_segment(addr, self._transfer_authkey, desc.shm_name, local)
+        _os_mod._written.add(local)  # the session's shutdown unlinks this copy
+        return local
+
+    def _free_foreign_segment(self, desc):
+        """The object store's remote free: the agent of the namespace's node
+        unlinks the segment."""
+        node_id = self._ns_nodes.get(desc.ns)
+        if node_id is None:
+            return
+        with self._nodes_lock:
+            node = self.nodes.get(node_id)
+        if node is not None and getattr(node, "remote", False) and node.alive:
+            node.agent_send({"type": "free_shm", "name": desc.shm_name})
+
+    # ---- detached actors across heads (a persistent GCS) ----
+    def _persist_detached_actor(self, info: ActorInfo, func_blob):
+        """Record what a restarted head needs to re-create the actor: its
+        creation spec and its class's code reference (a class of the
+        driver's script names the script). Only inline constructor
+        arguments: one in the object plane would dangle after a restart."""
+        import pickle
+
+        spec = info.creation_spec
+        kwargs = getattr(spec, "_kwargs", {}) or {}
+        if any(a.ref is not None or (a.payload is not None and a.payload.shm is not None)
+               for a in [*spec.args, *kwargs.values()]):
+            logger.warning("detached actor %s is not persisted: its constructor arguments live in the object "
+                           "plane", info.name or info.actor_id.hex()[:8])
+            return
+        blob = pickle.dumps({
+            "spec": spec,
+            "kwargs": kwargs,
+            "func_blob": func_blob if func_blob is not None else self._functions.get(spec.func_id),
+            "name": info.name,
+            "namespace": info.namespace,
+            "detached": True,
+        })
+        self.gcs.persist_detached_actor(info.actor_id, blob)
 
     def _rehydrate_detached_actors(self):
-        not_ported("re-creating detached actors recorded by an earlier head", PERSIST_ITEM)
+        """At the start of a head on a persistent GCS: re-create the detached
+        actors the earlier head recorded, under their actor ids and names.
+        An actor whose record or class does not resolve here is marked dead
+        with that error (``ray_tpu_torch.get_actor`` of its name fails with
+        it); it is never skipped silently."""
+        import pickle
 
-    def dump_cluster_info(self):
-        not_ported("the session's cluster-info and state dumps (util/state)", STATE_ITEM)
+        for actor_hex, blob in self.gcs.load_detached_actors().items():
+            try:
+                rec = pickle.loads(blob)
+                spec = rec["spec"]
+                if spec.actor_id in self.actors:
+                    continue
+                self.register_function(spec.func_id, rec.get("func_blob"))
+                self.get_function(spec.func_id)  # its class must resolve in this head's processes
+            except Exception as e:  # noqa: BLE001 — the failure is the actor's: recorded as its death below
+                self._rehydration_failed(actor_hex, blob, e)
+                continue
+            spec._kwargs = rec.get("kwargs", {})
+            spec.attempt = 0
+            info = ActorInfo(
+                actor_id=spec.actor_id,
+                name=rec.get("name"),
+                namespace=rec.get("namespace", "default"),
+                class_id=spec.func_id,
+                state="PENDING",
+                max_restarts=spec.max_restarts,
+                max_task_retries=spec.max_task_retries,
+                max_concurrency=spec.max_concurrency,
+                creation_spec=spec,
+                resources=dict(spec.scheduling.resources),
+                placement_group=None,
+                bundle_index=-1,
+                detached=True,
+            )
+            if info.name:
+                self.gcs.register_named_actor(info.name, info.namespace, spec.actor_id)
+            self.actors[spec.actor_id] = ActorState(info)
+            self.task_manager.register(spec)
+            self.gcs.events.record("actor_rehydrated", actor_id=actor_hex, name=info.name or "")
+            self.scheduler.submit(spec)
+
+    def _rehydration_failed(self, actor_hex: str, blob: bytes, err: BaseException):
+        """A recorded detached actor this head cannot re-create: it is dead
+        with the error (its ready reference raises it), and it says so."""
+        import pickle
+
+        name, namespace = None, "default"
+        try:
+            rec = pickle.loads(blob)
+            name, namespace = rec.get("name"), rec.get("namespace", "default")
+        except Exception:  # noqa: BLE001 — an unreadable record still fails loudly, by its id
+            pass
+        actor_id = ActorID.from_hex(actor_hex)
+        cause = f"re-creating detached actor {name or actor_hex[:8]} after a head restart failed: {err!r}"
+        logger.error(cause)
+        info = ActorInfo(actor_id=actor_id, name=name, namespace=namespace, class_id="", state="DEAD",
+                         detached=True, death_cause=cause)
+        self.actors[actor_id] = ActorState(info)
+        self.store.put_error(_actor_ready_oid(actor_id), ActorDiedError(actor_id, cause))
+        self.gcs.events.record("actor_dead", actor_id=actor_hex, cause=cause)
 
     def remove_node(self, node_id: NodeID, graceful: bool = False):
         """A node's death: its workers die (their tasks retry, their actors
@@ -320,6 +638,16 @@ class Runtime:
         node.shutdown()
         with self._nodes_lock:
             self.nodes.pop(node_id, None)
+        ns = getattr(node, "shm_ns", "")
+        if ns and ns != self._head_ns:
+            # the node's namespace dies with it: lookups fail fast, and its
+            # objects fall back to lineage reconstruction
+            self._ns_addrs.pop(ns, None)
+            self._ns_nodes.pop(ns, None)
+            # an agent killed before its own cleanup leaves them on this host
+            from ray_tpu_torch.core.object_store import unlink_tagged
+
+            unlink_tagged(ns)
         self.gcs.events.record("node_removed", node_id=node_id.hex())
         self.gcs.pubsub.publish("node", {"event": "removed", "node_id": node_id.hex()})
         # membership changed: parked shapes re-evaluate
@@ -451,15 +779,23 @@ class Runtime:
             self.store.delete(oid)
 
     def object_locations(self, obj_ids) -> dict:
-        """The node holding each object's primary copy: the head's for its
-        store's entries, the owner's for owned ones, None when unknown."""
+        """The node holding each object's primary copy: for the head store's
+        entries the node of the segment's namespace (the head's for inline
+        values), the owner's for owned ones, None when unknown."""
         from ray_tpu_torch.core import direct as _direct
 
         out = {}
         head_hex = self.node_id.hex()
         for oid in obj_ids:
             entry = self.store.try_get_entry(oid)
-            out[oid.hex()] = _direct.owned_location(oid.binary()) if entry is None else head_hex
+            if entry is None:
+                out[oid.hex()] = _direct.owned_location(oid.binary())
+            elif entry.shm is None or entry.shm.ns == self._head_ns:
+                out[oid.hex()] = head_hex
+            else:
+                # a segment's namespace is its location: the node that holds it
+                nid = self._ns_nodes.get(entry.shm.ns)
+                out[oid.hex()] = nid.hex() if nid is not None else None
         return out
 
     def _on_sealed(self, obj_id: ObjectID):
@@ -627,6 +963,8 @@ class Runtime:
         self.actors[actor_id] = ActorState(info)
         self.task_manager.register(spec)
         self.gcs.events.record("actor_created", actor_id=actor_id.hex(), name=name_desc)
+        if info.detached and self.cfg.gcs_persist_path and not self.local_mode:
+            self._persist_detached_actor(info, func_blob)
         if self.local_mode:
             self._local_create_actor(spec)
         else:
@@ -1183,6 +1521,9 @@ class Runtime:
             self._drain_conn_graveyard()
             conn_map = {}
             for node in self.node_list():
+                if getattr(node, "remote", False):
+                    conn_map[node.agent_conn] = (node, None)
+                    continue
                 for w in list(node.workers.values()):
                     if w.state != "dead":
                         conn_map[w.conn] = (node, w)
@@ -1195,6 +1536,17 @@ class Runtime:
                 continue
             for c in ready:
                 node, w = conn_map[c]
+                if w is None:  # a node agent's socket
+                    try:
+                        msg = c.recv()
+                    except (EOFError, OSError):
+                        self._on_agent_death(node)
+                        continue
+                    try:
+                        self._handle_agent_msg(node, msg)
+                    except Exception:  # noqa: BLE001 — one bad message must not stop the IO loop; it is logged
+                        logger.exception("error handling agent message %s", msg.get("type"))
+                    continue
                 if w.state == "dead":
                     # died on another thread after this wait() started:
                     # buffered messages must not be applied for a holder
@@ -1398,17 +1750,38 @@ class Runtime:
             self._dispatch_client_msg(w, msg)  # the client-protocol subset (req, ref_events)
 
     def _dispatch_client_msg(self, handle, msg: dict) -> bool:
-        """The client protocol of a worker's pipe: req (a control-plane
-        RPC) and ref_events (borrow-protocol flushes, ordered with the
-        sender's other messages on one channel). True when handled."""
+        """The client protocol of a worker's pipe and an attached driver's
+        socket: req (a control-plane RPC), agent_req (the head answering as
+        its own node's agent) and ref_events (borrow-protocol flushes,
+        ordered with the sender's other messages on one channel). True
+        when handled."""
         t = msg.get("type")
         if t == "req":
             self._req_pool.submit(self._handle_client_req, handle, msg)
+        elif t == "agent_req":
+            self._req_pool.submit(self._handle_agent_req_local, handle, msg)
         elif t == "ref_events":
             self.on_ref_events(handle.worker_id.hex(), [(bytes.fromhex(h), reg) for h, reg in msg["events"]])
         else:
             return False
         return True
+
+    def _handle_agent_req_local(self, w, msg: dict):
+        """An agent RPC from one of the head's own processes: pull a foreign
+        segment into the head's namespace (``fetch_object``)."""
+        from ray_tpu_torch.core.object_store import ensure_local_segment
+
+        resp = {"type": "resp", "req_id": msg["req_id"], "ok": True, "payload": None, "error": None}
+        try:
+            if msg.get("method") != "fetch_object":
+                raise ValueError(f"unknown agent method {msg.get('method')!r}")
+            resp["payload"] = ensure_local_segment(msg["params"]["desc"])
+        except Exception as e:  # noqa: BLE001 — the error goes back to the asking process
+            resp["ok"], resp["error"] = False, _picklable_error(e)
+        try:
+            w.send(resp)
+        except (OSError, ValueError):
+            pass  # the asker is gone
 
     def _on_task_done(self, node: Node, w: WorkerHandle, msg: dict):
         if msg.get("ref_events"):
@@ -1619,6 +1992,8 @@ class Runtime:
         self._release_actor_resources(astate, proc=proc)
         if info.name:
             self.gcs.unregister_named_actor(info.name, info.namespace)
+        if info.detached:
+            self.gcs.drop_detached_actor(info.actor_id)  # dead for good
         self.gcs.events.record("actor_dead", actor_id=info.actor_id.hex(), cause=cause)
 
     def _release_actor_resources(self, astate: ActorState, proc=None):
@@ -1797,6 +2172,8 @@ class Runtime:
         worker leaves the dispatch pool until the lease is released."""
         res = {"CPU": 1.0}
         for node in self.node_list():
+            if getattr(node, "remote", False) and not node.workers:
+                continue  # an agent's first worker boots its zygote: the caller takes the head path instead
             if not node.allocate(res):
                 continue
             try:
@@ -2024,9 +2401,25 @@ class Runtime:
         t = getattr(self, "_prestart_thread", None)
         if t is not None and t.is_alive():
             t.join(timeout=60.0)
+        with self._drivers_lock:
+            drivers = list(self._drivers.values())
+        for d in drivers:
+            try:
+                d.send({"type": "head_shutdown"})
+            except (OSError, ValueError):
+                pass  # it detached meanwhile
+            d.conn.close()
         for node in list(self.nodes.values()):
             node.shutdown()
         self.store.shutdown()
+        if self._agent_listener is not None:
+            self._agent_listener.shutdown()
+        if self._transfer_server is not None:
+            self._transfer_server.shutdown()
+            from ray_tpu_torch.core import object_store as _os_mod
+
+            _os_mod.set_fetch_hook(None)
+        self.gcs.store.close()
         t_io = getattr(self, "_io_thread", None)
         if t_io is not None and t_io.is_alive():
             # the loop exits within ~70 ms of _stopped; closing graveyarded
@@ -2157,3 +2550,20 @@ def _picklable_error(e: BaseException) -> BaseException:
         return e
     except Exception:
         return TaskError(cause=None, tb_str=str(e), task_desc="rpc")
+
+
+class _DriverHandle:
+    """The head's record of an attached driver: the part of a
+    ``WorkerHandle`` its client requests and reference events use (a
+    driver runs no tasks)."""
+
+    __slots__ = ("conn", "worker_id", "_send_lock")
+
+    def __init__(self, conn, worker_id):
+        self.conn = conn
+        self.worker_id = worker_id
+        self._send_lock = threading.Lock()
+
+    def send(self, msg: dict):
+        with self._send_lock:
+            self.conn.send(msg)

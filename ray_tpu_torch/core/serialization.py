@@ -20,7 +20,12 @@ sends a task's function or an actor's class as its module and qualified
 name (``code_ref``); the worker imports the module and looks the name up
 (``resolve_code``), unwrapping a ``@remote`` decorator. The driver's
 ``__main__`` is importable in a worker from its file (``core/node.py``
-imports it there as ``__mp_main__``, as multiprocessing does). A lambda,
+imports it there as ``__mp_main__``, as multiprocessing does), and a
+``__main__`` script's code is named with its file (``__main__:<path>``):
+so a function of a driver attached to another driver's head, or a class
+a restarted head re-creates a detached actor of, resolves to the right
+script, which a process that did not start from it imports under a name
+of its own (its ``if __name__ == "__main__"`` block does not run). A lambda,
 a function defined inside another, or a ``__main__`` with no file (a
 heredoc, stdin or ``-c`` driver) has no name a worker can import:
 ``code_ref`` raises TypeError at ``.remote()`` and says so. Values passed
@@ -169,6 +174,8 @@ def code_ref(obj) -> tuple[str, str]:
         if not spec_name and not (path and os.path.isfile(path)):
             raise TypeError(f"the {what} {qualname} is defined in a __main__ with no file (a heredoc, stdin or -c "
                             f"driver), which a worker cannot import: put it in a file. {_DIFFERENCE}")
+        if not spec_name:
+            module = f"__main__:{os.path.abspath(path)}"
     try:
         found = resolve_code(module, qualname)
     except (ImportError, AttributeError):
@@ -179,12 +186,44 @@ def code_ref(obj) -> tuple[str, str]:
     return module, qualname
 
 
+def _main_script(path: str):
+    """The module of the script ``path``: this process's __main__ (or the
+    driver's, imported as __mp_main__) when it ran from that file, else
+    the file imported under a name of its own, once."""
+    import hashlib
+    import importlib.util
+    import sys
+
+    for name in ("__main__", "__mp_main__"):
+        mod = sys.modules.get(name)
+        f = getattr(mod, "__file__", None)
+        if f and os.path.abspath(f) == path:
+            return mod
+    name = "__rt_main_" + hashlib.sha1(path.encode()).hexdigest()[:12]
+    mod = sys.modules.get(name)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(name, path)
+        if spec is None:
+            raise ImportError(f"cannot import the driver script {path}")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            sys.modules.pop(name, None)
+            raise
+    return mod
+
+
 def resolve_code(module: str, qualname: str):
-    """Import ``module`` and look ``qualname`` up in it, unwrapping
-    ``@remote`` wrappers at each step."""
+    """Import ``module`` (``__main__:<path>``: that script) and look
+    ``qualname`` up in it, unwrapping ``@remote`` wrappers at each step."""
     import importlib
 
-    obj = importlib.import_module(module)
+    if module.startswith("__main__:"):
+        obj = _main_script(module.split(":", 1)[1])
+    else:
+        obj = importlib.import_module(module)
     for part in qualname.split("."):
         obj = _unwrap(getattr(obj, part))
     return obj

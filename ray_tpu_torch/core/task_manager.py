@@ -24,10 +24,14 @@ TERMINAL = ("FINISHED", "FAILED", "CANCELLED")
 
 
 class TaskState:
-    __slots__ = ("spec", "status", "attempts_done", "node_id", "worker_id", "cancelled", "submitted_at", "events")
+    __slots__ = ("spec", "status", "attempts_done", "node_id", "worker_id", "cancelled", "submitted_at", "events",
+                 "external")
 
     def __init__(self, spec: TaskSpec):
         self.spec = spec
+        # a record of a direct-plane call the head never dispatched: it has
+        # no function, and only the call's owner can replay it
+        self.external = False
         self.status = "PENDING"
         self.attempts_done = 0
         self.node_id = None
@@ -113,6 +117,7 @@ class TaskManager:
                     actor_id=ActorID.from_hex(r["actor"]) if r.get("actor") else None,
                 )
                 st = TaskState(spec)
+                st.external = True
                 start, end = r.get("start", time.time()), r.get("end", time.time())
                 st.submitted_at = start
                 st.status = "FINISHED" if r.get("ok", True) else "FAILED"
@@ -198,6 +203,10 @@ class TaskManager:
         st = self.get(obj_id.task_id())
         if st is None:
             raise ObjectLostError(f"object {obj_id.hex()[:16]} lost and producing task unknown")
+        if st.external:
+            # a direct call's result sealed here: the owner holds its lineage
+            # (direct.try_reconstruct), the head only a record with no function
+            raise ObjectLostError(f"object {obj_id.hex()[:16]} lost; its direct call is replayed by its owner")
         with self._lock:
             if st.status == "RECONSTRUCTING":
                 return  # already in flight

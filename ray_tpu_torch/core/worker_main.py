@@ -22,6 +22,7 @@ from __future__ import annotations
 import asyncio
 import inspect
 import os
+import pickle
 import threading
 import time
 import traceback
@@ -30,8 +31,9 @@ from concurrent.futures import ThreadPoolExecutor
 from ray_tpu_torch.core import context
 from ray_tpu_torch.core import direct as _direct
 from ray_tpu_torch.core.ids import ObjectID, TaskID
+from ray_tpu_torch.core.node_agent import AGENT_ENV, AGENT_FRAME
 from ray_tpu_torch.core.object_ref import ObjectRef
-from ray_tpu_torch.core.object_store import set_session_tag
+from ray_tpu_torch.core.object_store import set_fetch_hook, set_session_tag
 from ray_tpu_torch.core.payloads import decode_payload, encode_value
 from ray_tpu_torch.core.serialization import deserialize_s
 from ray_tpu_torch.exceptions import ActorDiedError, TaskError
@@ -40,6 +42,10 @@ from ray_tpu_torch.exceptions import ActorDiedError, TaskError
 class WorkerClient:
     """CoreClient implementation for worker processes: every control-plane
     operation is an RPC over the pipe to the node manager."""
+
+    # the prefix of a request to this node's agent (``call_agent``): set in
+    # an agent's workers, empty where the head answers them
+    agent_frame = b""
 
     def __init__(self, conn, worker_id: str, node_id: str):
         from ray_tpu_torch.core.ids import NodeID, WorkerID
@@ -90,14 +96,26 @@ class WorkerClient:
         with self._send_lock:
             self.conn.send(msg)
 
-    def call(self, method: str, timeout: float | None = None, _kind: str = "req", **params):
+    def _check_alive_locked(self):
+        """Raise when no reply can come (an attached driver's lost head);
+        called under the request lock before a call registers."""
+
+    def call(self, method: str, timeout: float | None = None, _kind: str = "req", _frame: bytes = b"", **params):
+        """A request answered on this process's pipe; ``_frame``: a prefix
+        that makes the frame its agent's (``call_agent``)."""
         with self._req_lock:
+            self._check_alive_locked()
             self._req_seq += 1
             req_id = self._req_seq
             slot = [threading.Event(), False, None]
             self._pending[req_id] = slot
         try:
-            self._send({"type": _kind, "req_id": req_id, "method": method, "params": params})
+            msg = {"type": _kind, "req_id": req_id, "method": method, "params": params}
+            if _frame:
+                with self._send_lock:
+                    self.conn.send_bytes(_frame + pickle.dumps(msg))
+            else:
+                self._send(msg)
         except Exception:
             with self._req_lock:
                 self._pending.pop(req_id, None)
@@ -109,6 +127,18 @@ class WorkerClient:
         if not slot[1]:
             raise slot[2]
         return slot[2]
+
+    def call_agent(self, method: str, timeout: float | None = None, **params):
+        """An RPC that this node's agent answers: an agent's worker marks
+        the frame with ``AGENT_FRAME``, so the agent reads it and relays
+        every other frame unread; the head's own workers and attached
+        drivers send a head RPC of kind ``agent_req``."""
+        return self.call(method, timeout=timeout, _kind="agent_req", _frame=self.agent_frame, **params)
+
+    def _fetch_remote_segment(self, desc) -> str:
+        """The object store's fetch hook: the node's agent pulls a foreign
+        namespace's segment into this node's namespace."""
+        return self.call_agent("fetch_object", desc=desc, timeout=120.0)
 
     def _handle_resp(self, msg):
         with self._req_lock:
@@ -802,10 +832,14 @@ def worker_entry(conn, worker_id: str, node_id: str, env: dict | None = None, ma
     it writes outlive it."""
     if env:
         os.environ.update(env)  # before anything here can touch CUDA
+    under_agent = os.environ.pop(AGENT_ENV, None)  # not for the processes this worker starts
     set_session_tag(session_tag)
     os.environ["RT_WORKER_ID"] = worker_id
     _adopt_driver_main(main)
     client = WorkerClient(conn, worker_id, node_id)
+    if under_agent:
+        client.agent_frame = AGENT_FRAME
+    set_fetch_hook(client._fetch_remote_segment)
     context.set_client(client)
     # the direct plane: owned objects and direct executions on this
     # worker's own socket; off when the head handed out no authkey

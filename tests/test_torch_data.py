@@ -12,11 +12,10 @@ join's rows compare sorted, and each hash bucket's rows compare as a set
 
 The hash cases hold the port's ``hash_column``, ``combine_hashes`` and
 ``partition_indices`` on numpy columns (native and fallback) against
-ray_tpu's on Arrow arrays of the same keys. The locality cases need a
-node with its own shared-memory namespace, which the port's
-``add_node(shm_isolation=True)`` refuses (ROADMAP.md, multi-host agents);
-that raise is tested, and the routing and soft-affinity dispatch are
-tested on the port's head node and an ``add_node(remote=False)`` node.
+ray_tpu's on Arrow arrays of the same keys. The locality cases put blocks
+on nodes with shared-memory namespaces of their own
+(``add_node(shm_isolation=True)``, agents), as ray_tpu's do: a block's
+namespace is its location.
 ``test_train_integration_dataset_shard`` runs its data half
 (``streaming_split`` iterators drained in actors) and its train half (a
 two-worker trainer over ``get_dataset_shard``) on both packages.
@@ -550,24 +549,36 @@ def test_join_blocks_equal_arrow_join(kind, how):
         assert norm(TBlock(got).iter_rows()) == norm(arrow.to_pylist())
 
 
-def test_streaming_split_honors_locality_hints():
-    """ray_tpu's case puts blocks on nodes with their own shared-memory
-    namespaces (``add_node(shm_isolation=True)``), which the port refuses
-    naming its ROADMAP item. On the port's one namespace a block's primary
-    copy is the head's: hinting split 0 at the head routes the head's
-    blocks there under the balance bound, the rest round-robin."""
+def _locality_cluster(node_cpus: float = 2.0):
     from ray_tpu_torch.core import context as tctx
 
     ray_tpu_torch.shutdown()
     ray_tpu_torch.init(num_cpus=2)
+    client = tctx.get_client()
+    na = client.add_node({"CPU": node_cpus, "na": 1.0}, shm_isolation=True)
+    nb = client.add_node({"CPU": node_cpus, "nb": 1.0}, shm_isolation=True)
+    return client, na, nb
+
+
+def _blocks_on(node_res: str, n_blocks: int, tag: float):
+    """shm-sized blocks made on one isolated node: their primary copies'
+    namespace records that node as their location."""
+    make = ray_tpu_torch.remote(defs.block_on_node).options(resources={node_res: 0.01}, num_cpus=0)
+    return [make.remote(i, tag) for i in range(n_blocks)]
+
+
+def test_streaming_split_honors_locality_hints():
+    client, na, nb = _locality_cluster()
     try:
-        client = tctx.get_client()
-        with pytest.raises(NotImplementedError, match=tctx.AGENTS_ITEM):
-            client.add_node({"CPU": 2.0, "na": 1.0}, shm_isolation=True)
-        nb = client.add_node({"CPU": 2.0, "nb": 1.0}, remote=False)
-        head = client.node_id.hex()
-        refs = [ray_tpu_torch.put(TBlock.batch_to_block({"x": np.full(16_384, float(i))})) for i in range(8)]
-        its = tdata.MaterializedDataset(refs).streaming_split(2, locality_hints=[head, nb.node_id.hex()])
+        refs_a = _blocks_on("na", 4, 0.0)
+        refs_b = _blocks_on("nb", 4, 100.0)
+        ready, _ = ray_tpu_torch.wait(refs_a + refs_b, num_returns=8, timeout=T)
+        assert len(ready) == 8
+        locs = client.object_locations([r.id for r in refs_a + refs_b])
+        assert [locs[r.id.hex()] for r in refs_a + refs_b] == [na.node_id.hex()] * 4 + [nb.node_id.hex()] * 4
+        interleaved = [r for pair in zip(refs_a, refs_b) for r in pair]
+        ds = tdata.MaterializedDataset(interleaved)
+        its = ds.streaming_split(2, locality_hints=[na.node_id.hex(), nb.node_id.hex()])
         rows = [[], []]
 
         def drain(i):
@@ -579,30 +590,33 @@ def test_streaming_split_honors_locality_hints():
             t.start()
         for t in ts:
             t.join(timeout=T)
+        assert not any(t.is_alive() for t in ts)
         stats = ray_tpu_torch.get(its[0]._coord.locality_stats.remote(), timeout=T)
-        assert sorted(rows[0] + rows[1]) == [float(i) for i in range(8)]
-        assert stats[1]["local"] == 0 and stats[0]["local"] >= 4, stats
-        assert abs(len(rows[0]) - len(rows[1])) <= 2 * tdata.iterator.SplitCoordinator._rt_target.LOCALITY_SKEW_BOUND
+        local = sum(s["local"] for s in stats)
+        remote = sum(s["remote"] for s in stats)
+        assert local > remote, f"split routing mostly non-local: {stats}"
+        # every node-A block (tag < 100) went to split 0, node-B's to split 1
+        assert all(v < 100 for v in rows[0]) and all(v >= 100 for v in rows[1]), rows
+        assert len(rows[0]) == 4 and len(rows[1]) == 4
     finally:
         ray_tpu_torch.shutdown()
 
 
 def test_map_tasks_dispatch_to_block_node():
-    """Map tasks go to the node that holds their block (soft affinity):
-    on the port that is the head, beside an idle ``remote=False`` node."""
-    from ray_tpu_torch.core import context as tctx
-
-    ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=8)
+    # to_arrow_refs drives the whole stream, so all 6 map tasks submit at
+    # once: node A holds them all, and the soft preference is deterministic
+    client, na, nb = _locality_cluster(node_cpus=8.0)
     try:
-        client = tctx.get_client()
-        client.add_node({"CPU": 8.0, "nb": 1.0}, remote=False)
-        refs = [ray_tpu_torch.put(TBlock.batch_to_block({"x": np.full(16_384, float(i))})) for i in range(6)]
-        ds = tdata.MaterializedDataset(refs).map_batches(defs.node_of, batch_size=None)
+        refs_a = _blocks_on("na", 6, 0.0)
+        ready, _ = ray_tpu_torch.wait(refs_a, num_returns=6, timeout=T)
+        assert len(ready) == 6
+        ds = tdata.MaterializedDataset(refs_a).map_batches(defs.node_of, batch_size=None)
         out = [ray_tpu_torch.get(r, timeout=T) for r in ds.to_arrow_refs()]
-        ran_on = [int(o["nid"][0]) for o in out]
-        expect = int(client.node_id.hex()[:8], 16)
-        assert sum(1 for n in ran_on if n == expect) / len(ran_on) >= 0.8, (ran_on, expect)
+        ran_on = [int(TBlock(o).to_batch("numpy")["nid"][0]) for o in out]
+        expect = int(na.node_id.hex()[:8], 16)
+        frac_local = sum(1 for n in ran_on if n == expect) / len(ran_on)
+        # soft affinity: preferred whenever the node has capacity
+        assert frac_local >= 0.8, (ran_on, expect)
     finally:
         ray_tpu_torch.shutdown()
 

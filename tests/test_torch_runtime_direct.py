@@ -17,8 +17,9 @@ CPU (one runtime of each for the module, 4 CPUs, no card).
   ``__main__`` raise TypeError at ``.remote()`` naming the difference; a
   ``num_gpus=1`` task on a host with no card stays pending and never runs;
   a tensor off the host is refused by ``put``; the card count is read
-  without a CUDA context; the paths not ported raise naming their
-  ROADMAP.md items; the ``to_worker`` chaos site and an inbound one;
+  without a CUDA context; the paths still not ported raise naming their
+  ROADMAP.md items; the head never replays a direct call's result from
+  its record of the call (the owner does, from its lineage); the ``to_worker`` chaos site and an inbound one;
   a worker that cannot start fails the work that waited for it.
 
 Every get carries a timeout."""
@@ -254,6 +255,29 @@ def test_owner_lineage_replays_lost_large_result(both):
     assert same(case) == (True, True, True)
 
 
+def test_owner_lineage_replays_lost_large_result_after_the_heads_record(both, tmp_path):
+    """The race behind ``test_owner_lineage_replays_lost_large_result``,
+    made deterministic: the worker's task events of the direct call reach
+    the head (its task table then holds a record of the call, with no
+    function) before the large result is evicted. The head must not
+    replay that record itself; the owner (this driver) replays the call
+    from its lineage, and the function runs twice."""
+    c = client(ray_tpu_torch)
+    path = str(tmp_path / "runs")
+    ref = ray_tpu_torch.remote(defs.counted_big).remote(path, 3)
+    first = np.asarray(ray_tpu_torch.get(ref, timeout=T)).copy()
+    assert c.store.contains(ref.id)
+    deadline = time.monotonic() + T
+    while c.task_manager.get(ref.id.task_id()) is None:
+        assert time.monotonic() < deadline, "the worker's task events never reached the head"
+        time.sleep(0.05)
+    assert c.store.evict(ref.id)
+    second = np.asarray(ray_tpu_torch.get(ref, timeout=T))
+    assert (first == second).all()
+    with open(path) as f:
+        assert len(f.read().split()) == 2
+
+
 def test_direct_call_drop_degrades_to_head_path(both):
     def case(pkg):
         s = pkg.remote(defs.sq)
@@ -389,32 +413,26 @@ def test_card_count_is_read_without_a_cuda_context(monkeypatch):
 
 
 def test_paths_not_ported_name_their_roadmap_items(both):
+    """Each path still not ported raises naming its ROADMAP.md queue 1
+    item, and each item is a bold one there."""
+    from ray_tpu_torch import serve as tserve
+    from ray_tpu_torch.scripts import cli as tcli
+
     roadmap = (REPO / "ROADMAP.md").read_text()
-    c = client(ray_tpu_torch)
     calls = [
-        (lambda: ray_tpu_torch.init(address="127.0.0.1:1", ignore_reinit_error=False), tcontext.DRIVER_ITEM),
-        (lambda: c.add_node({"CPU": 1}), tcontext.AGENTS_ITEM),
         (lambda: ray_tpu_torch.remote(defs.sq).options(runtime_env={"working_dir": "."}).remote(1),
          tcontext.RUNTIME_ENV_ITEM),
-        (lambda: c.dump_cluster_info(), tcontext.STATE_ITEM),
-        (lambda: c._rehydrate_detached_actors(), tcontext.PERSIST_ITEM),
+        (lambda: ray_tpu_torch.timeline(), tcontext.STATE_ITEM),
+        (lambda: tserve.start(grpc_port=0), tcontext.GRPC_ITEM),
+        (lambda: tcli.main(["up", "cluster.yaml"]), tcontext.CLUSTER_ITEM),
+        (lambda: tcli.main(["down"]), tcontext.CLUSTER_ITEM),
+        (lambda: tcli.main(["lint"]), tcontext.LINT_ITEM),
     ]
-    ray_tpu_torch.shutdown()  # init(address=...) is refused before a runtime exists
-    try:
-        with pytest.raises(NotImplementedError, match=tcontext.DRIVER_ITEM):
-            calls[0][0]()
-    finally:
-        ray_tpu_torch.init(num_cpus=4)
-    c = client(ray_tpu_torch)
-    for call, item in calls[1:]:
+    for call, item in calls:
         with pytest.raises(NotImplementedError, match=item):
             call()
-    from ray_tpu_torch import serve as tserve
-
-    with pytest.raises(NotImplementedError, match=tcontext.GRPC_ITEM):
-        tserve.start(grpc_port=0)
-    for item in (tcontext.DRIVER_ITEM, tcontext.AGENTS_ITEM, tcontext.RUNTIME_ENV_ITEM, tcontext.STATE_ITEM,
-                 tcontext.PERSIST_ITEM, tcontext.XLANG_ITEM, tcontext.GRPC_ITEM):
+    for item in (tcontext.RUNTIME_ENV_ITEM, tcontext.STATE_ITEM, tcontext.XLANG_ITEM, tcontext.GRPC_ITEM,
+                 tcontext.CLUSTER_ITEM, tcontext.LINT_ITEM):
         assert "**" + item.split(", ", 1)[1].lower() in roadmap.lower(), item  # a bold item of ROADMAP.md's queue 1
 
 

@@ -66,6 +66,12 @@ def node_of(batch):
     return {"nid": np.array([int(nid[:8], 16)])}
 
 
+def block_on_node(i: int, tag: float):
+    """A shm-sized block (16384 float64s from ``tag + i``), made on the node
+    the task runs on, so its primary copy's namespace names that node."""
+    return {"x": np.full(16_384, tag + i, np.float64)}
+
+
 def scale_sum(b, factor: float):
     return {"s": b["data"].sum(axis=1, keepdims=False) * factor}
 
