@@ -318,6 +318,33 @@ Phases, in order; any failed check exits non-zero before the last line:
    start to SUCCEEDED, the re-created actor's time to its first tokens,
    the dead nodes' detection (health loop and end of file), and the
    phase's total, in seconds.
+4l. runtime_env and the monitors (runtime_env/, core/log_monitor.py,
+   core/memory_monitor.py, util/timeline.py, util/metrics.py's fold,
+   dump_worker_stacks), after 4k. A module written to a temporary
+   directory holds a module-level actor class (EnvServer, phase 4's
+   engine: CardServer's methods) and ships with py_modules; a data file
+   and 8 MiB of seeded bytes ship with working_dir; the driver imports the
+   module from its file without putting its directory on sys.path, so the
+   worker resolves the class only from the archive. The actor is created
+   with num_gpus=1 and runtime_env={"working_dir", "py_modules",
+   "env_vars"}. (a) It reads the data file from its cwd (under the port's
+   runtime_env root) and sees its env var, its worker carries both the
+   card's and the env's bindings, it serves phase 4's prompts with 256 of
+   256 tokens and K1/K4 counts equal to phase 4's (the driver's 0), K1 and
+   K4 are held against their plain versions in its worker; a plain task
+   runs on another worker, and after the actor's kill a plain GPU task
+   runs on a worker of its own outside the env. (d) dump_worker_stacks
+   shows its _generate frame while it generates. (b) ray_tpu_torch.timeline
+   lists every generate call on its worker. (c) The line its generate
+   prints reaches this process's stderr as "(worker=<id>) ...", through
+   the runtime's log monitor, before the last line. (e) Its
+   phase4l_generate_total counter shows in get_metrics_snapshot. (f) On a
+   MemoryMonitor whose threshold is forced to 0, a retriable GPU task
+   holding 4 GiB of the card is killed (one kill), its retry returns the
+   same seeded sum, the killed process is gone and the card's memory back
+   within 120 s. No memory monitor kills anything else in the run (checked
+   at each phase's end). Prints the archives' bytes, the pack and unpack
+   seconds, and the actor's time to ready beside phase 4h's.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -452,6 +479,18 @@ Phases, in order; any failed check exits non-zero before the last line:
    KeyError naming the id. Prints the per-execute walls, the hop and the
    round trip in µs, /dev/shm's free bytes, each leaf's bytes and GB/s,
    the fetch's seconds and the card's free memory with both engines.
+7e. The remat policies, after 7d: phase 7's step (model, batch, AdamW,
+   seed 0) under each of the four distinct policies of models/llama.py
+   (nothing_saveable, dots_with_no_batch_dims_saveable, dots_saveable,
+   everything_saveable; checkpoint_dots and
+   checkpoint_dots_with_no_batch_dims are aliases), 2 warm-up then 5 timed
+   steps each: step 1's loss equal to nothing_saveable's within 1e-3; the
+   peak memory (max_memory_allocated after a reset) ordered as the list,
+   ties within 16 MiB; K1 twice a layer a step (the forward and the
+   recompute: no policy keeps attention, which is a kernel and no product)
+   but once under everything_saveable, K2 and K3 once. K1-K3 held against
+   their plain versions at the step's shape. Prints each policy's median
+   ms/step, tok/s, MFU, peak memory and launches; the times are not gated.
 8. RLlib on the card (ray_tpu_torch.rllib). Prints whether gymnasium is
    installed. Always: one PPO update (ray_tpu's _ppo_config: 2048 rows,
    minibatch 256, one epoch), one IMPALA and one APPO update (40 x 100
@@ -487,6 +526,12 @@ Phases, in order; any failed check exits non-zero before the last line:
 9. The training path, card against host: the same widths at 2 layers in
    f32, batch 1 x 128, 2 steps; losses, grad norms and the first step's
    gradients must agree.
+
+``python3 chip_smoke.py --gates`` runs phases 7b, 7c and 7d alone (after
+the kernels' build, 8 prompts on phase 4's engine in process for the
+reference tokens and phase 7's step for its loss and ms/step) and prints
+one GATES line with their release seconds and 7d (b)'s hop against its
+round trip; copied into another checkout, it runs that checkout's package.
 
 Prints the card's name and power limit (nvidia-smi), one JSON line with
 the kernels' launches, errors and times, and last
@@ -675,6 +720,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if len(sys.argv) > 1 and sys.argv[1] in PHASE4K_MODES:
         return PHASE4K_MODES[sys.argv[1]](*sys.argv[2:])
+    if sys.argv[1:] == ["--gates"]:
+        return gates_main(torch)
     import dataclasses
     from functools import partial
 
@@ -682,6 +729,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from ray_tpu_torch import _kernels
+    from ray_tpu_torch.core import memory_monitor
     from ray_tpu_torch.llm import LLMEngine, SamplingParams, SpecConfig
     from ray_tpu_torch.llm import kv_cache as kvc
     from ray_tpu_torch.llm import model_runner as mr
@@ -701,9 +749,12 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     marks = {}  # phase -> seconds since t_start at its end
+    kills = [0]  # the memory monitors' kills this process expects: phase 4l (f)'s only
 
     def mark(phase):
         marks[phase] = round(time.perf_counter() - t_start, 1)
+        check(memory_monitor.kills_total == kills[0], f"phase {phase}: a memory monitor killed "
+                                                      f"{memory_monitor.kills_total - kills[0]} workers")
 
     # ---------------------------------------------------------------- 1
     build_s = _kernels.build_all()
@@ -1176,6 +1227,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("4k")
+    # ---------------------------------------------------------------- 4l
+    # runtime_env and the monitors: a GPU actor from a packed working_dir and py_modules, its timeline, its log
+    # line, its stack, its counter, and the memory monitor's kill of a retriable GPU task
+    envc = env_on_card(torch, cfg, prompts, gr, drv_checksum, rtc["ready_s"], card, dev)
+    kills[0] += 1
+    torch.cuda.empty_cache()
+
+    mark("4l")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1476,6 +1535,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("7d")
+    # ---------------------------------------------------------------- 7e
+    # phase 7's step under each remat policy: ms/step, MFU, peak memory, launches
+    rem = remat_on_card(torch, cfg7, data, card)
+    torch.cuda.empty_cache()
+
+    mark("7e")
     # ---------------------------------------------------------------- 8
     # RLlib: the learners' updates card vs host, two learner actors' allreduce (and the env legs with gymnasium)
     rllib_on_card(torch, card)
@@ -1716,6 +1781,30 @@ def main() -> int:
           for k, fn, src, rep, what in (
               (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "prefill"),
               (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134", "decode"))),
+        *(dict(name=f"K{k} {fn} runtime_env GPU actor {what} (phase 4l, the actor's worker, {envc['generates']} "
+                    f"generates; held and timed there at {envc['check'][f'k{k}']['shape']})", route="cuda",
+               source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=envc[f"k{k}"],
+               max_abs_err=envc["check"][f"k{k}"]["err_o" if k == 1 else "err"], ms=envc["check"][f"k{k}"]["ms"],
+               plain_ms=envc["check"][f"k{k}"]["plain_ms"], bound_ms=envc["check"][f"k{k}"]["bound_ms"],
+               bound_by=envc["check"][f"k{k}"]["bound_by"],
+               library_ms=envc["check"]["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep, what in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "prefill"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134", "decode"))),
+        *(dict(name=f"K{k} {fn} remat policies (phase 7e, {REMAT_WARMUP + REMAT_TIMED} steps under each of "
+                    f"{list(REMAT_K1_FORWARDS)}; held and timed at {rem['held'][hk]['shape']} bf16 causal)", route="cuda",
+               source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=rem["launches"][k - 1], max_abs_err=err,
+               ms=rem["held"][hk][ms], plain_ms=rem["held"][hk]["plain_ms"],
+               bound_ms=rem["held"][hk][f"{b}bound_ms"], bound_by=rem["held"][hk][f"{b}bound_by"],
+               library_ms=rem["held"][hk][lib])
+          for k, fn, src, rep, hk, ms, b, lib, err in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "k1", "ms", "",
+               "sdpa_ms", rem["held"]["k1"]["err_o"]),
+              (2, "flash_attention_bwd_dq", "flash_attention_bwd.cu", "ray_tpu/ops/flash_attention.py:154", "k23",
+               "dq_ms", "dq_", "sdpa_bwd_ms", rem["held"]["k23"]["errs"]["dq"][0]),
+              (3, "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "ray_tpu/ops/flash_attention.py:192", "k23",
+               "dkv_ms", "dkv_", "sdpa_bwd_ms", max(rem["held"]["k23"]["errs"]["dk"][0],
+                                                  rem["held"]["k23"]["errs"]["dv"][0])))),
         dict(name="K5 rms_norm_fused", route="cuda", source="ray_tpu_torch/csrc/rms_norm.cu",
              replaces="ray_tpu/ops/layers.py:22", launches=k5_launches,
              max_abs_err=max(r["err"] for r in k5_rows), ms=rep5["ms"], plain_ms=rep5["plain_ms"],
@@ -6529,6 +6618,464 @@ def rllib_offpolicy_env_legs(torch, card) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------- phase 4l: runtime_env and the monitors
+PHASE4L_MODULE = "phase4l_actor"  # the actor's module: only the runtime_env's py_modules hold it
+PHASE4L_DATA = "phase4l_data.txt"  # in the working_dir: the actor reads it from its cwd
+PHASE4L_BLOB = 8 << 20  # seeded random bytes beside it, so the archive crosses the store as a segment
+PHASE4L_WAIT_S = 30.0  # (b)-(e): the timeline, the log line, the stack and the counter show within this
+PHASE4L_HOLD_BYTES = 4 << 30  # (f): what the retriable GPU task holds on the card
+PHASE4L_SOURCE = '''"""Phase 4l's GPU actor: phase 4's engine (chip_smoke.CardServer) served
+from a worker that resolves this class by reference only once the
+runtime_env's py_modules archive is on its sys.path."""
+
+import os
+
+import chip_smoke
+from ray_tpu_torch.runtime_env import packaging
+from ray_tpu_torch.util import metrics
+
+
+class EnvServer(chip_smoke.CardServer._cls):
+    def probe(self) -> dict:
+        with open("{data}") as f:
+            data = f.read()
+        return dict(data=data, flavor=os.environ.get("PHASE4L_FLAVOR"), cwd=os.getcwd(),
+                    worker=os.environ.get("RT_WORKER_ID"), unpack_s=dict(packaging.unpack_s), pid=os.getpid())
+
+    def generate(self, prompts) -> dict:
+        print(f"PHASE4L_ACTOR_LINE pid {{os.getpid()}}", flush=True)
+        metrics.Counter("phase4l_generate_total", description="phase 4l's generate calls").inc()
+        return super().generate(prompts)
+'''
+
+
+@remote(num_gpus=1)
+def card_env_probe() -> dict:
+    """(a)'s plain GPU task: where it ran."""
+    return dict(worker=os.environ.get("RT_WORKER_ID"), cwd=os.getcwd(), visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+def seeded_sum(torch, dev) -> float:
+    """(f)'s result: a seeded draw's sum, the same in any process on ``dev``."""
+    x = torch.randn(1 << 20, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    return float(x.double().sum().item())
+
+
+@remote(num_gpus=1, max_retries=1)
+def card_hold_retry(marker: str, release: str, nbytes: int, device: str = "cuda") -> float:
+    """(f)'s retriable GPU task: holds ``nbytes`` of card memory and
+    returns ``seeded_sum`` + 1 (a byte of what it holds); the first attempt
+    writes ``marker`` and waits for ``release`` (at most 300 s), a retry
+    returns at once."""
+    import torch
+
+    dev = torch.device(device)
+    held = torch.empty(nbytes, dtype=torch.uint8, device=dev).fill_(1)
+    result = seeded_sum(torch, dev) + float(held[:1].item())
+    if not os.path.exists(marker):
+        with open(marker, "w") as f:
+            f.write(str(os.getpid()))
+        deadline = time.monotonic() + 300
+        while not os.path.exists(release) and time.monotonic() < deadline:
+            time.sleep(0.05)
+    return result
+
+
+class _Tee:
+    """The log monitor's stream: each line goes to stderr and is kept."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, s):
+        self.lines.append(s)
+        sys.stderr.write(s)
+
+    def flush(self):
+        sys.stderr.flush()
+
+
+def env_on_card(torch, cfg, prompts, serve_run, drv_checksum, ready_4h, card, dev) -> dict:
+    """Phase 4l: runtime_env and the monitors with a GPU actor. A module
+    written here holds the actor class (phase 4's engine), shipped with
+    ``py_modules``; a data file with ``working_dir``. (a) the actor's
+    tokens equal phase 4's, it reads the file from its cwd and sees its env
+    var, K1 and K4 held in its worker, and neither a plain task nor a plain
+    GPU task runs on its worker; (b) the timeline lists its generate calls
+    on its worker; (c) a line it prints reaches the driver with its
+    (worker=...) prefix; (d) dump_worker_stacks shows its generating frame;
+    (e) its counter in the driver's fold; (f) a MemoryMonitor forced to a
+    threshold of 0 kills a retriable GPU task that holds card memory, the
+    retry returns the same result and the memory comes back. Every leg is
+    gated."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.core import context, memory_monitor
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.runtime_env import packaging
+    from ray_tpu_torch.util import metrics
+
+    t_phase = time.perf_counter()
+    expect = seeded_sum(torch, dev) + 1.0  # (f)'s task's result, before the card's memory is read
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    tmp = tempfile.mkdtemp(prefix="phase4l_")
+    wd, mods = os.path.join(tmp, "app"), os.path.join(tmp, "mods")
+    os.makedirs(wd)
+    os.makedirs(mods)
+    token = f"phase4l-{os.getpid()}"
+    with open(os.path.join(wd, PHASE4L_DATA), "w") as f:
+        f.write(token)
+    with open(os.path.join(wd, "blob.bin"), "wb") as f:
+        f.write(np.random.default_rng(41).bytes(PHASE4L_BLOB))
+    with open(os.path.join(mods, PHASE4L_MODULE + ".py"), "w") as f:
+        f.write(PHASE4L_SOURCE.format(data=PHASE4L_DATA))
+    # the driver imports the module from its file, its directory not on
+    # sys.path (a worker takes the driver's sys.path): only the archive
+    # lets the worker resolve the class
+    mspec = importlib.util.spec_from_file_location(PHASE4L_MODULE, os.path.join(mods, PHASE4L_MODULE + ".py"))
+    mod = importlib.util.module_from_spec(mspec)
+    sys.modules[PHASE4L_MODULE] = mod
+    mspec.loader.exec_module(mod)
+    env = {"working_dir": wd, "py_modules": [mods], "env_vars": {"PHASE4L_FLAVOR": token}}
+    out = {"k1": 0, "k4": 0, "generates": 0}
+    kills0 = memory_monitor.kills_total
+    rtt.init(num_cpus=4)
+    client = context.get_client()
+    tee = _Tee()
+    check(client._log_monitor is not None, "phase 4l: the runtime has no log monitor (log_to_driver)")
+    client._log_monitor.out = tee
+    try:
+        flash_attention_fwd.launches = paged_attn_partials.launches = 0
+        t0 = time.perf_counter()
+        actor = rtt.remote(num_gpus=1, runtime_env=env)(mod.EnvServer).remote({"config": dataclasses.asdict(cfg)})
+        submit_s = time.perf_counter() - t0  # the archives are packed in here
+        fa = rtt.get(actor.facts.remote(), timeout=600)
+        ready_s = time.perf_counter() - t0
+        packed = [p for c in client._renv_cache.values()
+                  for p in [c.get("_packed_working_dir"), *(c.get("_packed_py_modules") or [])] if p]
+        pr = rtt.get(actor.probe.remote(), timeout=60)
+        check(fa["checksum"] == drv_checksum, f"phase 4l: the actor's weights checksum {fa['checksum']} != the "
+                                               f"driver's {drv_checksum}")
+        check(pr["data"] == token and pr["flavor"] == token, f"phase 4l (a): the actor read {pr['data']!r} from its "
+                                                             f"cwd and sees PHASE4L_FLAVOR={pr['flavor']!r}")
+        check(pr["cwd"].startswith(packaging.cache_root()), f"phase 4l (a): the actor's cwd {pr['cwd']} is not under "
+                                                            f"{packaging.cache_root()}")
+        wid = pr["worker"]
+        (w,) = [w for n in client.node_list() for w in n.workers.values() if w.worker_id.hex() == wid]
+        check(w.env_binding.get("CUDA_VISIBLE_DEVICES") is not None and w.env_binding.get("runtime_env"),
+              f"phase 4l (a): the actor's worker's bindings {w.env_binding}")
+        # (a) phase 4's prompts
+        run = rtt.get(actor.generate.remote(prompts), timeout=600)
+        out["generates"] += 1
+        out["k1"] += run["k1"]
+        out["k4"] += run["k4"]
+        same = sum(x == y for s1, s2 in zip(run["tokens"], serve_run["tokens"]) for x, y in zip(s1, s2))
+        check(run["tokens"] == serve_run["tokens"], f"phase 4l (a): the actor's tokens equal phase 4's in {same} of 256")
+        check(run["k1"] == serve_run["k1"] and run["k4"] == serve_run["k4"],
+              f"phase 4l (a): the actor's launches K1 {run['k1']} K4 {run['k4']} != phase 4's K1 {serve_run['k1']} K4 "
+              f"{serve_run['k4']}")
+        check(flash_attention_fwd.launches == 0 and paged_attn_partials.launches == 0,
+              f"phase 4l: the driver's K1/K4 counts moved: {flash_attention_fwd.launches}, "
+              f"{paged_attn_partials.launches}")
+        kc = rtt.get(actor.check_kernels.remote([len(p) for p in prompts]), timeout=600)
+        check(kc["k1"]["ok"], f"phase 4l: K1 in the actor's worker at {kc['k1']['shape']}: |do| "
+                              f"{kc['k1']['err_o']:.3g} (tol {K1_TOL_O}) |dlse| {kc['k1']['err_lse']:.3g}")
+        check(kc["k4"]["ok"], f"phase 4l: K4 in the actor's worker at {kc['k4']['shape']}: max |d| "
+                              f"{kc['k4']['err']:.3g}, relative {kc['k4']['rel']:.3g} (tol {K4_TOL})")
+        out["check"] = kc
+        plain = rtt.get(probe_worker.remote(), timeout=60)
+        check(plain["worker"] != wid and not plain["cwd"].startswith(packaging.cache_root()),
+              f"phase 4l (a): a plain task ran on the actor's worker or in its env: {plain} vs {wid}")
+        archive = sum(p["bytes"] for p in packed)
+        print(f"phase 4l (a) GPU actor from a packed runtime_env (num_gpus=1, working_dir + py_modules + env_vars): "
+              f"archives {[p['bytes'] for p in packed]} bytes ({archive} in all), packed and submitted in "
+              f"{submit_s:.3f} s, fetched and unpacked in the worker in "
+              f"{sum(pr['unpack_s'].values()):.3f} s ({ {k: round(v, 4) for k, v in pr['unpack_s'].items()} }); "
+              f"ready {ready_s:.3f} s after .remote() vs phase 4h's {ready_4h:.3f} s (its __init__ {fa['init_s']:.3f} "
+              f"s); cwd {pr['cwd']}, the data file and PHASE4L_FLAVOR read there; 256 of 256 tokens equal phase 4's, "
+              f"in the worker K1 {run['k1']} K4 {run['k4']}, the driver's 0; generate {run['wall_s']:.3f} s vs phase "
+              f"4's {serve_run['wall_s']:.3f} s; a plain task on worker {plain['worker'][:12]}, not the actor's "
+              f"{wid[:12]}; K1 held at {kc['k1']['shape']}: |do| {kc['k1']['err_o']:.3g}, kernel "
+              f"{kc['k1']['ms']:.4f} ms, plain {kc['k1']['plain_ms']:.4f} ms, sdpa {kc['k1']['sdpa_ms']:.4f} ms, bound "
+              f"{kc['k1']['bound_ms']:.4f} ms; K4 held at {kc['k4']['shape']}: max |d| {kc['k4']['err']:.3g}, kernel "
+              f"{kc['k4']['ms']:.4f} ms, plain {kc['k4']['plain_ms']:.4f} ms, bound {kc['k4']['bound_ms']:.4f} ms "
+              f"{card}")
+        out.update(archive_bytes=archive, pack_s=submit_s, unpack_s=sum(pr["unpack_s"].values()), ready_s=ready_s)
+        # (d) the stack of the generating worker, taken while it generates
+        frame, dumps, t_dump = None, 0, []
+        for _attempt in range(5):
+            ref = actor.generate.remote(prompts)
+            while frame is None:
+                t0 = time.perf_counter()
+                dump = client.dump_worker_stacks(worker_prefix=wid, timeout=10.0)
+                t_dump.append(time.perf_counter() - t0)
+                dumps += 1
+                check(not dump.get(wid, {}).get("unresponsive"), f"phase 4l (d): the actor's worker did not answer "
+                                                                 f"the stack dump: {dump}")
+                frame = next((s for s in dump.get(wid, {}).get("stacks", {}).values() if "in _generate" in s), None)
+                if rtt.wait([ref], timeout=0)[0]:
+                    break
+            r = rtt.get(ref, timeout=600)
+            out["generates"] += 1
+            out["k1"] += r["k1"]
+            out["k4"] += r["k4"]
+            check(r["tokens"] == serve_run["tokens"], "phase 4l (d): a generate's tokens differ from phase 4's")
+            if frame is not None:
+                break
+        check(frame is not None, f"phase 4l (d): no stack dump of {dumps} showed the generating frame")
+        last = frame.strip().splitlines()[-2:]
+        print(f"phase 4l (d) dump_worker_stacks while the actor generates: its frame in dump {dumps} (each "
+              f"{1e3 * sorted(t_dump)[len(t_dump) // 2]:.1f} ms, median), the innermost lines {last} {card}")
+        # (b) the timeline
+        path = os.path.join(tmp, "timeline.json")
+        t0 = time.perf_counter()
+        gens = []
+        while time.perf_counter() - t0 < PHASE4L_WAIT_S:
+            gens = [e for e in rtt.timeline(path) if e["name"].endswith("generate") and e["tid"] == wid[:8]]
+            if len(gens) >= out["generates"]:
+                break
+            time.sleep(0.2)
+        check(len(gens) >= out["generates"], f"phase 4l (b): the timeline lists {len(gens)} generate calls on the "
+                                              f"actor's worker {wid[:8]}, not {out['generates']}")
+        print(f"phase 4l (b) timeline: {len(gens)} generate calls on worker {wid[:8]} (X events, "
+              f"{[round(e['dur'] / 1e6, 3) for e in gens]} s), in {path} with {os.path.getsize(path)} bytes {card}")
+        # (c) the actor's print, streamed to this process with its prefix
+        want = f"(worker={wid[:12]}) PHASE4L_ACTOR_LINE pid {pr['pid']}"
+        t0 = time.perf_counter()
+        while not any(want in ln for ln in tee.lines) and time.perf_counter() - t0 < PHASE4L_WAIT_S:
+            time.sleep(0.1)
+        check(any(want in ln for ln in tee.lines), f"phase 4l (c): the actor's line {want!r} never reached the driver")
+        print(f"phase 4l (c) the actor's print reached the driver's stderr as {want!r}, "
+              f"{sum(want in ln for ln in tee.lines)} times {card}")
+        # (e) the actor's counter in the driver's fold
+        t0 = time.perf_counter()
+        got = None
+        while time.perf_counter() - t0 < PHASE4L_WAIT_S:
+            got = metrics.get_metrics_snapshot().get("phase4l_generate_total", {}).get("series", {}).get("")
+            if got == out["generates"]:
+                break
+            time.sleep(0.2)
+        check(got == out["generates"], f"phase 4l (e): phase4l_generate_total {got} in the fold, not "
+                                       f"{out['generates']}")
+        print(f"phase 4l (e) get_metrics_snapshot: phase4l_generate_total {got} (the actor's generate calls), "
+              f"{time.perf_counter() - t0:.3f} s after the last call {card}")
+        rtt.kill(actor)
+        # (a) a plain GPU task after the actor: a worker of its own, outside the env
+        gp = rtt.get(card_env_probe.remote(), timeout=600)
+        check(gp["worker"] != wid and not gp["cwd"].startswith(packaging.cache_root()) and gp["visible"] is not None,
+              f"phase 4l (a): the plain GPU task ran {gp} (the actor's worker {wid})")
+        # (f) the memory monitor, its threshold forced to 0
+        t_mem = _wait_mem(torch, used0, PHASE4K_MEM_S)
+        check(t_mem is not None, "phase 4l (f): the card's memory did not come back after the actor's kill")
+        marker, release = os.path.join(tmp, "hold.marker"), os.path.join(tmp, "hold.release")
+        ref = card_hold_retry.remote(marker, release, PHASE4L_HOLD_BYTES, dev.type)
+        t0 = time.perf_counter()
+        while not os.path.exists(marker) and time.perf_counter() - t0 < 600:
+            time.sleep(0.05)
+        check(os.path.exists(marker), "phase 4l (f): the GPU task never started")
+        with open(marker) as f:
+            victim_pid = int(f.read())
+        held_used = card_used(torch)
+        mon = memory_monitor.MemoryMonitor(client)
+        mon.cfg = type("Cfg", (), {"memory_usage_threshold": 0.0, "memory_monitor_refresh_ms": 0})()
+        mon.check_once()
+        t_kill = time.perf_counter()
+        check(mon.kills == 1, f"phase 4l (f): the monitor killed {mon.kills} workers, not 1")
+        result = rtt.get(ref, timeout=600)
+        retry_s = time.perf_counter() - t_kill
+        open(release, "w").close()
+        check(result == expect, f"phase 4l (f): the retry returned {result}, not {expect}")
+        check(not process_runs(victim_pid), f"phase 4l (f): the killed worker {victim_pid} still runs")
+        back = _wait_mem(torch, used0, PHASE4K_MEM_S)
+        check(back is not None, f"phase 4l (f): the card's memory in use {card_used(torch)} not back to {used0} "
+                                f"within {PHASE4K_MEM_S} s")
+        out.update(kill_retry_s=retry_s, mem_back_s=back)
+        print(f"phase 4l (f) memory monitor (threshold forced to 0): killed the retriable GPU task's worker (pid "
+              f"{victim_pid}, holding {PHASE4L_HOLD_BYTES} bytes of the card: in use {held_used} vs {used0}), the "
+              f"retry returned the same sum {result} {retry_s:.3f} s after the kill, the card's memory back "
+              f"{back:.3f} s after it; the runtime's own monitor (threshold "
+              f"{client.cfg.memory_usage_threshold}) killed none {card}")
+    finally:
+        rtt.shutdown()
+        sys.modules.pop(PHASE4L_MODULE, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(memory_monitor.kills_total - kills0 == 1, f"phase 4l: {memory_monitor.kills_total - kills0} kills by memory "
+                                                    f"monitors in the phase, not (f)'s 1")
+    check(not rt_segments(), f"phase 4l: /dev/shm still holds {rt_segments()}")
+    print(f"phase 4l {time.perf_counter() - t_phase:.1f} s {card}")
+    return out
+
+
+@remote
+def probe_worker() -> dict:
+    """(a)'s plain task: where it ran."""
+    return dict(worker=os.environ.get("RT_WORKER_ID"), cwd=os.getcwd())
+
+
+# ---------------------------------------------------------------- phase 7e: the remat policies
+REMAT_WARMUP, REMAT_TIMED = 2, 5  # steps of each policy: warm-ups (step 1's loss gated), then timed
+REMAT_LOSS_TOL = 1e-3  # step 1's loss under each policy vs nothing_saveable's (bf16 ~10.4; the same forward)
+REMAT_MEM_SLACK = 16 << 20  # peak bytes: the policies' order may tie within this
+# K1's forwards a layer and step under each policy, in the order of their peak memory: the recompute runs K1
+# again (no policy keeps attention, a kernel and no product); K2 and K3 run once a layer
+REMAT_K1_FORWARDS = {"nothing_saveable": 2, "dots_with_no_batch_dims_saveable": 2, "dots_saveable": 2,
+                     "everything_saveable": 1}
+
+
+def remat_on_card(torch, cfg7, data, card) -> dict:
+    """Phase 7e: phase 7's step under each of the four distinct remat
+    policies (the aliases are the same policies): step 1's loss, the
+    median ms/step of REMAT_TIMED steps after REMAT_WARMUP, tok/s, MFU,
+    peak memory after a reset, and K1/K2/K3 launches per step. Gated: the
+    loss equal to nothing_saveable's within REMAT_LOSS_TOL, the peaks
+    ordered, the launches as REMAT_K1_FORWARDS says; K1-K3 held at the step's shape
+    under the dots policy. The times are recorded, not gated."""
+    import dataclasses
+    import statistics
+    from functools import partial
+
+    from ray_tpu_torch.models.llama import flops_per_token, init_params, loss_fn
+    from ray_tpu_torch.ops.flash_attention import flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step, to_device
+
+    kernels = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    Bt, Tt = data["tokens"].shape
+    L = cfg7.num_layers
+    n_steps = REMAT_WARMUP + REMAT_TIMED
+    rows = {}
+    t_phase = time.perf_counter()
+    expect = {p: (f * L, L, L) for p, f in REMAT_K1_FORWARDS.items()}
+    for policy in REMAT_K1_FORWARDS:
+        cfg = dataclasses.replace(cfg7, remat_policy=policy)
+        init_fn, step_fn = make_train_step(partial(loss_fn, config=cfg), adamw(3e-4, weight_decay=0.01))
+        state = init_fn(0, partial(init_params, cfg))
+        batch = to_device(data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        times, losses = [], []
+        for i in range(n_steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step_fn(state, batch)
+            e1.record()
+            losses.append(m["loss"])
+            if i >= REMAT_WARMUP:
+                times.append((e0, e1))
+        torch.cuda.synchronize()
+        per_step = tuple(k.launches / n_steps for k in kernels)
+        ms = statistics.median(a.elapsed_time(b) for a, b in times)
+        tok_s = Bt * Tt / (ms / 1e3)
+        rows[policy] = dict(loss1=losses[0].item(), last=losses[-1].item(), ms=ms, tok_s=tok_s,
+                            mfu=flops_per_token(cfg, Tt) * tok_s / BF16_FLOPS, peak=torch.cuda.max_memory_allocated(),
+                            launches=per_step, steps=n_steps)
+        del state, batch, m, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = rows[policy]
+        print(f"phase 7e remat_policy={policy}: step 1 loss {r['loss1']:.6f} (step {n_steps} {r['last']:.6f}), "
+              f"{r['ms']:.2f} ms/step (median of {REMAT_TIMED} after {REMAT_WARMUP}), {r['tok_s']:.1f} tok/s, MFU "
+              f"{r['mfu']:.4f}, peak memory {r['peak']} bytes, launches per step K1 {per_step[0]:g} K2 "
+              f"{per_step[1]:g} K3 {per_step[2]:g} {card}")
+    base = rows["nothing_saveable"]
+    for policy, r in rows.items():
+        check(abs(r["loss1"] - base["loss1"]) <= REMAT_LOSS_TOL,
+              f"phase 7e: step 1's loss under {policy} {r['loss1']} != nothing_saveable's {base['loss1']} (tol "
+              f"{REMAT_LOSS_TOL})")
+        check(r["launches"] == expect[policy], f"phase 7e: launches per step under {policy} {r['launches']} "
+                                                     f"!= {expect[policy]}")
+    order = list(REMAT_K1_FORWARDS)
+    peaks = [rows[p]["peak"] for p in order]
+    check(all(a <= b + REMAT_MEM_SLACK for a, b in zip(peaks, peaks[1:])),
+          f"phase 7e: peak memory not ordered {dict(zip(order, peaks))}")
+    held = hold_train_kernels(Bt, cfg7.num_heads, cfg7.num_kv_heads, Tt, cfg7.hd)
+    check(held["k1"]["ok"] and held["k23"]["ok"], f"phase 7e: K1-K3 at the step's shape against their plain "
+                                                  f"versions: K1 {held['k1']['err_o']:.3g}, K2/K3 {held['k23']['errs']}")
+    print(f"phase 7e K1-K3 held against their plain versions at {held['k1']['shape']} (dots policies' step): K1 |do| "
+          f"{held['k1']['err_o']:.3g}, {held['k1']['ms']:.4f} ms; K2/K3 {held['k23']['errs']}, dQ "
+          f"{held['k23']['dq_ms']:.4f} ms, dK/dV {held['k23']['dkv_ms']:.4f} ms; phase 7e "
+          f"{time.perf_counter() - t_phase:.1f} s {card}")
+    return dict(rows=rows, held=held,
+                launches=[sum(int(r["launches"][i] * r["steps"]) for r in rows.values()) for i in range(3)])
+
+
+# ---------------------------------------------------------------- --gates: phases 7b, 7c and 7d alone
+def gates_main(torch) -> int:
+    """``python3 chip_smoke.py --gates``: build the kernels, serve phase
+    4's 8 prompts on phase 4's engine in this process for the reference
+    tokens, run phase 7's step for its loss and
+    ms/step, then phases 7b, 7c and 7d as the whole script runs them, and
+    print one ``GATES`` line with their release times and 7d (b)'s hop
+    against its round trip. Compares trees: run one checkout's script
+    against another's package by copying it into that checkout."""
+    from functools import partial
+
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.parallel.train_step import adamw, make_train_step, to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    _kernels.build_all()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    card = f"[{smi}]"
+    cfg = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    drv_checksum = weights_checksum(params)
+    rng = np.random.default_rng(0)
+    rng.permutation(256)  # phase 3's draw: the prompts are phase 4's
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in rng.integers(50, 1501, size=8)]
+    eng = LLMEngine(cfg, params, **SERVE_ENGINE_KWARGS)
+    gr = _generate(eng, prompts)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg7 = LlamaConfig(vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_layers=18, num_heads=16,
+                       num_kv_heads=8, max_seq_len=2048)
+    init_fn, step_fn = make_train_step(partial(loss_fn, config=cfg7), adamw(3e-4, weight_decay=0.01))
+    state = init_fn(0, partial(init_params, cfg7))
+    trng = np.random.default_rng(0)
+    data = {"tokens": trng.integers(0, cfg7.vocab_size, (8, 2048)).astype(np.int32),
+            "targets": trng.integers(0, cfg7.vocab_size, (8, 2048)).astype(np.int32)}
+    batch = to_device(data)
+    state, m = step_fn(state, batch)
+    first_loss = m["loss"].item()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step_fn(state, batch)
+    m["loss"].item()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    del state, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks = {}
+    trn = train_on_card(torch, cfg7, data, first_loss, step_s, card)
+    marks["7b"] = round(time.perf_counter() - t_start, 1)
+    torch.cuda.empty_cache()
+    tun = tune_on_card(torch, cfg7, data, first_loss, step_s, trn["A"]["losses"], cfg, prompts, gr, drv_checksum, card)
+    marks["7c"] = round(time.perf_counter() - t_start, 1)
+    torch.cuda.empty_cache()
+    dag = dag_on_card(torch, cfg, prompts, gr, drv_checksum, card)
+    marks["7d"] = round(time.perf_counter() - t_start, 1)
+    print("GATES " + json.dumps({
+        "7b_release_s": [trn["A"]["release_s"], trn["B"]["release_s"]],
+        "7c_release_s": [tun["a"]["release_s"], tun["b"]["release_s"], tun["c"]["release_s"]],
+        "7d_hop_us": dag["b"]["hop_us"], "7d_rtt_us": dag["b"]["rtt_us"], "7d_hop_gate_us": dag["b"]["rtt_us"] / 4,
+        "7d_release_s": [dag["c"]["release_s"], dag["d"]["release_s"]], "marks": marks, "card": smi}))
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Runtime flags (port of ray_tpu/_config.py's runtime part: the object
 plane, the head's store, the node agents and their health checks, the
-GCS's persistence, the scheduler, the worker pool, retries and lineage).
+GCS's persistence, the monitors, the scheduler, the worker pool, retries
+and lineage).
 
 Each flag keeps ray_tpu's name and default and is overridable through the
 same ``RT_<NAME>`` environment variable, read when the config is first
@@ -95,6 +96,16 @@ class Config:
     health_check_failure_threshold: int = 5
     # period of the session's state.json for the CLI (util/state.py); 0: off
     state_dump_interval_s: float = 2.0
+
+    # --- monitors ---
+    # stream the workers' log files (<session>/logs/worker-*.log) to the
+    # driver's stderr, each line prefixed "(worker=<id>)" (core/log_monitor.py)
+    log_to_driver: bool = True
+    # period of the memory monitor's sample (core/memory_monitor.py); 0: off
+    memory_monitor_refresh_ms: int = 250
+    # the share of the host's memory in use (cgroup v2's limit where tighter)
+    # above which the largest retriable worker is killed
+    memory_usage_threshold: float = 0.95
 
     # --- reference counting ---
     # free owned entries once no process holds a ref; the borrow protocol

@@ -86,25 +86,42 @@ def init(
         cards = num_gpus if num_gpus is not None else num_tpus
         if cards is not None:
             res["GPU"] = float(cards)
+        system_config = dict(_system_config or {})
+        if not log_to_driver:
+            system_config.setdefault("log_to_driver", False)
         rt = Runtime(
             resources=res or None,
             local_mode=local_mode,
             namespace=namespace,
-            system_config=_system_config,
+            system_config=system_config,
             labels=labels,
         )
         context.set_client(rt)
         return rt
 
 
-def timeline(filename: str | None = None):
-    """ray_tpu's Chrome-trace dump of task events: not ported yet."""
-    context.not_ported("the task timeline (util/timeline.py)", context.STATE_ITEM)
+def timeline(filename: str | None = None) -> list[dict]:
+    """The head's task events as Chrome-trace "X" events, one per
+    RUNNING -> terminal span (``util/timeline.py``); written to
+    ``filename`` when given."""
+    from ray_tpu_torch.util.timeline import timeline as _timeline
+
+    return _timeline(filename)
 
 
 def shutdown():
     client = context.maybe_client()
     if client is not None:
+        # a head writes the usage report (a no-op unless
+        # RT_USAGE_STATS_ENABLED=1); an attached driver's sparse view must
+        # not overwrite the head's report in the same session directory
+        if not getattr(client, "is_driver_attach", False):
+            from ray_tpu_torch.util import usage
+
+            try:
+                usage.write_usage_stats(client)
+            except OSError:
+                pass  # an unwritable session directory must not keep the runtime up
         client.shutdown()
     context.set_client(None)
 

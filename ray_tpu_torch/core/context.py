@@ -15,8 +15,6 @@ CLUSTER_ITEM = "queue 1, cluster tooling"  # rt up / rt down, the autoscaler and
 GRPC_ITEM = "queue 1, serve gRPC ingress"  # serve.start(grpc_port=...), serve/_grpc_proxy.py
 LINT_ITEM = "queue 1, lint"  # rt lint, ray_tpu/lint/
 MESH_ITEM = "queue 1, multi-device axes"  # meshes, shardings, device collectives (collective/ici.py)
-RUNTIME_ENV_ITEM = "queue 1, runtime_env"  # runtime_env/ packing and setup in the worker
-STATE_ITEM = "queue 1, state and monitors"  # the timeline, the log and memory monitors
 XLANG_ITEM = "queue 1, cross-language"  # xlang.py
 
 _client = None

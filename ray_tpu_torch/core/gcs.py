@@ -12,9 +12,15 @@ import time
 from collections import defaultdict
 
 
+# namespaces kept in memory only: the workers' metric snapshots, which
+# each live worker writes again every second (util/metrics.py)
+VOLATILE_NAMESPACES = ("_metrics",)
+
+
 class KVStore:
-    """Namespaced KV, written through to the table store. Keys and values
-    are any picklable objects; the table rows are pickled on both sides."""
+    """Namespaced KV, written through to the table store (but
+    ``VOLATILE_NAMESPACES``). Keys and values are any picklable objects;
+    the table rows are pickled on both sides."""
 
     def __init__(self, store=None):
         import base64
@@ -53,6 +59,8 @@ class KVStore:
             if not overwrite and key in ns:
                 return False
             ns[key] = value
+            if namespace in VOLATILE_NAMESPACES:
+                return True
             self._persist_lock.acquire()
         try:
             self._store.put("kv", self._skey(namespace, key), pickle.dumps(value))
@@ -72,6 +80,8 @@ class KVStore:
             existed = self._data[namespace].pop(key, None) is not None
             if not existed:
                 return False
+            if namespace in VOLATILE_NAMESPACES:
+                return True
             self._persist_lock.acquire()
         try:
             self._store.delete("kv", self._skey(namespace, key))

@@ -32,9 +32,19 @@ only after its process has exited, so the card's memory is free before
 the next holder is placed. A request no node can hold is infeasible and
 stays queued; it never runs on the CPU.
 
-Not ported, each raising naming its ROADMAP.md item (``core/context.py``):
-``runtime_env`` packing (``env_vars`` are applied), and the timeline, log
-and memory monitors.
+**runtime_env.** ``working_dir`` and ``py_modules`` are packed once per
+content (``runtime_env/packaging.py``) into the head's store, pinned and
+held; a worker that applied an env serves only tasks of the same env
+(``env_binding["runtime_env"]``), a plain task never lands on it, and a
+card-bound worker keeps both bindings. ``env_vars`` are applied in the
+worker.
+
+**Monitors.** Each worker writes its stdout and stderr to its own file
+under ``<session>/logs``; the log monitor streams them to the driver
+(``core/log_monitor.py``, ``log_to_driver``). The memory monitor kills
+the largest retriable worker under memory pressure
+(``core/memory_monitor.py``). ``dump_worker_stacks`` asks every worker
+for its threads' stacks on its receive loop.
 """
 
 from __future__ import annotations
@@ -49,7 +59,6 @@ from multiprocessing import connection as mp_connection
 
 from ray_tpu_torch._config import get_config, reset_config
 from ray_tpu_torch.core import context
-from ray_tpu_torch.core.context import RUNTIME_ENV_ITEM, not_ported
 from ray_tpu_torch.core.gcs import Gcs
 from ray_tpu_torch.core.ids import ActorID, JobID, NodeID, ObjectID, PlacementGroupID, TaskID, WorkerID
 from ray_tpu_torch.core.node import Node, NodeShutDown, WorkerHandle
@@ -194,6 +203,15 @@ class Runtime:
         # dead-worker pipes waiting for the IO loop to close them (_retire_conn)
         self._conn_graveyard: list = []
         self._conn_graveyard_lock = threading.Lock()
+        # dump_worker_stacks' open requests: req_id -> (event, results)
+        self._stack_pending: dict[str, tuple] = {}
+        # runtime_env archives: (path, fingerprint) pairs -> the packed env,
+        # and the archives' refs, held for the session
+        self._renv_cache: dict = {}
+        self._renv_pins: list = []
+        self._renv_lock = threading.Lock()
+        self._log_monitor = None
+        self._memory_monitor = None
         self.nodes: dict[NodeID, Node] = {}
         self.actors: dict[ActorID, ActorState] = {}
         self.placement_groups: dict[PlacementGroupID, PlacementGroupState] = {}
@@ -272,6 +290,13 @@ class Runtime:
             _state.dump_cluster_info(self)
             if self.cfg.state_dump_interval_s > 0:
                 threading.Thread(target=self._state_dump_loop, daemon=True, name="rt-state-dump").start()
+            if self.cfg.log_to_driver:
+                from ray_tpu_torch.core.log_monitor import LogMonitor
+
+                self._log_monitor = LogMonitor(self._logs_dir()).start()
+            from ray_tpu_torch.core.memory_monitor import MemoryMonitor
+
+            self._memory_monitor = MemoryMonitor(self).start()
             if self.cfg.prestart_workers:
                 # warm the pool in the background: overlaps the zygote's
                 # one-time boot with the caller's own setup
@@ -354,7 +379,15 @@ class Runtime:
             env["RT_TRACING"] = "1"
         if self.cfg.direct_calls and self.cfg.object_ref_counting and not self.local_mode:
             env["RT_DIRECT_AUTHKEY"] = self._direct_authkey.hex()
+        env["RT_LOG_DIR"] = self._logs_dir()
         return env
+
+    @staticmethod
+    def _logs_dir() -> str:
+        """The workers' log files: ``<session>/logs``."""
+        from ray_tpu_torch.util.tracing import session_dir
+
+        return os.path.join(session_dir(), "logs")
 
     def _register_node_transfer(self, node):
         ns = getattr(node, "shm_ns", "")
@@ -778,6 +811,42 @@ class Runtime:
         for oid in _direct.free_owned(list(obj_ids)):
             self.store.delete(oid)
 
+    def dump_worker_stacks(self, worker_prefix: str = "", timeout: float = 10.0) -> dict:
+        """The live Python stacks of every worker (whose id starts with
+        ``worker_prefix``): each answers on its receive loop, which stays
+        free while its exec threads run user code. {worker id hex: {pid,
+        current_task, stacks: {thread: stack}}}; a worker that does not
+        answer within ``timeout`` is reported ``unresponsive``, never
+        waited for longer."""
+        import uuid
+
+        req_id = uuid.uuid4().hex[:12]
+        ev = threading.Event()
+        results: dict = {}
+        targets = [(w, w.worker_id.hex()) for node in self.node_list() for w in list(node.workers.values())
+                   if w.worker_id.hex().startswith(worker_prefix) and w.state not in ("starting", "dead", "retiring")]
+        if not targets:
+            return {}
+        with self._dc_lock:
+            self._stack_pending[req_id] = (ev, results)
+        try:
+            for w, _ in targets:
+                try:
+                    w.send({"type": "stack_dump", "req_id": req_id})
+                except (OSError, ValueError):
+                    pass  # its pipe closed: it is reported unresponsive
+            deadline = time.monotonic() + timeout
+            while len(results) < len(targets) and time.monotonic() < deadline:
+                ev.wait(timeout=0.2)
+                ev.clear()
+        finally:
+            with self._dc_lock:
+                self._stack_pending.pop(req_id, None)
+        for _, whex in targets:
+            if whex not in results:
+                results[whex] = {"unresponsive": True, "stacks": {}}
+        return results
+
     def object_locations(self, obj_ids) -> dict:
         """The node holding each object's primary copy: for the head store's
         entries the node of the segment's namespace (the head's for inline
@@ -891,14 +960,44 @@ class Runtime:
         return False
 
     def _prepare_runtime_env(self, renv: dict | None) -> dict | None:
-        """A runtime_env's ``env_vars`` are applied in the worker; packing
-        a working_dir, py_modules or a package environment is not ported."""
+        """Pack ``working_dir`` and ``py_modules`` into the head's store,
+        once per content (cached by each path's fingerprint, so an edit
+        packs again); ``pip``, ``conda``, ``uv`` and ``container`` raise
+        ValueError on every submit (``runtime_env/packaging.py``)."""
         if not renv:
             return renv
-        rest = sorted(k for k in renv if k != "env_vars")
-        if rest:
-            not_ported(f"runtime_env {rest}", RUNTIME_ENV_ITEM)
-        return {"env_vars": dict(renv["env_vars"])} if renv.get("env_vars") else None
+        from ray_tpu_torch.runtime_env.packaging import (GATED, dir_fingerprint, prepare_runtime_env,
+                                                         validate_runtime_env)
+
+        if not any(k in renv for k in ("working_dir", "py_modules", *GATED)):
+            return renv
+        validate_runtime_env(renv)
+        key = tuple((p, dir_fingerprint(p)) for p in [renv.get("working_dir"), *(renv.get("py_modules") or ())] if p)
+        with self._renv_lock:
+            cached = self._renv_cache.get(key)
+            if cached is None:
+                prepared = prepare_runtime_env({k: v for k, v in renv.items() if k != "env_vars"},
+                                               self._put_head_object)
+                for packed in [prepared.get("_packed_working_dir"), *(prepared.get("_packed_py_modules") or [])]:
+                    if packed:
+                        # the id travels as a hex string inside the env, which
+                        # the reference counter cannot see: the archive is
+                        # pinned against eviction and its ref held for the session
+                        ref = packed.pop("_ref")
+                        self.store.pin(ref.id)
+                        self._renv_pins.append(ref)
+                cached = self._renv_cache[key] = prepared
+        out = dict(cached)
+        if renv.get("env_vars"):
+            out["env_vars"] = renv["env_vars"]
+        return out
+
+    def _put_head_object(self, value) -> ObjectRef:
+        """Store ``value`` in the head's store (not as an object this
+        process owns on the direct plane): any worker fetches it by id."""
+        obj_id = ObjectID.from_put()
+        self.store.put_serialized(obj_id, _to_serialized(value))
+        return ObjectRef(obj_id)
 
     def resubmit(self, spec: TaskSpec):
         """Re-run a task (retry or lineage reconstruction)."""
@@ -1283,6 +1382,16 @@ class Runtime:
         for node in self.node_list():
             self._dispatch_node(node)
 
+    @staticmethod
+    def _renv_key(spec: TaskSpec) -> str | None:
+        """The packed runtime_env a spec's worker must have applied (None: none)."""
+        renv = spec.runtime_env or {}
+        wd = renv.get("_packed_working_dir")
+        mods = renv.get("_packed_py_modules") or []
+        if not wd and not mods:
+            return None
+        return (wd or {}).get("hash", "") + ":" + ",".join(m["hash"] for m in mods)
+
     def _dispatch_node(self, node: Node):
         while True:
             with node._lock:
@@ -1291,15 +1400,21 @@ class Runtime:
                 spec, alloc, gpus = node.dispatch_queue[0]
             # card-bound work takes a never-used worker forked for exactly
             # its cards; an actor takes a never-used worker; a plain task any
-            # idle worker bound to no card
+            # idle worker bound to no card and no runtime_env; a task with a
+            # runtime_env an idle worker bound to the same env or to none
             needs_fresh = bool(gpus) or spec.is_actor_creation
+            renv_key = self._renv_key(spec)
 
             def fits(w):
                 if gpus:
                     return w.fresh and w.gpus == gpus
-                return not w.env_binding and (w.fresh or not needs_fresh)
+                if w.gpus or not (w.fresh or not needs_fresh):
+                    return False
+                return w.env_binding.get("runtime_env") == renv_key or not w.env_binding
 
-            idle = [w for w in node.idle_workers() if fits(w)]
+            # a worker already bound to this env first: it has it unpacked
+            idle = sorted((w for w in node.idle_workers() if fits(w)),
+                          key=lambda w: w.env_binding.get("runtime_env") != renv_key)
             if not idle:
                 starting = [w for w in node.workers.values() if w.state == "starting"]
                 if gpus:
@@ -1327,10 +1442,12 @@ class Runtime:
                         self._fail_worker_start(node, spec, alloc, gpus, e)
                         continue
                 elif nonactor >= limit and starting_plain == 0:
-                    # the pool is full of used idle workers an actor cannot
-                    # take: retire one so a fresh worker can start
-                    stale = [w for w in node.idle_workers() if not w.fresh and not w.gpus]
-                    if stale and spec.is_actor_creation:
+                    # the pool is full of idle workers this spec cannot take
+                    # (used ones, for an actor; ones bound to another
+                    # runtime_env): retire one so a fitting worker can start
+                    stale = [w for w in node.idle_workers() if not w.gpus and not fits(w)
+                             and (spec.is_actor_creation or w.env_binding)]
+                    if stale:
                         victim = min(stale, key=lambda w: w.last_idle)
                         victim.state = "retiring"
                         victim.proc.terminate()
@@ -1370,6 +1487,10 @@ class Runtime:
         env = {}
         if spec.runtime_env and spec.runtime_env.get("env_vars"):
             env.update(spec.runtime_env["env_vars"])
+        renv_key = self._renv_key(spec)
+        if renv_key is not None:
+            # beside a card's binding: the worker serves only this env from now on
+            worker.env_binding["runtime_env"] = renv_key
         resources = dict(alloc[3])
         if gpus:
             resources["_gpu_ids"] = gpus
@@ -1746,6 +1867,16 @@ class Runtime:
             self.task_manager.record_external(msg["events"], node_id=node.node_id, worker_id=w.worker_id)
         elif t == "stream_item":
             self._on_stream_item(msg)
+        elif t == "metrics":
+            # a worker's registry snapshot (util/metrics.py's flusher)
+            self.gcs.kv.put(msg["key"], msg["value"], namespace="_metrics")
+        elif t == "stack_dump_result":
+            with self._dc_lock:
+                slot = self._stack_pending.get(msg.get("req_id"))
+            if slot is not None:
+                slot[1][w.worker_id.hex()] = {"pid": msg.get("pid"), "current_task": msg.get("current_task"),
+                                              "stacks": msg.get("stacks", {})}
+                slot[0].set()
         else:
             self._dispatch_client_msg(w, msg)  # the client-protocol subset (req, ref_events)
 
@@ -1796,7 +1927,7 @@ class Runtime:
         spec, allocation = entry
         if allocation is not None and not spec.is_actor_creation:
             anode, alloc, gpus = allocation
-            if w.state == "busy" and w.env_binding:
+            if w.state == "busy" and w.gpus:
                 # card-bound workers are single-use: the card is bound into
                 # the process (its CUDA context). Release the CPU side now,
                 # hold the cards until the process has exited, so a fresh
@@ -2409,8 +2540,13 @@ class Runtime:
             except (OSError, ValueError):
                 pass  # it detached meanwhile
             d.conn.close()
+        if self._memory_monitor is not None:
+            self._memory_monitor.stop()
         for node in list(self.nodes.values()):
             node.shutdown()
+        if self._log_monitor is not None:
+            self._log_monitor.stop()  # joins its thread
+            self._log_monitor.poll_once()  # the workers are gone: their last lines
         self.store.shutdown()
         if self._agent_listener is not None:
             self._agent_listener.shutdown()

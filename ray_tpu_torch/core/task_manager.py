@@ -57,6 +57,14 @@ class TaskManager:
         from collections import deque
 
         self._order: deque = deque()
+        # lifetime totals: the table above is pruned, so the metrics'
+        # counters read these (util/metrics.py::update_core_metrics)
+        self.lifetime_submitted = 0
+        self.lifetime_finished = 0
+
+    def lifetime_counts(self) -> dict:
+        with self._lock:
+            return {"submitted": self.lifetime_submitted, "finished": self.lifetime_finished}
 
     def register(self, spec: TaskSpec) -> TaskState:
         st = TaskState(spec)
@@ -64,6 +72,7 @@ class TaskManager:
         with self._lock:
             self._tasks[spec.task_id] = st
             self._order.append(spec.task_id)
+            self.lifetime_submitted += 1
             self._prune_locked()
         self.rt.gcs.events.record("task_submitted", task_id=spec.task_id.hex(), name=spec.name)
         return st
@@ -127,6 +136,9 @@ class TaskManager:
                 st.worker_id = worker_id
                 self._tasks[tid] = st
                 self._order.append(tid)
+                self.lifetime_submitted += 1
+                if st.status == "FINISHED":
+                    self.lifetime_finished += 1
             self._prune_locked()
 
     def get(self, task_id: TaskID) -> TaskState | None:
@@ -143,6 +155,8 @@ class TaskManager:
         st = self.get(task_id)
         if st:
             st.transition("FINISHED")
+            with self._lock:
+                self.lifetime_finished += 1
 
     def handle_app_error(self, task_id: TaskID, err: TaskError) -> bool:
         """Application-level exception. Returns True if the task will be

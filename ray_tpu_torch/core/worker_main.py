@@ -12,9 +12,18 @@ socket (``core/direct.py``): owned objects, and calls straight from a
 caller.
 
 ``worker_entry`` sets the worker's environment first (a card-bound
-worker's ``CUDA_VISIBLE_DEVICES`` among it), then imports the driver's
-``__main__`` (``core/node.py``), then connects. ray_tpu's jax platform
-lines there have no counterpart; a worker imports no jax.
+worker's ``CUDA_VISIBLE_DEVICES`` among it), points its stdout and stderr
+at its log file (``<session>/logs/worker-<id>.log``, which the head's log
+monitor streams to the driver), then imports the driver's ``__main__``
+(``core/node.py``), then connects. ray_tpu's jax platform lines there
+have no counterpart; a worker imports no jax.
+
+A task's packed runtime_env (``runtime_env/packaging.py``) is applied
+before its function or actor class resolves, so code that lives only in
+its ``py_modules`` resolves by reference; a setup error fails the task.
+The receive loop answers ``stack_dump`` with every thread's stack, also
+while the exec threads run user code. The metrics registry is flushed
+once more as the worker exits (``util/metrics.py``).
 """
 
 from __future__ import annotations
@@ -276,6 +285,12 @@ class WorkerClient:
     def pg(self, op: str, **kw):
         return self.call("pg", op=op, **kw)
 
+    def push_metrics(self, key: str, value: dict):
+        """One-way: this process's metrics snapshot into the head's GCS KV
+        (``util/metrics.py``); never waits, so an exiting worker's last
+        flush cannot hang on a head that stopped reading."""
+        self._send({"type": "metrics", "key": key, "value": value})
+
     def has_function(self, func_id: str) -> bool:
         return func_id in self._sent_funcs
 
@@ -357,6 +372,13 @@ class WorkerClient:
         self.assigned_resources = msg.get("resources", {})
         self._apply_env(msg.get("env"))
         try:
+            renv = spec.runtime_env
+            if renv and ("_packed_working_dir" in renv or "_packed_py_modules" in renv):
+                # inside the try: a bad archive, a failed fetch or a chdir
+                # error fails the task instead of hanging its caller
+                from ray_tpu_torch.runtime_env import apply_runtime_env_in_worker
+
+                apply_runtime_env_in_worker(renv, lambda h: self.get_object(ObjectID.from_hex(h)))
             if spec.is_actor_creation:
                 self._create_actor_instance(spec, msg)
                 self._send_done({"type": "done", "task_id": spec.task_id, "returns": [], "error": None})
@@ -784,10 +806,68 @@ class WorkerClient:
                 self._exec_pool.submit(self._execute, msg)
             elif t == "cancel_stream":
                 self._cancelled_streams.add(msg["task_id"])
+            elif t == "stack_dump":
+                self._send({"type": "stack_dump_result", "req_id": msg.get("req_id"), "stacks": _format_all_stacks(),
+                            "pid": os.getpid(),
+                            "current_task": self.current_task_id.hex() if self.current_task_id else None})
             elif t == "shutdown":
                 break
         self._exec_pool.shutdown(wait=False, cancel_futures=True)
+        _exit_flush()
         os._exit(0)
+
+
+def _format_all_stacks() -> dict:
+    """{"<thread name> (<ident>)": its formatted stack} for every live thread."""
+    import sys
+
+    names = {t.ident: t.name for t in threading.enumerate()}
+    return {f"{names.get(ident, 'unknown')} ({ident})": "".join(traceback.format_stack(frame))
+            for ident, frame in sys._current_frames().items()}
+
+
+def _exit_flush():
+    """The worker's last spans and metric increments, before it exits."""
+    from ray_tpu_torch.util import metrics as _metrics
+    from ray_tpu_torch.util import tracing as _tracing
+
+    _tracing.shutdown()
+    if _metrics._registry.metrics:
+        _metrics._registry.flush_once()
+    import sys
+
+    for f in (sys.stdout, sys.stderr):
+        try:
+            f.flush()
+        except (OSError, ValueError):
+            pass  # the stream is closed
+
+
+def redirect_worker_logs(worker_id: str):
+    """Point this worker's stdout and stderr (the descriptors, so a child
+    process's or an extension's writes land too) at its own file,
+    ``<RT_LOG_DIR>/worker-<id>.log``; the head's log monitor streams the
+    file to the driver. Without ``RT_LOG_DIR`` (a worker of an agent that
+    joined from another host) the file goes under this host's session."""
+    import sys
+
+    d = os.environ.get("RT_LOG_DIR")
+    if not d:
+        from ray_tpu_torch.util.tracing import session_dir
+
+        d = os.path.join(session_dir(), "logs")
+    os.makedirs(d, exist_ok=True)
+    fd = os.open(os.path.join(d, f"worker-{worker_id[:12]}.log"), os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    for f in (sys.stdout, sys.stderr):
+        try:
+            f.flush()
+        except (OSError, ValueError):
+            pass  # the inherited stream is closed
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    sys.stdout = os.fdopen(1, "w", buffering=1, closefd=False)
+    sys.stderr = os.fdopen(2, "w", buffering=1, closefd=False)
 
 
 def _drain_async_gen(loop, agen):
@@ -835,6 +915,7 @@ def worker_entry(conn, worker_id: str, node_id: str, env: dict | None = None, ma
     under_agent = os.environ.pop(AGENT_ENV, None)  # not for the processes this worker starts
     set_session_tag(session_tag)
     os.environ["RT_WORKER_ID"] = worker_id
+    redirect_worker_logs(worker_id)
     _adopt_driver_main(main)
     client = WorkerClient(conn, worker_id, node_id)
     if under_agent:
@@ -849,6 +930,4 @@ def worker_entry(conn, worker_id: str, node_id: str, env: dict | None = None, ma
     try:
         client.run()
     finally:
-        from ray_tpu_torch.util import tracing as _tracing
-
-        _tracing.shutdown()
+        _exit_flush()

@@ -9,17 +9,31 @@ counterpart); attention goes through ``ops/flash_attention.py``'s
 autograd Function (K1 forward, K2/K3 backward), as ``attention_impl``
 "auto"/"pallas" asks; the card refuses any other value. ``forward`` and
 ``loss_fn`` are differentiable; with ``config.remat`` each layer is
-recomputed in the backward pass (``torch.utils.checkpoint``), as
-``jax.checkpoint`` with the ``nothing_saveable`` policy does.
+recomputed in the backward pass (``torch.utils.checkpoint``) under
+``config.remat_policy``, each of ``jax.checkpoint_policies``' zero-argument
+names (``REMAT_POLICIES``): ``nothing_saveable`` recomputes the whole
+layer; ``dots_saveable`` (alias ``checkpoint_dots``) keeps the outputs of
+the matrix products (``aten.mm``/``addmm``/``bmm``/``baddbmm``) through a
+selective-checkpoint policy, ``dots_with_no_batch_dims_saveable`` (alias
+``checkpoint_dots_with_no_batch_dims``) those without batch dims
+(``aten.mm``/``addmm``), and recomputes the rest; ``everything_saveable``
+keeps everything, so nothing is recomputed. Attention (K1's launch, a
+ctypes call the dispatcher never sees) is opaque to the policies, as
+ray_tpu's ``pallas_call`` is no dot: it is recomputed under every policy
+but ``everything_saveable``. A policy factory (``save_only_these_names``,
+``offload_dot_with_no_batch_dims``, ...) raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.layers import apply_rope, cross_entropy_loss, rms_norm, rotary_embedding
@@ -48,8 +62,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
-    # recompute each layer in backward (training); the port takes only the
-    # "nothing_saveable" policy (ROADMAP.md, queue 1, training, the rest)
+    # recompute each layer in backward (training) under remat_policy, a
+    # name of REMAT_POLICIES
     remat: bool = True
     remat_policy: str = "nothing_saveable"
     # kept for config parity with ray_tpu and not read: layers are a Python loop
@@ -178,13 +192,66 @@ def check_attention_impl(config: LlamaConfig, device) -> None:
             f"config has {config.hd}); an XLA-style path is not ported (ROADMAP.md, queue 2)")
 
 
+# the matrix products each selective policy keeps (JAX: a dot_general's
+# output, with or without batch dims); None: checkpoint everything or nothing
+_aten = torch.ops.aten
+_DOTS = (_aten.mm.default, _aten.addmm.default)
+_BATCH_DOTS = (_aten.bmm.default, _aten.baddbmm.default)
+REMAT_POLICIES = {
+    "nothing_saveable": None,
+    "everything_saveable": None,
+    "dots_saveable": _DOTS + _BATCH_DOTS,
+    "checkpoint_dots": _DOTS + _BATCH_DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS,
+    "checkpoint_dots_with_no_batch_dims": _DOTS,
+}
+# jax.checkpoint_policies' names that build a policy from arguments
+_POLICY_FACTORIES = ("offload_dot_with_no_batch_dims", "save_and_offload_only_these_names", "save_any_names_but_these",
+                     "save_anything_except_these_names", "save_from_both_policies", "save_only_these_names")
+# ops inside the attention kernel's region are never saved (its plain
+# version on the host runs products the card's kernel does not expose);
+# per thread: the recompute runs on autograd's threads
+_opaque = threading.local()
+
+
+@contextlib.contextmanager
+def _opaque_to_remat():
+    _opaque.depth = getattr(_opaque, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _opaque.depth -= 1
+
+
+def _keep_dots(ops, ctx, op, *args, **kwargs):
+    if op in ops and not getattr(_opaque, "depth", 0):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context_fn(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``policy`` (None for
+    ``nothing_saveable``); ValueError for a name that is not a
+    zero-argument policy of ``REMAT_POLICIES``."""
+    if policy not in REMAT_POLICIES:
+        kind = ("a policy factory that takes arguments" if policy in _POLICY_FACTORIES
+                else "not a jax.checkpoint_policies name")
+        raise ValueError(f"remat_policy={policy!r} is {kind}; ray_tpu_torch takes the zero-argument policies "
+                         f"{sorted(REMAT_POLICIES)}")
+    ops = REMAT_POLICIES[policy]
+    if ops is None:
+        return None
+    return functools.partial(create_selective_checkpoint_contexts, functools.partial(_keep_dots, ops))
+
+
 def attention(q, k, v, config: LlamaConfig):
     """Causal attention as ``config.attention_impl`` asks: the
     ``FlashAttention`` Function, whose wrappers launch K1-K3 on the card
     and run the plain versions on the host (ray_tpu's "xla" numbers there,
     whatever the value)."""
     check_attention_impl(config, q.device)
-    return flash_attention(q, k, v, True, None)
+    with _opaque_to_remat():
+        return flash_attention(q, k, v, True, None)
 
 
 def _attention_block(x, layer, config: LlamaConfig, cos, sin):
@@ -215,10 +282,8 @@ def forward(params: dict, tokens: torch.Tensor, config: LlamaConfig, positions=N
     """tokens: [B, T] int -> logits [B, T, vocab] f32. Differentiable in
     ``params``; callers that only infer wrap it in ``torch.no_grad()``."""
     B, T = tokens.shape
-    if config.remat and config.remat_policy != "nothing_saveable":
-        raise NotImplementedError(
-            f"remat_policy={config.remat_policy!r} is not ported to ray_tpu_torch yet; only "
-            "'nothing_saveable' is (ROADMAP.md, queue 1, training, the rest)")
+    context_fn = remat_context_fn(config.remat_policy) if config.remat else None
+    remat = config.remat and config.remat_policy != "everything_saveable" and torch.is_grad_enabled()
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     cos, sin = rotary_embedding(positions, config.hd, config.rope_theta)
@@ -229,8 +294,10 @@ def forward(params: dict, tokens: torch.Tensor, config: LlamaConfig, positions=N
     per_layer = [w.unbind(0) for w in (params["layers"][n] for n in PARAM_AXES["layers"])]
     for i in range(config.num_layers):
         weights = [w[i] for w in per_layer]
-        if config.remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, x, cos, sin, config, *weights, use_reentrant=False, preserve_rng_state=False)
+        if remat:
+            kw = {} if context_fn is None else {"context_fn": context_fn}
+            x = checkpoint(_layer, x, cos, sin, config, *weights, use_reentrant=False, preserve_rng_state=False,
+                           **kw)
         else:
             x = _layer(x, cos, sin, config, *weights)
     x = rms_norm(x, params["final_norm"], config.rms_eps)

@@ -1,26 +1,29 @@
-"""Metrics API: Counter / Gauge / Histogram over this process's registry
-(port of ray_tpu/util/metrics.py).
+"""Metrics API: Counter / Gauge / Histogram with the cluster's fold (port
+of ray_tpu/util/metrics.py).
 
     from ray_tpu_torch.util import metrics
     c = metrics.Counter("requests_total", description="...", tag_keys=("route",))
     c.inc(1.0, tags={"route": "/api"})
 
-Ported: the registry (one per process, a name registered twice shares its
+Every process keeps a registry (a name registered twice shares its
 series; a second registration under another kind or other histogram
-boundaries raises), hot-path bound series, the three instruments and the
-Prometheus text exposition of this process's registry.
-
-Not ported: the worker-to-GCS flusher (``_ensure_flusher``,
-``flush_once``), the cluster fold of ``get_metrics_snapshot`` and
-``update_core_metrics``: they fold every worker's series through the
-GCS, with the state and monitors item (ROADMAP.md, queue 1, state and
-monitors); ``export_prometheus`` here exposes this process's series only.
+boundaries raises). A worker (``RT_WORKER_ID`` set) flushes its registry
+into the head's GCS KV (namespace ``_metrics``, stamped with the time)
+every second on a thread of its own, and once more when it exits.
+``get_metrics_snapshot(client)`` folds this process's registry with every
+flushed one: counters and histograms add up, gauges take the last
+writer's value, and a snapshot older than ``STALE_SNAPSHOT_S`` (a dead
+worker's) keeps its counters and histograms but not its gauges.
+``update_core_metrics`` drives the runtime's own series from the head's
+tables; ``export_prometheus`` writes the fold as Prometheus text.
 """
 
 from __future__ import annotations
 
 import bisect
+import os
 import threading
+import time
 
 _DEFAULT_HIST_BOUNDARIES = [0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10]
 
@@ -29,6 +32,7 @@ class _Registry:
     def __init__(self):
         self.lock = threading.Lock()
         self.metrics: dict[str, "Metric"] = {}
+        self._flusher: threading.Thread | None = None
 
     def register(self, m: "Metric"):
         with self.lock:
@@ -41,11 +45,42 @@ class _Registry:
                     )
                 return existing
             self.metrics[m.name] = m
+            self._ensure_flusher()
             return m
 
     def snapshot(self) -> dict:
         with self.lock:
             return {name: m._dump() for name, m in self.metrics.items()}
+
+    def _ensure_flusher(self):
+        # only a worker pushes; a driver's registry is read in place
+        if self._flusher is not None or os.environ.get("RT_WORKER_ID") is None:
+            return
+        self._flusher = threading.Thread(target=self._flush_loop, daemon=True, name="rt-metrics-flush")
+        self._flusher.start()
+
+    def flush_once(self):
+        """Put this process's registry into the head's GCS KV, stamped with
+        the wall clock, so the fold can expire a dead worker's gauges."""
+        from ray_tpu_torch.core import context
+
+        client = context.maybe_client()
+        if client is None:
+            return
+        key = f"proc::{os.environ.get('RT_WORKER_ID', str(os.getpid()))}"
+        value = {"ts": time.time(), "metrics": self.snapshot()}
+        try:
+            if hasattr(client, "push_metrics"):
+                client.push_metrics(key, value)  # a worker: one way, on its pipe
+            else:
+                client.kv("put", key=key, value=value, namespace="_metrics")
+        except (OSError, ValueError, EOFError, TimeoutError):
+            pass  # the head is gone: nothing reads the fold any more
+
+    def _flush_loop(self):
+        while True:
+            time.sleep(1.0)
+            self.flush_once()
 
 
 _registry = _Registry()
@@ -168,10 +203,94 @@ class Histogram(Metric):
         return d
 
 
-def get_metrics_snapshot() -> dict:
-    """This process's registry: name -> {kind, description, tag_keys,
-    series[, boundaries]}."""
-    return _registry.snapshot()
+# a worker's flushed snapshot outlives the worker in the GCS KV: older
+# than this, its gauges drop out of the fold (a live worker flushes every
+# second), its counters and histograms, lifetime totals, stay
+STALE_SNAPSHOT_S = float(os.environ.get("RT_METRICS_STALE_S", "15"))
+
+
+def get_metrics_snapshot(client=None) -> dict:
+    """name -> {kind, description, tag_keys, series[, boundaries]}: this
+    process's registry folded with every worker's flushed one (when a
+    runtime is up, or ``client`` is given)."""
+    from ray_tpu_torch.core import context
+
+    merged: dict = {}
+
+    def fold(proc_snap: dict, stale: bool = False):
+        for name, m in proc_snap.items():
+            agg = merged.setdefault(name, {"kind": m["kind"], "description": m["description"],
+                                           "tag_keys": tuple(m["tag_keys"]), "series": {}})
+            if "boundaries" in m:
+                agg["boundaries"] = m["boundaries"]
+            if m["kind"] == "gauge" and stale:
+                continue  # a dead writer's point-in-time values expired
+            for key, val in m["series"].items():
+                cur = agg["series"].get(key)
+                if isinstance(val, list):
+                    agg["series"][key] = [a + b for a, b in zip(cur, val)] if cur else list(val)
+                elif m["kind"] == "gauge":
+                    agg["series"][key] = val  # the last writer wins
+                else:
+                    agg["series"][key] = (cur or 0.0) + val
+
+    fold(_registry.snapshot())
+    c = client or context.maybe_client()
+    if c is None:
+        return merged
+    try:
+        keys = c.kv("keys", prefix="proc::", namespace="_metrics")
+    except Exception:  # noqa: BLE001 — no head to ask (it shut down): this process's series only
+        return merged
+    for key in keys:
+        snap = c.kv("get", key=key, namespace="_metrics")
+        if not snap:
+            continue
+        stale = False
+        if isinstance(snap, dict) and "metrics" in snap and "ts" in snap:
+            stale = (time.time() - float(snap["ts"])) > STALE_SNAPSHOT_S
+            snap = snap["metrics"]
+        fold(snap, stale=stale)
+    return merged
+
+
+_core_counter_last: dict = {}
+_core_counter_lock = threading.Lock()  # concurrent scrapes must not add a delta twice
+
+
+def update_core_metrics(client) -> None:
+    """Refresh the runtime's own series (rt_tasks_*, rt_object_store_*,
+    rt_transfer_*) from the head's tables; called on each scrape
+    (``export_prometheus(client)``)."""
+    from ray_tpu_torch.core import transport
+
+    counts: dict[str, int] = {}
+    for t in client.cluster_info("tasks"):
+        counts[t["status"]] = counts.get(t["status"], 0) + 1
+    Gauge("rt_tasks_running", description="tasks currently executing").set(float(counts.get("RUNNING", 0)))
+    Gauge("rt_tasks_pending", description="tasks queued or waiting").set(
+        float(counts.get("PENDING", 0) + counts.get("QUEUED", 0) + counts.get("WAITING", 0)))
+    # lifetime totals, not the pruned window of states()
+    life = client.task_manager.lifetime_counts()
+    _bump_counter("rt_tasks_finished_total", "tasks finished", float(life["finished"]))
+    _bump_counter("rt_tasks_submitted_total", "tasks submitted", float(life["submitted"]))
+    obj = client.cluster_info("objects")
+    Gauge("rt_object_store_bytes", description="sealed shm bytes").set(float(obj.get("shm_bytes", 0)))
+    Gauge("rt_object_store_spilled_bytes", description="spilled bytes").set(float(obj.get("spilled_bytes", 0)))
+    _bump_counter("rt_transfer_pull_bytes_total", "bytes pulled", float(transport.STATS.get("pull_bytes", 0)))
+    _bump_counter("rt_transfer_serve_bytes_total", "bytes served", float(transport.STATS.get("serve_bytes", 0)))
+
+
+def _bump_counter(name: str, desc: str, absolute: float) -> None:
+    """Drive a Counter from an absolute total kept elsewhere (add the delta)."""
+    c = Counter(name, description=desc)
+    c.inc(0.0)  # the series exists even at 0
+    with _core_counter_lock:
+        last = _core_counter_last.get(name, 0.0)
+        delta = absolute - last
+        _core_counter_last[name] = max(last, absolute)
+    if delta > 0:
+        c.inc(delta)
 
 
 def _escape_label(v: str) -> str:
@@ -186,11 +305,14 @@ def _escape_help(v: str) -> str:
     return str(v).replace("\\", "\\\\").replace("\n", "\\n")
 
 
-def export_prometheus() -> str:
-    """Prometheus text exposition of this process's registry: cumulative
-    ``le`` buckets with ``+Inf``, ``_count`` and ``_sum`` for histograms."""
+def export_prometheus(client=None) -> str:
+    """Prometheus text exposition of the fold: cumulative ``le`` buckets
+    with ``+Inf``, ``_count`` and ``_sum`` for histograms. With ``client``
+    (a head) the runtime's own series are refreshed first."""
+    if client is not None:
+        update_core_metrics(client)
     lines = []
-    for name, m in sorted(get_metrics_snapshot().items()):
+    for name, m in sorted(get_metrics_snapshot(client).items()):
         lines.append(f"# HELP {name} {_escape_help(m['description'])}")
         lines.append(f"# TYPE {name} {m['kind']}")
         for key, val in m["series"].items():

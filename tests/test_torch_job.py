@@ -4,7 +4,10 @@ job lifecycle case on ray_tpu_torch, and the shapes it shares with
 ray_tpu: ``JobInfo``'s fields, the ``_jobs`` KV record a restarted head
 reads, and ``cluster_info.json``'s keys. Then the CLI: ``status`` and
 ``list`` from the session's ``state.json``, and the subcommands that
-raise naming their ROADMAP.md items. Every wait has its own bound."""
+raise naming their ROADMAP.md items. Last, twins run on both packages:
+``test_ops_layer.py``'s ``test_job_stop_and_failure`` and
+``test_state_api_and_cli`` (ray_tpu's leg on a head of its own). Every
+wait has its own bound."""
 
 import dataclasses
 import json
@@ -132,3 +135,83 @@ def test_cli_not_ported_subcommands_name_their_items(args, item):
 
     p = _cli(*args)
     assert p.returncode != 0 and "NotImplementedError" in p.stderr and getattr(tctx, item) in p.stderr, p.stderr
+
+
+# ---------------------------------------------------------------- twins on both packages
+@pytest.fixture
+def on(request, rt):
+    """The parameter's package with a runtime up: the module's head for
+    the port, a head of its own for ray_tpu."""
+    pkg = request.param
+    if pkg is ray_tpu_torch:
+        yield pkg
+        return
+    ray_tpu.shutdown()
+    ray_tpu.init(num_cpus=2)
+    try:
+        yield pkg
+    finally:
+        ray_tpu.shutdown()
+
+
+BOTH = pytest.mark.parametrize("on", [ray_tpu, ray_tpu_torch], indirect=True, ids=lambda p: p.__name__)
+
+
+@BOTH
+def test_job_stop_and_failure(on):
+    """``tests/test_ops_layer.py::test_job_stop_and_failure``: a failing
+    entrypoint ends FAILED with its exit code; a running one is stopped
+    (``job_manager.py::stop_job``) and ends STOPPED."""
+    import time
+
+    if on is ray_tpu_torch:
+        from ray_tpu_torch.job import JobStatus, JobSubmissionClient
+    else:
+        from ray_tpu.job import JobStatus, JobSubmissionClient
+    client = JobSubmissionClient()
+    bad = client.submit_job(entrypoint=f"{sys.executable} -c 'raise SystemExit(3)'")
+    assert client._mgr.wait_until_finished(bad, timeout=60) == JobStatus.FAILED
+    assert client.get_job_info(bad).returncode == 3
+
+    slow = client.submit_job(entrypoint=f"{sys.executable} -c 'import time; time.sleep(60)'")
+    deadline = time.time() + 30
+    while time.time() < deadline and client.get_job_status(slow) == JobStatus.PENDING:
+        time.sleep(0.05)
+    assert client.stop_job(slow)
+    assert client._mgr.wait_until_finished(slow, timeout=30) == JobStatus.STOPPED
+    assert not client.stop_job(slow)  # a terminal job is not stopped again
+    assert len(client.list_jobs()) >= 2
+
+
+@BOTH
+def test_state_api_and_cli(on):
+    """``tests/test_ops_layer.py::test_state_api_and_cli``: the state API's
+    lists and summaries, a dumped snapshot read back, and the CLI's
+    ``status`` (each package's banner)."""
+    import torch_env_defs as defs
+
+    if on is ray_tpu_torch:
+        from ray_tpu_torch.util import state
+    else:
+        from ray_tpu.util import state
+    assert on.get([on.remote(defs.one).remote() for _ in range(3)], timeout=60) == [1, 1, 1]
+    nodes = state.list_nodes()
+    assert nodes and all("node_id" in n for n in nodes)
+    assert isinstance(state.summarize_tasks(), dict)
+    st = state.cluster_status()
+    assert st["cluster_resources"].get("CPU", 0) > 0
+
+    path = state.dump_state()
+    assert os.path.exists(path)
+    snap = state.load_latest_state()
+    assert snap is not None and snap["pid"] == os.getpid()
+
+    # the CLI renders the snapshot
+    if on is ray_tpu_torch:
+        out = _cli("status")
+    else:
+        out = subprocess.run([sys.executable, "-m", "ray_tpu.scripts.cli", "status"], capture_output=True, text=True,
+                             timeout=60, env={**os.environ, "PYTHONPATH": REPO}, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert f"{on.__name__} status" in out.stdout
+    assert "Cluster resources" in out.stdout

@@ -420,9 +420,6 @@ def test_paths_not_ported_name_their_roadmap_items(both):
 
     roadmap = (REPO / "ROADMAP.md").read_text()
     calls = [
-        (lambda: ray_tpu_torch.remote(defs.sq).options(runtime_env={"working_dir": "."}).remote(1),
-         tcontext.RUNTIME_ENV_ITEM),
-        (lambda: ray_tpu_torch.timeline(), tcontext.STATE_ITEM),
         (lambda: tserve.start(grpc_port=0), tcontext.GRPC_ITEM),
         (lambda: tcli.main(["up", "cluster.yaml"]), tcontext.CLUSTER_ITEM),
         (lambda: tcli.main(["down"]), tcontext.CLUSTER_ITEM),
@@ -431,8 +428,7 @@ def test_paths_not_ported_name_their_roadmap_items(both):
     for call, item in calls:
         with pytest.raises(NotImplementedError, match=item):
             call()
-    for item in (tcontext.RUNTIME_ENV_ITEM, tcontext.STATE_ITEM, tcontext.XLANG_ITEM, tcontext.GRPC_ITEM,
-                 tcontext.CLUSTER_ITEM, tcontext.LINT_ITEM):
+    for item in (tcontext.XLANG_ITEM, tcontext.GRPC_ITEM, tcontext.CLUSTER_ITEM, tcontext.LINT_ITEM):
         assert "**" + item.split(", ", 1)[1].lower() in roadmap.lower(), item  # a bold item of ROADMAP.md's queue 1
 
 

@@ -128,9 +128,9 @@ def test_make_train_step_without_a_card_raises(monkeypatch):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-device"):
         tts.make_train_step(lambda p, b: None, tts.adamw(1e-3), mesh=object(), device="cpu")
-    _, tcfg = _configs(remat_policy="dots_with_no_batch_dims_saveable")
+    _, tcfg = _configs(remat_policy="save_only_these_names")
     tp = tllama.init_params(tcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="remat_policy"):
+    with pytest.raises(ValueError, match="save_only_these_names"):
         tllama.forward(tp, torch.zeros((1, 4), dtype=torch.int64), tcfg)
     init_fn, _ = tts.make_train_step(lambda p, b: None, tts.adamw(1e-3), param_axes={"embed": None}, device="cpu")
     with pytest.raises(ValueError, match="param_axes"):
