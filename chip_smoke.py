@@ -7,7 +7,8 @@ Phases, in order; any failed check exits non-zero before the last line:
 
 1. Build the CUDA kernels (K1 flash-attention forward, K2/K3 its backward,
    K4 paged-attention partials, K5 fused RMSNorm) from ray_tpu_torch/csrc
-   with nvcc for sm_90a, in parallel. Prints ptxas's registers and spills
+   with nvcc for sm_90a, in parallel, and phase 4m's C++ programs with g++
+   beside them (a failed build fails the run). Prints ptxas's registers and spills
    for each K1, K2 and K3 instance and the count of HGMMA (wgmma)
    instructions in each from the built libraries' SASS (cuobjdump -sass);
    the bf16 instances must have HGMMAs and no spills, and ptxas must not
@@ -345,6 +346,40 @@ Phases, in order; any failed check exits non-zero before the last line:
    within 120 s. No memory monitor kills anything else in the run (checked
    at each phase's end). Prints the archives' bytes, the pack and unpack
    seconds, and the actor's time to ready beside phase 4h's.
+4m. Cross-language drivers and workers and the cluster tooling
+   (core/xlang.py, core/lock_sanitizer.py, autoscaler/, dashboard/,
+   util/profiling.py), after 4l, all on one head: a fresh head with no
+   card and RT_LOCK_SANITIZER=1, an Autoscaler over a CommandNodeProvider
+   whose shell line starts `python -m ray_tpu_torch.scripts.cli agent ...
+   --num-gpus {num_gpus}`, one node type {"CPU": 2, "GPU": 1} (min 0, max
+   1, idle timeout PHASE4M_IDLE_S). (c) A named num_gpus=1 actor with
+   phase 4's engine (ToolingServer, CardServer's methods) waits: the
+   scheduler's pending_demand() shows {"GPU": 1}; the autoscaler launches
+   the agent, the actor is placed on the joined node and serves phase 4's
+   prompts, 256 of 256 tokens and K1/K4 counts equal to phase 4's; K1 and
+   K4 are held against their plain versions in its worker. (a) xlang.serve()
+   and xlang.export("generate") of the module-level xlang_generate, which
+   hands a CALL's JSON prompts to that actor; ray_tpu_torch/cpp/
+   generate_driver.cpp (over the repository's cpp/ray_tpu_client.hpp,
+   unchanged), built with g++, PUTs and GETs a small string
+   PHASE4M_ROUNDS times and a PHASE4M_BULK-byte payload, CALLs generate
+   with the 8 prompts and GETs the tokens, which must equal phase 4's.
+   (b) The repository's cpp/example_worker.cpp, built unchanged, registers
+   with the head; xlang.cpp_function and cpp_actor are driven with
+   test_xlang_cpp.py's payloads and their results gated. (d) While the
+   actor lives: start_dashboard(port=0)'s /api/nodes lists the launched
+   node with "GPU": 1, /api/stacks/<the actor's worker> returns its
+   stack, /metrics carries the engine's telemetry series that
+   grafana_dashboard_json()'s serving row queries; a generate of phase
+   4's first prompt (PHASE4M_PROFILED_TOKENS tokens, a prefix of its
+   stream) under util/profiling.profile_trace writes a Chrome trace in the
+   worker that names K1's and K4's __global__ symbols. Then the actor is killed, the
+   node goes idle and the autoscaler terminates it after the timeout, the
+   card's memory comes back, and the lock sanitizer reports no cycle.
+   Prints the round trip µs, the payload's GB/s each way, the CALL's wall
+   beside the actor's generate.remote() from Python, demand to join,
+   demand to tokens, idle to removed and memory back in seconds, and the
+   sanitizer's slow holds.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -757,7 +792,14 @@ def main() -> int:
                                                       f"{memory_monitor.kills_total - kills[0]} workers")
 
     # ---------------------------------------------------------------- 1
-    build_s = _kernels.build_all()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch import cpp
+
+    with ThreadPoolExecutor(len(PHASE4M_CPP)) as pool:  # phase 4m's C++ programs, g++ beside nvcc
+        cpp_builds = [pool.submit(cpp.build, cpp.REPO / src) for src in PHASE4M_CPP]
+        build_s = _kernels.build_all()
+        cpp_bins = [f.result() for f in cpp_builds]
     for name in _kernels.SOURCES:
         _kernels.library(name)
     smi = subprocess.run(
@@ -766,7 +808,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     card = f"[{smi}]"
-    print(f"phase 1 build: {build_s:.2f} s for {list(_kernels.SOURCES)} (nvcc sm_90a, parallel) {card}")
+    print(f"phase 1 build: {build_s:.2f} s for {list(_kernels.SOURCES)} (nvcc sm_90a, parallel); g++ beside it: "
+          f"{[os.path.basename(b) for b in cpp_bins]} {card}")
     for name, log in _kernels.build_log.items():
         for line in log.splitlines():
             if "warning" in line.lower() or "Potential Performance Loss" in line:
@@ -1235,6 +1278,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("4l")
+    # ---------------------------------------------------------------- 4m
+    # cross-language and the cluster tooling: a pending GPU actor makes the autoscaler launch a GPU node; a C++
+    # driver's CALL served by the actor there, a C++ worker, the dashboard and a profiled generate, the lock sanitizer
+    tool = tooling_on_card(torch, cfg, prompts, gr, drv_checksum, card, dev)
+    torch.cuda.empty_cache()
+
+    mark("4m")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1791,6 +1841,18 @@ def main() -> int:
           for k, fn, src, rep, what in (
               (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "prefill"),
               (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134", "decode"))),
+        *(dict(name=f"K{k} {fn} {who} (phase 4m {leg}, the actor's worker on the autoscaled GPU node; held and "
+                    f"timed there at {tool['check'][f'k{k}']['shape']})", route="cuda", source=f"ray_tpu_torch/csrc/{src}",
+               replaces=rep, launches=launches, max_abs_err=tool["check"][f"k{k}"]["err_o" if k == 1 else "err"],
+               ms=tool["check"][f"k{k}"]["ms"], plain_ms=tool["check"][f"k{k}"]["plain_ms"],
+               bound_ms=tool["check"][f"k{k}"]["bound_ms"], bound_by=tool["check"][f"k{k}"]["bound_by"],
+               library_ms=tool["check"]["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134"))
+          for who, leg, launches in (
+              ("C++ driver's CALL of generate", "(a)", tool["a"][f"k{k}"]),
+              (f"GPU actor's {tool['c']['generates']} generates from Python", "(c), (d)", tool["c"][f"k{k}"]))),
         *(dict(name=f"K{k} {fn} remat policies (phase 7e, {REMAT_WARMUP + REMAT_TIMED} steps under each of "
                     f"{list(REMAT_K1_FORWARDS)}; held and timed at {rem['held'][hk]['shape']} bf16 causal)", route="cuda",
                source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=rem["launches"][k - 1], max_abs_err=err,
@@ -1834,22 +1896,30 @@ def main() -> int:
 
 
 def profile_step(torch, step_fn, state, batch, card, table_path) -> dict[str, int]:
-    """One training step under torch.profiler: the device time by kernel
-    into ``table_path``, and one summary line (K1, K2, K3, matrix products,
+    """One training step under torch.profiler, after a warm-up step traced
+    and discarded: the device time by kernel into ``table_path``, and one summary line (K1, K2, K3, matrix products,
     the rest, and the device's idle share of the step). Returns how many
     times each wgmma kernel (K1, K2, K3) ran in the step."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # a warm-up step traced and discarded first: one call's trace missed a K1
+    # kernel of its step (35 of 36) when the window opened with the step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        step_fn(state, batch)[1]["loss"].item()
+        prof.step()
         t0 = time.perf_counter()
         step_fn(state, batch)[1]["loss"].item()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     groups = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "gemm": 0.0, "other": 0.0}
     calls = {K1_WGMMA: 0, K2_WGMMA: 0, K3_WGMMA: 0}
     averages = prof.key_averages()
     for e in averages:
-        if "CUDA" not in str(e.device_type):  # kernels only: a CPU op's device time repeats its kernels'
+        # kernels only: a CPU op's device time repeats its kernels', and the
+        # schedule's ProfilerStep annotation spans the whole step on the device
+        if "CUDA" not in str(e.device_type) or e.key.startswith("ProfilerStep"):
             continue
         us = self_device_us(e)
         name = e.key
@@ -5789,9 +5859,10 @@ class TreeEngine:
                     reserved=torch.cuda.memory_reserved())
 
 
-def _generate(eng, prompts) -> dict:
+def _generate(eng, prompts, max_tokens: int = 32) -> dict:
     """Phase 4's prompts on ``eng`` (in this process), 32 greedy tokens
-    each, K1's and K4's counters zeroed just before and read just after."""
+    each (or ``max_tokens``), K1's and K4's counters zeroed just before and
+    read just after."""
     import torch
 
     from ray_tpu_torch.llm import SamplingParams
@@ -5802,7 +5873,7 @@ def _generate(eng, prompts) -> dict:
     paged_attn_partials.launches = 0
     p0, d0 = eng.prefill_forwards, eng.decode_steps
     t0 = time.perf_counter()
-    ids = [eng.add_request(p, SamplingParams(max_tokens=32)) for p in prompts]
+    ids = [eng.add_request(p, SamplingParams(max_tokens=max_tokens)) for p in prompts]
     finals = {}
     while eng.has_unfinished():
         finals.update((o.request_id, o) for o in eng.step() if o.finished)
@@ -6918,6 +6989,310 @@ def env_on_card(torch, cfg, prompts, serve_run, drv_checksum, ready_4h, card, de
 def probe_worker() -> dict:
     """(a)'s plain task: where it ran."""
     return dict(worker=os.environ.get("RT_WORKER_ID"), cwd=os.getcwd())
+
+
+# ---------------------------------------------------------------- phase 4m: cross-language and the cluster tooling
+PHASE4M_ACTOR = "phase4m_engine"  # the named GPU actor that (a)'s exported function hands the prompts to
+PHASE4M_IDLE_S = 5.0  # (c): the autoscaler's idle timeout for the launched GPU node
+PHASE4M_JOIN_S = 180.0  # (c): the launched agent's node joins within this after the demand shows
+PHASE4M_ROUNDS = 200  # (a): small PUT/GET round trips the C++ driver times
+PHASE4M_BULK = 64 << 20  # (a): the payload the C++ driver PUTs and GETs
+PHASE4M_WAIT_S = 30.0  # (d): the engine's series reach the head's /metrics within this
+PHASE4M_SERIES = ("rt_llm_ttft_s", "rt_llm_tokens_total")  # (d): gated in /metrics and in the serving row
+PHASE4M_PROFILED_TOKENS = 4  # (d): the profiled generate's tokens (a prefill and 3 decode steps): the trace's
+# CPU events, exported by json in the worker, set its time (32 tokens: 86-103 MB, 18-20 s)
+K4_PARTIALS = K4_KERNELS[0]  # (d): K4's __global__ symbol in the profiler's trace
+PHASE4M_CPP = ("ray_tpu_torch/cpp/generate_driver.cpp", "cpp/example_worker.cpp")  # built in phase 1, beside nvcc
+
+
+@remote(num_gpus=1)
+class ToolingServer(CardServer._cls):
+    """Phase 4m's GPU actor: phase 4's engine (CardServer's methods), where
+    it runs, and a generate under util/profiling.profile_trace."""
+
+    def where(self) -> dict:
+        import ray_tpu_torch as rtt
+
+        return dict(node=rtt.get_runtime_context().node_id.hex(), worker=os.environ.get("RT_WORKER_ID"),
+                    pid=os.getpid())
+
+    def profiled_generate(self, prompts, logdir: str, max_tokens: int) -> dict:
+        from ray_tpu_torch.util.profiling import profile_trace
+
+        with profile_trace(logdir):
+            return _generate(self.eng, prompts, max_tokens)
+
+
+def xlang_generate(payload: bytes) -> dict:
+    """Phase 4m (a)'s exported function: a CALL's JSON prompts, served by
+    the named GPU actor; the tokens and its worker's K1/K4 counts as JSON."""
+    import ray_tpu_torch as rtt
+
+    run = rtt.get(rtt.get_actor(PHASE4M_ACTOR).generate.remote(json.loads(payload)), timeout=SERVE_TIMEOUT_S)
+    return dict(tokens=[[int(t) for t in s] for s in run["tokens"]], k1=int(run["k1"]), k4=int(run["k4"]),
+                wall_s=float(run["wall_s"]), pid=int(run["pid"]))
+
+
+def _http_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def tooling_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> dict:
+    """Phase 4m: cross-language drivers and workers and the cluster tooling
+    on one head with no card (the module docstring's (a)-(d)). Every leg
+    is gated."""
+    import dataclasses
+    import glob
+    import re
+    import shlex
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import cpp
+    from ray_tpu_torch.autoscaler import Autoscaler, CommandNodeProvider, NodeTypeConfig
+    from ray_tpu_torch.core import lock_sanitizer, xlang
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.dashboard.grafana import grafana_dashboard_json
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    t_phase = time.perf_counter()
+    ref = serve_run["tokens"]
+    want = (serve_run["k1"], serve_run["k4"])
+    spec = {"config": dataclasses.asdict(cfg)}
+    lens = [len(p) for p in prompts]
+    # built in phase 1 (here from the cache); a failed g++ build fails the run
+    driver_bin, worker_bin = (cpp.build(cpp.REPO / src) for src in PHASE4M_CPP)
+    tmp = tempfile.mkdtemp(prefix="phase4m_")
+    prompts_path = os.path.join(tmp, "prompts.json")
+    with open(prompts_path, "w") as f:
+        json.dump([[int(t) for t in p] for p in prompts], f)
+    here = shlex.quote(os.path.dirname(os.path.abspath(__file__)))
+    launch = (f"cd {here} && exec env PYTHONPATH={here} {shlex.quote(sys.executable)} -m ray_tpu_torch.scripts.cli "
+              "agent --address {address} --authkey {authkey} --transfer-authkey {transfer_authkey} "
+              "--num-cpus {num_cpus} --num-gpus {num_gpus} --reconnect 0")
+    torch.cuda.synchronize()
+    used0 = card_used(torch)
+    drv_counts = (flash_attention_fwd.launches, paged_attn_partials.launches)
+    out = {"c": {"k1": 0, "k4": 0, "generates": 0}}
+    os.environ["RT_LOCK_SANITIZER"] = "1"
+    lock_sanitizer.reset()
+    sc = dash = cppw = None
+    try:
+        rt = rtt.init(num_cpus=4, num_gpus=0)
+        check("GPU" not in rtt.cluster_resources(), f"phase 4m: the head counts a card: {rtt.cluster_resources()}")
+        check(isinstance(rt._nodes_lock, lock_sanitizer.SanitizedLock), "phase 4m: the head's locks are not sanitized")
+        provider = CommandNodeProvider(rt, launch)
+        sc = Autoscaler(rt, [NodeTypeConfig("gpu_node", {"CPU": 2, "GPU": 1}, min_workers=0, max_workers=1)],
+                        provider=provider, idle_timeout_s=PHASE4M_IDLE_S, interval_s=0.5).start()
+        # (c) the actor waits, its demand shows, the autoscaler launches a GPU node, the actor serves there
+        t0 = time.perf_counter()
+        actor = ToolingServer.options(name=PHASE4M_ACTOR).remote(spec)
+        demand = []
+        while not demand and time.perf_counter() - t0 < 30:
+            demand = rt.scheduler.pending_demand()
+            time.sleep(0.01)
+        check(demand == [{"GPU": 1.0}], f"phase 4m (c): the pending demand {demand}, not [{{'GPU': 1.0}}]")
+        demand_s = time.perf_counter() - t0
+        node = None
+        while node is None and time.perf_counter() - t0 < PHASE4M_JOIN_S:
+            node = next((n for n in rt.node_list() if n.labels.get("ray_tpu.io/node-type") == "gpu_node"), None)
+            time.sleep(0.05)
+        check(node is not None, f"phase 4m (c): no gpu_node joined within {PHASE4M_JOIN_S} s: "
+                                f"{sc.status()}")
+        join_s = time.perf_counter() - t0
+        agent = provider._procs[node.node_id]
+        fa = rtt.get(actor.facts.remote(), timeout=SERVE_TIMEOUT_S)
+        wh = rtt.get(actor.where.remote(), timeout=60)
+        check(wh["node"] == node.node_id.hex() and wh["pid"] in node.worker_pids,
+              f"phase 4m (c): the actor runs on node {wh['node'][:12]} (pid {wh['pid']}), not the launched "
+              f"{node.node_id.hex()[:12]} (workers {node.worker_pids})")
+        check(fa["checksum"] == drv_checksum and fa["count"] == 1,
+              f"phase 4m (c): the actor's checksum {fa['checksum']} vs {drv_checksum}, {fa['count']} cards")
+        run = rtt.get(actor.generate.remote(prompts), timeout=SERVE_TIMEOUT_S)
+        tokens_s = time.perf_counter() - t0
+        same = sum(x == y for s1, s2 in zip(run["tokens"], ref) for x, y in zip(s1, s2))
+        check(run["tokens"] == ref, f"phase 4m (c): the autoscaled node's tokens equal phase 4's in {same} of 256")
+        check((run["k1"], run["k4"]) == want, f"phase 4m (c): the actor's K1/K4 {run['k1']}/{run['k4']} != phase "
+                                              f"4's {want[0]}/{want[1]}")
+        out["c"]["k1"] += run["k1"]
+        out["c"]["k4"] += run["k4"]
+        out["c"]["generates"] += 1
+        kc = rtt.get(actor.check_kernels.remote(lens), timeout=SERVE_TIMEOUT_S)
+        check(kc["k1"]["ok"], f"phase 4m: K1 in the autoscaled node's worker at {kc['k1']['shape']}: |do| "
+                              f"{kc['k1']['err_o']:.3g} (tol {K1_TOL_O}) |dlse| {kc['k1']['err_lse']:.3g}")
+        check(kc["k4"]["ok"], f"phase 4m: K4 in the autoscaled node's worker at {kc['k4']['shape']}: max |d| "
+                              f"{kc['k4']['err']:.3g}, relative {kc['k4']['rel']:.3g} (tol {K4_TOL})")
+        out["check"] = kc
+        print(f"phase 4m (c) autoscaled GPU node: the head with no card (RT_LOCK_SANITIZER=1); the named num_gpus=1 "
+              f"actor's demand {demand} in {demand_s:.3f} s; the CommandNodeProvider's `rt agent --num-gpus 1` "
+              f"joined {join_s:.3f} s after the demand; the "
+              f"actor on the joined node (pid {wh['pid']}, CUDA_VISIBLE_DEVICES={fa['visible']}), its __init__ "
+              f"{fa['init_s']:.3f} s; 256 of 256 tokens equal phase 4's {tokens_s:.3f} s after the demand, K1 "
+              f"{run['k1']} K4 {run['k4']} in its worker; held there: K1 at {kc['k1']['shape']} |do| "
+              f"{kc['k1']['err_o']:.3g} kernel {kc['k1']['ms']:.4f} ms plain {kc['k1']['plain_ms']:.4f} ms sdpa "
+              f"{kc['k1']['sdpa_ms']:.4f} ms bound {kc['k1']['bound_ms']:.4f} ms; K4 at {kc['k4']['shape']} max |d| "
+              f"{kc['k4']['err']:.3g} kernel {kc['k4']['ms']:.4f} ms plain {kc['k4']['plain_ms']:.4f} ms bound "
+              f"{kc['k4']['bound_ms']:.4f} ms {card}")
+        # (a) the C++ driver: the object plane's round trips, then a CALL served by the actor
+        info = xlang.serve()
+        xlang.export("generate")(xlang_generate)
+        t0 = time.perf_counter()
+        py = rtt.get(actor.generate.remote(prompts), timeout=SERVE_TIMEOUT_S)
+        py_s = time.perf_counter() - t0
+        check(py["tokens"] == ref, "phase 4m (a): the actor's generate.remote() from Python differs from phase 4's")
+        out["c"]["k1"] += py["k1"]
+        out["c"]["k4"] += py["k4"]
+        out["c"]["generates"] += 1
+        p = subprocess.run([driver_bin, info["host"], str(info["port"]), info["authkey"], prompts_path,
+                            str(PHASE4M_BULK), str(PHASE4M_ROUNDS)], capture_output=True, text=True,
+                           timeout=SERVE_TIMEOUT_S)
+        check(p.returncode == 0, f"phase 4m (a): the C++ driver exited {p.returncode}: {p.stderr[-4000:]}")
+        line = json.loads(p.stdout.strip().splitlines()[-1])
+        res = line["result"]
+        same = sum(x == y for s1, s2 in zip(res["tokens"], ref) for x, y in zip(s1, s2))
+        check(res["tokens"] == ref, f"phase 4m (a): the C++ driver's tokens equal phase 4's in {same} of 256")
+        check((res["k1"], res["k4"]) == want, f"phase 4m (a): the CALL's K1/K4 {res['k1']}/{res['k4']} != phase 4's "
+                                              f"{want[0]}/{want[1]}")
+        check(res["pid"] == wh["pid"], f"phase 4m (a): the CALL was served by pid {res['pid']}, not the actor's")
+        out["a"] = dict(k1=res["k1"], k4=res["k4"], py_s=py_s, **{k: v for k, v in line.items() if k != "result"})
+        print(f"phase 4m (a) C++ driver (ray_tpu_torch/cpp/generate_driver.cpp over cpp/ray_tpu_client.hpp): "
+              f"PUT+GET of a small string {line['rtt_us']:.1f} µs (PUT {line['put_us']:.1f}, GET {line['get_us']:.1f}, "
+              f"medians of {PHASE4M_ROUNDS}); {line['bulk_bytes']} bytes PUT {line['put_gbps']:.3f} GB/s, GET "
+              f"{line['get_gbps']:.3f} GB/s, compared equal; CALL(\"generate\") to its result {line['call_s']:.3f} s "
+              f"beside generate.remote() from Python {py_s:.3f} s (the worker's own generate {res['wall_s']:.3f} s); "
+              f"256 of 256 tokens equal phase 4's, K1 {res['k1']} K4 {res['k4']} in the actor's worker {card}")
+        # (b) a C++ worker: functions and an actor defined in C++, called from Python
+        cppw = subprocess.Popen([worker_bin, info["host"], str(info["port"]), info["authkey"], "cppw"],
+                                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        t0 = time.perf_counter()
+        scale = xlang.cpp_function("cppw", "scale")
+        check(rtt.get(scale.remote(b"14"), timeout=120) == b"42", "phase 4m (b): scale(14) != 42")
+        scaled = [int(x) for x in rtt.get([scale.remote(str(i).encode()) for i in range(8)], timeout=120)]
+        check(scaled == [3 * i for i in range(8)], f"phase 4m (b): scale(0..7) = {scaled}")
+        h = xlang.cpp_actor("cppw", "Counter")
+        adds = [int(x) for x in rtt.get([h.call.remote("add", b"2") for _ in range(5)], timeout=120)]
+        total = int(rtt.get(h.call.remote("get"), timeout=120))
+        h2 = xlang.cpp_actor("cppw", "Counter")
+        fresh = int(rtt.get(h2.call.remote("get"), timeout=120))
+        check(adds == [2, 4, 6, 8, 10] and total == 10 and fresh == 0,
+              f"phase 4m (b): Counter adds {adds}, get {total}, a second instance {fresh}")
+        err = None
+        try:
+            rtt.get(h.call.remote("nope"), timeout=60)
+        except Exception as e:  # noqa: BLE001 — the C++ actor's error is the result this leg checks
+            err = e
+        check(err is not None and "unknown method nope" in str(err), f"phase 4m (b): an unknown method gave {err!r}")
+        cpp_s = time.perf_counter() - t0
+        rtt.kill(h)
+        rtt.kill(h2)
+        print(f"phase 4m (b) C++ worker (cpp/example_worker.cpp, unchanged): scale(14) = 42 and scale(0..7) as "
+              f"3 i through cpp_function; Counter through cpp_actor: adds {adds}, get {total}, a second instance "
+              f"{fresh}, an unknown method raised {type(err).__name__}; {cpp_s:.3f} s in all {card}")
+        # (d) the dashboard and the profiler while the actor lives
+        dash = start_dashboard(port=0)
+        nodes = _http_json(f"{dash.url}/api/nodes")
+        mine = [n for n in nodes if n["node_id"] == node.node_id.hex()]
+        check(len(mine) == 1 and mine[0]["alive"] and mine[0]["resources"].get("GPU") == 1,
+              f"phase 4m (d): /api/nodes lists the launched node as {mine}")
+        t0 = time.perf_counter()
+        stacks = _http_json(f"{dash.url}/api/stacks/{wh['worker']}")
+        stacks_ms = (time.perf_counter() - t0) * 1e3
+        check(list(stacks) == [wh["worker"]] and stacks[wh["worker"]].get("stacks"),
+              f"phase 4m (d): /api/stacks/{wh['worker'][:12]} gave {list(stacks)}")
+        panels = [p for p in json.loads(grafana_dashboard_json())["panels"] if p["title"].startswith("Serving:")]
+        queried = {re.sub(r"_(bucket|count|sum)$", "", m) for p in panels for t in p["targets"]
+                   for m in re.findall(r"rt_llm_[a-z_]+", t["expr"])}
+        check(set(PHASE4M_SERIES) <= queried, f"phase 4m (d): the serving row does not query {PHASE4M_SERIES}")
+        t0 = time.perf_counter()
+        shown = set()
+        while time.perf_counter() - t0 < PHASE4M_WAIT_S:
+            with urllib.request.urlopen(f"{dash.url}/metrics", timeout=60) as r:
+                prom = r.read().decode()
+            shown = {m for m in queried if re.search(rf"^{m}(_bucket|_count|_sum)?[{{ ]", prom, re.M)}
+            if set(PHASE4M_SERIES) <= shown:
+                break
+            time.sleep(0.5)
+        check(set(PHASE4M_SERIES) <= shown, f"phase 4m (d): /metrics shows {sorted(shown)} of the serving row's "
+                                            f"series, not {PHASE4M_SERIES}")
+        metrics_s = time.perf_counter() - t0
+        logdir = os.path.join(tmp, "profile")
+        t0 = time.perf_counter()
+        pr = rtt.get(actor.profiled_generate.remote(prompts[:1], logdir, PHASE4M_PROFILED_TOKENS),
+                     timeout=SERVE_TIMEOUT_S)
+        prof_s = time.perf_counter() - t0
+        check(pr["tokens"] == [ref[0][:PHASE4M_PROFILED_TOKENS]],
+              f"phase 4m (d): the profiled generate's tokens {pr['tokens']} are not phase 4's first prompt's first "
+              f"{PHASE4M_PROFILED_TOKENS} {ref[0][:PHASE4M_PROFILED_TOKENS]}")
+        out["c"]["k1"] += pr["k1"]
+        out["c"]["k4"] += pr["k4"]
+        out["c"]["generates"] += 1
+        traces = glob.glob(os.path.join(logdir, "*.json"))
+        check(len(traces) == 1, f"phase 4m (d): profile_trace wrote {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        n_k1 = sum(K1_WGMMA in e.get("name", "") for e in events if e.get("cat") == "kernel")
+        n_k4 = sum(K4_PARTIALS in e.get("name", "") for e in events if e.get("cat") == "kernel")
+        check(n_k1 > 0 and n_k4 > 0, f"phase 4m (d): the trace names K1's {K1_WGMMA} {n_k1} times and K4's "
+                                     f"{K4_PARTIALS} {n_k4} times")
+        out["d"] = dict(stacks_ms=stacks_ms, metrics_s=metrics_s, prof_s=prof_s, n_k1=n_k1, n_k4=n_k4,
+                        trace_bytes=os.path.getsize(traces[0]))
+        print(f"phase 4m (d) dashboard on the head: /api/nodes lists the launched node with GPU 1; "
+              f"/api/stacks/<the actor's worker> {stacks_ms:.1f} ms ({len(stacks[wh['worker']]['stacks'])} threads); "
+              f"/metrics carries {sorted(shown)} of the serving row's series {metrics_s:.3f} s after the first scrape; "
+              f"profile_trace around a generate of phase 4's first prompt, {PHASE4M_PROFILED_TOKENS} tokens, in the worker "
+              f"({prof_s:.3f} s, tokens equal): "
+              f"the trace "
+              f"({os.path.getsize(traces[0])} bytes) names K1's {K1_WGMMA} {n_k1} times (K1 {pr['k1']} launches) and "
+              f"K4's {K4_PARTIALS} {n_k4} times (K4 {pr['k4']}) {card}")
+        dash.stop()
+        dash = None
+        xlang.shutdown()
+        # (c) the kill, the idle node's termination, the card's memory back, the sanitizer's report
+        rtt.kill(actor)
+        t0 = time.perf_counter()
+        while any(n.node_id == node.node_id for n in rt.node_list()) and time.perf_counter() - t0 < PHASE4M_IDLE_S + 60:
+            time.sleep(0.1)
+        removed_s = time.perf_counter() - t0
+        check(not any(n.node_id == node.node_id for n in rt.node_list()),
+              f"phase 4m (c): the idle node still listed {removed_s:.1f} s after the actor's kill: {sc.status()}")
+        back = _wait_mem(torch, used0, PHASE4K_MEM_S)
+        check(back is not None, f"phase 4m (c): the card's memory in use {card_used(torch)} not back to {used0} "
+                                f"within {PHASE4K_MEM_S} s of the node's removal")
+        agent.wait(timeout=60)
+        gone = wait_for(lambda: not any(process_runs(p) for p in node.worker_pids), PHASE4K_MEM_S)
+        check(gone is not None, f"phase 4m (c): the terminated node's workers {node.worker_pids} still run")
+        check(flash_attention_fwd.launches == drv_counts[0] and paged_attn_partials.launches == drv_counts[1],
+              "phase 4m: the driver's K1/K4 counts moved")
+        rep = lock_sanitizer.report()
+        check(rep["cycles"] == [], f"phase 4m (c): the lock sanitizer found lock-order cycles {rep['cycles']}")
+        out["c"].update(demand_s=demand_s, join_s=join_s, tokens_s=tokens_s, removed_s=removed_s, mem_back_s=back,
+                        slow_holds=rep["slow_holds"])
+        print(f"phase 4m (c) the actor killed: its node idle, terminated by the autoscaler {removed_s:.3f} s later "
+              f"(idle timeout {PHASE4M_IDLE_S} s; the agent exited {agent.returncode}, its workers ({len(node.worker_pids)}) "
+              f"{gone:.3f} s later), the card's memory back "
+              f"{back:.3f} s after that; the lock sanitizer: no cycle over {len(rep['order_graph'])} ordered locks, "
+              f"slow holds (> {lock_sanitizer.SLOW_HOLD_S} s) {rep['slow_holds']} {card}")
+    finally:
+        if cppw is not None:
+            cppw.terminate()
+            cppw.wait(timeout=10)
+        if dash is not None:
+            dash.stop()
+        xlang.shutdown()
+        if sc is not None:
+            sc.stop()
+        rtt.shutdown()
+        os.environ.pop("RT_LOCK_SANITIZER", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not rt_segments(), f"phase 4m: /dev/shm still holds {rt_segments()}")
+    print(f"phase 4m {time.perf_counter() - t_phase:.1f} s {card}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 7e: the remat policies

@@ -11,11 +11,9 @@ yet wait for; each such path raises ``NotImplementedError`` through
 from __future__ import annotations
 
 # ROADMAP.md queue 1 items that the runtime's remaining paths name
-CLUSTER_ITEM = "queue 1, cluster tooling"  # rt up / rt down, the autoscaler and launcher, dashboard, cluster_utils
 GRPC_ITEM = "queue 1, serve gRPC ingress"  # serve.start(grpc_port=...), serve/_grpc_proxy.py
 LINT_ITEM = "queue 1, lint"  # rt lint, ray_tpu/lint/
 MESH_ITEM = "queue 1, multi-device axes"  # meshes, shardings, device collectives (collective/ici.py)
-XLANG_ITEM = "queue 1, cross-language"  # xlang.py
 
 _client = None
 

@@ -293,7 +293,9 @@ class Node:
         self.workers: dict[WorkerID, WorkerHandle] = {}
         self.dispatch_queue: list = []  # (spec, allocation, gpus): resources reserved, waiting for a worker
         self.alive = True
-        self._lock = threading.RLock()
+        from ray_tpu_torch.core.lock_sanitizer import make_lock
+
+        self._lock = make_lock("node")  # one lockdep class for all nodes
         # placement-group bundle accounting: pg_id -> {bundle_idx: {res: avail}}
         self.pg_bundles: dict = {}
         self.pg_bundle_totals: dict = {}

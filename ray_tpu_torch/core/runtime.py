@@ -178,7 +178,9 @@ class Runtime:
         # worker leases of the direct plane: wid -> (node, resources, owner_hex)
         self._leases: dict = {}
         self._leases_lock = threading.Lock()
-        self._nodes_lock = threading.RLock()
+        from ray_tpu_torch.core.lock_sanitizer import make_lock
+
+        self._nodes_lock = make_lock("runtime.nodes")
         self._drivers: dict = {}  # attached drivers: worker id hex -> _DriverHandle
         self._drivers_lock = threading.Lock()
         # the object directory across shm namespaces: namespace -> the
@@ -1233,6 +1235,31 @@ class Runtime:
         self.gcs.events.record("pg_created", pg_id=pgs.pg_id.hex(), strategy=pgs.strategy)
         self.scheduler.bump_capacity()
         return True
+
+    def pending_pg_demand(self) -> list[dict]:
+        """The resource requests of PENDING placement groups, for the
+        autoscaler (ray_tpu's ``pending_pg_demand``): a STRICT_PACK group's
+        bundles merge into one request, since the whole group must fit one
+        node; PACK and SPREAD bundles are requests of their own."""
+        out = []
+        for pg_id in list(self._pending_pgs):
+            pgs = self.placement_groups.get(pg_id)
+            if pgs is None:
+                continue
+            with pgs.cond:
+                if pgs.state != "PENDING":
+                    continue
+                bundles = [dict(b) for b in pgs.bundles]
+                strategy = pgs.strategy
+            if strategy == "STRICT_PACK" and len(bundles) > 1:
+                merged: dict = {}
+                for b in bundles:
+                    for k, v in b.items():
+                        merged[k] = merged.get(k, 0.0) + v
+                out.append(merged)
+            else:
+                out.extend(bundles)
+        return out
 
     def wait_placement_group(self, pg_id: PlacementGroupID, timeout: float | None = None) -> bool:
         pgs = self.placement_groups.get(pg_id)

@@ -320,3 +320,12 @@ class Scheduler:
     def has_pending(self) -> bool:
         with self._lock:
             return bool(self._ready or self._waiting or self._parked)
+
+    def pending_demand(self) -> list[dict]:
+        """The resource requests of queued tasks not placed yet, parked ones
+        included: the autoscaler's input (ray_tpu's ``pending_demand``)."""
+        with self._lock:
+            out = [dict(s.scheduling.resources) for s in self._ready]
+            for _, dq in self._parked.values():
+                out.extend(dict(s.scheduling.resources) for s in dq)
+            return out

@@ -6,14 +6,18 @@
 a driver runs. ``agent`` joins a running cluster as a node: another
 host's, with a shared-memory namespace of its own, its credentials from
 the flags or, on the head's host, from the session's
-``cluster_info.json``. ``up``, ``down`` and ``lint`` are not ported yet
-and raise naming their ROADMAP.md items.
+``cluster_info.json``. ``up`` launches a cluster from a JSON (or YAML)
+configuration in the foreground (``autoscaler/launcher.py``) and ``down``
+stops the newest live one. ``lint`` is not ported yet and raises naming its
+ROADMAP.md item.
 
     python -m ray_tpu_torch.scripts.cli status
     python -m ray_tpu_torch.scripts.cli list nodes|actors|tasks|objects|pgs
     python -m ray_tpu_torch.scripts.cli summary tasks|actors
     python -m ray_tpu_torch.scripts.cli agent [--address host:port --authkey HEX --transfer-authkey HEX]
         [--num-cpus N] [--num-gpus N] [--reconnect S]
+    python -m ray_tpu_torch.scripts.cli up cluster.json
+    python -m ray_tpu_torch.scripts.cli down
 """
 
 from __future__ import annotations
@@ -122,16 +126,21 @@ def _not_ported(what: str, item: str):
     not_ported(what, item)
 
 
-def cmd_up(_args):
-    from ray_tpu_torch.core.context import CLUSTER_ITEM
+def cmd_up(args):
+    from ray_tpu_torch.autoscaler.launcher import up
 
-    _not_ported("rt up (the cluster launcher and autoscaler)", CLUSTER_ITEM)
+    print(f"launching the cluster of {args.config} (Ctrl-C or `rt down` stops it)", flush=True)
+    up(args.config, block=True)
 
 
 def cmd_down(_args):
-    from ray_tpu_torch.core.context import CLUSTER_ITEM
+    from ray_tpu_torch.autoscaler.launcher import down
 
-    _not_ported("rt down (the cluster launcher)", CLUSTER_ITEM)
+    if down():
+        print("sent shutdown to the cluster's head")
+    else:
+        print("no running `rt up` head found", file=sys.stderr)
+        sys.exit(1)
 
 
 def cmd_lint(_args):
@@ -160,9 +169,9 @@ def main(argv=None):
     ap.add_argument("--num-tpus", type=float, default=0.0, help="ray_tpu's name for --num-gpus")
     ap.add_argument("--reconnect", type=float, default=60.0, help="seconds to keep redialing a lost head")
     ap.add_argument("--join-token", default=None, help="an opaque token echoed in the hello")
-    up = sub.add_parser("up", help="launch a cluster from a config (not ported)")
+    up = sub.add_parser("up", help="launch a cluster from a JSON or YAML config (head and autoscaler)")
     up.add_argument("config")
-    sub.add_parser("down", help="stop the newest `rt up` head (not ported)")
+    sub.add_parser("down", help="stop the newest `rt up` head")
     sub.add_parser("lint", help="the static analyzer (not ported)", add_help=False)
     args = p.parse_args(argv)
     {"status": cmd_status, "list": cmd_list, "summary": cmd_summary, "agent": cmd_agent, "up": cmd_up,

@@ -70,18 +70,19 @@ def summarize_actors() -> dict:
 
 def cluster_status(client=None) -> dict:
     """The nodes, the cluster's total and available resources, the demand
-    the scheduler holds and the actors by state."""
+    the scheduler holds, the actors by state and the lifetime task counts
+    (never pruned: the dashboard's throughput reads them)."""
     c = client or _client()
     actors = collections.defaultdict(int)
     for a in c.cluster_info("actors"):
         actors[a.get("state", "?")] += 1
-    sched = getattr(c, "scheduler", None)
     return {
         "nodes": c.cluster_info("nodes"),
         "cluster_resources": c.cluster_info("cluster_resources"),
         "available_resources": c.cluster_info("available_resources"),
-        "pending_demand": sched.pending_demand() if hasattr(sched, "pending_demand") else [],
+        "pending_demand": c.scheduler.pending_demand() if hasattr(c, "scheduler") else [],
         "actors": dict(actors),
+        "task_counts": c.task_manager.lifetime_counts() if hasattr(c, "task_manager") else {},
     }
 
 

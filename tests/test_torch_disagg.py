@@ -199,7 +199,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                "rllib/algorithms/impala/impala.py", "rllib/algorithms/appo/appo.py",
                # RLlib's off-policy and offline half
                "rllib/utils/replay_buffers.py", "rllib/algorithms/dqn/dqn.py", "rllib/algorithms/cql/cql.py",
-               "rllib/algorithms/sac/sac.py", "rllib/algorithms/bc/bc.py", "rllib/algorithms/marwil/marwil.py"]
+               "rllib/algorithms/sac/sac.py", "rllib/algorithms/bc/bc.py", "rllib/algorithms/marwil/marwil.py",
+               # cross-language and the cluster tooling
+               "core/xlang.py", "core/lock_sanitizer.py", "autoscaler/__init__.py", "autoscaler/autoscaler.py",
+               "autoscaler/launcher.py", "cluster_utils.py", "dashboard/__init__.py", "dashboard/dashboard.py",
+               "dashboard/grafana.py", "util/profiling.py", "cpp/__init__.py"]
     assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:
@@ -209,7 +213,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                 bad.append((str(path.relative_to(REPO)), mod))
     assert bad == []
     probe = ("import sys, ray_tpu_torch.data, ray_tpu_torch.llm.batch, ray_tpu_torch.dag, ray_tpu_torch.experimental, "
-             "ray_tpu_torch.experimental.compiled_dag, ray_tpu_torch.rllib; "
+             "ray_tpu_torch.experimental.compiled_dag, ray_tpu_torch.rllib, ray_tpu_torch.autoscaler, "
+             "ray_tpu_torch.dashboard, ray_tpu_torch.core.xlang, ray_tpu_torch.util.profiling; "
              "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas', "
              "'PIL'}))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)

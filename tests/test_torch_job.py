@@ -128,8 +128,7 @@ def test_cli_reads_the_sessions_state(rt):
     assert _cli("summary", "actors").returncode == 0
 
 
-@pytest.mark.parametrize("args,item", [(("up", "cluster.yaml"), "CLUSTER_ITEM"), (("down",), "CLUSTER_ITEM"),
-                                       (("lint",), "LINT_ITEM")])
+@pytest.mark.parametrize("args,item", [(("lint",), "LINT_ITEM")])
 def test_cli_not_ported_subcommands_name_their_items(args, item):
     from ray_tpu_torch.core import context as tctx
 

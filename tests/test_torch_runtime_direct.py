@@ -421,14 +421,12 @@ def test_paths_not_ported_name_their_roadmap_items(both):
     roadmap = (REPO / "ROADMAP.md").read_text()
     calls = [
         (lambda: tserve.start(grpc_port=0), tcontext.GRPC_ITEM),
-        (lambda: tcli.main(["up", "cluster.yaml"]), tcontext.CLUSTER_ITEM),
-        (lambda: tcli.main(["down"]), tcontext.CLUSTER_ITEM),
         (lambda: tcli.main(["lint"]), tcontext.LINT_ITEM),
     ]
     for call, item in calls:
         with pytest.raises(NotImplementedError, match=item):
             call()
-    for item in (tcontext.XLANG_ITEM, tcontext.GRPC_ITEM, tcontext.CLUSTER_ITEM, tcontext.LINT_ITEM):
+    for item in (tcontext.GRPC_ITEM, tcontext.LINT_ITEM):
         assert "**" + item.split(", ", 1)[1].lower() in roadmap.lower(), item  # a bold item of ROADMAP.md's queue 1
 
 
