@@ -380,6 +380,43 @@ Phases, in order; any failed check exits non-zero before the last line:
    beside the actor's generate.remote() from Python, demand to join,
    demand to tokens, idle to removed and memory back in seconds, and the
    sanitizer's slow holds.
+4n. Tensor-parallel serving (parallel/mesh.py, parallel/ranks.py,
+   collective/ici.py), after 4m: Llama-3-8B at tp=2 with both ranks on
+   the one card (create_mesh(tp=2, devices=[cuda] * 2): rank 0 in this
+   process, rank 1 a process of its own, gloo on CUDA tensors, no CUDA
+   graph). First phase 4's weights (seed 0) give the tp=1 reference: one
+   decode step's logits after the 8 prompts' first TP_LOGIT_PREFIX
+   tokens. (a) A paged and a slot engine from seed 0 (each rank draws the
+   tree and keeps its shard) serve phase 4's 8 prompts, 32 greedy tokens
+   each, with every rank's K1/K4 counts zeroed just before and read just
+   after: K1 32 per prefill forward and (paged) K4 32 per decode step on
+   EACH rank; then (paged) TP_DECODE_STEPS decode-only steps (one short
+   prompt admitted: the step computes all 8 lanes) are timed with rank
+   0's host seconds in its group's ops (the collectives' share). On the
+   paged engine the first decode step's logits (in every rank at once,
+   tp_call) are gated within TP_LOGIT_TOL of tp=1's and equal on both
+   ranks, and the int8 collective's logprob drift at the argmax must lie
+   in (0, TP_DRIFT_TOL). (c) K1 and K4 are held against their plain
+   versions in rank 1's process at its shapes (K1 B=3, T=2048, 16/4
+   heads; K4 (8, 4, 4, 1, 128)) and timed beside their bounds. (b) The
+   decisive workload (successor_params, ray_tpu's copy model at full
+   width, its depth cut to TP_SUCC_LAYERS: the layers are zeros; 8
+   prompts of 3-10 tokens, 32 greedy tokens): tp=1, tp=2 fp and
+   tp=2 int8 give identical greedy streams that follow the successor map;
+   the int8 step's wire bytes under fp's. (d) An n-gram spec engine (k =
+   SPEC_K) at tp=2, paged, on the same workload: greedy streams equal the
+   plain tp=2 engine's with real acceptances, K4 32 per round on each
+   rank (on random bf16 weights a k+1-token verify rounds unlike a
+   1-token step, so streams part at near-ties; phase 4d gates first
+   tokens there). (e)
+   serve.run(build_llm_deployment(LLMConfig(tensor_parallel_size=2,
+   num_tpus_per_replica=1, engine_kwargs={"mesh": the one-card mesh, ...})))
+   serves phase 4's shortest prompt (TP_SERVE_TOKENS tokens) with the
+   tokens (a)'s paged engine gives it alone; after serve.shutdown() its rank process is gone and the
+   card's memory back. Every engine's ranks are gone after its shutdown.
+   Prints prefill ms, decode ms a step, tok/s, each rank's peak memory,
+   the collectives' ms and wire bytes a step, the tokens shared with phase
+   4's tp=1 streams.
 5. The whole path, card against host: the same widths at 2 layers in f32,
    a 64-token prompt and 8 teacher-forced decode steps on a paged pool,
    f32 and int8; prefill and decode logits must agree. Then the extend: a
@@ -449,10 +486,9 @@ Phases, in order; any failed check exits non-zero before the last line:
    ray_tpu_torch.util.actor_pool), each leg on a fresh
    ray_tpu_torch.init(num_cpus=4). (a) A Tuner over phase 7b's JaxTrainer
    (one GPU train worker, JaxConfig(distributed="always"), 7b's batches
-   1-6, 6 steps) with param_space {"lr": grid_search([3e-4, 1e-3, 3e-3,
-   1e-2])} under ASHAScheduler(metric="loss", mode="min",
-   time_attr="step", max_t=6, grace_period=2, reduction_factor=2): four
-   trials, none in ERROR; one train worker on the card at a time (each
+   1-6, 6 steps) with param_space {"lr": grid_search([3e-4, 1e-2])} under
+   ASHAScheduler(metric="loss", mode="min", time_attr="step", max_t=6,
+   grace_period=2, reduction_factor=2): two trials, none in ERROR; one train worker on the card at a time (each
    trial gang-reserves [{"CPU": 0.5}, {"CPU": 1, "GPU": 1}]; the workers'
    windows do not overlap); each worker bound to the card (one card,
    CUDA_VISIBLE_DEVICES '0', nccl, cuda:0) with K1/K2/K3 36/18/18 in every
@@ -500,7 +536,11 @@ Phases, in order; any failed check exits non-zero before the last line:
    held against their plain versions there at each prompt's shapes; none
    launch in the driver. (b) A three-actor chain of add over 300
    executes: a hop under a quarter of the direct task round trip
-   (ray_tpu's gate). (c) teardown(kill_actors=True): no ring of either
+   (ray_tpu's gate); each execute is timed, and the line (or the failed
+   gate's message) gives the mean, median, p90 and max, every channel
+   reader's wait mode (poll or block, experimental/channels.py) in the
+   three stages and the driver, and the busiest processes by CPU seconds
+   during the executes. (c) teardown(kill_actors=True): no ring of either
    graph left in /dev/shm, every actor DEAD, E's worker gone, the card's
    memory back. (d) A num_gpus=1 owner actor draws phase 4's weights on
    the card and registers the tree (device_put_tree(owner_actor=itself);
@@ -634,7 +674,8 @@ TRAIN_WORKER_GATE = 1.10  # phase 7b: the worker's median ms/step over phase 7's
 TRAIN_CKPT_STEP, TRAIN_FAIL_STEP = 4, 6  # phase 7b fit B: checkpoint after step 4, injected failure after step 6
 TRAIN_RESUME_TOL = 2e-3  # phase 7b: |resumed loss - fit A's| at steps 5-12 (bf16 loss ~10.4; the same kernels)
 TUNE_STEPS = 6  # phase 7c: steps of each trial (phase 7b's batches 1-6)
-TUNE_LRS = (3e-4, 1e-3, 3e-3, 1e-2)  # phase 7c (a): the grid; 3e-4 is phase 7's learning rate
+TUNE_LRS = (3e-4, 1e-2)  # phase 7c (a): the grid; 3e-4 is phase 7's learning rate (two rates: the script's time limit;
+# 1e-2 trails 3e-4 at rung 2, so ASHA stops it there: gated)
 TUNE_RUNGS = (2, 4)  # phase 7c (a): ASHA's rungs (grace period 2, reduction factor 2, max_t 6)
 TUNE_SAVE_STEP, TUNE_FAIL_STEP = 3, 4  # phase 7c (b): checkpoint after step 3, injected failure after step 4
 
@@ -1285,6 +1326,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("4m")
+    # ---------------------------------------------------------------- 4n
+    # tensor-parallel serving: Llama-3-8B at tp=2, both ranks on the one card over gloo
+    tpn = tp_on_card(torch, cfg, prompts, gr, spec_runs["paged ngram"]["tokens"], card, dev)
+    torch.cuda.empty_cache()
+
+    mark("4n")
     # ---------------------------------------------------------------- 5
     cfg2 = LlamaConfig.llama3_8b(max_seq_len=2048, remat=False, num_layers=2, dtype="float32")
     p_gpu = init_params(cfg2, torch.Generator(device=dev).manual_seed(1))
@@ -1853,6 +1900,17 @@ def main() -> int:
           for who, leg, launches in (
               ("C++ driver's CALL of generate", "(a)", tool["a"][f"k{k}"]),
               (f"GPU actor's {tool['c']['generates']} generates from Python", "(c), (d)", tool["c"][f"k{k}"]))),
+        *(dict(name=f"K{k} {fn} tensor-parallel ranks {what} (phase 4n (a), (b), (d): both ranks of every tp=2 "
+                    f"engine, {tpn['held'][f'k{k}']['launch_note']}; held and timed in rank 1's process at its shape "
+                    f"{tpn['held'][f'k{k}']['shape']})", route="cuda", source=f"ray_tpu_torch/csrc/{src}",
+               replaces=rep, launches=tpn["launches"][f"k{k}"],
+               max_abs_err=tpn["held"][f"k{k}"]["err_o" if k == 1 else "err"], ms=tpn["held"][f"k{k}"]["ms"],
+               plain_ms=tpn["held"][f"k{k}"]["plain_ms"], bound_ms=tpn["held"][f"k{k}"]["bound_ms"],
+               bound_by=tpn["held"][f"k{k}"]["bound_by"],
+               library_ms=tpn["held"]["k1"]["sdpa_ms"] if k == 1 else None)
+          for k, fn, src, rep, what in (
+              (1, "flash_attention_fwd", "flash_attention.cu", "ray_tpu/ops/flash_attention.py:104", "prefill"),
+              (4, "paged_attn_partials", "paged_attn.cu", "ray_tpu/llm/pallas/paged_attn.py:134", "decode"))),
         *(dict(name=f"K{k} {fn} remat policies (phase 7e, {REMAT_WARMUP + REMAT_TIMED} steps under each of "
                     f"{list(REMAT_K1_FORWARDS)}; held and timed at {rem['held'][hk]['shape']} bf16 causal)", route="cuda",
                source=f"ray_tpu_torch/csrc/{src}", replaces=rep, launches=rem["launches"][k - 1], max_abs_err=err,
@@ -3484,7 +3542,7 @@ def hold_kernels(eng, lens) -> dict:
     from ray_tpu_torch.ops.flash_attention import attention_with_lse_ref, flash_attention_fwd
 
     counts = flash_attention_fwd.launches, paged_attn_partials.launches
-    cfg, dev = eng.config, eng.device
+    cfg, dev = eng._mcfg, eng.device  # the model as this rank holds it (its heads at tp > 1)
     H, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     g = torch.Generator(device=dev).manual_seed(0)
     buckets = [_bucket(int(n), eng.prefill_buckets) for n in lens]
@@ -3520,7 +3578,7 @@ def hold_k4(eng, g, rows, bounds) -> dict:
 
     from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials, paged_attn_partials_ref
 
-    cfg, dev, page = eng.config, eng.device, eng._pcfg.page_size
+    cfg, dev, page = eng._mcfg, eng.device, eng._pcfg.page_size
     H, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     Bl, max_pg = len(bounds), eng._pcfg.max_pages_per_seq
     P = Bl * max_pg + 1
@@ -5413,7 +5471,7 @@ def tune_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, fit_a_losses, c
                  card) -> dict:
     """Phase 7c: Tune over the port's trainers on the card, then the actor
     utilities. (a) A Tuner over JaxTrainer (one GPU train worker, phase 7's
-    step on 7b's batches 1-6) with a grid of four learning rates under
+    step on 7b's batches 1-6) with a grid of two learning rates under
     ASHA; (b) a function trainable in a trial actor bound to the card that
     checkpoints, fails, and resumes through ``Tuner.restore``; (c) an
     ActorPool of two engine actors serving phase 4's prompts. Each leg runs
@@ -5486,7 +5544,7 @@ def tune_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, fit_a_losses, c
         check([k.launches for k in drv_kernels] == drv_counts, f"phase 7c {label}: the driver's K1-K4 counts moved")
 
     try:
-        # ---- (a): a Tuner over JaxTrainer, one GPU train worker per trial, ASHA over four learning rates
+        # ---- (a): a Tuner over JaxTrainer, one GPU train worker per trial, ASHA over TUNE_LRS
         rtt.init(num_cpus=4)
         logs = os.path.join(tmp, "steps_a")
         os.makedirs(logs)
@@ -5578,6 +5636,9 @@ def tune_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, fit_a_losses, c
         split = {k: sum(p[k] for p in per.values()) for k in ("start_s", "init_s", "steps_s", "end_s")}
         outside = wall - split["init_s"] - split["steps_s"]
         stopped = {lr: p["steps"] for lr, p in per.items() if p["steps"] < steps}
+        # the worse rate, run second, trails the first at rung 2: ASHA's stop-at-a-rung path must run
+        check(len(stopped) >= 1, f"phase 7c (a): ASHA stopped no trial at a rung {TUNE_RUNGS} (order {order}, "
+                                 f"committed steps {({lr: p['steps'] for lr, p in per.items()})})")
         out["a"] = dict(per=per, wall=wall, outside_s=outside, per_report_s=outside / reports, split=split,
                         rest_s=outside - split["start_s"] - split["end_s"], release_s=release_s, stopped=stopped,
                         launches=[sum(m["launches"][i] for h in ran.values() for m in h) for i in range(3)],
@@ -5593,7 +5654,7 @@ def tune_on_card(torch, cfg7, data7, ref_first_loss, ref_step_s, fit_a_losses, c
                   f"last commit {p['end_s']:.3f} s, fit() to first step reported {p['pending_s']:.3f} s, peak "
                   f"allocated {p['peak']} bytes {card}")
         print(f"phase 7c (a) Tuner(JaxTrainer) over lr {list(TUNE_LRS)} with ASHA(grace 2, rf 2, max_t {steps}): "
-              f"4 trials, none in ERROR, one train worker at a time on the card (order {order}); stopped early "
+              f"{len(TUNE_LRS)} trials, none in ERROR, one train worker at a time on the card (order {order}); stopped early "
               f"{len(stopped)} ({stopped}: their committed reports; each worker ran all {steps} steps, since the "
               f"trainer reports once its fit returns); the 3e-4 trial's losses equal phase 7b fit A's; best lr "
               f"{best.config['lr']}; K1/K2/K3 36/18/18 in every step; wall {wall:.3f} s: workers' init "
@@ -5756,6 +5817,30 @@ class ChainAdd:
 
     def add(self, x):
         return x + 1
+
+    def wait_modes(self) -> list:
+        """How this stage's channel readers wait (experimental/channels.py)."""
+        from ray_tpu_torch.experimental.channels import reader_modes
+
+        return reader_modes()
+
+
+def cpu_seconds() -> dict:
+    """(pid, comm) -> CPU seconds (user + system) of every process the
+    host's /proc lists: two readings apart say what ran in between."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                head, rest = f.read().rsplit(")", 1)
+        except OSError:
+            continue
+        fields = rest.split()
+        out[(int(pid), head.split("(", 1)[1])] = (int(fields[11]) + int(fields[12])) / tick
+    return out
 
 
 def _leaves(tree, is_leaf=None) -> list:
@@ -6014,18 +6099,37 @@ def dag_on_card(torch, cfg, prompts, serve_run, drv_checksum, card) -> dict:
             chain = stages[2].add.bind(stages[1].add.bind(stages[0].add.bind(inp)))
         comp2 = chain.experimental_compile(channels=True)
         check(comp2.execute(0).get(timeout=DAG_TIMEOUT_S) == 3, "phase 7d (b): the chain's warm-up result")
+        cpu0 = cpu_seconds()
+        execs = []
         t0 = time.perf_counter()
         for i in range(DAG_HOP_EXECS):
+            t1 = time.perf_counter()
             check(comp2.execute(i).get(timeout=DAG_TIMEOUT_S) == i + 3, f"phase 7d (b): execute {i}")
+            execs.append(time.perf_counter() - t1)
         per_exec2 = (time.perf_counter() - t0) / DAG_HOP_EXECS
+        cpu1 = cpu_seconds()
         hop = per_exec2 / 4  # driver -> a -> b -> c -> driver
+        # what waited how, and what else ran on the host's cores meanwhile
+        modes = [m for st in stages for m in rtt.get(st.wait_modes.remote(), timeout=DAG_TIMEOUT_S)]
+        from ray_tpu_torch.experimental.channels import reader_modes
+
+        modes += [dict(m, name="driver " + m["name"]) for m in reader_modes()]
+        busy = sorted(((round(c - cpu0.get(k, 0.0), 3), k[1], k[0]) for k, c in cpu1.items()
+                       if c - cpu0.get(k, 0.0) > 0), reverse=True)[:8]
+        srt = sorted(execs)
+        dist = dict(mean_us=per_exec2 * 1e6, median_us=statistics.median(execs) * 1e6,
+                    p90_us=srt[int(0.9 * len(srt))] * 1e6, max_us=srt[-1] * 1e6)
+        diag = (f"per execute: mean {dist['mean_us']:.1f} us, median {dist['median_us']:.1f}, p90 {dist['p90_us']:.1f}, "
+                f"max {dist['max_us']:.1f}; readers (mode, phase, received): "
+                f"{[(m['name'][-12:], m['mode'], m['phase'], m['received']) for m in modes]}; "
+                f"CPU seconds during the executes, busiest processes (s, comm, pid): {busy}")
         check(hop < task_rt / 4, f"phase 7d (b): a hop {hop * 1e6:.1f} us is not under a quarter of the direct round "
-                                 f"trip {task_rt * 1e6:.1f} us")
-        out["b"] = dict(hop_us=hop * 1e6, rtt_us=task_rt * 1e6, exec_us=per_exec2 * 1e6)
+                                 f"trip {task_rt * 1e6:.1f} us; {diag}")
+        out["b"] = dict(hop_us=hop * 1e6, rtt_us=task_rt * 1e6, exec_us=per_exec2 * 1e6, **dist)
         print(f"phase 7d (b) hop latency: a three-actor chain of add over {DAG_HOP_EXECS} executes, "
               f"{per_exec2 * 1e6:.1f} us per execute, {hop * 1e6:.1f} us per hop (4 hops) vs the direct call's round "
               f"trip {task_rt * 1e6:.1f} us (mean of {DAG_RTT_CALLS} after {DAG_RTT_WARM}); gate: a hop under a "
-              f"quarter of the round trip ({task_rt / 4 * 1e6:.1f} us), {task_rt / hop:.1f}x {card}")
+              f"quarter of the round trip ({task_rt / 4 * 1e6:.1f} us), {task_rt / hop:.1f}x; {diag} {card}")
 
         # ---- (c): teardown kills the graphs' actors and leaves no ring
         rings = {id(comp): dag_rings(comp), id(comp2): dag_rings(comp2)}
@@ -7297,6 +7401,444 @@ def tooling_on_card(torch, cfg, prompts, serve_run, drv_checksum, card, dev) -> 
 
 # ---------------------------------------------------------------- phase 7e: the remat policies
 REMAT_WARMUP, REMAT_TIMED = 2, 5  # steps of each policy: warm-ups (step 1's loss gated), then timed
+TP_N = 2  # phase 4n: ranks, both on the one card
+TP_LOGIT_PREFIX = 64  # (a)'s logit gate: each prompt's first 64 tokens, one decode step after their prefill
+TP_LOGIT_TOL = 0.25  # (a): max |tp=2 - tp=1| over the first decode step's f32 logits (bf16 sums in another order)
+TP_DRIFT_TOL = 0.2  # (a): int8 vs fp collective, max |logprob| drift at the fp argmax (ray_tpu's bound)
+TP_DECODE_STEPS = 8  # (a): decode-only steps timed after the 8 prompts are admitted
+TP_SUCC_PERIOD = 16  # (b): the successor map t -> (t + 1) % 16 (ray_tpu's _successor_params)
+TP_SUCC_LAYERS = 4  # (b), (d): the copy model's depth, cut (its layers are zeros; full width)
+TP_SERVE_TOKENS = 8  # (e) and (a)'s reference for it: the shortest prompt's greedy tokens
+TP_INT8_TOKENS = 4  # (a) int8: greedy tokens of each short prompt on the tp_collective="int8" engine
+TP_PROBES = "chip_smoke"  # the module the ranks import the rank_* probes from (this file, by its name)
+
+
+def rank_counts(eng, zero: bool = False) -> dict:
+    """This rank's K1 and K4 launches, its engine's forwards, and (zero)
+    all set to 0 after the read."""
+    from ray_tpu_torch.llm.cuda.paged_attn import paged_attn_partials
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    out = dict(k1=flash_attention_fwd.launches, k4=paged_attn_partials.launches, pid=os.getpid())
+    if zero:
+        flash_attention_fwd.launches = 0
+        paged_attn_partials.launches = 0
+    return out
+
+
+def rank_memory(eng, reset: bool = False) -> dict:
+    """This rank process's peak and current bytes on the card (its own
+    allocations), and its group's host seconds by op."""
+    import torch
+
+    torch.cuda.synchronize()
+    out = dict(peak=torch.cuda.max_memory_allocated(), now=torch.cuda.memory_allocated(),
+               op_s=dict(eng._group.op_s))
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def rank_decode_logits(eng, prompts, collective: str | None = None):
+    """One decode step's f32 logits [B, V] after prefilling ``prompts`` into
+    a fresh slot cache of this rank's kv heads: the prefill's sums exact,
+    the decode step's per-layer sums in ``collective`` (None: exact), as
+    the engine's fused step sums them; every rank at once (its
+    collectives), or a single device's forward at tp = 1."""
+    import torch
+
+    from ray_tpu_torch.llm import kv_cache as kvc
+    from ray_tpu_torch.llm import model_runner as mr
+    from ray_tpu_torch.llm.engine import _bucket
+
+    cfg, dev = eng._mcfg, eng.device
+    tpc = eng._tpc if collective is None or eng._tpc is None else mr.TpSpec(eng._group, collective)
+    prefill_tpc = eng._tpc
+    T = max(_bucket(len(p), eng.prefill_buckets) for p in prompts)
+    toks = np.zeros((len(prompts), T), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    logits, ks, vs = mr.prefill(eng.params, torch.from_numpy(toks).to(dev), lens, cfg, prefill_tpc)
+    cache = kvc.alloc(kvc.CacheConfig(num_layers=cfg.num_layers, num_slots=len(prompts), max_seq_len=T + 1,
+                                      num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, dtype=eng.kv_dtype), dev)
+    for i, p in enumerate(prompts):
+        kvc.insert_sequence(cache, i, ks[:, i], vs[:, i], len(p))
+    out, _ = mr.decode_step(eng.params, cache, logits.argmax(-1), cfg, tpc)
+    return out.float().cpu()
+
+
+_SAMPLE_TAP: dict = {}  # rank_tap_sample's state in this process
+
+
+def rank_tap_sample(eng, on: bool):
+    """(on) From now on keep the logits of the first fused decode step this
+    rank runs: ``model_runner.sample`` is wrapped, which only the fused
+    steps call. (off) Unwrap and return them, f32 [max_num_seqs, V] on the
+    host by slot, or None if no fused step ran."""
+    from ray_tpu_torch.llm import model_runner as mr
+
+    if on:
+        orig, seen = mr.sample, []
+
+        def tap(logits, *rest):
+            if not seen:
+                seen.append(logits.float().cpu())
+            return orig(logits, *rest)
+
+        _SAMPLE_TAP.update(orig=orig, seen=seen)
+        mr.sample = tap
+        return None
+    mr.sample = _SAMPLE_TAP.pop("orig")
+    seen = _SAMPLE_TAP.pop("seen")
+    return seen[0] if seen else None
+
+
+def rank_hold_kernels(eng, lens):
+    """K1 and K4 held against their plain versions and timed in rank 1's
+    process at its shapes (``hold_kernels``); the other ranks return None
+    (two ranks timing at once on one card would time each other)."""
+    return hold_kernels(eng, lens) if eng._group.rank == 1 else None
+
+
+def successor_params(torch, cfg, dev) -> dict:
+    """ray_tpu's decisive-logits copy model (tests/test_llm_tp.py's
+    _successor_params) at ``cfg``'s widths, drawn with torch from seed 0:
+    attention and MLP zeroed, norms 1, the embedding N(0, 0.01), the
+    unembedding wired so greedy decode follows t -> (t + 1) % 16."""
+    from ray_tpu_torch.models.llama import torch_dtype
+
+    dt, h, L = torch_dtype(cfg.dtype), cfg.hidden_size, cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(0)
+    emb = torch.randn((cfg.vocab_size, h), generator=g, device=dev).mul_(0.1)
+    un = torch.zeros((h, cfg.vocab_size), device=dev)
+    for t in range(TP_SUCC_PERIOD):
+        un[:, (t + 1) % TP_SUCC_PERIOD] += emb[t] * 4.0
+    z = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
+    layers = dict(wq=z(L, h, cfg.num_heads * cfg.hd), wk=z(L, h, cfg.num_kv_heads * cfg.hd),
+                  wv=z(L, h, cfg.num_kv_heads * cfg.hd), wo=z(L, cfg.num_heads * cfg.hd, h),
+                  w_gate=z(L, h, cfg.intermediate_size), w_up=z(L, h, cfg.intermediate_size),
+                  w_down=z(L, cfg.intermediate_size, h), attn_norm=torch.ones((L, h), dtype=dt, device=dev),
+                  mlp_norm=torch.ones((L, h), dtype=dt, device=dev))
+    return dict(embed=emb.to(dt), unembed=un.to(dt), final_norm=torch.ones((h,), dtype=dt, device=dev), layers=layers)
+
+
+class CardTpServer(_CardReplica, LLMServer):
+    """Phase 4n (e)'s replica: the LLM server with its engine's rank pids."""
+
+    def tp_pids(self) -> list:
+        return self.engine.tp_pids
+
+
+def tp_on_card(torch, cfg, prompts, serve_run, spec1_tokens, card, dev) -> dict:
+    """Phase 4n: tensor-parallel serving, Llama-3-8B at tp=2 with both ranks
+    on the one card (gloo). (a) serving on a paged and a slot engine, the
+    first decode step's logits against tp=1's, the int8 collective's
+    drift, and a tp_collective="int8" engine's first fused step against
+    the fp sums; (b) the decisive workload at fp, int8 and tp=1; (c) K1
+    and K4 held in rank 1; (d) n-gram speculation against the plain
+    engine, on (a)'s weights (gated as phase 4d, whose tp=1 tokens
+    ``spec1_tokens`` are the witness of how often spec and plain part
+    there) and on (b)'s; (e) a Serve TP replica. Every leg gated; every
+    engine's ranks gone after."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import SamplingParams, SpecConfig
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.mesh import create_mesh
+    from ray_tpu_torch.serve.llm import LLMConfig, build_llm_deployment
+
+    L, n = cfg.num_layers, len(prompts)
+    lens = [len(p) for p in prompts]
+    mesh = create_mesh(tp=TP_N, devices=[dev] * TP_N)
+    ek = dict(max_num_seqs=8, page_size=64, enable_prefix_caching=False)
+    t_phase = time.perf_counter()
+    out = {"launches": {"k1": 0, "k4": 0}}
+    pids = []
+    short = [p[:TP_LOGIT_PREFIX] for p in prompts]
+    first = min(prompts, key=len)
+
+    def gone(pid, within=60.0):
+        end = time.perf_counter() + within
+        while time.perf_counter() < end and process_runs(pid):
+            time.sleep(0.05)
+        return not process_runs(pid)
+
+    def counted(eng, label, run_fn, k4_each):
+        """run_fn() with every rank's K1/K4 counts zeroed just before and read
+        just after: K1 once a layer per prefill forward and K4 ``k4_each`` per
+        decode step or round on EACH rank."""
+        eng.tp_call(TP_PROBES, "rank_counts", True)
+        res = run_fn()
+        cs = eng.tp_call(TP_PROBES, "rank_counts", True)
+        steps = eng.decode_steps + getattr(eng, "_spec_rounds", 0)
+        n_l = eng.config.num_layers
+        for r, c in enumerate(cs):
+            check(c["k1"] == n_l * eng.prefill_forwards > 0, f"phase 4n {label}: rank {r} K1 {c['k1']} != {n_l} x "
+                                                            f"{eng.prefill_forwards} prefill forwards")
+            check(c["k4"] == k4_each * steps, f"phase 4n {label}: rank {r} K4 {c['k4']} != {k4_each} x {steps} "
+                                             f"decode steps or rounds")
+        out["launches"]["k1"] += sum(c["k1"] for c in cs)
+        out["launches"]["k4"] += sum(c["k4"] for c in cs)
+        check(len({c["pid"] for c in cs}) == TP_N, f"phase 4n {label}: ranks' pids {[c['pid'] for c in cs]}")
+        return res, cs
+
+    def close(eng):
+        ps = eng.tp_pids
+        eng.shutdown()
+        pids.extend(ps)
+        check(all(gone(p) for p in ps), f"phase 4n: rank processes {ps} outlived their engine's shutdown")
+
+    # ---- the tp=1 reference: the first decode step's logits on phase 4's weights (seed 0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    one = SimpleNamespace(params=params, _mcfg=cfg, _tpc=None, _group=None, device=dev, kv_dtype=cfg.dtype,
+                          prefill_buckets=(64, 128, 256, 512, 1024, 2048))
+    ref_logits = rank_decode_logits(one, short)
+    del params, one
+    torch.cuda.empty_cache()
+    mem0 = card_used(torch)
+
+    # ---- (a) serving: a paged engine, then a slot engine, each from seed 0 on both ranks
+    runs = {}
+    for layout in ("paged", "slots"):
+        t0 = time.perf_counter()
+        eng = LLMEngine(cfg, mesh=mesh, kv_layout=layout, seed=0, **ek)
+        init_s = time.perf_counter() - t0
+        check(eng.graph_capture_s == 0 and eng._decode.captures == 0 and eng.tp == TP_N,
+              f"phase 4n (a) {layout}: a tp={eng.tp} engine captured {eng._decode.captures} graphs")
+        check(eng.kv_cache_stats()["attn_kernel"] == ("cuda" if layout == "paged" else "torch"),
+              f"phase 4n (a) {layout}: attention {eng.kv_cache_stats()['attn_kernel']}")
+        eng.tp_call(TP_PROBES, "rank_memory", True)
+        op0 = sum(eng._group.op_s.values())
+        run, cs = counted(eng, f"(a) {layout}", lambda: serve_engine(
+            torch, eng, prompts, f"phase 4n (a) tp=2 {layout}", card, k4_per_step=L if layout == "paged" else 0),
+            L if layout == "paged" else 0)
+        run["coll_ms"] = (sum(eng._group.op_s.values()) - op0) * 1e3
+        # decode-only steps (paged), timed: the step computes all 8 lanes whatever their occupancy, so
+        # one short prompt admitted keeps it decode-only without a second wave of long prefills
+        run["step_ms"] = run["step_coll_ms"] = float("nan")
+        if layout == "paged":
+            eng.add_request(short[0], SamplingParams(max_tokens=TP_DECODE_STEPS + 4))
+            while eng.num_waiting:
+                eng.step()
+            op1, steps0 = sum(eng._group.op_s.values()), eng.decode_steps
+            t0 = time.perf_counter()
+            for _ in range(TP_DECODE_STEPS):
+                eng.step()
+            run["step_ms"] = (time.perf_counter() - t0) * 1e3 / (eng.decode_steps - steps0)
+            run["step_coll_ms"] = (sum(eng._group.op_s.values()) - op1) * 1e3 / (eng.decode_steps - steps0)
+            while eng.has_unfinished():
+                eng.step()
+        run["wire"] = eng.tp_wire_step_bytes
+        run["mem"] = eng.tp_call(TP_PROBES, "rank_memory")
+        run["init_s"] = init_s
+        run["stages"] = eng._ranks.start_stages
+        same = sum(x == y for s1, s2 in zip(run["tokens"], serve_run["tokens"]) for x, y in zip(s1, s2))
+        firsts = sum(s1[0] == s2[0] for s1, s2 in zip(run["tokens"], serve_run["tokens"]))
+        run["same"], run["firsts"] = same, firsts
+        print(f"phase 4n (a) tp=2 {layout} (both ranks on the card, gloo, no graph): init {init_s:.2f} s (rank 1's "
+              f"start-up stages, s: {run['stages'][0]}), prefill "
+              f"{run['prefill_ms']:.2f} ms over {run['prefill_forwards']} forwards, decode {run['decode_ms']:.3f} ms/step, "
+              f"{run['tok_s']:.2f} generated tok/s; decode-only {run['step_ms']:.3f} ms/step of which the collectives "
+              f"(rank 0's host time in its group ops) {run['step_coll_ms']:.3f} ms; collectives over the whole "
+              f"generate {run['coll_ms']:.1f} ms; wire bytes a decode step {run['wire']:.0f}; each rank's peak memory "
+              f"{[m['peak'] for m in run['mem']]} bytes; K1 {[c['k1'] for c in cs]}, "
+              f"K4 {[c['k4'] for c in cs]} by rank; tokens equal to phase 4's tp=1 streams {same} of {32 * n}, first "
+              f"tokens {firsts} of {n} {card}")
+        if layout == "paged":
+            # (a) logits: the first decode step against tp=1's, and the int8 collective's drift
+            lg = eng.tp_call(TP_PROBES, "rank_decode_logits", short)
+            lq = eng.tp_call(TP_PROBES, "rank_decode_logits", short, "int8")
+            check(all(torch.equal(x, lg[0]) for x in lg) and all(torch.equal(x, lq[0]) for x in lq),
+                  "phase 4n (a): the ranks' gathered logits differ")
+            d_tp = (lg[0] - ref_logits).abs().max().item()
+            top = (lg[0].argmax(-1) == ref_logits.argmax(-1)).sum().item()
+            lp, lpq = torch.log_softmax(lg[0], -1), torch.log_softmax(lq[0], -1)
+            am = lg[0].argmax(-1, keepdim=True)
+            drift = (lp.gather(1, am) - lpq.gather(1, am)).abs().max().item()
+            run.update(logit_err=d_tp, top1=top, drift=drift, logit_scale=ref_logits.abs().max().item())
+            fp_step = lg[0]  # the fp sums' first decode step: (a) int8's reference
+            check(d_tp <= TP_LOGIT_TOL, f"phase 4n (a): the first decode step's logits at tp=2 differ from tp=1's by "
+                                        f"{d_tp:.4g} (tol {TP_LOGIT_TOL})")
+            check(0.0 < drift < TP_DRIFT_TOL, f"phase 4n (a): int8 collective logprob drift {drift:.4g} not in "
+                                              f"(0, {TP_DRIFT_TOL})")
+            print(f"phase 4n (a) logits: one decode step after the 8 prompts' first {TP_LOGIT_PREFIX} tokens, tp=2 vs "
+                  f"tp=1 max |d| {d_tp:.4g} (tol {TP_LOGIT_TOL}; logits up to {run['logit_scale']:.3g}), argmax equal "
+                  f"in {top} of {n}; int8 collective vs fp: logprob drift at the argmax {drift:.4g} (bound "
+                  f"{TP_DRIFT_TOL}) {card}")
+            # (c) K1 and K4 held in rank 1 at its shapes
+            held = eng.tp_call(TP_PROBES, "rank_hold_kernels", lens)[1]
+            k1c, k4c = held["k1"], held["k4"]
+            check(k1c["ok"], f"phase 4n (c): K1 in rank 1 at {k1c['shape']}: |do| {k1c['err_o']:.3g} |dlse| "
+                             f"{k1c['err_lse']:.3g}")
+            check(k4c["ok"], f"phase 4n (c): K4 in rank 1 at {k4c['shape']}: max |d| {k4c['err']:.3g} rel "
+                             f"{k4c['rel']:.3g}")
+            out["held"] = held
+            print(f"phase 4n (c) rank 1's kernels at its shapes, held against their plain versions there: K1 "
+                  f"{k1c['shape']}: |do| {k1c['err_o']:.3g} |dlse| {k1c['err_lse']:.3g}, {k1c['ms']:.4f} ms (plain "
+                  f"{k1c['plain_ms']:.4f}, SDPA {k1c['sdpa_ms']:.4f}, bound {k1c['bound_ms']:.4f} {k1c['bound_by']}); K4 "
+                  f"{k4c['shape']}: max |d| {k4c['err']:.3g} (rel {k4c['rel']:.3g}), {k4c['ms']:.4f} ms (plain "
+                  f"{k4c['plain_ms']:.4f}, bound {k4c['bound_ms']:.4f} {k4c['bound_by']}) {card}")
+            # (e)'s reference: the shortest prompt alone on this engine
+            run["alone"] = eng.generate(first, SamplingParams(max_tokens=TP_SERVE_TOKENS)).token_ids
+        runs[layout] = run
+        close(eng)
+        del eng
+        torch.cuda.empty_cache()
+    out["a"] = runs
+
+    # ---- (a) int8: a tp_collective="int8" engine on the same weights, where every per-layer sum is nonzero; its
+    # first fused decode step's logits, tapped at the sampler on each rank, against the fp sums' (lg above)
+    eng = LLMEngine(cfg, mesh=mesh, kv_layout="paged", seed=0, tp_collective="int8", **ek)
+
+    def int8_run():
+        eng.tp_call(TP_PROBES, "rank_tap_sample", True)
+        ids = [eng.add_request(p, SamplingParams(max_tokens=TP_INT8_TOKENS)) for p in short]
+        eng.step()  # admits the 8 short prompts and runs the first fused step
+        check(eng.num_waiting == 0, f"phase 4n (a) int8: {eng.num_waiting} prompts not admitted in one step")
+        slot_of = {st.request_id: st.slot for st in eng._slots if st is not None}
+        taps = eng.tp_call(TP_PROBES, "rank_tap_sample", False)
+        while eng.has_unfinished():
+            eng.step()
+        return [slot_of[i] for i in ids], taps
+
+    (rows, taps), cs = counted(eng, "(a) int8", int8_run, L)
+    wire8 = eng.tp_wire_step_bytes
+    close(eng)
+    del eng
+    torch.cuda.empty_cache()
+    check(taps[0] is not None and all(torch.equal(x, taps[0]) for x in taps),
+          "phase 4n (a) int8: no fused step tapped, or the ranks' gathered logits differ")
+    l8 = taps[0][rows]
+    am = fp_step.argmax(-1, keepdim=True)
+    drift8 = (torch.log_softmax(fp_step, -1).gather(1, am) - torch.log_softmax(l8, -1).gather(1, am)).abs().max().item()
+    d8 = (l8 - fp_step).abs().max().item()
+    top8 = (l8.argmax(-1) == fp_step.argmax(-1)).sum().item()
+    check(0.0 < drift8 < TP_DRIFT_TOL, f"phase 4n (a) int8: the int8 engine's first fused step's logprob drift "
+                                       f"{drift8:.4g} from the fp sums' not in (0, {TP_DRIFT_TOL})")
+    check(wire8 < runs["paged"]["wire"], f"phase 4n (a) int8: wire bytes a step {wire8} not under fp's "
+                                         f"{runs['paged']['wire']}")
+    out["a_int8"] = dict(drift=drift8, logit_err=d8, top1=top8, wire=wire8, k1=[c["k1"] for c in cs],
+                         k4=[c["k4"] for c in cs])
+    print(f"phase 4n (a) int8: a tp=2 paged engine with tp_collective='int8' on the same weights, the 8 prompts' first "
+          f"{TP_LOGIT_PREFIX} tokens for {TP_INT8_TOKENS} tokens each: its first fused decode step (tapped at the "
+          f"sampler, both ranks equal) vs the fp sums: logprob drift at the fp argmax {drift8:.4g} (bound "
+          f"{TP_DRIFT_TOL}), max |d logit| {d8:.4g}, argmax equal in {top8} of {n}; wire bytes a decode step {wire8} vs "
+          f"fp {runs['paged']['wire']} ({wire8 / runs['paged']['wire']:.3f}x); K1 {out['a_int8']['k1']}, K4 "
+          f"{out['a_int8']['k4']} by rank {card}")
+
+    # ---- (d) on (a)'s weights: n-gram spec at tp=2 against (a)'s plain paged engine, gated as phase 4d is (first
+    # tokens equal, acceptance > 0); how often the streams part is set beside phase 4d's tp=1 spec vs phase 4
+    eng = LLMEngine(cfg, mesh=mesh, kv_layout="paged", seed=0, speculative=SpecConfig(k=SPEC_K), **ek)
+    outs, cs = counted(eng, "(d) random", lambda: eng.generate(prompts, SamplingParams(max_tokens=32)), L)
+    st = eng.spec_stats()
+    close(eng)
+    del eng
+    torch.cuda.empty_cache()
+    toks, plain = [o.token_ids for o in outs], runs["paged"]["tokens"]
+    firsts = sum(a[0] == b[0] for a, b in zip(toks, plain))
+    check(all(len(t) == 32 for t in toks) and firsts == n and st["accepted"] > 0,
+          f"phase 4n (d) random weights: lengths {[len(t) for t in toks]}, first tokens equal the plain tp=2 engine's "
+          f"in {firsts} of {n}, accepted {st['accepted']}")
+    split2 = sum(a != b for a, b in zip(toks, plain))
+    same2 = sum(x == z for a, b in zip(toks, plain) for x, z in zip(a, b))
+    split1 = sum(a != b for a, b in zip(spec1_tokens, serve_run["tokens"]))
+    same1 = sum(x == z for a, b in zip(spec1_tokens, serve_run["tokens"]) for x, z in zip(a, b))
+    out["d_random"] = dict(split=split2, same=same2, split_tp1=split1, same_tp1=same1, stats=st,
+                           k4=[c["k4"] for c in cs])
+    print(f"phase 4n (d) n-gram spec (k={SPEC_K}) at tp=2, paged, on (a)'s random bf16 weights: first tokens equal the "
+          f"plain tp=2 engine's in {n} of {n}, acceptance {st['acceptance_rate']:.3f} ({st['accepted']} of "
+          f"{st['proposed']}), {st['rounds']} rounds; streams parting from the plain tp=2 engine's {split2} of {n} "
+          f"({same2} of {32 * n} tokens equal); the tp=1 witness, phase 4d's paged n-gram spec vs phase 4's plain "
+          f"engine on the same weights and prompts: {split1} of {n} part ({same1} of {32 * n} tokens equal); K4 "
+          f"{out['d_random']['k4']} by rank {card}")
+
+    # ---- (b) the decisive workload: tp=1, tp=2 fp and tp=2 int8 on the successor params
+    cfg_s = dataclasses.replace(cfg, num_layers=TP_SUCC_LAYERS)
+    succ = successor_params(torch, cfg_s, dev)
+    sp = [[(i + j) % TP_SUCC_PERIOD for j in range(3 + i)] for i in range(8)]
+    want = [[(p[-1] + 1 + j) % TP_SUCC_PERIOD for j in range(32)] for p in sp]
+    eng = LLMEngine(cfg_s, succ, kv_layout="paged", device=dev, **ek)
+    base = [o.token_ids for o in eng.generate(sp, SamplingParams(max_tokens=32))]
+    del eng
+    check(base == want, "phase 4n (b): the tp=1 successor streams do not follow the map")
+    dec = {}
+    for coll in ("fp", "int8", "spec"):
+        # (d) rides here too: n-gram speculation at tp=2 (fp sums) on the decisive workload, where the k+1-token
+        # verify and the 1-token step must pick the same tokens, so whole streams are gated (on (a)'s random
+        # weights, above, only the first tokens are: near-ties part the streams there, as at tp=1 in phase 4d)
+        kw = dict(speculative=SpecConfig(k=SPEC_K)) if coll == "spec" else dict(tp_collective=coll)
+        eng = LLMEngine(cfg_s, succ, mesh=mesh, kv_layout="paged", **kw, **ek)
+        outs, cs = counted(eng, f"(b) {coll}", lambda: eng.generate(sp, SamplingParams(max_tokens=32)),
+                           TP_SUCC_LAYERS)
+        dec[coll] = dict(tokens=[o.token_ids for o in outs], wire=eng.tp_wire_step_bytes, k4=[c["k4"] for c in cs],
+                         stats=eng.spec_stats())
+        close(eng)
+        del eng
+        torch.cuda.empty_cache()
+    del succ
+    st = dec["spec"]["stats"]
+    check(dec["spec"]["tokens"] == dec["fp"]["tokens"] and st["accepted"] > 0,
+          f"phase 4n (d): n-gram spec at tp=2 differs from the plain tp=2 engine in "
+          f"{sum(a != b for a, b in zip(dec['spec']['tokens'], dec['fp']['tokens']))} of {len(sp)} streams "
+          f"(accepted {st['accepted']})")
+    print(f"phase 4n (d) n-gram spec (k={SPEC_K}) at tp=2, paged, on the decisive workload: {len(sp)} of {len(sp)} "
+          f"greedy streams equal the plain tp=2 engine's; {st['rounds']} rounds, acceptance {st['acceptance_rate']:.3f}, "
+          f"{st['mean_tokens_per_round']:.2f} tokens a lane-round, K4 {dec['spec']['k4']} by rank (= {TP_SUCC_LAYERS} x "
+          f"rounds) "
+          f"{card}")
+    torch.cuda.empty_cache()
+    check(dec["fp"]["tokens"] == base and dec["int8"]["tokens"] == base,
+          f"phase 4n (b): the decisive streams differ: fp {dec['fp']['tokens'] == base}, int8 "
+          f"{dec['int8']['tokens'] == base}")
+    check(dec["int8"]["wire"] < dec["fp"]["wire"], f"phase 4n (b): int8 wire bytes {dec['int8']['wire']} not under "
+                                                   f"fp's {dec['fp']['wire']}")
+    out["b"] = dec
+    print(f"phase 4n (b) decisive workload (the successor map at full width, {TP_SUCC_LAYERS} layers): tp=1, tp=2 fp and "
+          f"tp=2 int8 give 8 of 8 "
+          f"identical greedy streams of 32 tokens; wire bytes a decode step fp {dec['fp']['wire']:.0f}, int8 "
+          f"{dec['int8']['wire']:.0f} ({dec['int8']['wire'] / dec['fp']['wire']:.3f}x; the once-a-step embed sum and "
+          f"logits gather are fp in both; this model's per-layer sums are zeros) {card}")
+
+    # ---- (e) Serve: a TP replica on the one card
+    rtt.init(num_cpus=8)
+    rpids = []
+    try:
+        ekw = dict(SERVE_ENGINE_KWARGS, mesh=mesh)
+        t0 = time.perf_counter()
+        h = serve.run(build_llm_deployment(LLMConfig(model_config=cfg, engine_kwargs=ekw, tensor_parallel_size=TP_N,
+                                                     num_tpus_per_replica=1), _cls={LLMServer: CardTpServer}),
+                      name="llm_tp", blocking_timeout_s=SERVE_TIMEOUT_S)
+        up = time.perf_counter() - t0
+        rpids = h.tp_pids.remote().result(timeout_s=SERVE_TIMEOUT_S)
+        o = h.generate.remote(first, {"max_tokens": TP_SERVE_TOKENS}).result(timeout_s=SERVE_TIMEOUT_S)
+        check(o["token_ids"] == runs["paged"]["alone"], "phase 4n (e): the TP replica's tokens differ from (a)'s "
+                                                        "paged engine's on the same prompt")
+        check(len(rpids) == TP_N - 1 and all(process_runs(p) for p in rpids),
+              f"phase 4n (e): the replica's rank pids {rpids}")
+    finally:
+        serve.shutdown()
+        rtt.shutdown()
+    check(all(gone(p) for p in rpids), f"phase 4n (e): rank processes {rpids} outlived serve.shutdown()")
+    back = _wait_mem(torch, mem0, 60.0)
+    check(back is not None, f"phase 4n (e): the card's memory {card_used(torch)} not back to {mem0} after shutdown")
+    print(f"phase 4n (e) Serve TP replica (tensor_parallel_size=2, num_tpus_per_replica=1, one-card mesh): up in "
+          f"{up:.2f} s, the shortest prompt's {TP_SERVE_TOKENS} tokens equal (a)'s; after serve.shutdown() its rank "
+          f"process gone and the "
+          f"card's memory back in {back:.2f} s {card}")
+    for k in ("k1", "k4"):
+        out["held"][k]["launch_note"] = (f"{out['launches'][k]} launches in 2 ranks x (the paged, slot, int8 and "
+                                         f"spec engines on the random weights; the fp, int8 and spec engines on the "
+                                         f"copy model)")
+    check(len(set(pids)) == len(pids) and all(not process_runs(p) for p in pids),
+          f"phase 4n: rank processes left: {[p for p in pids if process_runs(p)]}")
+    print(f"phase 4n: {time.perf_counter() - t_phase:.1f} s {card}")
+    return out
+
+
 REMAT_LOSS_TOL = 1e-3  # step 1's loss under each policy vs nothing_saveable's (bf16 ~10.4; the same forward)
 REMAT_MEM_SLACK = 16 << 20  # peak bytes: the policies' order may tie within this
 # K1's forwards a layer and step under each policy, in the order of their peak memory: the recompute runs K1

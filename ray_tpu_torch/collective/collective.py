@@ -11,9 +11,9 @@ ride the store too; smaller ones ride the actor.
 The result takes the input's flavour: a numpy array for a numpy input,
 a torch tensor on the input's device and of its dtype for a torch input.
 A tensor on the card goes through host memory, as ray_tpu's jax arrays
-do; a bf16 tensor travels as f32 (numpy has no bf16). Device
-collectives over a shared mesh (ray_tpu's backend ``"xla"``) are not
-ported (``types.py``).
+do; a bf16 tensor travels as f32 (numpy has no bf16). A group of ray_tpu's
+backend ``"xla"`` takes the same path, as in ray_tpu; the device
+collectives over tensors one process holds are ``ici.py``.
 """
 
 from __future__ import annotations

@@ -7,8 +7,6 @@ from enum import Enum
 
 import numpy as np
 
-from ray_tpu_torch.core.context import MESH_ITEM
-
 
 class Backend(str, Enum):
     # rendezvous-actor backend: tensors exchanged through the object store
@@ -16,7 +14,10 @@ class Backend(str, Enum):
     OBJECT_STORE = "object_store"
     # alias kept for API compatibility with code written for gloo
     GLOO = "gloo"
-    # ray_tpu's backend for device arrays over a shared mesh (collective/ici.py)
+    # ray_tpu's backend for device arrays over a shared mesh: a group of it
+    # takes the object-store path, as in ray_tpu, and results come back in
+    # the input's flavour (a torch tensor on its device); the in-process
+    # device collectives are collective/ici.py
     XLA = "xla"
 
     @staticmethod
@@ -24,12 +25,8 @@ class Backend(str, Enum):
         b = Backend(b) if not isinstance(b, Backend) else b
         if b == Backend.GLOO:
             return Backend.OBJECT_STORE
-        if b == Backend.OBJECT_STORE:
+        if b in (Backend.OBJECT_STORE, Backend.XLA):
             return b
-        if b == Backend.XLA:
-            raise NotImplementedError(
-                "the collective backend 'xla' (device collectives over a shared mesh, ray_tpu's collective/ici.py) "
-                f"is not ported to ray_tpu_torch yet (ROADMAP.md, {MESH_ITEM})")
         raise ValueError(f"unsupported backend {b}")
 
 

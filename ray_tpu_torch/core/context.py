@@ -13,7 +13,7 @@ from __future__ import annotations
 # ROADMAP.md queue 1 items that the runtime's remaining paths name
 GRPC_ITEM = "queue 1, serve gRPC ingress"  # serve.start(grpc_port=...), serve/_grpc_proxy.py
 LINT_ITEM = "queue 1, lint"  # rt lint, ray_tpu/lint/
-MESH_ITEM = "queue 1, multi-device axes"  # meshes, shardings, device collectives (collective/ici.py)
+MESH_ITEM = "queue 1, multi-device axes"  # meshes and shardings in training, a serving mesh with other axes than tp
 
 _client = None
 

@@ -29,6 +29,7 @@ past ``_SPIN_ABORT`` times the sleeping median ends the probe at once:
 where spinners starve the producers, each polled message costs
 milliseconds. An idle pipeline's waits are
 the producer's and do not shorten, so its readers sleep.
+``reader_modes()`` lists this process's readers and how each waits.
 
 Backpressure is credit-based: the writer starts with ``nslots`` credits
 and waits in ``send`` while the ring is full.
@@ -67,6 +68,7 @@ import socket
 import struct
 import threading
 import time
+import weakref
 
 import torch
 
@@ -78,6 +80,7 @@ _PROBE, _KEEP = 8, 512  # messages a reader measures each way, then keeps the fa
 _SPIN_GAIN = 0.8  # polling is kept when its median wait is under this share of the sleeping one
 _SPIN_ABORT = 4.0  # a polled wait past this many sleeping medians ends the probe: keep sleeping
 _POLL_S = 0.5  # the slice of an unbounded wait (closing ends it within one)
+_READERS: "weakref.WeakSet" = weakref.WeakSet()  # this process's live readers (reader_modes)
 SETUP_TIMEOUT_S = 60.0  # accept and connect
 
 
@@ -379,6 +382,7 @@ class ChannelReader(_Endpoint):
         self._seq = 0
         self._spin = False  # poll the socket without sleeping (chosen by measuring: _account)
         self._phase, self._left, self._probe = 0, _PROBE, ([], [])
+        _READERS.add(self)
         self._bind_listen()
         if eager:
             self.finish(connect_timeout)
@@ -425,6 +429,14 @@ class ChannelReader(_Endpoint):
     def close(self):
         super().close()
         unlink_ring(self.name)
+
+
+def reader_modes() -> list:
+    """This process's live readers: name, how each waits now ("poll" or
+    "block"), its measuring phase (0/1: probing asleep/polling, 2: keeping),
+    and messages received."""
+    return [dict(name=r.name, mode="poll" if r._spin else "block", phase=r._phase, received=r._seq)
+            for r in list(_READERS)]
 
 
 class _WrappedError:

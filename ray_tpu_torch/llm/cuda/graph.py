@@ -32,6 +32,11 @@ layout and on speculation:
   graph. A model drafter's weights and cache are read where they are, so
   the address check covers them too.
 
+On a tensor-parallel engine's ranks (``capture=False``) the step runs
+eagerly on the card too: its per-layer sums are gloo collectives
+(``parallel/ranks.py``), which a CUDA graph cannot capture, so
+``captures`` stays 0 and every K4 launch counts as it runs.
+
 Capture happens once, when the ``FusedDecode`` is built (``captures``
 counts it; the telemetry's recompile sentinel reads it): a warm-up step
 first runs eagerly on a side stream, on copies of the lanes (and a copy
@@ -212,11 +217,12 @@ class FusedDecode:
     """One engine's decode step or speculative round: ``step`` (one of
     the step classes above) over ``kv`` (the pool or the slot cache) and
     ``lanes`` (a dict with exactly ``step.LANES``, all on one device). On a
-    CUDA device the step is captured here; ``capture_s`` is what that
-    took (warm-up included) and ``captures`` how many captures there have
-    been (1 after this one)."""
+    CUDA device the step is captured here (unless ``capture=False``: then
+    it runs eagerly there too); ``capture_s`` is what that took (warm-up
+    included) and ``captures`` how many captures there have been (1 after
+    this one)."""
 
-    def __init__(self, step, params, kv, lanes: dict):
+    def __init__(self, step, params, kv, lanes: dict, capture: bool = True):
         if set(lanes) != set(step.LANES):
             raise ValueError(f"lanes must be exactly {step.LANES}, got {sorted(lanes)}")
         self._step = step
@@ -228,7 +234,7 @@ class FusedDecode:
         self.replays = 0
         self.k4_per_replay = 0
         self._graph = None
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and capture:
             self._capture()
 
     def _addresses(self, params, kv):
@@ -296,4 +302,4 @@ class FusedDecode:
         outs, done = handle
         if done is not None:
             done.synchronize()
-        return tuple(o.numpy().copy() for o in outs)
+        return tuple(o.cpu().numpy().copy() for o in outs)

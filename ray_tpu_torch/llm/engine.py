@@ -65,6 +65,26 @@ on append, dequantized in attention, ``kv_quant.py``):
   the local cache and republished. Freshly cached prefixes are published
   at the step tail, outside the lock.
 
+- tensor parallelism (``mesh=create_mesh(tp=n, devices=[...])``,
+  ``parallel/mesh.py``): the engine is rank 0 and starts n-1 rank
+  processes (``parallel/ranks.py``), each holding its shard of the weights
+  (heads, kv heads, MLP columns and vocab split, ``weights.shard_params``)
+  and its kv heads of the cache or pool (the int8 scale lanes split the
+  same way). Rank 0 keeps the scheduler; every device operation (prefill,
+  insert, extend, the lane and table deltas, the decode step or spec
+  round, the sync loop's step) is an ``_op_*`` method that rank 0 first
+  sends to the other ranks, with its small host arguments, and then runs
+  itself, so the per-layer sums (``tp_collective``: "fp", the exact sum,
+  or "int8", the quantized all-reduce; ``model_runner``) run in lockstep.
+  Every rank samples the gathered logits from the same keys; only rank 0
+  reads the tokens. No CUDA graph at tp > 1: gloo collectives cannot be
+  captured, so the device-resident step runs the same functions eagerly
+  on each rank (``FusedDecode(capture=False)``; the recompile sentinel's
+  capture count stays 0). K1 and K4 run on each rank's heads. The ranks
+  die with the engine (``shutdown``, its collection, or the process's
+  death). Handoff, migration, suspend and the KV plane are not ported on
+  a tensor-parallel engine, nor is a mesh with axes besides tp.
+
 Features of ray_tpu's engine that this port does not have yet raise
 NotImplementedError naming their ROADMAP.md item.
 """
@@ -95,6 +115,9 @@ from ray_tpu_torch.llm.kv_quant import bytes_per_token, is_int8, normalize_cache
 from ray_tpu_torch.llm.kvplane.index import boundary_keys, prefix_key, token_bytes
 from ray_tpu_torch.llm.sampling import SamplingParams, sample
 from ray_tpu_torch.models.llama import init_params
+from ray_tpu_torch.parallel.mesh import _indexed, axis_size, is_tp_only
+from ray_tpu_torch.parallel.ranks import Ranks, _recv, close_ranks
+from ray_tpu_torch.weights import init_params_shard, shard_params
 
 
 @dataclass
@@ -182,11 +205,20 @@ class PrefixCache:
     under a byte budget. A hit is verified token for token against the
     group's one stored token tuple. ``evict_hook`` (set by the KV plane
     client) hears each evicted group's keys, so a published copy
-    unregisters and frees before the bytes die."""
+    unregisters and frees before the bytes die.
 
-    def __init__(self, block: int = 64, max_bytes: int = 256 << 20):
+    On a tensor-parallel engine each rank holds its kv heads of a group:
+    ``shards`` (the tp size) scales the byte accounting to the whole
+    group's bytes, as ray_tpu counts a sharded array's, and ``last_gid`` is
+    the group a ``store`` just made (rank 0 tells the other ranks to keep
+    their shard of it; every stored K tensor carries its group id as
+    ``prefix_gid``)."""
+
+    def __init__(self, block: int = 64, max_bytes: int = 256 << 20, shards: int = 1):
         self.block = block
         self.max_bytes = max_bytes
+        self.shards = int(shards)
+        self.last_gid = None
         # called with an evicted group's key list; None = a local-only cache
         self.evict_hook = None
         # store generation: bumped whenever new boundary keys mint, so a
@@ -248,7 +280,7 @@ class PrefixCache:
         if not new_keys:
             return None
         pad = _bucket(n_max, buckets)
-        nbytes = 2 * ks[:, :pad].numel() * ks.element_size()
+        nbytes = 2 * ks[:, :pad].numel() * ks.element_size() * self.shards
         if nbytes > self.max_bytes:
             return None
         while self._bytes + nbytes > self.max_bytes and self._order:
@@ -257,6 +289,8 @@ class PrefixCache:
         v = vs[:, :pad].clone(memory_format=torch.contiguous_format)
         gid = self._next_gid
         self._next_gid += 1
+        k.prefix_gid = gid
+        self.last_gid = gid
         self._groups[gid] = (k, v, nbytes, [key for key, _ in new_keys], ids)
         for key, n in new_keys:
             self._keys[key] = (gid, n)
@@ -357,6 +391,11 @@ class LLMEngine:
     ``kvplane.KVPlaneClient``, the prefix cache's cluster tier (needs
     ``enable_prefix_caching``); ``prefix_fetch_deadline_s`` bounds how long
     an admission waits for a remote fetch before a local prefill.
+    ``mesh``: a pure tp mesh (``parallel.mesh.create_mesh(tp=n, devices=...)``)
+    makes this engine rank 0 of n rank processes (module docstring; its
+    devices place the ranks, so ``device`` stays None), ``tp_collective``
+    the per-layer sum: "fp" or "int8" (device-resident only). ``shutdown``
+    stops the ranks.
     """
 
     def __init__(
@@ -386,6 +425,7 @@ class LLMEngine:
         telemetry: bool = True,
         telemetry_tags: dict | None = None,
         device=None,
+        _tp_group=None,
     ):
         if kv_layout not in ("slots", "paged"):
             raise ValueError(f"kv_layout must be 'slots' or 'paged', got {kv_layout!r}")
@@ -394,15 +434,16 @@ class LLMEngine:
                 "speculative decoding runs on the device-resident loop only "
                 "(the plain loop is kept untouched as its equivalence oracle)"
             )
-        if mesh is not None or tp_collective != "fp":
-            _not_ported("tensor-parallel meshes", "queue 1, multi-device axes")
+        self._ranks = None
+        self._check_mesh(config, mesh, tp_collective, device_resident, speculative, kv_plane, device)
         if kv_plane is not None and not enable_prefix_caching:
             raise ValueError("kv_plane is the prefix cache's cluster tier and needs enable_prefix_caching=True "
                              "(remote hits re-store locally)")
         self.kv_dtype = normalize_cache_dtype(cache_dtype) if cache_dtype is not None else config.dtype
         self.kv_quant = is_int8(self.kv_dtype)
 
-        self.device = resolve_device(device)
+        rank = 0 if _tp_group is None else _tp_group.rank
+        self.device = mesh.device_of(rank) if mesh is not None else resolve_device(device)
         paged = kv_layout == "paged"
         # the slot layout has no page gather: plain PyTorch on both devices (ray_tpu's "xla")
         self.attn_kernel = "cuda" if paged and self.device.type == "cuda" else "torch"
@@ -424,13 +465,43 @@ class LLMEngine:
             prefill_buckets = tuple(buckets)
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self._batch_prefill = bool(batch_prefill)
-        if params is None:
+        # tensor parallelism: this rank's model view and its collectives;
+        # rank 0 starts the other ranks here (the twins' kwargs: no
+        # scheduler-side features, weights from the seed or streamed)
+        self._group = _tp_group
+        self._mcfg, self._tpc = config, None
+        if self.tp > 1:
+            if _tp_group is None:
+                twin = dict(max_num_seqs=max_num_seqs, max_seq_len=max_seq_len, prefill_buckets=prefill_buckets,
+                            seed=seed, cache_dtype=cache_dtype, mesh=mesh, tp_collective=tp_collective,
+                            enable_prefix_caching=False, kv_layout=kv_layout, num_pages=num_pages,
+                            page_size=page_size, device_resident=device_resident, batch_prefill=batch_prefill,
+                            speculative=speculative, telemetry=False,
+                            params=None if params is None else "stream")
+                self._ranks = Ranks([mesh.device_of(r) for r in range(mesh.size)], (__name__, "_rank_engine"),
+                                    args=(config,), kwargs=twin)
+                self._finalizer = weakref.finalize(self, close_ranks, self._ranks)
+                self._group = self._ranks.group
+                if params is not None:
+                    _send_shards(self._ranks, params, config, mesh)
+            # prefill, extend and the sync loop sum exactly, as ray_tpu's GSPMD
+            # programs do; tp_collective is the fused step's and the verify's
+            self._mcfg, self._tpc = mr._tp_of(config, mesh, "fp", self._group)
+            if params is None:
+                params = init_params_shard(config, torch.Generator(device=self.device).manual_seed(seed), mesh, rank)
+            elif _tp_group is None:
+                params = _tree_to(shard_params(params, config, mesh, 0), self.device)
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(config, gen)
         self.params = params
         self._prefix_cache = (
-            PrefixCache(block=prefix_block, max_bytes=prefix_cache_bytes) if enable_prefix_caching else None
+            PrefixCache(block=prefix_block, max_bytes=prefix_cache_bytes, shards=self.tp)
+            if enable_prefix_caching else None
         )
+        # prefix groups rank 0's cache no longer holds (nor any waiting
+        # request): the other ranks drop their shards at the next operation
+        self._tp_dead_gids: list = []
         # the cluster KV plane (llm/kvplane/): publish stored prefixes, fetch
         # remote hits, unregister on eviction. The remote tier's counters
         # live here (the PrefixCache keeps the local tier's), the full set
@@ -482,7 +553,7 @@ class LLMEngine:
                 page_size=int(page_size),
                 max_pages_per_seq=max_pg,
                 num_slots=self.max_num_seqs,
-                num_kv_heads=config.num_kv_heads,
+                num_kv_heads=self._mcfg.num_kv_heads,
                 head_dim=config.hd,
                 dtype=self.kv_dtype,
             )
@@ -497,7 +568,7 @@ class LLMEngine:
                 num_layers=config.num_layers,
                 num_slots=B,
                 max_seq_len=self.max_seq_len,
-                num_kv_heads=config.num_kv_heads,
+                num_kv_heads=self._mcfg.num_kv_heads,
                 head_dim=config.hd,
                 dtype=self.kv_dtype,
             ), self.device)
@@ -554,17 +625,19 @@ class LLMEngine:
                 self._dtables, self._dlengths = lanes["tables"], lanes["lengths"]
             self._dtokens, self._dkeys = lanes["tokens"], lanes["keys"]
             self._dtemps, self._dtopk, self._dtopp = lanes["temps"], lanes["top_k"], lanes["top_p"]
+            tp_kw = dict(mesh=mesh, tp_collective=tp_collective, kv_quant=self.kv_quant, group=self._group)
             if speculative is not None:
                 step = self._init_spec(speculative, lanes)
             elif paged:
-                self._fused_attn, self._fused_append = mr.make_fused_paged_fns(config, self.attn_kernel)
+                self._fused_attn, self._fused_append = mr.make_fused_paged_fns(config, self.attn_kernel, **tp_kw)
                 step = PagedStep(self._fused_attn, self._fused_append)
             else:
                 # the engine is fresh: the capture's warm-up writes position 0 of
                 # every slot, which each admission's insert_sequence overwrites
-                self._fused_step = mr.make_fused_fns(config)
+                self._fused_step = mr.make_fused_fns(config, **tp_kw)
                 step = SlotStep(self._fused_step)
-            self._decode = FusedDecode(step, self.params, self.kv, lanes)
+            # no capture at tp > 1: the step's gloo collectives cannot be captured
+            self._decode = FusedDecode(step, self.params, self.kv, lanes, capture=self.tp == 1)
             self.graph_capture_s = self._decode.capture_s
         # serving telemetry (llm/telemetry.py): flight recorder, live SLO
         # metrics, request-lifecycle tracing, from host state only;
@@ -572,11 +645,219 @@ class LLMEngine:
         self._last_spec_drain = None
         self._step_emitted = 0
         self._tel = None
+        # the wire bytes of the last decode step's collectives (rank 0's count)
+        self.tp_wire_step_bytes = 0.0
         if telemetry:
             from ray_tpu_torch.llm.telemetry import EngineTelemetry
 
             self._tel = EngineTelemetry(self, telemetry_tags)
             self._tel.register_fused_entries()
+        if self._ranks is not None:
+            self._ranks.wait_ready()
+
+    # ------------------------------------------------- tensor parallelism
+    def _check_mesh(self, config, mesh, tp_collective, device_resident, speculative, kv_plane, device):
+        """ray_tpu's mesh checks and messages, before any rank starts:
+        ``self.mesh``, ``self.tp``, ``self.tp_collective`` and ``_tp_fused``
+        (a pure tp>=2 mesh on the device-resident loop)."""
+        if tp_collective not in ("fp", "int8"):
+            raise ValueError(f"tp_collective must be 'fp' or 'int8', got {tp_collective!r}")
+        self.mesh = mesh
+        self.tp_collective = tp_collective
+        self.tp = axis_size(mesh, "tp") if mesh is not None else 1
+        if mesh is not None:
+            for dim, name, what in (
+                (config.num_kv_heads, "num_kv_heads", "the KV cache; pick tp from the divisors of num_kv_heads"),
+                (config.num_heads, "num_heads", "the attention projections (wq/wo split by head)"),
+                (config.intermediate_size, "intermediate_size",
+                 "the MLP (w_gate/w_up/w_down split on the hidden dim); pad it to a multiple of tp"),
+                (config.vocab_size, "vocab_size",
+                 "the embed/unembed tables and the logits gather; pad the vocab to a multiple of tp"),
+            ):
+                if dim % self.tp:
+                    raise ValueError(f"{name} ({dim}) must divide by tp ({self.tp}) to shard {what}")
+        self._tp_fused = mesh is not None and is_tp_only(mesh) and self.tp > 1 and bool(device_resident)
+        if tp_collective == "int8" and not self._tp_fused:
+            raise ValueError(
+                "tp_collective='int8' quantizes the explicit per-layer all-reduce, which only exists on the "
+                "device-resident fused path over a pure tp>=2 mesh (got mesh=%s, device_resident=%s)"
+                % (getattr(mesh, "axis_names", None), device_resident))
+        if self._tp_fused and tp_collective == "int8" and config.hidden_size % self.tp:
+            raise ValueError(f"hidden_size ({config.hidden_size}) must divide by tp ({self.tp}) to chunk the int8 "
+                             "quantized all-reduce payload; use tp_collective='fp'")
+        if mesh is None:
+            return
+        if not is_tp_only(mesh):
+            _not_ported(f"a serving mesh with axes {tuple(mesh.axis_names)} (any axis besides tp; ray_tpu runs it "
+                        "through GSPMD)", "queue 1, multi-device axes")
+        if speculative is not None and not self._tp_fused:
+            raise ValueError("speculative decoding over a mesh needs the fused path (a pure tp>=2 mesh); got axes "
+                             f"{tuple(mesh.axis_names)}")
+        if speculative is not None and getattr(speculative, "drafter", None) == "model":
+            raise NotImplementedError(
+                "drafter 'model' does not support tensor-parallel meshes: the draft model's params/KV cache and "
+                "its fused draft_steps chain are not sharded over tp; use the zero-weight drafter='ngram' (its "
+                "proposal lanes are whole on every rank)")
+        if kv_plane is not None:
+            _not_ported("the KV plane on a tensor-parallel engine", "queue 1, multi-device axes")
+        if device is not None and _indexed(torch.device(device)) != mesh.device_of(0):
+            raise ValueError(f"device={device!r} and mesh={mesh!r}: the mesh places the ranks; pass device=None")
+
+    def _no_tp(self, what: str):
+        if self.tp > 1:
+            _not_ported(f"{what} on a tensor-parallel engine", "queue 1, multi-device axes")
+
+    def _do(self, op: str, *args):
+        """One device operation: sent to the other ranks (tp > 1) with its
+        host arguments, then run here; returns this rank's result."""
+        if self._ranks is None:
+            return getattr(self, "_op_" + op)(*args)
+        self._tp_send("_op_" + op, *args)
+        try:
+            return getattr(self, "_op_" + op)(*args)
+        except Exception as exc:
+            self._ranks.failed(exc)  # a dead peer's collective: name the rank
+            raise
+
+    def _tp_send(self, op: str, *args):
+        if self._tp_dead_gids:
+            dead = []
+            while self._tp_dead_gids:  # a finalizer may append meanwhile (any thread)
+                dead.append(self._tp_dead_gids.pop())
+            self._ranks.send("_rop_prefix_drop", dead)
+        self._ranks.send(op, *args)
+
+    def tp_call(self, module: str, name: str, *args) -> list:
+        """``module.name(engine, *args)`` in every rank at once, ``engine``
+        the rank's own (this one in rank 0), and the results in rank order
+        (one at tp = 1). For probes that must run in each rank's process:
+        its launch counts, its memory, its kernels at its shapes, or a
+        forward that holds the group's collectives."""
+        if self._ranks is not None:
+            self._tp_send("_rop_call", module, name, args)
+        mine = self._rop_call(module, name, args)
+        return [mine] + ([] if self._ranks is None else self._ranks.call("_rop_called"))
+
+    def _rop_call(self, module: str, name: str, args):
+        import importlib
+
+        self._called = getattr(importlib.import_module(module), name)(self, *args)
+        return self._called
+
+    def _rop_called(self):
+        out, self._called = self._called, None
+        return out
+
+    @property
+    def tp_pids(self) -> list:
+        """The other ranks' process ids ([] at tp = 1)."""
+        return [] if self._ranks is None else self._ranks.pids
+
+    def shutdown(self) -> None:
+        """Stop the rank processes (tp > 1; nothing else to release). The
+        engine cannot step after it. Idempotent."""
+        if self._ranks is not None:
+            self._finalizer()
+
+    def _op_prefill(self, toks, lens):
+        """A bucket's batched prefill forward; this rank keeps its K/V for
+        the inserts and prefix stores that follow (``_op_end_prefill``)."""
+        dev = self.device
+        logits, ks, vs = mr.prefill(self.params, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+                                    self._mcfg, self._tpc)
+        self._last_prefill = (ks, vs)
+        return logits, ks, vs
+
+    def _op_end_prefill(self):
+        self._last_prefill = None
+
+    def _op_insert_pages(self, row, i: int):
+        ks, vs = self._last_prefill
+        pkv.insert_pages(self.pool, torch.from_numpy(row).to(self.device), ks[:, i], vs[:, i])
+
+    def _op_insert_sequence(self, slot: int, i: int, n: int):
+        ks, vs = self._last_prefill
+        # device writes only (a copy and a length fill), stream-ordered after the step in flight
+        kvc.insert_sequence(self.cache, slot, ks[:, i], vs[:, i], n)
+
+    def _op_hit_paged(self, kv, row, n_p: int, toks, m: int):
+        """A paged prefix hit: insert the prefix's first n_p positions into
+        the row's first pages, then extend the suffix over them."""
+        k_p, v_p, k_sc, v_sc = kv
+        dev = self.device
+        row = torch.from_numpy(row).to(dev)
+        scales = () if k_sc is None else (k_sc[:, :, :n_p], v_sc[:, :, :n_p])
+        pkv.insert_pages(self.pool, row[: n_p // self._pcfg.page_size], k_p[:, :n_p], v_p[:, :n_p], *scales)
+        logits, self.pool = mr.extend_paged(self.params, self.pool, row, n_p, torch.from_numpy(toks).to(dev), m,
+                                            self._mcfg, self._tpc)
+        return logits
+
+    def _op_hit_slots(self, kv, slot: int, n_p: int, toks, m: int):
+        """A slot prefix hit: insert the cached group, then extend the suffix."""
+        k_p, v_p, k_sc, v_sc = kv
+        kvc.insert_sequence(self.cache, slot, k_p, v_p, n_p, k_sc, v_sc)
+        logits, self.cache = mr.extend(self.params, self.cache, slot, torch.from_numpy(toks).to(self.device), m,
+                                       self._mcfg, self._tpc)
+        return logits
+
+    def _op_set_lane(self, slot: int, token: int, key, temp: float, tk: int, tp: float):
+        self._set_lane(self._dtokens, self._dkeys, self._dtemps, self._dtopk, self._dtopp, slot, token, key, temp,
+                       tk, tp)
+
+    def _op_set_table(self, slot: int, row, length: int):
+        row = torch.from_numpy(row)
+        if self.device.type == "cuda":
+            row = row.pin_memory()  # copied without blocking the host
+        self._set_table(self._dtables, self._dlengths, slot, row, length)
+
+    def _op_set_table_cell(self, slot: int, pg_ix: int, page: int):
+        self._set_table_cell(self._dtables, slot, pg_ix, page)
+
+    def _op_set_slot_scalar(self, slot: int, val: int):
+        self._set_slot_scalar(self._dspec_k, slot, val)
+
+    def _op_spec_admit(self, slot: int, row, n: int, k0: int, hist: list):
+        row = torch.from_numpy(row)
+        if self.device.type == "cuda":
+            row = row.pin_memory()  # copied without blocking the host
+        self._set_hist(self._dhist, self._dhist_len, self._dspec_k, slot, row, n, k0)
+        # the drafter caches everything the target has cached: the full
+        # admitted prompt, NOT the fresh token (the first chain input)
+        self._drafter.admit(slot, hist)
+
+    def _op_step(self):
+        """The decode step or spec round (a graph replay at tp = 1 on the card)."""
+        return self._decode.step(self.params, self.kv)
+
+    def _op_sync_decode(self, tokens, tables, lengths, keys, temps, top_k, top_p):
+        """The synchronous loop's step from uploaded lanes: attention then
+        append, and the sample on every rank. Returns (tokens, logprobs,
+        keys) on the device."""
+        dev = self.device
+        tokens = torch.from_numpy(tokens).to(dev)
+        if self.kv_layout == "paged":
+            logits, self.pool, _ = mr.decode_step_paged(self.params, self.pool, torch.from_numpy(tables).to(dev),
+                                                        torch.from_numpy(lengths).to(dev), tokens, self._mcfg,
+                                                        self._tpc)
+        else:
+            logits, self.cache = mr.decode_step(self.params, self.cache, tokens, self._mcfg, self._tpc)
+        return sample(logits, *(torch.from_numpy(a).to(dev) for a in (keys, temps, top_k, top_p)))
+
+    # the other ranks' halves of rank 0's prefix cache: the group's shards by id
+    def _rop_prefix_store(self, gid: int, i: int, pad: int):
+        ks, vs = self._last_prefill
+        self._tp_prefix = getattr(self, "_tp_prefix", {})
+        self._tp_prefix[gid] = tuple(t[:, i, :pad].clone(memory_format=torch.contiguous_format) for t in (ks, vs))
+
+    def _rop_prefix_drop(self, gids: list):
+        for gid in gids:
+            self._tp_prefix.pop(gid, None)
+
+    def _rop_hit_paged(self, gid: int, row, n_p: int, toks, m: int):
+        self._op_hit_paged(self._tp_prefix[gid] + (None, None), row, n_p, toks, m)
+
+    def _rop_hit_slots(self, gid: int, slot: int, n_p: int, toks, m: int):
+        self._op_hit_slots(self._tp_prefix[gid] + (None, None), slot, n_p, toks, m)
 
     def _init_spec(self, spec_cfg, lanes: dict):
         """Speculative decoding state: drafter, adaptive-k controller,
@@ -602,6 +883,8 @@ class LLMEngine:
                                          device=self.device)
         else:
             self._drafter = NGramDrafter(k=k, n=spec_cfg.ngram)
+        if self.mesh is not None and not self._drafter.supports_mesh:
+            raise NotImplementedError(f"drafter '{self._drafter.kind}' does not support tensor-parallel meshes")
         self._drafter.init_slots(B, self.max_seq_len, self.prefill_buckets, self.device)
         self._controller = AdaptiveKController(spec_cfg)
         # token-history lanes: prompt + everything emitted on the device, one
@@ -616,10 +899,12 @@ class LLMEngine:
         self._set_hist, self._set_slot_scalar = specv.set_hist_row, specv.set_slot_scalar
         self._spec_rounds = self._spec_lane_rounds = 0
         self._spec_proposed = self._spec_accepted = self._spec_emitted = 0
+        tp_kw = dict(mesh=self.mesh, tp_collective=self.tp_collective, kv_quant=self.kv_quant, group=self._group)
         if self.kv_layout == "paged":
-            self._verify_attn, self._verify_append = specv.make_spec_verify_paged(self.config, self.attn_kernel)
+            self._verify_attn, self._verify_append = specv.make_spec_verify_paged(self.config, self.attn_kernel,
+                                                                                  **tp_kw)
             return SpecPagedStep(self._drafter, self._verify_attn, self._verify_append)
-        self._verify_step = specv.make_spec_verify_slots(self.config)
+        self._verify_step = specv.make_spec_verify_slots(self.config, **tp_kw)
         # as the slot decode step's: the warm-up's block writes land at and
         # past each fresh slot's length 0, where admissions insert first
         return SpecSlotStep(self._drafter, self._verify_step)
@@ -777,7 +1062,9 @@ class LLMEngine:
         cfg = self.config
         per_tok = bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd, self.kv_dtype)
         with self._lock:
-            allocated = int(sum(t.numel() * t.element_size() for name, t in self.kv.items() if name != "length"))
+            # the whole cache's bytes over every rank's kv heads (ray_tpu's sharded nbytes)
+            allocated = self.tp * int(sum(t.numel() * t.element_size() for name, t in self.kv.items()
+                                          if name != "length"))
             out = {
                 "layout": self.kv_layout,
                 "dtype": self.kv_dtype,
@@ -810,6 +1097,7 @@ class LLMEngine:
         "handoff": its KV block is extracted into contiguous host tensors
         and stashed for ``pop_handoff``, and the slot and pages recycle at
         once. It never decodes."""
+        self._no_tp("prefill-only requests (handoff)")
         with self._lock:
             if request_id is None:
                 request_id = f"req-{self._auto_id}"
@@ -859,6 +1147,7 @@ class LLMEngine:
         """Prefill-only, outside the scheduler: one B = 1 forward of the
         prompt, returned as a handoff payload of host tensors (k/v at the
         prompt's bucket width, n, logits, prompt_token_ids)."""
+        self._no_tp("prefill_remote (handoff)")
         n = len(prompt_token_ids)
         T = _bucket(n, self.prefill_buckets)
         toks = np.zeros((1, T), np.int64)
@@ -881,6 +1170,7 @@ class LLMEngine:
         in place, its first token sampled from the shipped logits, and
         decoding starts without touching the prompt again. A block of
         another cache dtype is requantized on the way in."""
+        self._no_tp("add_prefilled (handoff)")
         params = params or SamplingParams()
         with self._lock:
             if request_id is None:
@@ -928,6 +1218,7 @@ class LLMEngine:
         finished request, a prefill-only one, a streaming one, or a
         WAITING sampled request with generated tokens (its live key
         existed only on a bound lane)."""
+        self._no_tp("checkpoint_request (migration)")
         with self._lock:
             return self._checkpoint_locked(request_id)
 
@@ -1032,6 +1323,7 @@ class LLMEngine:
         rebinds the lane from the checkpoint and emits NOTHING. A COLD one
         re-admits prompt + generated like a recompute preemption. Raises
         MigrationError when the state does not fit this engine's geometry."""
+        self._no_tp("restore_request (migration)")
         if not isinstance(state, dict):
             state = mig.fetch(state)
         mig.check_state(state)
@@ -1100,6 +1392,7 @@ class LLMEngine:
         when it fails (no plane attached, a full ``/dev/shm``, an injected
         fault) the host copy stays, resume still works, and
         ``suspend_publish_errors`` counts it."""
+        self._no_tp("suspend_request")
         # the chaos gate sits OUTSIDE the lock and BEFORE the snapshot: an
         # injected drop or fault models "the spill path is down" and must
         # degrade to the typed refusal with no request state mutated
@@ -1140,6 +1433,7 @@ class LLMEngine:
         back to fetching the plane reference. Raises MigrationError for an
         unknown suspension, MigrationLostError when both tiers are gone; a
         refused restore keeps the record."""
+        self._no_tp("resume_suspended")
         with self._lock:
             rec = self._suspended.pop(request_id, None)
         if rec is None:
@@ -1204,10 +1498,7 @@ class LLMEngine:
     def _push_table(self, slot: int):
         """Write one slot's table row and length into the device lanes (the
         delta that replaces whole-array uploads)."""
-        row = torch.from_numpy(self._tables[slot].copy())
-        if self.device.type == "cuda":
-            row = row.pin_memory()  # copied without blocking the host
-        self._set_table(self._dtables, self._dlengths, slot, row, int(self._lengths[slot]))
+        self._do("set_table", slot, self._tables[slot].copy(), int(self._lengths[slot]))
 
     def _release_slot_pages(self, slot: int):
         self._page_alloc.free(self._slot_pages[slot])
@@ -1293,7 +1584,7 @@ class LLMEngine:
                 self._tables[slot, pg_ix] = got[0]
                 self._slot_pages[slot].extend(got)
                 if self._device_resident:
-                    self._set_table_cell(self._dtables, slot, pg_ix, got[0])
+                    self._do("set_table_cell", slot, pg_ix, got[0])
 
     def _pages_needed(self, st: RequestState, pref, prompt) -> int | None:
         """Pages to admit: the prompt bucket (a prefix hit: the prefix and
@@ -1571,6 +1862,7 @@ class LLMEngine:
         it (quantized on insert for an int8 cache, as a remote re-store),
         remembers its key for the prefetch-hit count and republishes it.
         Returns the queued bytes (0 with prefix caching off)."""
+        self._no_tp("adopt_prefetched (the KV plane)")
         ids = [int(t) for t in prompt_token_ids]
         with self._lock:
             if self._prefix_cache is None or not ids:
@@ -1666,27 +1958,28 @@ class LLMEngine:
         for i, (_, _, prompt) in enumerate(group):
             toks[i, : len(prompt)] = prompt
             lens[i] = len(prompt)
-        logits, ks, vs = mr.prefill(
-            self.params, torch.from_numpy(toks).to(self.device), torch.from_numpy(lens).to(self.device), self.config
-        )
+        logits, ks, vs = self._do("prefill", toks, lens)
         self.prefill_forwards += 1
         for i, (st, slot, prompt) in enumerate(group):
             if self._prefix_cache is not None and not st.token_ids:  # fresh prompts only
                 stored = self._prefix_cache.store(prompt, ks[:, i], vs[:, i], self.prefill_buckets)
+                if stored is not None and self._ranks is not None:
+                    # the other ranks keep their shard of the group until rank 0's copy dies
+                    gid = self._prefix_cache.last_gid
+                    self._tp_send("_rop_prefix_store", gid, i, stored[1])
+                    weakref.finalize(self._prefix_cache._groups[gid][0], self._tp_dead_gids.append, gid)
                 if stored is not None and self._kv_plane is not None:
                     # the block every other replica would prefill again
                     self._plane_publish(prompt, ks[:, i], vs[:, i], *stored)
             if self.kv_layout == "paged":
-                row = torch.from_numpy(self._tables[slot, : T // self._pcfg.page_size].copy()).to(self.device)
-                pkv.insert_pages(self.pool, row, ks[:, i], vs[:, i])
+                self._do("insert_pages", self._tables[slot, : T // self._pcfg.page_size].copy(), i)
                 self._lengths[slot] = len(prompt)
                 if self._device_resident:
                     self._push_table(slot)
             else:
-                # device writes only (a copy and a length fill), stream-ordered
-                # after the step in flight
-                kvc.insert_sequence(self.cache, slot, ks[:, i], vs[:, i], len(prompt))
+                self._do("insert_sequence", slot, i, len(prompt))
             self._bind_slot(st, slot, logits[i : i + 1])
+        self._do("end_prefill")
 
     def _admit_prefix_hit(self, st: RequestState, slot: int, pref, prompt):
         """Admit a prefix hit into its pages (already in the host table):
@@ -1696,17 +1989,14 @@ class LLMEngine:
         them (K4 over the prefix, the suffix causally from registers) and
         sample from the extend's logits."""
         k_p, v_p, n_p, k_sc, v_sc = pref
-        page = self._pcfg.page_size
         n = len(prompt)
         m = n - n_p
-        Tm = _bucket(m, self.prefill_buckets)
-        row = torch.from_numpy(self._tables[slot].copy()).to(self.device)
-        scales = () if k_sc is None else (k_sc[:, :, :n_p], v_sc[:, :, :n_p])
-        pkv.insert_pages(self.pool, row[: n_p // page], k_p[:, :n_p], v_p[:, :n_p], *scales)
-        toks = np.zeros((Tm,), np.int64)
+        toks = np.zeros((_bucket(m, self.prefill_buckets),), np.int64)
         toks[:m] = prompt[n_p:]
-        logits, self.pool = mr.extend_paged(self.params, self.pool, row, n_p, torch.from_numpy(toks).to(self.device),
-                                            m, self.config)
+        row = self._tables[slot].copy()
+        if self._ranks is not None:
+            self._tp_send("_rop_hit_paged", k_p.prefix_gid, row, n_p, toks, m)
+        logits = self._op_hit_paged((k_p, v_p, k_sc, v_sc), row, n_p, toks, m)
         self.extend_forwards += 1
         self._lengths[slot] = n
         if self._device_resident:
@@ -1720,11 +2010,11 @@ class LLMEngine:
         position n_p and sample from its logits."""
         k_p, v_p, n_p, k_sc, v_sc = pref
         m = len(prompt) - n_p
-        kvc.insert_sequence(self.cache, slot, k_p, v_p, n_p, k_sc, v_sc)
         toks = np.zeros((_bucket(m, self.prefill_buckets),), np.int64)
         toks[:m] = prompt[n_p:]
-        logits, self.cache = mr.extend(self.params, self.cache, slot, torch.from_numpy(toks).to(self.device), m,
-                                       self.config)
+        if self._ranks is not None:
+            self._tp_send("_rop_hit_slots", k_p.prefix_gid, slot, n_p, toks, m)
+        logits = self._op_hit_slots((k_p, v_p, k_sc, v_sc), slot, n_p, toks, m)
         self.extend_forwards += 1
         self._bind_slot(st, slot, logits[None])
 
@@ -1800,8 +2090,7 @@ class LLMEngine:
         self._keys[slot] = key[0].cpu().numpy()
         token = int(tok[0])
         if self._device_resident:
-            self._set_lane(self._dtokens, self._dkeys, self._dtemps, self._dtopk, self._dtopp, slot, token,
-                           self._keys[slot], p.temperature, p.top_k, p.top_p)
+            self._do("set_lane", slot, token, self._keys[slot], p.temperature, p.top_k, p.top_p)
         spec_hist = (st.prompt_token_ids + st.token_ids + [token]) if self._spec_cfg is not None else None
         self._emit(st, token, float(logp[0]))
         if spec_hist is not None:
@@ -1831,8 +2120,7 @@ class LLMEngine:
         token = int(st.token_ids[-1])
         self._next_tokens[slot] = token
         if self._device_resident:
-            self._set_lane(self._dtokens, self._dkeys, self._dtemps, self._dtopk, self._dtopp, slot, token,
-                           self._keys[slot], p.temperature, p.top_k, p.top_p)
+            self._do("set_lane", slot, token, self._keys[slot], p.temperature, p.top_k, p.top_p)
         if self._spec_cfg is not None:
             spec = rs.get("spec") or {}
             self._controller.restore(st.request_id, spec.get("ema"), spec.get("k"))
@@ -1870,15 +2158,9 @@ class LLMEngine:
         n = len(hist_tokens)
         row = np.zeros((self._spec_hist_width,), np.int64)
         row[:n] = hist_tokens
-        row = torch.from_numpy(row)
-        if self.device.type == "cuda":
-            row = row.pin_memory()  # copied without blocking the host
         k0 = self._controller.admit(st.request_id)
         self._lane_k[slot] = k0
-        self._set_hist(self._dhist, self._dhist_len, self._dspec_k, slot, row, n, k0)
-        # the drafter caches everything the target has cached: the full
-        # admitted prompt, NOT the fresh token (the first chain input)
-        self._drafter.admit(slot, hist_tokens[:-1])
+        self._do("spec_admit", slot, row, n, k0, list(hist_tokens[:-1]))
 
     def _emit(self, st: RequestState, token: int, logp: float):
         st.token_ids.append(token)
@@ -1960,12 +2242,22 @@ class LLMEngine:
         active = [s for s in self._slots if s is not None]
         if not active:
             return
-        handle = self._decode.step(self.params, self.kv)
+        handle = self._decode_step()
         self.decode_steps += 1
         if self.kv_layout == "paged":
             for st in active:
                 self._lengths[st.slot] += 1  # host shadow, no upload
         self._pending = (handle, [(st, st.slot) for st in active])
+
+    def _decode_step(self):
+        """Dispatch the decode step (or spec round) on every rank; rank 0
+        counts its collectives' wire bytes (``tp_wire_step_bytes``)."""
+        if self._group is None:
+            return self._do("step")
+        before = self._group.wire.total
+        handle = self._do("step")
+        self.tp_wire_step_bytes = self._group.wire.total - before
+        return handle
 
     def _drain(self, pending) -> list:
         """Read back and emit a dispatched step's tokens (a lane aborted or
@@ -1999,7 +2291,7 @@ class LLMEngine:
             pend = {id(entry[0]) for entry in prev[1]}
             if all(id(s) in pend and len(s.token_ids) + 1 >= s.params.max_tokens for s in active):
                 return
-        handle = self._decode.step(self.params, self.kv)
+        handle = self._decode_step()
         self._spec_rounds += 1
         self._pending = (handle, [(st, st.slot, int(self._lane_k[st.slot])) for st in active])
 
@@ -2042,7 +2334,7 @@ class LLMEngine:
                 new_k = self._controller.observe(st.request_id, k_eff, a)
                 if st.slot == slot and new_k != self._lane_k[slot]:
                     self._lane_k[slot] = new_k
-                    self._set_slot_scalar(self._dspec_k, slot, new_k)
+                    self._do("set_slot_scalar", slot, new_k)
             emitted.append(st)
         if emitted and self._tel is not None:
             # per-round accounting for the flight record (host ints only)
@@ -2058,29 +2350,14 @@ class LLMEngine:
         active = [s for s in self._slots if s is not None]
         if not active:
             return []
-        dev = self.device
-        tokens = torch.from_numpy(self._next_tokens).to(dev)
-        if self.kv_layout == "paged":
-            logits, self.pool, _ = mr.decode_step_paged(
-                self.params,
-                self.pool,
-                torch.from_numpy(self._tables).to(dev),
-                torch.from_numpy(self._lengths).to(dev),
-                tokens,
-                self.config,
-            )
+        paged = self.kv_layout == "paged"
+        toks, logps, keys = self._do("sync_decode", self._next_tokens, self._tables if paged else None,
+                                     self._lengths if paged else None, self._keys, self._temps, self._top_k,
+                                     self._top_p)
+        if paged:
             for st in active:
                 self._lengths[st.slot] += 1
-        else:
-            logits, self.cache = mr.decode_step(self.params, self.cache, tokens, self.config)
         self.decode_steps += 1
-        toks, logps, keys = sample(
-            logits,
-            torch.from_numpy(self._keys).to(dev),
-            torch.from_numpy(self._temps).to(dev),
-            torch.from_numpy(self._top_k).to(dev),
-            torch.from_numpy(self._top_p).to(dev),
-        )
         toks = toks.cpu().numpy()
         logps = logps.cpu().numpy()
         self._keys = keys.cpu().numpy()
@@ -2135,3 +2412,57 @@ class LLMEngine:
                     finals[o.request_id] = o
         results = [finals[i] for i in ids]
         return results[0] if single else results
+
+
+# --------------------------------------------------------- the rank twins
+def _tree_to(tree: dict, device) -> dict:
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _send_shards(ranks, params: dict, config, mesh) -> None:
+    """Give ranks 1..n-1 their shards of ``params`` (a tree on any device):
+    leaf by leaf and rank by rank, the leaf's path, shape and dtype to
+    every rank, then the shard over the group (a broadcast from rank 0 on
+    rank 0's device), so one shard at a time is in flight; then None."""
+    from ray_tpu_torch.models.llama import param_logical_axes
+    from ray_tpu_torch.parallel.mesh import DEFAULT_RULES, shard_slices
+
+    group = ranks.group
+
+    def walk(node, axes, path):
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf, axes[name], path + (name,))
+                continue
+            for r in range(1, ranks.size):
+                shard = leaf[shard_slices(leaf.shape, DEFAULT_RULES.spec(axes[name], mesh), mesh, r)]
+                shard = shard.to(group.device).contiguous()
+                ranks.send_all((path + (name,), r, tuple(shard.shape), shard.dtype))
+                group.broadcast(shard, 0)
+
+    walk(params, param_logical_axes(config), ())
+    ranks.send_all(None)
+
+
+def _recv_shards(group, conn) -> dict:
+    """A rank's side of ``_send_shards``: its own leaves, the others' dropped."""
+    tree: dict = {}
+    while (item := _recv(conn)) is not None:
+        path, r, shape, dtype = item
+        t = group.broadcast(torch.empty(shape, dtype=dtype, device=group.device), 0)
+        if r != group.rank:
+            continue
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = t
+    return tree
+
+
+def _rank_engine(group, conn, config, params=None, **kw):
+    """A rank process's twin of rank 0's engine (``parallel/ranks.py``'s
+    factory): the same geometry on this rank's device, its weight shard
+    from the seed or streamed by rank 0."""
+    if params == "stream":
+        params = _recv_shards(group, conn)
+    return LLMEngine(config, params, _tp_group=group, **kw)

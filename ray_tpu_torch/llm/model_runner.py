@@ -1,6 +1,6 @@
 """Cache-aware Llama forward passes: batched prefill, then decode and
 the prefix-cache extend over either KV layout (port of
-ray_tpu/llm/model_runner.py without its tensor-parallel paths).
+ray_tpu/llm/model_runner.py).
 
 Same parameter tree as ``models/llama.py``. Prefill runs the causal
 flash path (K1) over right-padded prompts and returns every layer's K/V
@@ -27,9 +27,25 @@ int8 cache quantized on append and dequantized for attention as in
 ray_tpu. ``extend`` is the same for one slot's suffix over its cached
 prefix. The device-resident step is ``fused_step`` (decode, ``sample``;
 the cache's length lane advances inside ``decode_step``).
+
+Tensor parallelism (``tpc``, a ``TpSpec``): every forward takes it and
+then runs as one rank's shard in a rank process (``parallel/ranks.py``;
+ray_tpu runs the same bodies under ``shard_map``): ``cfg`` is the
+per-rank view (``_shard_cfg``: the rank's heads and kv heads), the
+weights and the cache hold the rank's columns, rows and kv heads, the
+attention-out and MLP-out partial sums are all-reduced after each layer
+(``_tp_reduce``: the exact sum, or ``collective/ici.quantized_psum`` when
+the collective is "int8"), the embedding is a masked local lookup plus
+one fp sum a forward (``_tp_embed``) and the vocab-sharded logits are
+all-gathered in fp (``_tp_gather_logits``), so every rank samples the
+whole distribution. ray_tpu runs its prefill and extend at a mesh
+through GSPMD; here they run per rank with the same sums, K1 and K4 on
+the rank's heads. ``tpc=None`` is the single-device forward, unchanged.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -41,6 +57,84 @@ from ray_tpu_torch.llm.kv_cache import append_scale_layer, append_token_layer
 from ray_tpu_torch.llm.kv_quant import quantize_heads
 from ray_tpu_torch.llm.paged_kv import _paged_attn_batch, _paged_attn_seq_batch
 from ray_tpu_torch.llm.sampling import sample
+
+
+@dataclass(frozen=True)
+class TpSpec:
+    """The tensor-parallel axis a rank's forward runs over: its group
+    (``parallel.ranks.RankGroup``) and the per-layer collective, "fp"
+    (the exact sum) or "int8" (``collective/ici.quantized_psum``)."""
+
+    group: object = None
+    collective: str = "fp"
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+
+def _tp_reduce(x, tpc: TpSpec | None):
+    """The per-layer all-reduce of the attention-out and MLP-out partials."""
+    if tpc is None:
+        return x
+    from ray_tpu_torch.collective import ici
+
+    if tpc.collective == "int8":
+        return ici.quantized_psum(x, tpc.group)
+    return ici.psum(x.contiguous(), tpc.group)
+
+
+def _tp_embed(embed, tokens, tpc: TpSpec | None):
+    """Token lookup: against a vocab-row-sharded embedding each rank
+    gathers its rows (clipped), zeroes the tokens outside them, and one fp
+    sum assembles the vectors (once a forward, so it stays full precision
+    in both collective modes)."""
+    if tpc is None:
+        return embed[tokens]
+    from ray_tpu_torch.collective import ici
+
+    v_loc = embed.shape[0]
+    loc = tokens - tpc.rank * v_loc
+    ok = (loc >= 0) & (loc < v_loc)
+    x = embed[torch.clamp(loc, 0, v_loc - 1)]
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return ici.psum(x.contiguous(), tpc.group)
+
+
+def _tp_gather_logits(logits, tpc: TpSpec | None):
+    """Vocab-sharded logits -> the whole vocab on every rank (fp all-gather
+    in both modes: the sampler needs the full distribution)."""
+    if tpc is None:
+        return logits
+    from ray_tpu_torch.collective import ici
+
+    return ici.all_gather(logits, tpc.group, axis=-1)
+
+
+def _shard_cfg(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """One rank's view of the model config: head counts divided by tp (the
+    rank's weights carry the divided dims), head_dim pinned so ``hd``
+    stops deriving it from hidden / num_heads."""
+    return replace(cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp, head_dim=cfg.hd)
+
+
+def _tp_of(cfg: LlamaConfig, mesh, tp_collective: str, group):
+    """(the rank's cfg, its TpSpec) for a pure tp mesh of size > 1 and the
+    rank's group; (cfg, None) without a mesh or at tp=1. A mesh with other
+    axes is not ported (ray_tpu runs it through GSPMD)."""
+    if mesh is None:
+        return cfg, None
+    from ray_tpu_torch.parallel.mesh import axis_size, is_tp_only
+
+    if not is_tp_only(mesh):
+        raise NotImplementedError(f"a serving mesh with axes {tuple(mesh.axis_names)} (any axis besides tp) is not "
+                                  "ported to ray_tpu_torch yet (ROADMAP.md, queue 1, multi-device axes)")
+    tp = axis_size(mesh, "tp")
+    if tp == 1:
+        return cfg, None
+    if group is None or group.size != tp:
+        raise ValueError(f"a tp={tp} step runs in a rank process and needs that rank's group of {tp}")
+    return _shard_cfg(cfg, tp), TpSpec(group, tp_collective)
 
 
 def _attn_scale(hd: int) -> float:
@@ -65,13 +159,13 @@ def _qkv(xn, layer, cfg: LlamaConfig):
     return q, k, v
 
 
-def _mlp(x, layer, cfg: LlamaConfig):
+def _mlp(x, layer, cfg: LlamaConfig, tpc: TpSpec | None = None):
     xn = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-    return x + (F.silu(xn @ layer["w_gate"]) * (xn @ layer["w_up"])) @ layer["w_down"]
+    return x + _tp_reduce((F.silu(xn @ layer["w_gate"]) * (xn @ layer["w_up"])) @ layer["w_down"], tpc)
 
 
 @torch.no_grad()
-def prefill(params, tokens, length, cfg: LlamaConfig):
+def prefill(params, tokens, length, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """Run right-padded prompts through the model.
 
     tokens: [B, T_pad] int; length: [B] int real lengths. Returns
@@ -81,7 +175,7 @@ def prefill(params, tokens, length, cfg: LlamaConfig):
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
     cos, sin = rotary_embedding(positions, cfg.hd, cfg.rope_theta)
-    x = params["embed"][tokens]
+    x = _tp_embed(params["embed"], tokens, tpc)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         layer = layer_params(params, i)
@@ -91,19 +185,19 @@ def prefill(params, tokens, length, cfg: LlamaConfig):
         kh = apply_rope(k.transpose(1, 2), cos, sin)
         o = attention(qh, kh, v.transpose(1, 2).contiguous(), cfg)
         o = o.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.hd)
-        x = x + o @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = x + _tp_reduce(o @ layer["wo"], tpc)
+        x = _mlp(x, layer, cfg, tpc)
         ks.append(kh.transpose(1, 2))  # the cache stores rope'd keys
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     # only the last real token's logits matter: gather before the unembed
     idx = (length.long() - 1).to(x.device)
     x_last = x[torch.arange(B, device=x.device), idx]
-    return unembed_f32(x_last, params, cfg), torch.stack(ks), torch.stack(vs)
+    return _tp_gather_logits(unembed_f32(x_last, params, cfg), tpc), torch.stack(ks), torch.stack(vs)
 
 
 @torch.no_grad()
-def decode_attn_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
+def decode_attn_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """READ-ONLY half of the paged decode step: attention over the cached
     pages (K4) plus the current token's K/V in registers. Returns
     (logits [slots, vocab] f32, k_new [L, slots, kv, hd], v_new same)."""
@@ -112,7 +206,7 @@ def decode_attn_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
     rep = nh // nkv
     quant = "k_scale" in pool
     cos, sin = rotary_embedding(lengths[:, None], hd, cfg.rope_theta)
-    x = params["embed"][tokens[:, None]]  # [B, 1, H]
+    x = _tp_embed(params["embed"], tokens[:, None], tpc)  # [B, 1, H]
     scale = _attn_scale(hd)
     k_new, v_new = [], []
     for i in range(cfg.num_layers):
@@ -127,12 +221,12 @@ def decode_attn_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
         o = _paged_attn_batch(qg, pool["k"][i], pool["v"][i], tables, lengths, scale,
                               kh[:, 0], v_t[:, 0], k_sc, v_sc)
         o = o.reshape(B, 1, nh * hd).to(x.dtype)
-        x = x + o @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = x + _tp_reduce(o @ layer["wo"], tpc)
+        x = _mlp(x, layer, cfg, tpc)
         k_new.append(kh[:, 0])
         v_new.append(v_t[:, 0])
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
-    return unembed_f32(x, params, cfg), torch.stack(k_new), torch.stack(v_new)
+    return _tp_gather_logits(unembed_f32(x, params, cfg), tpc), torch.stack(k_new), torch.stack(v_new)
 
 
 @torch.no_grad()
@@ -162,25 +256,28 @@ def decode_write_targets(tables, lengths, page: int):
     return write_page, lengths % page
 
 
-def decode_step_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig):
+def decode_step_paged(params, pool, tables, lengths, tokens, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """Attention half, then append half. Returns (logits, pool, lengths + 1);
     the pool is updated in place."""
     write_page, write_off = decode_write_targets(tables, lengths, pool["k"].shape[2])
-    logits, k_new, v_new = decode_attn_paged(params, pool, tables, lengths, tokens, cfg)
+    logits, k_new, v_new = decode_attn_paged(params, pool, tables, lengths, tokens, cfg, tpc)
     pool = append_paged(pool, write_page, write_off, k_new, v_new)
     return logits, pool, lengths + 1
 
 
 @torch.no_grad()
-def paged_fused_step(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p, cfg: LlamaConfig):
+def paged_fused_step(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p, cfg: LlamaConfig,
+                     tpc: TpSpec | None = None):
     """READ-ONLY half of the device-resident paged step: the write
     targets, the attention half (``decode_attn_paged``) and ``sample``,
     with no host read. Returns ray_tpu's 11 outputs: (tokens [B],
     logprobs [B], new keys [B, 2], k_new, v_new [L, B, kv, hd], write_page,
     write_off [B], lengths + 1, temps, top_k, top_p); the sampling lanes
-    pass through unchanged. The pool write is ``append_paged``."""
+    pass through unchanged. The pool write is ``append_paged``. With
+    ``tpc`` every rank samples the gathered logits from the same keys, so
+    the lanes stay equal on every rank."""
     write_page, write_off = decode_write_targets(tables, lengths, pool["k"].shape[2])
-    logits, k_new, v_new = decode_attn_paged(params, pool, tables, lengths, tokens, cfg)
+    logits, k_new, v_new = decode_attn_paged(params, pool, tables, lengths, tokens, cfg, tpc)
     toks, logps, new_keys = sample(logits, keys, temps, top_k, top_p)
     return toks, logps, new_keys, k_new, v_new, write_page, write_off, lengths + 1, temps, top_k, top_p
 
@@ -188,9 +285,15 @@ def paged_fused_step(params, pool, tables, lengths, tokens, keys, temps, top_k, 
 ATTN_IMPLS = ("cuda", "torch")  # K4 on the card; its plain version on the host
 
 
-def make_fused_paged_fns(cfg: LlamaConfig, attn_impl: str):
+def make_fused_paged_fns(cfg: LlamaConfig, attn_impl: str, mesh=None, tp_collective: str = "fp",
+                         kv_quant: bool = False, group=None):
     """The device-resident step's two halves ``(attn_fn, append_fn)``:
-    ``paged_fused_step`` bound to ``cfg``, then ``append_paged``. The page
+    ``paged_fused_step`` bound to ``cfg``, then ``append_paged``. With a
+    pure tp mesh of size > 1 the attention half is one rank's (``group``:
+    its ``RankGroup``; the per-layer sums in ``tp_collective``); the
+    append needs no collective. ``kv_quant`` is ray_tpu's argument for
+    its cache specs; a rank's pool holds its own kv heads in either
+    dtype. The page
     attention runs as ``attn_impl`` says, the engine's ``attn_kernel``:
     "cuda" (K4) takes only CUDA tensors and "torch" (the plain version)
     only CPU tensors, and a call on the other device raises. ray_tpu
@@ -200,11 +303,12 @@ def make_fused_paged_fns(cfg: LlamaConfig, attn_impl: str):
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     on_card = attn_impl == "cuda"
+    cfg, tpc = _tp_of(cfg, mesh, tp_collective, group)
 
     def attn_fn(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p):
         if tables.is_cuda != on_card:
             raise ValueError(f"attn_impl={attn_impl!r} does not run on {tables.device.type} tensors")
-        return paged_fused_step(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p, cfg)
+        return paged_fused_step(params, pool, tables, lengths, tokens, keys, temps, top_k, top_p, cfg, tpc)
 
     return attn_fn, append_paged
 
@@ -252,7 +356,7 @@ def extend_write_targets(table_row, start, T: int, page: int):
 
 
 @torch.no_grad()
-def extend_attn_paged(params, pool, table_row, start, tokens, length, cfg: LlamaConfig):
+def extend_attn_paged(params, pool, table_row, start, tokens, length, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """READ-ONLY half of the paged extend: the suffix ``tokens`` [T]
     (right-padded to a prefill bucket, ``length`` real) at positions
     start..start+T-1 attends to the cached prefix pages (K4, one lane,
@@ -266,7 +370,7 @@ def extend_attn_paged(params, pool, table_row, start, tokens, length, cfg: Llama
     dev = tokens.device
     positions = int(start) + torch.arange(T, dtype=torch.int32, device=dev)
     cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
-    x = params["embed"][tokens[None, :]]  # [1, T, H]
+    x = _tp_embed(params["embed"], tokens[None, :], tpc)  # [1, T, H]
     scale = _attn_scale(hd)
     tables = table_row[None].contiguous()
     starts = torch.full((1,), int(start), dtype=torch.int32, device=dev)
@@ -282,13 +386,13 @@ def extend_attn_paged(params, pool, table_row, start, tokens, length, cfg: Llama
         v_sc = pool["v_scale"][i] if quant else None
         o = _paged_attn_seq_batch(qg, pool["k"][i], pool["v"][i], tables, starts, kh, v_t, scale, k_sc, v_sc)
         o = o[0].permute(2, 0, 1, 3).reshape(1, T, nh * hd).to(x.dtype)
-        x = x + o @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = x + _tp_reduce(o @ layer["wo"], tpc)
+        x = _mlp(x, layer, cfg, tpc)
         k_chunk.append(kh[0])
         v_chunk.append(v_t[0])
     x = rms_norm(x[0], params["final_norm"], cfg.rms_eps)  # [T, H]
     x_last = x[max(int(length) - 1, 0)]
-    return unembed_f32(x_last, params, cfg), torch.stack(k_chunk), torch.stack(v_chunk)
+    return _tp_gather_logits(unembed_f32(x_last, params, cfg), tpc), torch.stack(k_chunk), torch.stack(v_chunk)
 
 
 # Write half of the paged extend, in place: the suffix K/V rows (write_page /
@@ -297,11 +401,11 @@ def extend_attn_paged(params, pool, table_row, start, tokens, length, cfg: Llama
 append_chunk_paged = append_paged
 
 
-def extend_paged(params, pool, table_row, start, tokens, length, cfg: LlamaConfig):
+def extend_paged(params, pool, table_row, start, tokens, length, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """Attention half, then append half. Returns (logits [vocab] f32 at
     the last real token, pool); the pool is updated in place."""
     write_page, write_off = extend_write_targets(table_row, start, tokens.shape[0], pool["k"].shape[2])
-    logits, k_chunk, v_chunk = extend_attn_paged(params, pool, table_row, start, tokens, length, cfg)
+    logits, k_chunk, v_chunk = extend_attn_paged(params, pool, table_row, start, tokens, length, cfg, tpc)
     pool = append_chunk_paged(pool, write_page, write_off, k_chunk, v_chunk)
     return logits, pool
 
@@ -318,7 +422,7 @@ def _dequant(rows, scales):
 
 
 @torch.no_grad()
-def decode_step(params, cache, tokens, cfg: LlamaConfig):
+def decode_step(params, cache, tokens, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """Advance every slot one token, in place.
 
     tokens: [slots] int (each slot's next input, garbage for empty
@@ -334,7 +438,7 @@ def decode_step(params, cache, tokens, cfg: LlamaConfig):
     lengths = cache["length"]
     S = cache["k"].shape[2]
     cos, sin = rotary_embedding(lengths[:, None], hd, cfg.rope_theta)  # [B, 1, hd/2]
-    x = params["embed"][tokens[:, None]]  # [B, 1, H]
+    x = _tp_embed(params["embed"], tokens[:, None], tpc)  # [B, 1, H]
     # the new token sits at index length and attends to 0..length
     attn_ok = (torch.arange(S, device=lengths.device)[None, :] <= lengths[:, None])[:, None, None]  # [B, 1, 1, S]
     write_pos = torch.clamp(lengths, max=S - 1)
@@ -359,16 +463,16 @@ def decode_step(params, cache, tokens, cfg: LlamaConfig):
         scores = torch.matmul(qg, kc.transpose(-1, -2)) / div  # [B, kv, rep, S]
         probs = torch.softmax(scores.masked_fill_(~attn_ok, float("-inf")), dim=-1)
         o = torch.matmul(probs, vc).reshape(B, 1, nh * hd).to(x.dtype)
-        x = x + o @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = x + _tp_reduce(o @ layer["wo"], tpc)
+        x = _mlp(x, layer, cfg, tpc)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_eps)
-    logits = unembed_f32(x, params, cfg)
+    logits = _tp_gather_logits(unembed_f32(x, params, cfg), tpc)
     cache["length"].add_(1)
     return logits, cache
 
 
 @torch.no_grad()
-def extend(params, cache, slot: int, tokens, length: int, cfg: LlamaConfig):
+def extend(params, cache, slot: int, tokens, length: int, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """Chunked prefill of one slot whose cache holds a prefix, in place:
     the suffix ``tokens`` [T] (right-padded, ``length`` real) at positions
     start..start+T-1, start = the slot's length, is written there and
@@ -387,7 +491,7 @@ def extend(params, cache, slot: int, tokens, length: int, cfg: LlamaConfig):
     # ray_tpu's dynamic_update_slice clamps the write so the chunk fits the row
     rows = torch.clamp(start.long(), 0, S - T) + torch.arange(T, device=dev)
     cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
-    x = params["embed"][tokens[None, :]]  # [1, T, H]
+    x = _tp_embed(params["embed"], tokens[None, :], tpc)  # [1, T, H]
     # token i (at position start+i) sees cache position j iff j <= start+i
     attn_ok = torch.arange(S, device=dev)[None, :] <= positions[:, None]  # [T, S]
     div = _sqrt_hd(hd)
@@ -415,34 +519,34 @@ def extend(params, cache, slot: int, tokens, length: int, cfg: LlamaConfig):
         probs = torch.softmax(scores.masked_fill_(~attn_ok, float("-inf")), dim=-1)
         o = torch.matmul(probs.reshape(nkv, rep * T, S), vc).reshape(nkv, rep, T, hd)
         o = o.permute(2, 0, 1, 3).reshape(1, T, nh * hd).to(x.dtype)
-        x = x + o @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = x + _tp_reduce(o @ layer["wo"], tpc)
+        x = _mlp(x, layer, cfg, tpc)
     x = rms_norm(x[0], params["final_norm"], cfg.rms_eps)  # [T, H]
-    logits = unembed_f32(x[max(int(length) - 1, 0)], params, cfg)
+    logits = _tp_gather_logits(unembed_f32(x[max(int(length) - 1, 0)], params, cfg), tpc)
     cache["length"][slot] = start + int(length)
     return logits, cache
 
 
 @torch.no_grad()
-def fused_step(params, cache, tokens, keys, temps, top_k, top_p, cfg: LlamaConfig):
+def fused_step(params, cache, tokens, keys, temps, top_k, top_p, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """The slot layout's device-resident step: ``decode_step`` (append,
     attention, lengths + 1, in place) then ``sample``, with no host read.
     Returns ray_tpu's 7 outputs: (cache, tokens [B], logprobs [B], new keys
     [B, 2], temps, top_k, top_p); the sampling lanes pass through."""
-    logits, cache = decode_step(params, cache, tokens, cfg)
+    logits, cache = decode_step(params, cache, tokens, cfg, tpc)
     toks, logps, new_keys = sample(logits, keys, temps, top_k, top_p)
     return cache, toks, logps, new_keys, temps, top_k, top_p
 
 
-def make_fused_fns(cfg: LlamaConfig, mesh=None):
+def make_fused_fns(cfg: LlamaConfig, mesh=None, tp_collective: str = "fp", kv_quant: bool = False, group=None):
     """``fused_step`` bound to ``cfg``: the slot layout's device-resident
     step, captured whole into one CUDA graph on the card
-    (``cuda/graph.py``). Tensor-parallel meshes are not ported."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel meshes are not ported to ray_tpu_torch yet "
-                                  "(ROADMAP.md, queue 1, multi-device axes)")
+    (``cuda/graph.py``). With a pure tp mesh of size > 1 it is one rank's
+    step (``group``: its ``RankGroup``), run eagerly: the per-layer sums
+    in ``tp_collective``. A mesh with other axes is not ported."""
+    cfg, tpc = _tp_of(cfg, mesh, tp_collective, group)
 
     def step(params, cache, tokens, keys, temps, top_k, top_p):
-        return fused_step(params, cache, tokens, keys, temps, top_k, top_p, cfg)
+        return fused_step(params, cache, tokens, keys, temps, top_k, top_p, cfg, tpc)
 
     return step

@@ -25,7 +25,10 @@ The engine drives a drafter through three hooks: ``init_slots`` (shape
 the per-slot state), ``admit`` (host-side (re)admission: prefill the
 draft cache), ``propose`` (the device call on the hot path; ``cache``
 overrides the drafter's own draft cache, as the graph's warm-up does with
-a clone).
+a clone). ``supports_mesh`` says whether a drafter composes with a
+tensor-parallel engine: the n-gram drafter's only state is the engine's
+history lanes, which every rank holds whole (True); a draft model's
+weights, cache and chain are not sharded (False: the engine raises).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ class NGramDrafter:
     """Prompt-lookup drafter: stateless beyond the engine's hist lanes."""
 
     kind = "ngram"
+    supports_mesh = True
 
     def __init__(self, k: int = 4, n: int = 3):
         self.k = int(k)
@@ -136,6 +140,7 @@ class ModelDrafter:
     drafting keeps the proposal distribution one-hot (module docstring)."""
 
     kind = "model"
+    supports_mesh = False
 
     def __init__(self, config: LlamaConfig, params=None, k: int = 4, seed: int = 0, device=None):
         from ray_tpu_torch.models.llama import init_params

@@ -1,5 +1,4 @@
-"""The speculative verify step (port of ray_tpu/llm/spec/verify.py, single
-device).
+"""The speculative verify step (port of ray_tpu/llm/spec/verify.py).
 
 Per lane the step takes the current input token t0 plus k proposals
 d1..dk (padded to the STATIC width k so shapes never vary), runs the
@@ -28,9 +27,11 @@ only reads the pool: ``spec_append_paged`` writes the block afterwards.
 Writes past a slot row are dropped and writes past a page table go to
 the trash page: they occur only in rounds whose tokens the host discards.
 
-Not ported: the tensor-parallel verify steps (``_sharded_*``,
-``spec_verify_tp``, ``spec_verify_paged_tp``) and the jaxcheck entries;
-they wait for the multi-device item (ROADMAP.md, queue 1).
+With ``tpc`` (``model_runner.TpSpec``) the verify forwards are one
+rank's of a tensor-parallel engine, with the per-layer sums and the fp
+logits gather of ``model_runner``'s forwards (ray_tpu's ``_sharded_*``
+under ``shard_map``); every rank accepts and samples the gathered
+logits from the same keys. The jaxcheck entries have no counterpart.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.llm import prng
 from ray_tpu_torch.llm.kv_quant import quantize_heads
-from ray_tpu_torch.llm.model_runner import _attn_scale, _dequant, _mlp, _qkv, _sqrt_hd
+from ray_tpu_torch.llm.model_runner import (TpSpec, _attn_scale, _dequant, _mlp, _qkv, _sqrt_hd, _tp_embed,
+                                             _tp_gather_logits, _tp_of, _tp_reduce)
 from ray_tpu_torch.llm.paged_kv import _paged_attn_seq_batch
 from ray_tpu_torch.llm.sampling import filter_logits
 from ray_tpu_torch.models.llama import LlamaConfig, layer_params, unembed_f32
@@ -166,7 +168,7 @@ def _write_block(layer, rows, positions, values):
 
 
 @torch.no_grad()
-def _forward_block_slots(params, cache, toks_blk, cfg: LlamaConfig):
+def _forward_block_slots(params, cache, toks_blk, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """Target forward over T = k+1 tokens per slot at positions
     length..length+T-1, in place on ``cache``. Each layer writes the
     block's K/V into the cache rows first (writes past the row dropped;
@@ -182,7 +184,7 @@ def _forward_block_slots(params, cache, toks_blk, cfg: LlamaConfig):
     lengths = cache["length"]
     positions = lengths.long()[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
     cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)  # [B, T, hd/2]
-    x = params["embed"][toks_blk]  # [B, T, H]
+    x = _tp_embed(params["embed"], toks_blk, tpc)  # [B, T, H]
     rows = torch.arange(B, device=dev)[:, None].expand(B, T)
     # query i sits at position length+i and may attend cache 0..length+i
     attn_ok = (torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None])[:, None, None]  # [B,1,1,T,S]
@@ -211,15 +213,15 @@ def _forward_block_slots(params, cache, toks_blk, cfg: LlamaConfig):
         probs = torch.softmax(scores.masked_fill_(~attn_ok, float("-inf")), dim=-1)
         o = torch.matmul(probs.reshape(B, nkv, rep * T, S), vc).reshape(B, nkv, rep, T, hd)
         o = o.permute(0, 3, 1, 2, 4).reshape(B, T, nh * hd).to(x.dtype)
-        x = x + o @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = x + _tp_reduce(o @ layer["wo"], tpc)
+        x = _mlp(x, layer, cfg, tpc)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return unembed_f32(x, params, cfg)
+    return _tp_gather_logits(unembed_f32(x, params, cfg), tpc)
 
 
 @torch.no_grad()
 def spec_verify_slots(params, cache, proposals, tokens, keys, temps, top_k, top_p, spec_k, hist, hist_len,
-                      cfg: LlamaConfig):
+                      cfg: LlamaConfig, tpc: TpSpec | None = None):
     """The slot layout's speculative round after the draft: the wide
     target forward over (t0, d1..dk), accept/sample, the block's K/V in
     the cache, the length rollback and the history append, all in place
@@ -227,7 +229,7 @@ def spec_verify_slots(params, cache, proposals, tokens, keys, temps, top_k, top_
     acc [B], final [B], new_keys [B, 2], hist_len + acc + 1); the cache's
     length lane is now length + acc + 1."""
     toks_blk = torch.cat([tokens[:, None], proposals.to(tokens.dtype)], dim=1)
-    logits = _forward_block_slots(params, cache, toks_blk, cfg)
+    logits = _forward_block_slots(params, cache, toks_blk, cfg, tpc)
     emit, logps, acc, final, new_keys = _accept_and_sample(logits, proposals, spec_k, keys, temps, top_k, top_p)
     new_hist_len = _update_hist(hist, hist_len, emit, acc)
     cache["length"].add_((acc + 1).to(cache["length"].dtype))
@@ -238,7 +240,7 @@ def spec_verify_slots(params, cache, proposals, tokens, keys, temps, top_k, top_
 # paged layout
 # ---------------------------------------------------------------------------
 @torch.no_grad()
-def _forward_block_paged(params, pool, tables, lengths, toks_blk, cfg: LlamaConfig):
+def _forward_block_paged(params, pool, tables, lengths, toks_blk, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """Target forward over T = k+1 tokens per lane at positions
     length..length+T-1 over the paged pool, which it only reads: the
     prefix through ``_paged_attn_seq_batch`` (K4 on the card, one launch a
@@ -251,7 +253,7 @@ def _forward_block_paged(params, pool, tables, lengths, toks_blk, cfg: LlamaConf
     quant = "k_scale" in pool
     positions = lengths.long()[:, None] + torch.arange(T, device=toks_blk.device)[None, :]  # [B, T]
     cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
-    x = params["embed"][toks_blk]  # [B, T, H]
+    x = _tp_embed(params["embed"], toks_blk, tpc)  # [B, T, H]
     scale = _attn_scale(hd)
     k_out, v_out = [], []
     for i in range(cfg.num_layers):
@@ -265,17 +267,17 @@ def _forward_block_paged(params, pool, tables, lengths, toks_blk, cfg: LlamaConf
         v_sc = pool["v_scale"][i] if quant else None
         o = _paged_attn_seq_batch(qg, pool["k"][i], pool["v"][i], tables, lengths, kh, v_t, scale, k_sc, v_sc)
         o = o.permute(0, 3, 1, 2, 4).reshape(B, T, nh * hd).to(x.dtype)
-        x = x + o @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = x + _tp_reduce(o @ layer["wo"], tpc)
+        x = _mlp(x, layer, cfg, tpc)
         k_out.append(kh)
         v_out.append(v_t)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return unembed_f32(x, params, cfg), torch.stack(k_out), torch.stack(v_out)
+    return _tp_gather_logits(unembed_f32(x, params, cfg), tpc), torch.stack(k_out), torch.stack(v_out)
 
 
 @torch.no_grad()
 def spec_verify_paged(params, pool, tables, lengths, proposals, tokens, keys, temps, top_k, top_p, spec_k, hist,
-                      hist_len, cfg: LlamaConfig):
+                      hist_len, cfg: LlamaConfig, tpc: TpSpec | None = None):
     """READ-ONLY half of the paged speculative round: the block forward
     (``_forward_block_paged``), accept/sample and the write targets; the
     pool write is ``spec_append_paged``. The history append is in place
@@ -287,7 +289,7 @@ def spec_verify_paged(params, pool, tables, lengths, proposals, tokens, keys, te
     page = pool["k"].shape[2]
     max_pg = tables.shape[1]
     toks_blk = torch.cat([tokens[:, None], proposals.to(tokens.dtype)], dim=1)
-    logits, k_blk, v_blk = _forward_block_paged(params, pool, tables, lengths, toks_blk, cfg)
+    logits, k_blk, v_blk = _forward_block_paged(params, pool, tables, lengths, toks_blk, cfg, tpc)
     emit, logps, acc, final, new_keys = _accept_and_sample(logits, proposals, spec_k, keys, temps, top_k, top_p)
     new_hist_len = _update_hist(hist, hist_len, emit, acc)
     positions = lengths.long()[:, None] + torch.arange(k + 1, device=tokens.device)[None, :]
@@ -317,18 +319,22 @@ def spec_append_paged(pool, wp, wo, k_blk, v_blk):
     return pool
 
 
-def make_spec_verify_slots(cfg: LlamaConfig):
+def make_spec_verify_slots(cfg: LlamaConfig, mesh=None, tp_collective: str = "fp", kv_quant: bool = False,
+                           group=None):
     """``spec_verify_slots`` bound to ``cfg``: the slot layout's verify,
-    plain PyTorch on either device."""
+    plain PyTorch on either device; with a pure tp mesh of size > 1 one
+    rank's (``group``), as ``model_runner.make_fused_fns``."""
+    cfg, tpc = _tp_of(cfg, mesh, tp_collective, group)
 
     def verify_fn(params, cache, proposals, tokens, keys, temps, top_k, top_p, spec_k, hist, hist_len):
         return spec_verify_slots(params, cache, proposals, tokens, keys, temps, top_k, top_p, spec_k, hist,
-                                 hist_len, cfg)
+                                 hist_len, cfg, tpc)
 
     return verify_fn
 
 
-def make_spec_verify_paged(cfg: LlamaConfig, attn_impl: str):
+def make_spec_verify_paged(cfg: LlamaConfig, attn_impl: str, mesh=None, tp_collective: str = "fp",
+                           kv_quant: bool = False, group=None):
     """The paged verify's two halves ``(attn_fn, append_fn)``:
     ``spec_verify_paged`` bound to ``cfg``, then ``spec_append_paged``.
     The page attention runs as ``attn_impl`` says, the engine's
@@ -336,18 +342,20 @@ def make_spec_verify_paged(cfg: LlamaConfig, attn_impl: str):
     plain version) only CPU tensors, and a call on the other device
     raises. ray_tpu compiles the halves as two programs (the pool's
     gather/scatter aliasing); here stream order runs the append after the
-    attention, and the round is captured as one CUDA graph."""
+    attention, and the round is captured as one CUDA graph (run eagerly
+    as one rank's with a pure tp mesh of size > 1 and its ``group``)."""
     from ray_tpu_torch.llm.model_runner import ATTN_IMPLS
 
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     on_card = attn_impl == "cuda"
+    cfg, tpc = _tp_of(cfg, mesh, tp_collective, group)
 
     def attn_fn(params, pool, tables, lengths, proposals, tokens, keys, temps, top_k, top_p, spec_k, hist, hist_len):
         if tables.is_cuda != on_card:
             raise ValueError(f"attn_impl={attn_impl!r} does not run on {tables.device.type} tensors")
         return spec_verify_paged(params, pool, tables, lengths, proposals, tokens, keys, temps, top_k, top_p, spec_k,
-                                 hist, hist_len, cfg)
+                                 hist, hist_len, cfg, tpc)
 
     return attn_fn, spec_append_paged
 

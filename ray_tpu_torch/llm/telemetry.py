@@ -392,6 +392,8 @@ class EngineTelemetry:
         self._b_occ = self.m["rt_llm_kv_occupancy"].bind(self.tags)
         self._b_hbm = self.m["rt_llm_kv_hbm_bytes"].bind(self.tags)
         self._b_spec = self.m["rt_llm_spec_acceptance"].bind(self.tags)
+        self._b_wire = self.m["rt_llm_collective_wire_bytes_total"].bind(self.tags)
+        self._wire_accum = 0.0
         # prefix-reuse tiers: per-ADMISSION events, off the per-step budget
         self._b_pfx_hits = {
             tier: self.m["rt_llm_prefix_hits_total"].bind({**self.tags, "tier": tier})
@@ -442,8 +444,11 @@ class EngineTelemetry:
     # -- wire-bytes accounting -------------------------------------------
     def _wire_bytes(self) -> float:
         """Per-step collective wire bytes of a tensor-parallel engine, the
-        ``rt_llm_collective_wire_bytes_total`` series' source."""
-        return 0.0  # tensor parallelism is not ported (ROADMAP.md, queue 1, multi-device axes)
+        ``rt_llm_collective_wire_bytes_total`` series' source: what rank 0's
+        group counted over the last decode step (``collective/ici.py``'s
+        factors; ray_tpu reads the same from the fused step's jaxpr); 0 at
+        tp = 1."""
+        return float(getattr(self.engine, "tp_wire_step_bytes", 0.0))
 
     # -- request lifecycle ------------------------------------------------
     def on_submit(self, st, submitted_at: float | None = None, parent_trace: tuple | None = None) -> None:
@@ -634,11 +639,18 @@ class EngineTelemetry:
             recompiled or None, sd[0], sd[1],
         ))
 
+        wire = self._wire_bytes()
+        if slots_in_use and eng._device_resident and wire:
+            # accumulate locally (one float add), flush on sample ticks
+            self._wire_accum += wire
         if not sample:
             return
         if self._tok_accum:
             self._b_tokens.inc(self._tok_accum)
             self._tok_accum = 0.0
+        if self._wire_accum:
+            self._b_wire.inc(self._wire_accum)
+            self._wire_accum = 0.0
         self._b_qdepth.set(float(waiting))
         self._b_slots.set(float(slots_in_use))
         self._b_occ.set(occupied / max(capacity, 1))

@@ -130,39 +130,43 @@ def param_logical_axes(config: LlamaConfig) -> dict:
     return axes
 
 
-def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
+def init_params(config: LlamaConfig, generator: torch.Generator, leaf_fn=None) -> dict:
     """Random weights from ``generator`` (normal * fan_in**-0.5, norms 1),
     drawn in f32 on the generator's device and cast to ``config.dtype``.
     The draws are torch's, not jax.random's: tests that compare with
-    ray_tpu convert JAX's tree instead (``weights.params_from_jax``)."""
+    ray_tpu convert JAX's tree instead (``weights.params_from_jax``).
+    ``leaf_fn(path, leaf)`` (path as "layers/wq") replaces each leaf as
+    soon as it is drawn, in draw order: a rank keeps its shard of a leaf
+    before the next is drawn (``weights.init_params_shard``)."""
     device = generator.device
     h, hd, L = config.hidden_size, config.hd, config.num_layers
     dt = torch_dtype(config.dtype)
+    keep = leaf_fn or (lambda path, t: t)
 
-    def norm_init(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
+    def norm_init(path, *shape):
+        return keep(path, torch.ones(shape, dtype=dt, device=device))
 
-    def dense_init(*shape, fan_in):
+    def dense_init(path, *shape, fan_in):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-        return w.mul_(fan_in**-0.5).to(dt)  # in place: a second f32 copy of a stacked leaf would be 7.5 GB at 8B
+        return keep(path, w.mul_(fan_in**-0.5).to(dt))  # in place: a second f32 copy of a stacked leaf would be 7.5 GB at 8B
 
     params = {
-        "embed": dense_init(config.vocab_size, h, fan_in=h),
-        "final_norm": norm_init(h),
+        "embed": dense_init("embed", config.vocab_size, h, fan_in=h),
+        "final_norm": norm_init("final_norm", h),
         "layers": {
-            "wq": dense_init(L, h, config.num_heads * hd, fan_in=h),
-            "wk": dense_init(L, h, config.num_kv_heads * hd, fan_in=h),
-            "wv": dense_init(L, h, config.num_kv_heads * hd, fan_in=h),
-            "wo": dense_init(L, config.num_heads * hd, h, fan_in=config.num_heads * hd),
-            "w_gate": dense_init(L, h, config.intermediate_size, fan_in=h),
-            "w_up": dense_init(L, h, config.intermediate_size, fan_in=h),
-            "w_down": dense_init(L, config.intermediate_size, h, fan_in=config.intermediate_size),
-            "attn_norm": norm_init(L, h),
-            "mlp_norm": norm_init(L, h),
+            "wq": dense_init("layers/wq", L, h, config.num_heads * hd, fan_in=h),
+            "wk": dense_init("layers/wk", L, h, config.num_kv_heads * hd, fan_in=h),
+            "wv": dense_init("layers/wv", L, h, config.num_kv_heads * hd, fan_in=h),
+            "wo": dense_init("layers/wo", L, config.num_heads * hd, h, fan_in=config.num_heads * hd),
+            "w_gate": dense_init("layers/w_gate", L, h, config.intermediate_size, fan_in=h),
+            "w_up": dense_init("layers/w_up", L, h, config.intermediate_size, fan_in=h),
+            "w_down": dense_init("layers/w_down", L, config.intermediate_size, h, fan_in=config.intermediate_size),
+            "attn_norm": norm_init("layers/attn_norm", L, h),
+            "mlp_norm": norm_init("layers/mlp_norm", L, h),
         },
     }
     if not config.tie_embeddings:
-        params["unembed"] = dense_init(h, config.vocab_size, fan_in=h)
+        params["unembed"] = dense_init("unembed", h, config.vocab_size, fan_in=h)
     return params
 
 

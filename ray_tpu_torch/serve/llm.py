@@ -35,8 +35,14 @@ move to the engine's device there. ``params=None`` builds the weights
 inside each replica from ``engine_kwargs["seed"]`` (0 by default), so no
 weights cross the host's shared memory.
 
-``tensor_parallel_size > 1`` raises NotImplementedError (ROADMAP.md,
-queue 1, multi-device axes), as the engine does for a mesh.
+**Tensor parallelism.** ``tensor_parallel_size > 1`` builds the
+replica's engine over a tp mesh, as ray_tpu does: by default the
+replica's visible cards (ValueError when it sees fewer than tp), or
+``engine_kwargs["mesh"]`` when given, which is how one card serves tp=2
+(``create_mesh(tp=2, devices=["cuda:0"] * 2)``; ``["cpu"] * 2`` on the
+host). The engine is rank 0 in the replica's process and starts the
+other ranks as processes of their own (``parallel/ranks.py``); they stop
+with the engine, at the replica's shutdown or with its process.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
+
+import torch
 
 from ray_tpu_torch import chaos
 from ray_tpu_torch.exceptions import GetTimeoutError
@@ -128,13 +136,18 @@ class LLMServer:
         if llm_config.speculative is not None:
             engine_kwargs.setdefault("speculative", llm_config.speculative)
         tp = int(llm_config.tensor_parallel_size or 1)
-        if tp > 1:
-            raise NotImplementedError(f"tensor_parallel_size={tp} is not ported to ray_tpu_torch yet (ROADMAP.md, "
-                                      "queue 1, multi-device axes)")
+        if tp > 1 and "mesh" not in engine_kwargs:
+            from ray_tpu_torch.parallel.mesh import create_mesh
+
+            n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if n < tp:
+                raise ValueError(f"tensor_parallel_size={tp} but replica sees {n} devices")
+            engine_kwargs["mesh"] = create_mesh(tp=tp, devices=[torch.device("cuda", i) for i in range(tp)])
         params = llm_config.params
         if params is not None:
-            # host tensors from the object plane -> the engine's device
-            device = resolve_device(engine_kwargs.get("device"))
+            # host tensors from the object plane -> the engine's device (rank 0's on a mesh)
+            mesh = engine_kwargs.get("mesh")
+            device = mesh.device_of(0) if mesh is not None else resolve_device(engine_kwargs.get("device"))
             params = _params_to(params, device)
         self.engine = LLMEngine(cfg, params=params, **engine_kwargs)
         self._done: dict[str, object] = {}  # request_id -> RequestOutput
@@ -440,12 +453,14 @@ class LLMServer:
         drain(), and __del__. Waiters still blocked on in-flight work
         fail fast (nothing will ever step them) instead of riding out
         their timeouts; drain() settles in-flight work FIRST, so its
-        final shutdown finds none."""
+        final shutdown finds none. A tensor-parallel engine's rank
+        processes stop here too."""
         self._stop_stepper()
         with self._lock:
             pending = bool(self._events)
         if pending or self.engine.has_unfinished():
             self._fail_all_waiters("replica shut down (stepper stopped) with requests in flight")
+        self.engine.shutdown()
 
     def drain(self, timeout_s: float = 30.0, mode: str = "abort") -> dict:
         """Graceful drain, the replica's half of fleet failover:

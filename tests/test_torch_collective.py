@@ -6,8 +6,8 @@ against ray_tpu's on the same inputs (equal arrays, exactly: the same
 numpy reductions in the same rank order). Then the port's own rules: a
 torch tensor in gives a torch tensor of its dtype out (bf16 included),
 a p2p payload above the 32 KiB plane threshold rides the object store,
-the mixin's hook joins a group declared from the driver, and the
-``"xla"`` backend raises naming its ROADMAP.md item.
+and the mixin's hook joins a group declared from the driver. The
+``"xla"`` backend's twin is in ``tests/test_torch_tp_collective.py``.
 
 One runtime of each package for the module (4 CPUs each). The ranks'
 class lives in ``tests/torch_train_defs.py`` (actors travel by reference
@@ -20,7 +20,6 @@ import torch_train_defs as defs
 import ray_tpu
 import ray_tpu_torch
 from ray_tpu_torch import collective as tcol
-from ray_tpu_torch.collective import types as ttypes
 
 PKGS = ("ray_tpu", "ray_tpu_torch")
 RT = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
@@ -123,11 +122,3 @@ def test_declare_group_through_the_mixin(runtimes):
     assert ranks == [0, 1, 2]
     outs = ray_tpu_torch.get([a.do_allgather.remote("mixin") for a in actors], timeout=T)
     assert [[int(x[0]) for x in o] for o in outs] == [[0, 1, 2]] * 3
-
-
-def test_xla_backend_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match=ttypes.MESH_ITEM):
-        tcol.init_collective_group(1, 0, "xla", "never")
-    with pytest.raises(NotImplementedError, match=ttypes.MESH_ITEM):
-        tcol.Backend.normalize(tcol.Backend.XLA)
-    assert tcol.Backend.normalize("gloo") is tcol.Backend.OBJECT_STORE

@@ -373,3 +373,25 @@ def test_unbounded_recv_ends_on_close():
         proc.kill()
         proc.wait(timeout=T)
         r.close()
+
+
+def test_reader_modes_lists_live_readers():
+    """reader_modes() lists each live reader of this process with how it
+    waits now, its measuring phase and its messages received; a closed and
+    collected reader drops out."""
+    import gc
+
+    from ray_tpu_torch.experimental import channels
+
+    r = ChannelReader(f"rt{os.getpid()}w_chtest_{os.urandom(4).hex()}", 4, 4096, eager=False)
+    name = r.name
+    try:
+        modes = {m["name"]: m for m in channels.reader_modes()}
+        assert modes[name] == {"name": name, "mode": "block", "phase": 0, "received": 0}
+        r._phase, r._spin = 1, True
+        assert {m["name"]: m for m in channels.reader_modes()}[name]["mode"] == "poll"
+    finally:
+        r.close()
+    del r
+    gc.collect()
+    assert name not in {m["name"] for m in channels.reader_modes()}

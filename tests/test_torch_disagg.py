@@ -203,7 +203,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
                # cross-language and the cluster tooling
                "core/xlang.py", "core/lock_sanitizer.py", "autoscaler/__init__.py", "autoscaler/autoscaler.py",
                "autoscaler/launcher.py", "cluster_utils.py", "dashboard/__init__.py", "dashboard/dashboard.py",
-               "dashboard/grafana.py", "util/profiling.py", "cpp/__init__.py"]
+               "dashboard/grafana.py", "util/profiling.py", "cpp/__init__.py",
+               # tensor-parallel serving
+               "parallel/mesh.py", "parallel/ranks.py", "collective/ici.py"]
     assert {REPO / "ray_tpu_torch" / name for name in control} <= set(files)
     bad = []
     for path in files:
@@ -214,7 +216,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     assert bad == []
     probe = ("import sys, ray_tpu_torch.data, ray_tpu_torch.llm.batch, ray_tpu_torch.dag, ray_tpu_torch.experimental, "
              "ray_tpu_torch.experimental.compiled_dag, ray_tpu_torch.rllib, ray_tpu_torch.autoscaler, "
-             "ray_tpu_torch.dashboard, ray_tpu_torch.core.xlang, ray_tpu_torch.util.profiling; "
+             "ray_tpu_torch.dashboard, ray_tpu_torch.core.xlang, ray_tpu_torch.util.profiling, "
+             "ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.ranks, ray_tpu_torch.collective.ici; "
              "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'ray_tpu', 'pyarrow', 'pandas', "
              "'PIL'}))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -28,6 +28,7 @@ from ray_tpu.llm import SamplingParams as JaxParams  # noqa: E402
 from ray_tpu.models import llama as jllama  # noqa: E402
 from ray_tpu_torch.llm import LLMEngine, SamplingParams  # noqa: E402
 from ray_tpu_torch.models import llama as tllama  # noqa: E402
+from ray_tpu_torch.parallel.mesh import create_mesh  # noqa: E402
 from ray_tpu_torch.weights import params_from_jax  # noqa: E402
 
 KW = dict(dtype="float32", remat=False, max_seq_len=256)
@@ -140,7 +141,9 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize(
     "kw, exc, match",
     [
-        (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+        # a mesh with axes besides tp (ray_tpu runs it through GSPMD); a pure tp
+        # mesh is tests/test_torch_engine_tp.py's
+        (dict(mesh=create_mesh(dp=2, tp=2, devices=["cpu"] * 4)), NotImplementedError, "ROADMAP"),
         # the KV plane is ported: ray_tpu's refusal of a plane without the
         # prefix cache it is the cluster tier of (ray_tpu/llm/engine.py:587)
         (dict(kv_plane=object(), enable_prefix_caching=False), ValueError, "enable_prefix_caching"),

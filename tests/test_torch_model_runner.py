@@ -429,8 +429,14 @@ def test_slot_fused_step_and_lane_delta_match_jax(params, cache_dtype):
 
 
 def test_make_fused_fns_refuses_a_mesh():
+    """A mesh with axes besides tp is not ported; a pure tp mesh needs the
+    rank's group (tests/test_torch_engine_tp.py runs it)."""
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmr.make_fused_fns(TCFG, mesh=object())
+        tmr.make_fused_fns(TCFG, mesh=create_mesh(dp=2, tp=2, devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match="group"):
+        tmr.make_fused_fns(TCFG, mesh=create_mesh(tp=2, devices=["cpu"] * 2))
 
 
 def test_bf16_weights_round_trip_bit_exact():

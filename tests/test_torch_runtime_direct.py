@@ -418,15 +418,26 @@ def test_paths_not_ported_name_their_roadmap_items(both):
     from ray_tpu_torch import serve as tserve
     from ray_tpu_torch.scripts import cli as tcli
 
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import train_step as tts
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
     roadmap = (REPO / "ROADMAP.md").read_text()
+    # serving over a pure tp mesh is ported (tests/test_torch_engine_tp.py);
+    # meshes in training and a serving mesh with other axes still raise
+    mixed = create_mesh(dp=2, tp=2, devices=["cpu"] * 4)
     calls = [
         (lambda: tserve.start(grpc_port=0), tcontext.GRPC_ITEM),
         (lambda: tcli.main(["lint"]), tcontext.LINT_ITEM),
+        (lambda: tts.make_train_step(lambda p, b: None, lambda ps: None, mesh=mixed, device="cpu"),
+         tcontext.MESH_ITEM),
+        (lambda: LLMEngine(LlamaConfig.tiny(dtype="float32"), max_seq_len=64, mesh=mixed), tcontext.MESH_ITEM),
     ]
     for call, item in calls:
         with pytest.raises(NotImplementedError, match=item):
             call()
-    for item in (tcontext.GRPC_ITEM, tcontext.LINT_ITEM):
+    for item in (tcontext.GRPC_ITEM, tcontext.LINT_ITEM, tcontext.MESH_ITEM):
         assert "**" + item.split(", ", 1)[1].lower() in roadmap.lower(), item  # a bold item of ROADMAP.md's queue 1
 
 

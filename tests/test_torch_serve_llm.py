@@ -401,8 +401,37 @@ def test_admission_cold_start_seeded_from_prewarm(runtimes, params):
     assert both_legs(leg) == (True, True)
 
 
-def test_tensor_parallel_waits_for_its_roadmap_item(params):
+def test_serve_llm_tp_replica(apps, params, oracle):
+    """test_llm.py's TP replica: tensor_parallel_size=2 shards the replica's
+    engine over a tp mesh (``engine_kwargs["mesh"]``: two ranks on the
+    host, rank 1 a process the replica's engine starts). Its greedy
+    streams equal ray_tpu's in-process engine's; deleting the app stops the
+    rank process."""
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
     cfg = _config(params)
     cfg.tensor_parallel_size = 2
-    with pytest.raises(NotImplementedError, match="queue 1, multi-device axes"):
-        tllm.LLMServer(cfg)
+    cfg.num_tpus_per_replica = 0.0  # the host's ranks: no card to reserve
+    cfg.engine_kwargs.pop("device")
+    cfg.engine_kwargs["mesh"] = create_mesh(tp=2, devices=["cpu", "cpu"])
+    h = serve.run(tllm.build_llm_deployment(cfg, _cls={tllm.LLMServer: defs.TpLLMServer}), name="llm_tp")
+    outs = [h.generate.remote(p, {"max_tokens": NEW, "temperature": 0.0}).result(timeout_s=T)["token_ids"]
+            for p in PROMPTS]
+    assert outs == oracle["prompts"]
+    (pid,) = h.tp_pids.remote().result(timeout_s=T)
+    serve.delete("llm_tp")
+    deadline = time.time() + 60
+    while time.time() < deadline and _runs(pid):
+        time.sleep(0.1)
+    assert not _runs(pid)
+
+
+def _runs(pid: int) -> bool:
+    """The process exists and is not a zombie (PID 1 here reaps no orphan)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+

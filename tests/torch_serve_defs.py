@@ -18,6 +18,7 @@ import sys
 import time
 
 from ray_tpu_torch import serve as tserve
+from ray_tpu_torch.serve.llm import LLMServer
 
 
 def _serve():
@@ -292,3 +293,11 @@ class ToyTokenizer:
 
     def decode(self, ids) -> str:
         return "".join(chr(32 + int(t) % 95) for t in ids)
+
+
+class TpLLMServer(LLMServer):
+    """The tensor-parallel replica's class: LLMServer with a probe of its
+    engine's rank processes."""
+
+    def tp_pids(self):
+        return self.engine.tp_pids
